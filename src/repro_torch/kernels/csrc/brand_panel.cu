@@ -1,0 +1,58 @@
+// The O(d·r·n) panel of Brand's symmetric update, as two launches:
+//   ut_a:    C  = Uᵀ A        (r, n), contracted over d
+//   a_perp:  A⊥ = A − U C     (d, n)
+//
+// Replaces the TPU kernels src/repro/kernels/brand_panel.py,
+// ut_a_batched_pallas (body _ut_a_kernel) and a_perp_batched_pallas (body
+// _a_perp_kernel), composed there by brand_panel_batched_pallas.
+//
+// Bound on an H100: operations.  At fc0 (d = 16384, r = 230, n = 256) each
+// launch is 1.9 GFLOP against ~33 MB (ut_a) or ~50 MB (a_perp) of traffic,
+// ~40–60 FLOP per byte, above the fp32 ridge of 20.
+//
+// Design: ut_a reduces over d into a small 230×256 output — only 16 output
+// tiles per factor, far too few blocks for 132 SMs.  The wrapper therefore
+// splits d across blocks (split-K) and the shared GEMM sums the partials in
+// a deterministic second pass.  a_perp has d/64 row blocks and needs no
+// split; its epilogue fuses the subtraction (alpha = −1, addend A), so A⊥ is
+// written once.  C (230×256 fp32, 235 KB) is re-read by every row block and
+// stays in the 50 MB L2 rather than in shared memory.
+#include "gemm.cuh"
+
+extern "C" int kfk_ut_a(const float* U, long long ldU, long long sU,
+                        const float* A, long long ldA, long long sA,
+                        float* C, float* ws, int batch, int d, int r, int n,
+                        int splits, void* stream) {
+  kfk::Problem p;
+  p.batch = batch;
+  p.M = r;
+  p.N = n;
+  p.K = d;
+  p.A = {U, ldU, sU};  // stored [d][r] = [K][M]
+  p.B = {A, ldA, sA};  // stored [d][n] = [K][N]
+  p.C = C;
+  p.splits = splits;
+  p.ws = ws;
+  return (int)kfk::gemm<true, false>(p, (cudaStream_t)stream);
+}
+
+extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
+                          const float* U, long long ldU, long long sU,
+                          const float* C, long long ldC, long long sC,
+                          float* P, int batch, int d, int r, int n,
+                          void* stream) {
+  kfk::Problem p;
+  p.batch = batch;
+  p.M = d;
+  p.N = n;
+  p.K = r;
+  p.A = {U, ldU, sU};  // stored [d][r] = [M][K]
+  p.B = {C, ldC, sC};  // stored [r][n] = [K][N]
+  p.C = P;
+  p.epi.alpha = -1.f;
+  p.epi.addend = A;
+  p.epi.addend_ld = ldA;
+  p.epi.addend_b = sA;
+  p.epi.beta = 1.f;
+  return (int)kfk::gemm<false, false>(p, (cudaStream_t)stream);
+}
