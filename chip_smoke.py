@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one CUDA card
 
-Phases (each prints one JSON line):
+Phases, run in this order (each prints one JSON line):
   device   card name and power limit (nvidia-smi), torch and CUDA versions
   build    the CUDA kernels built by nvcc for sm_90a from the checkout
   kernels  every kernel body (and cholqr2 as a whole) at the shapes of the
@@ -35,7 +35,6 @@ sys.path.insert(0, str(ROOT / "src"))
 # cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-PHASES = ("device", "build", "kernels", "agree", "slice")
 
 
 def emit(obj) -> None:
@@ -169,7 +168,9 @@ def phase_kernels():
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
-           lambda M, X: (2 * X.shape[0] * X.shape[1] ** 2 * X.shape[2],
+           # X Xᵀ is symmetric: n·d·(d+1) FLOP for one triangle
+           lambda M, X: (X.shape[0] * X.shape[2] * X.shape[1]
+                         * (X.shape[1] + 1),
                          F * (2 * M.numel() + X.numel())))
 
     # Brand panel: fc0's bucket (d = 16384, B = 1) and the d = 512, B = 4
@@ -197,7 +198,9 @@ def phase_kernels():
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
-           lambda A: (2 * A.shape[0] * A.shape[1] * A.shape[2] ** 2,
+           # AᵀA is symmetric: d·n·(n+1) FLOP for one triangle
+           lambda A: (A.shape[0] * A.shape[1] * A.shape[2]
+                      * (A.shape[2] + 1),
                       F * (A.numel() + A.shape[0] * A.shape[2] ** 2)))
     roots = [(A, ref.gram_inv_sqrt(ref.syrk_tn(A), ref.CHOLQR_FLOOR_RESOLVE,
                                    "tr")[1].contiguous())
@@ -385,11 +388,8 @@ def phase_slice():
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    args = ap.parse_args(argv)
-    phases = args.phases.split(",")
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -397,23 +397,20 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device() if "device" in phases else None
-    if "build" in phases:
-        phase_build()
-    kernels = phase_kernels() if "kernels" in phases else {}
-    if "agree" in phases:
-        phase_agree()
-    counts = phase_slice() if "slice" in phases else {}
+    smi = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    phase_agree()
+    counts = phase_slice()
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces")} | {
-            "launches": counts.get(name)} | {k: row[k] for k in (
+            "launches": counts[name]} | {k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
     emit({"kernels": rows})
-    if smi is not None:
-        print(smi, flush=True)
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,8 +7,8 @@ Counterpart of ``examples/train_vgg_kfac.py``:
         --preset paper --steps 50
 
 Presets: ``small`` (a quick check) and ``paper`` (stages 64-128-256-512-512,
-FC hidden 2048, n_stat 256, r 230).  ``--kernels`` (the default) sends the
-Brand update and the preconditioning through the CUDA kernels.
+FC hidden 2048, n_stat 256, r 230).  On the card the Brand update and the
+preconditioning go through the CUDA kernels (``use_kernels=True``).
 """
 from __future__ import annotations
 
@@ -67,17 +67,12 @@ def main(argv=None):
     ap.add_argument("--preset", default="small", choices=("small", "paper"))
     ap.add_argument("--stagger", action="store_true")
     ap.add_argument("--stagger-splits", type=int, default=4)
-    ap.add_argument("--no-kernels", action="store_true",
-                    help="plain torch for the Brand update and "
-                         "preconditioning (EA-SYRK and CholeskyQR2 still "
-                         "run their kernels, as in the reference)")
     ap.add_argument("--device", default=None,
                     help="default: cuda (a host without a card raises)")
     args = ap.parse_args(argv)
 
     model, opt, stream = build(args.preset, args.optimizer, args.batch,
                                device=args.device,
-                               use_kernels=not args.no_kernels,
                                stagger=args.stagger,
                                stagger_splits=args.stagger_splits)
     batches = (stream.batch_at(i) for i in range(args.steps))

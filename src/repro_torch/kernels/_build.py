@@ -216,14 +216,15 @@ _TILE = 64          # output tile of the shared GEMM (gemm.cuh BM = BN)
 _MIN_K_PER_SPLIT = 256
 
 
-def split_k(M: int, N: int, K: int, batch: int) -> int:
+def split_k(M: int, N: int, K: int, batch: int, sym: bool = False) -> int:
     """Blocks to split a long contraction over when the output has too few
-    tiles to fill the card: aim at two blocks per SM, with at least
-    ``_MIN_K_PER_SPLIT`` of K per split."""
-    tiles = -(-M // _TILE) * -(-N // _TILE) * batch
-    if tiles >= 2 * _SMS:
-        return 1
-    return max(1, min(-(-2 * _SMS // tiles), K // _MIN_K_PER_SPLIT, 64))
+    tiles to fill the card: at most two blocks per SM (rounded down, so no
+    SM gets a third while others wait), with at least ``_MIN_K_PER_SPLIT``
+    of K per split.  A symmetric product (``sym``, M == N) computes only
+    the tiles on or above the diagonal."""
+    tm, tn = -(-M // _TILE), -(-N // _TILE)
+    tiles = (tm * (tm + 1) // 2 if sym else tm * tn) * batch
+    return max(1, min(2 * _SMS // tiles, K // _MIN_K_PER_SPLIT, 64))
 
 
 def workspace(splits: int, batch: int, M: int, N: int,

@@ -27,7 +27,7 @@ def syrk_tn_batched(A: torch.Tensor) -> torch.Tensor:
     batch, d, n = A.shape
     B.check_stack("syrk_tn", batch, A=A)
     G = torch.empty((batch, n, n), device=A.device, dtype=torch.float32)
-    splits = B.split_k(n, n, d, batch)
+    splits = B.split_k(n, n, d, batch, sym=True)
     ws = B.workspace(splits, batch, n, n, A)
     SYRK_TN(*B.mat_args(A), B.ptr(G), B.ptr(ws), batch, d, n, splits)
     return G

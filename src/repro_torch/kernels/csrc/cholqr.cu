@@ -11,13 +11,15 @@
 // cholqr2_batched_pallas.
 //
 // Bound on an H100: operations.  At fc0's A⊥ (d = 16384, n = 256) each
-// pass is 2.1 GFLOP against 17 MB (syrk_tn) or 34 MB (rinv_apply), 60–125
-// FLOP per byte, above the fp32 ridge of 20.
+// pass needs 1.1 GFLOP (syrk_tn, one triangle of the Gram) or 2.1 GFLOP
+// (rinv_apply) against 17 MB or 34 MB, 60–65 FLOP per byte, above the
+// fp32 ridge of 20.
 //
 // Design: syrk_tn reduces over d into a 256×256 Gram (16 output tiles per
 // panel), so the wrapper splits d over blocks and the shared GEMM sums the
-// partials in a deterministic second pass (no atomics).  Both halves of the
-// symmetric Gram are computed; exploiting symmetry is left to later work.
+// partials in a deterministic second pass (no atomics).  The Gram is
+// symmetric: only the 10 tiles on or above the diagonal of its 4×4 tile
+// grid are computed, and each off-diagonal one is stored twice.
 // rinv_apply is row-parallel (d/64 row blocks); B (256 KB) is re-read by
 // every row block from L2.
 #include "gemm.cuh"
@@ -35,7 +37,7 @@ extern "C" int kfk_syrk_tn(const float* A, long long ldA, long long sA,
   p.C = G;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::gemm<true, false>(p, (cudaStream_t)stream);
+  return (int)kfk::gemm<true, false, true>(p, (cudaStream_t)stream);
 }
 
 extern "C" int kfk_rinv_apply(const float* A, long long ldA, long long sA,

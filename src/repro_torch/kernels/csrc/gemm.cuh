@@ -25,6 +25,16 @@
 // a second pass sums the partials in split order and applies the epilogue —
 // no float atomics, so the result is the same from run to run.
 //
+// Symmetric products (template flag SYM: AᵀA or X Xᵀ, M == N, A and B the
+// same stored matrix): the grid holds only the output tiles on or above
+// the diagonal (blockIdx.x walks that triangle row by row); each
+// off-diagonal tile stores its entries twice, at (i, j) and (j, i), each
+// with its own epilogue (so an addend need not be symmetric).  The split-K
+// pass reads a lower entry's partials from its mirror.  A template flag,
+// so that the other products compile without its branches (as a run-time
+// flag it slowed a_perp, rinv_apply and precond_apply by 6–12 % on an
+// H100).
+//
 // Bound on an H100: fp32 FMA throughput (67 TFLOP/s) for the large
 // products; the tiling reuses every loaded element 64 times from shared
 // memory, which keeps the loads below that line.  wgmma/TMA and double
@@ -67,6 +77,7 @@ struct Problem {
   float* C = nullptr;                // (batch, M, N) row-major, contiguous
   Epilogue epi{};
   int splits = 1;                    // > 1: K split over blocks, see above
+  int sym = 0;                       // set by gemm<…, SYM> for the reduce
   float* ws = nullptr;               // (splits, batch, M, N) when splits > 1
 };
 
@@ -88,15 +99,23 @@ __device__ __forceinline__ float epilogue_value(const Problem& p, int b,
   return v;
 }
 
-template <bool AT, bool BT>
+template <bool AT, bool BT, bool SYM>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
+  int tile_m = blockIdx.y, tile_n = blockIdx.x;
+  if (SYM) {  // blockIdx.x-th tile of the upper triangle, row by row
+    const int tiles = (p.M + BM - 1) / BM;
+    int t = blockIdx.x;
+    tile_m = 0;
+    while (t >= tiles - tile_m) t -= tiles - tile_m++;
+    tile_n = tile_m + t;
+  }
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int m0 = tile_m * BM;
+  const int n0 = tile_n * BN;
   const int b = blockIdx.z / p.splits;
   const int s = blockIdx.z % p.splits;
   const int kchunk = ((p.K + p.splits - 1) / p.splits + BK - 1) / BK * BK;
@@ -163,6 +182,9 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {
       const long long off = ((long long)b * p.M + gi) * p.N + gj;
       if (p.splits == 1) {
         p.C[off] = epilogue_value(p, b, gi, gj, acc[i][j]);
+        if (SYM && tile_m < tile_n)
+          p.C[((long long)b * p.M + gj) * p.N + gi] =
+              epilogue_value(p, b, gj, gi, acc[i][j]);
       } else {
         p.ws[(long long)s * p.batch * p.M * p.N + off] = acc[i][j];
       }
@@ -176,23 +198,30 @@ __global__ void splitk_reduce_kernel(const Problem p) {
   const long long total = (long long)p.batch * p.M * p.N;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < p.splits; ++s) acc += p.ws[s * total + idx];
     const int j = (int)(idx % p.N);
     const long long t = idx / p.N;
     const int i = (int)(t % p.M);
     const int b = (int)(t / p.M);
+    const long long src = (p.sym && i / BM > j / BN)
+                              ? ((long long)b * p.M + j) * p.N + i
+                              : idx;
+    float acc = 0.f;
+    for (int s = 0; s < p.splits; ++s) acc += p.ws[s * total + src];
     p.C[idx] = epilogue_value(p, b, i, j, acc);
   }
 }
 
 // Launch on `stream`; returns the first launch error (cudaSuccess if none).
-template <bool AT, bool BT>
-inline cudaError_t gemm(const Problem& p, cudaStream_t stream) {
-  if (p.batch <= 0 || p.M <= 0 || p.N <= 0 || p.splits < 1)
+template <bool AT, bool BT, bool SYM = false>
+inline cudaError_t gemm(Problem p, cudaStream_t stream) {
+  if (p.batch <= 0 || p.M <= 0 || p.N <= 0 || p.splits < 1 ||
+      (SYM && p.M != p.N))
     return cudaErrorInvalidValue;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.splits);
-  gemm_kernel<AT, BT><<<grid, THREADS, 0, stream>>>(p);
+  p.sym = SYM;
+  const int tm = (p.M + BM - 1) / BM;
+  dim3 grid(SYM ? tm * (tm + 1) / 2 : (p.N + BN - 1) / BN, SYM ? 1 : tm,
+            p.batch * p.splits);
+  gemm_kernel<AT, BT, SYM><<<grid, THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   const long long total = (long long)p.batch * p.M * p.N;

@@ -23,7 +23,7 @@ def ea_syrk_batched(M: torch.Tensor, X: torch.Tensor, keep: float,
     B.check_stack("ea_syrk", batch, M=M, X=X)
     B.check_shape("ea_syrk", "M", M, (batch, d, d))
     out = torch.empty((batch, d, d), device=X.device, dtype=torch.float32)
-    splits = B.split_k(d, d, n, batch)
+    splits = B.split_k(d, d, n, batch, sym=True)
     ws = B.workspace(splits, batch, d, d, X)
     KERNEL(*B.mat_args(M), *B.mat_args(X), B.ptr(out), B.ptr(ws),
            batch, d, n, float(keep), float(coef), splits)

@@ -20,9 +20,10 @@ from test_torch_vgg import (BATCH, CPU, PAPER_VARIANTS, _close_rel,  # noqa: E40
 def reference_grads():
     """The reference's gradients on one batch, computed once per module.
     Both packages are handed these same arrays, so the reference's jitted
-    backward serves (it differs from its eager backward, which the port
-    matches — see test_torch_vgg._reference_trajectory — but here it is
-    only an input)."""
+    backward serves (on this batch it differs from float64, which its
+    eager backward and the port match — see
+    test_torch_vgg.test_grads_match_float64_witness — but here it is only
+    an input)."""
     jparams, jloss, jtaps = jax_model()
     _, ttaps = torch_model(jparams)
     _, acts, gp, gprobe = jax.jit(
