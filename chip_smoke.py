@@ -12,11 +12,19 @@ Phases, run in this order (each prints one JSON line):
   agree    a small VGG trained a few steps on the card through the kernels
            and on the CPU through the plain versions, from the same
            weights, batches and random draws: the losses must agree
-  slice    the main path: B-KFAC training of the paper's full-width
-           VGG16_bn (batch 128, 11 steps: heavy, 4 idle, light, 4 idle,
-           light) with every launch count reset just before and read just
-           after
-then the ``kernels`` line and, last, the ``ok`` line.  Any failure raises:
+           (B-KFAC, NS-KFAC, and B-KFAC with linear-apply taps)
+  slice    path 1: B-KFAC training of the paper's full-width VGG16_bn
+           (batch 128, 11 steps: heavy, 4 idle, light, 4 idle, light)
+  slice_nskfac
+           path 2: NS-KFAC on the same model and batch, 11 steps (heavy,
+           4 idle, stats, 4 idle, stats): the Newton–Schulz kernel and,
+           on fc0 and the conv4 bucket, lowrank_apply
+  slice_linear
+           path 3: B-KFAC with fc0 and fc1 as Alg-8 linear-apply taps, 11
+           steps: lowrank_apply on every step
+Each path is driven with every launch count reset just before and read
+just after; then the ``kernels`` line (launches summed over the three
+paths) and, last, the ``ok`` line.  Any failure raises:
 the script exits nonzero and prints no ``ok`` line.  It has no CPU path.
 """
 from __future__ import annotations
@@ -102,6 +110,8 @@ def phase_kernels():
     from repro_torch.kernels import brand_panel as bp
     from repro_torch.kernels import cholqr as cq
     from repro_torch.kernels import ea_syrk as ea
+    from repro_torch.kernels import lowrank_apply as la
+    from repro_torch.kernels import ns_inverse as ns
     from repro_torch.kernels import precond_fused as pf
 
     dev = torch.device("cuda")
@@ -123,8 +133,13 @@ def phase_kernels():
     TOL_CHOLQR = 1e-3   # two eigh-based roots in the chain
     results = {}
 
+    def shapes(args):
+        return [list(x.shape) for x in args if isinstance(x, torch.Tensor)]
+
     def record(name, source, replaces, cases, kernel, plain, library, fl_by,
                tol=TOL):
+        """Check every case against the plain version, then time every
+        case; the row's own numbers are the first case's."""
         worst = 0.0
         worst_abs = 0.0
         for args in cases:
@@ -138,33 +153,36 @@ def phase_kernels():
                 worst, worst_abs = max(worst, e_rel), max(worst_abs, e_abs)
             if worst > tol:
                 raise AssertionError(f"{name}: rel err {worst:.3g} > {tol} "
-                                     f"at shapes "
-                                     f"{[tuple(x.shape) for x in args]}")
-        big = cases[0]
-        flops, nbytes = fl_by(*big)
-        bms, by = bound_ms(flops, nbytes)
+                                     f"at shapes {shapes(args)}")
+        timed = []
+        for args in cases:
+            bms, by = bound_ms(*fl_by(*args))
+            t = {"shape": shapes(args),
+                 "ms": time_ms(lambda: kernel(*args)),
+                 "plain_ms": time_ms(lambda: plain(*args)),
+                 "library_ms": (time_ms(lambda: library(*args))
+                                if library is not None else None),
+                 "bound_ms": bms, "bound_by": by}
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            timed.append(t)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": worst_abs,
-               "max_rel_err": worst, "tol_rel": tol,
-               "shape": [list(x.shape) for x in big],
-               "ms": time_ms(lambda: kernel(*big)),
-               "plain_ms": time_ms(lambda: plain(*big)),
-               "library_ms": (time_ms(lambda: library(*big))
-                              if library is not None else None),
-               "bound_ms": bms, "bound_by": by}
-        row["bound_share"] = row["bound_ms"] / row["ms"]
+               "max_rel_err": worst, "tol_rel": tol, **timed[0],
+               "cases": timed}
         emit({"phase": "kernels", **row})
         results[name] = row
 
     F = 4  # bytes per fp32
     csrc = "src/repro_torch/kernels/csrc/"
 
-    # ea_syrk: largest bucket (RSVD d=256, B=2) first, then d = 27 and 10
+    # ea_syrk: B-KFAC's largest bucket (RSVD d=256, B=2) first, then
+    # d = 27 and 10, then NS-KFAC's largest (d = 2304, B = 2)
     keep, coef = 0.95, 1.0 - 0.95
     sym = lambda b, d: (lambda m: (m + m.mT) / 2)(rnd(b, d, d)).contiguous()
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
            [(sym(2, 256), rnd(2, 256, 256)), (sym(1, 27), rnd(1, 27, 256)),
-            (sym(1, 10), rnd(1, 10, 256))],
+            (sym(1, 10), rnd(1, 10, 256)),
+            (sym(2, 2304), rnd(2, 2304, 256))],
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
@@ -242,6 +260,47 @@ def phase_kernels():
                F * (2 * J.numel() + Ug.numel() + Cg.numel() + Ua.numel()
                     + sa.numel() + 2 * ilg.numel())))
 
+    # Newton–Schulz GEMM update at NS-KFAC's largest bucket (d = 2304,
+    # B = 2), both launches of a step: T = M̂X (α, β = 0, 1; C not read)
+    # and X' = 2X − XT (α, β = 2, −1).  baddbmm computes the same function.
+    d_ns = 2304
+    Mh = (lambda a: a @ a.mT / d_ns)(rnd(2, d_ns, d_ns)).contiguous()
+    Xn = 0.1 * rnd(2, d_ns, d_ns)
+    Tn = (Mh @ Xn).contiguous()
+    record("ns_gemm_update", csrc + "ns_inverse.cu",
+           "src/repro/kernels/ns_inverse.py:54",
+           [(Xn, Mh, Xn, 0.0, 1.0), (Xn, Xn, Tn, 2.0, -1.0)],
+           ns.gemm_update_batched, ref.gemm_update,
+           lambda C, A, B, al, be: torch.baddbmm(C, A, B, beta=al, alpha=be),
+           lambda C, A, B, al, be: (
+               2 * A.shape[0] * A.shape[1] * A.shape[2] * B.shape[2],
+               F * (A.numel() + B.numel() + C.numel()
+                    + (C.numel() if al != 0 else 0))))
+
+    # lowrank_apply: NS-KFAC's fc0 (X = (J U_G)ᵀ, 2048×16384, w = 486),
+    # its conv4 bucket (3 × 512×4608), and the Alg-8 fc0 A side (the 256
+    # stats rows of the activations, 16384 wide).  No one PyTorch call
+    # computes it.
+    def lcase(b, p, d, w):
+        s, lam = inv_diag(b, w)
+        return (rnd(b, p, d), orth(b, d, w), s, 1.0 / lam)
+
+    record("lowrank_apply", csrc + "lowrank_apply.cu",
+           "src/repro/kernels/lowrank_apply.py:61",
+           [lcase(1, 2048, 16384, 486), lcase(3, 512, 4608, 486),
+            lcase(1, 256, 16384, 486)],
+           la.lowrank_apply_batched,
+           lambda X, U, s, il: ref.lowrank_apply(X, U, s, 1.0 / il), None,
+           lambda X, U, s, il: (4 * X.numel() * U.shape[2],
+                                F * (2 * X.numel() + U.numel() + s.numel()
+                                     + il.numel())))
+    # the left application hands ops.lowrank_apply a transposed view of
+    # fc0's (16384, 2048) J U_G; ops._flat copies it to contiguous rows
+    Jt = rnd(1, 16384, 2048).mT
+    emit({"phase": "kernels", "name": "lowrank_apply_operand_copy",
+          "shape": list(Jt.shape), "ms": time_ms(lambda: Jt.contiguous()),
+          "bound_ms": bound_ms(0, 2 * F * Jt.numel())[0]})
+
     # cholqr2 as a whole (kernels + the two small eighs) — not a kernel
     # entry of its own, so it is reported but not listed
     A = panels[0][0]
@@ -286,8 +345,12 @@ def numpy_draws(opt, seed: int):
     return draws
 
 
-def phase_agree():
-    """Small VGG: kernel route on the card vs plain route on the CPU."""
+def phase_agree(variant: str = "bkfac", linear_taps=()):
+    """Small VGG: kernel route on the card vs plain route on the CPU, for
+    one variant (nskfac: fc0's 4096-wide A side is a gated BRAND factor
+    beside an NS G side, so lowrank_apply and the NS kernel both run) and
+    optionally with Alg-8 linear-apply taps."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.core import kfac as kfac_lib
@@ -302,7 +365,7 @@ def phase_agree():
     # (see tests/test_torch_vgg.py: the spectrum continuation and Adam on
     # pre-batch-norm biases amplify rounding, so both are kept quiet)
     kcfg = kfac_lib.KfacConfig(
-        policy=policy_lib.PolicyConfig(variant="bkfac", r=16,
+        policy=policy_lib.PolicyConfig(variant=variant, r=16,
                                        max_dense_dim=1024),
         lr=optbase.constant(0.03), damping_phi=optbase.constant(0.1),
         clip=0.1, spectrum_continuation=False, T_updt=2, T_inv=4,
@@ -318,6 +381,8 @@ def phase_agree():
             weights = {k: v.detach().clone()
                        for k, v in model.params().items()}
         model.load_params(weights)
+        taps = {n: dataclasses.replace(t, linear_apply=n in linear_taps)
+                for n, t in taps.items()}
         opt = kfac_lib.Kfac(kcfg, taps, device=dev)
         _, losses[dev.type] = loop.run_kfac_training(
             model.loss, opt, model.params(),
@@ -329,22 +394,42 @@ def phase_agree():
     # and SVDs come from other libraries; over 6 steps that stays < 1e-3
     # (measured 3e-5 at step 6 on an H100; it grows ~10x a step after)
     if not (np.all(np.isfinite(a)) and err < 1e-3):
-        raise AssertionError(f"agree: card {a} vs cpu {b} (rel {err:.3g})")
-    emit({"phase": "agree", "losses_cuda": a.tolist(),
+        raise AssertionError(f"agree {variant} {linear_taps}: card {a} vs "
+                             f"cpu {b} (rel {err:.3g})")
+    emit({"phase": "agree", "variant": variant,
+          "linear_apply_taps": list(linear_taps), "losses_cuda": a.tolist(),
           "losses_cpu": b.tolist(), "max_rel_err": err, "tol_rel": 1e-3})
 
 
-def phase_slice():
-    """The main path at full width; returns the launch counts."""
+#: kernels each path must launch (the others may stay at 0 there)
+PATH_KERNELS = {
+    "slice": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+              "precond_panel", "precond_apply"),
+    "slice_nskfac": ("ea_syrk", "ns_gemm_update", "lowrank_apply"),
+    "slice_linear": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                     "precond_panel", "precond_apply", "lowrank_apply"),
+}
+
+
+def phase_path(phase: str, optimizer: str, linear_taps=()):
+    """One path at full width, 11 steps at batch 128; returns the launch
+    counts of that run."""
+    import dataclasses
     import torch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import kfactor
     from repro_torch.examples.train_vgg_kfac import build
     from repro_torch.kernels import _build
     from repro_torch.train import loop
 
     dev = torch.device("cuda")
     steps = 11
-    model, opt, stream = build("paper", "bkfac", batch=128, device=dev,
+    model, opt, stream = build("paper", optimizer, batch=128, device=dev,
                                use_kernels=True)
+    if linear_taps:
+        taps = {n: dataclasses.replace(t, linear_apply=n in linear_taps)
+                for n, t in opt.taps.items()}
+        opt = kfac_lib.Kfac(opt.cfg, taps, device=dev)
     batches = [stream.batch_at(i) for i in range(steps)]
     sched = opt.scheduler()
     kinds = [sched.work(k).label for k in range(steps)]
@@ -362,28 +447,43 @@ def phase_slice():
 
     _build.reset_launch_counts()
     t_prev[0] = time.perf_counter()
-    _, losses = loop.run_kfac_training(model.loss, opt, model.params(),
-                                       batches, n_tokens=128, seed=0,
-                                       callback=cb, device=dev)
+    state, losses = loop.run_kfac_training(model.loss, opt, model.params(),
+                                           batches, n_tokens=128, seed=0,
+                                           callback=cb, device=dev)
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
-        raise AssertionError(f"slice: non-finite loss {losses}")
-    missing = [k for k, v in counts.items() if v == 0]
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    # NS refreshes: the final residual ‖I − M̂X‖_F and λ̂ of every NS
+    # factor (a slot at or above _NS_RES_MAX took the LU inverse instead)
+    ns_aux = {f"{name}.{side}": getattr(state.opt.factors[name], side).aux
+              for name in sorted(opt.taps) for side in "AG"
+              if opt.specs[name][side].mode is kfactor.Mode.NS}
+    ns_res = {k: float(a[..., kfactor.AUX_RES].max())
+              for k, a in ns_aux.items()}
+    missing = [k for k in PATH_KERNELS[phase] if counts[k] == 0]
     if missing:
-        raise AssertionError(f"slice: kernels never launched: {missing}")
+        raise AssertionError(f"{phase}: kernels never launched: {missing}")
     for k in range(steps):
-        emit({"phase": "slice", "step": k, "kind": kinds[k],
+        emit({"phase": phase, "step": k, "kind": kinds[k],
               "loss": losses[k], "wall_s": walls[k]})
     by_kind = {}
     for kind, w in zip(kinds, walls):
         by_kind.setdefault(kind, []).append(w)
-    emit({"phase": "slice", "summary": True, "params": n_params,
+    emit({"phase": phase, "summary": True, "optimizer": optimizer,
+          "linear_apply_taps": list(linear_taps), "params": n_params,
           "steps": steps, "kinds": kinds,
           "wall_s_by_kind": {k: v for k, v in by_kind.items()},
           "peak_mem_bytes": peak, "launches": counts,
           "buckets": [f"d={b.spec.d} {b.spec.mode.value} B={b.total}"
-                      for b in opt.factor_buckets]})
+                      for b in opt.factor_buckets]}
+         | ({"ns_res_max": max(ns_res.values()),
+             "ns_lu_factors": {
+                 k: {"res": r,
+                     "lam": float(ns_aux[k][..., kfactor.AUX_LAM].max())}
+                 for k, r in ns_res.items()
+                 if not r < kfactor._NS_RES_MAX}}
+            if ns_res else {}))
     return counts
 
 
@@ -400,13 +500,20 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    phase_agree()
-    counts = phase_slice()
+    phase_agree("bkfac")
+    phase_agree("nskfac")
+    phase_agree("bkfac", linear_taps=("fc0", "fc1"))
+    by_path = {"slice": phase_path("slice", "bkfac"),
+               "slice_nskfac": phase_path("slice_nskfac", "nskfac"),
+               "slice_linear": phase_path("slice_linear", "bkfac",
+                                          linear_taps=("fc0", "fc1"))}
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces")} | {
-            "launches": counts[name]} | {k: row[k] for k in (
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}}
+            | {k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
     emit({"kernels": rows})

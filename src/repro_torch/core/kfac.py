@@ -1,5 +1,5 @@
 """The K-FAC optimizer family (K-FAC / R-KFAC / B-KFAC / B-R-KFAC /
-B-KFAC-C) as one policy-driven optimizer, bucketed and synchronous.
+B-KFAC-C / NS-KFAC) as one policy-driven optimizer, synchronous.
 
 Counterpart of ``src/repro/core/kfac.py``.  The model contract is the
 reference's: for every preconditioned matmul ``y = x @ W`` (W of shape
@@ -15,10 +15,13 @@ Parameters, gradients and updates are flat dicts keyed by the reference's
 on the card.  Each step's heavy work comes from a static
 :class:`~repro_torch.core.schedule.StepWork` mask.
 
-Not ported in this slice (they raise): the per-tap comparison path
-(``bucketed=False``), the async heavy pipeline, the distributed curvature
-engine, NS-KFAC; the telemetry hooks are left out (the reference's are
-no-ops with no collector active).
+The bucketed path (one batched call per shape-class bucket) and the
+per-tap comparison path (``bucketed=False``) run the same per-bucket
+program.  Taps with ``linear_apply`` take the Alg-8 application from
+their gradient factors.  Not ported (it raises): the async heavy
+pipeline; the distributed curvature engine is a later slice, and the
+telemetry hooks are left out (the reference's are no-ops with no
+collector active).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ class TapInfo:
     d_out: int
     stack: Tuple[int, ...] = ()
     n_stat: int = 512
-    linear_apply: bool = False      # Alg 8 (a later slice)
+    linear_apply: bool = False      # Alg 8: step from factors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,19 +97,10 @@ class Kfac:
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
                  device=None):
-        if not cfg.bucketed:
-            raise NotImplementedError(
-                "bucketed=False (the per-tap comparison path) is not ported")
         if cfg.async_heavy:
             raise NotImplementedError(
                 "async_heavy is not ported yet: see ROADMAP.md, the async "
                 "pipeline slice")
-        if cfg.policy.variant == "nskfac":
-            raise NotImplementedError(kfactor._NS_TODO)
-        if any(t.linear_apply for t in taps.values()):
-            raise NotImplementedError(
-                "linear_apply taps (Alg 8) are not ported yet: see "
-                "ROADMAP.md, the lowrank_apply slice")
         self.device = device_lib.resolve(device)
         self.cfg = cfg
         self.taps = dict(taps)
@@ -123,6 +117,12 @@ class Kfac:
         self.factor_buckets = buckets.build_factor_buckets(self.specs, stacks)
         self.precond_buckets = buckets.build_precond_buckets(self.specs,
                                                              stacks, lin)
+        # (name, side) → (bucket index, slot offset, slot count): the
+        # per-tap path reads its heavy flag and its draws from the same
+        # bucket-indexed StepWork and draws the bucketed path consumes
+        self._slot = {(e.name, e.side): (bi, e.offset, e.count)
+                      for bi, b in enumerate(self.factor_buckets)
+                      for e in b.entries}
         self._cycle = self.scheduler().cycle
 
     def scheduler(self, **kw) -> schedule.Scheduler:
@@ -173,6 +173,43 @@ class Kfac:
                                                         * scale)
         return X_A, X_G
 
+    def _tap_factor_work(self, factors, acts, probe_grads, n_tokens,
+                         rng: Optional[torch.Generator], first: bool,
+                         work: schedule.StepWork, draws=None):
+        """Per-tap factor updates (the comparison path): each tap's stack
+        is flattened into a batch and stepped through the same per-bucket
+        program as the bucketed path, one call per tap and side.  The
+        heavy flag and the injected draws are the tap's slot range of its
+        bucket's."""
+        factors = dict(factors)
+        for name in sorted(self.taps):
+            X = dict(zip("AG", self._stats_factors(name, acts, probe_grads,
+                                                   n_tokens)))
+            new = {}
+            for side in ("A", "G"):
+                spec = self.specs[name][side]
+                bi, off, count = self._slot[(name, side)]
+                heavy = work.entry_heavy(bi, off, count)
+                st = getattr(factors[name], side)
+                stack = self.taps[name].stack
+                flat = st.map(lambda x: x.reshape((count,)
+                                                  + x.shape[len(stack):]))
+                Xf = X[side].reshape((count,) + X[side].shape[len(stack):])
+                tdraws = None
+                if heavy and kfactor.needs_draws(spec):
+                    bdraws = (draws or {}).get(bi)
+                    tdraws = (kfactor.draw_heavy(spec, count, rng, Xf.device)
+                              if bdraws is None
+                              else bdraws[off:off + count].to(Xf.device))
+                flat = kfactor.bucket_factor_step(
+                    spec, flat, Xf, first, work.stats, work.light,
+                    ((0, count),) if heavy else (), self.cfg.use_kernels,
+                    draws=tdraws)
+                new[side] = flat.map(lambda x: x.reshape(
+                    tuple(stack) + x.shape[1:]))
+            factors[name] = TapState(A=new["A"], G=new["G"])
+        return factors
+
     def _bucketed_factor_work(self, factors, acts, probe_grads, n_tokens,
                               rng: Optional[torch.Generator], first: bool,
                               work: schedule.StepWork, draws=None):
@@ -209,16 +246,60 @@ class Kfac:
                 for name in self.taps}
 
     # -- preconditioning ------------------------------------------------------
-    def _bucketed_precondition(self, factors, grads: Params, phi: float
-                               ) -> Dict[str, Tensor]:
+    def _precondition(self, name, st: TapState, grad_w: Tensor, phi,
+                      g_factor=None, a_factor=None) -> Tensor:
+        """Per-tap preconditioned step for W, in W's (…, d_in, d_out)
+        layout.  NS sides apply their dense inverse by GEMM; a
+        ``linear_apply`` tap steps from its gradient factors (Alg 8) and
+        ignores ``grad_w``."""
+        use_k = self.cfg.use_kernels
+        cont = self.cfg.spectrum_continuation
+        dense_g = self.specs[name]["G"].mode is kfactor.Mode.NS
+        dense_a = self.specs[name]["A"].mode is kfactor.Mode.NS
+        if self.taps[name].linear_apply:
+            S = precond.precondition_linear_with_damping(
+                g_factor, a_factor, st.G.U, st.G.D, st.A.U, st.A.D, phi,
+                continuation=cont, use_kernel=use_k,
+                dense_g=dense_g, dense_a=dense_a)
+        else:
+            J = grad_w.transpose(-1, -2).to(torch.float32)
+            S = precond.precondition_with_damping(
+                J, st.G.U, st.G.D, st.A.U, st.A.D, phi,
+                continuation=cont, use_kernel=use_k,
+                dense_g=dense_g, dense_a=dense_a)
+        return S.transpose(-1, -2)
+
+    def _tap_precondition(self, factors, grads: Params, acts, probe_grads,
+                          phi) -> Dict[str, Tensor]:
+        """Per-tap preconditioning (the comparison path)."""
+        out = {}
+        for name, t in self.taps.items():
+            gfac = afac = None
+            if t.linear_apply:
+                afac = acts[name].transpose(-1, -2).to(torch.float32)
+                gfac = probe_grads[name].transpose(-1, -2).to(torch.float32)
+            out[name] = self._precondition(name, factors[name],
+                                           grads[t.param_path], phi,
+                                           g_factor=gfac, a_factor=afac)
+        return out
+
+    def _bucketed_precondition(self, factors, grads: Params, acts,
+                               probe_grads, phi) -> Dict[str, Tensor]:
         """Preconditioned steps for every tap, one batched (fused) call per
-        (A-spec, G-spec) bucket, in *parameter layout*: the inverse
-        factors are symmetric, so Ā⁻¹ gW Γ̄⁻¹ (the two-sided application
-        with the factor roles swapped) equals (Γ̄⁻¹ gWᵀ Ā⁻¹)ᵀ without a
-        transpose.  Returns {name: S} in the (…, d_in, d_out) layout."""
+        (A-spec, G-spec, linear_apply) bucket, in *parameter layout*: the
+        inverse factors are symmetric, so Ā⁻¹ gW Γ̄⁻¹ (the two-sided
+        application with the factor roles swapped) equals (Γ̄⁻¹ gWᵀ Ā⁻¹)ᵀ
+        without a transpose.  Returns {name: S} in the (…, d_in, d_out)
+        layout."""
+        cont = self.cfg.spectrum_continuation
+        use_k = self.cfg.use_kernels
         out = {}
         for bucket in self.precond_buckets:
             ent = bucket.entries
+            # role swap: the positional "g" slot carries the A factor (and
+            # vice versa), so the NS dense flags swap with it
+            dense_swap_g = bucket.spec_a.mode is kfactor.Mode.NS
+            dense_swap_a = bucket.spec_g.mode is kfactor.Mode.NS
             key = lambda e: (e.name, "")
             U_g = buckets.gather(ent, {key(e): factors[e.name].G.U
                                        for e in ent})
@@ -228,14 +309,26 @@ class Kfac:
                                        for e in ent})
             D_a = buckets.gather(ent, {key(e): factors[e.name].A.D
                                        for e in ent})
-            J = buckets.gather(ent, {
-                key(e): grads[self.taps[e.name].param_path]
-                for e in ent}).to(torch.float32)
-            # role swap: the "g" slot carries the A factor and vice versa
-            S = precond.precondition_with_damping(
-                J, U_a, D_a, U_g, D_g, phi,
-                continuation=self.cfg.spectrum_continuation,
-                use_kernel=self.cfg.use_kernels)
+            if bucket.linear_apply:
+                # Alg 8 with roles swapped:  S = (Ā⁻¹ A)(Gᵀ Γ̄⁻¹)
+                gfac = buckets.gather(ent, {
+                    key(e): probe_grads[e.name] for e in ent}
+                    ).transpose(-1, -2).to(torch.float32)   # (B, d_out, n)
+                afac = buckets.gather(ent, {
+                    key(e): acts[e.name] for e in ent}
+                    ).transpose(-1, -2).to(torch.float32)   # (B, d_in, n)
+                S = precond.precondition_linear_with_damping(
+                    afac, gfac, U_a, D_a, U_g, D_g, phi,
+                    continuation=cont, use_kernel=use_k,
+                    dense_g=dense_swap_g, dense_a=dense_swap_a)
+            else:
+                J = buckets.gather(ent, {
+                    key(e): grads[self.taps[e.name].param_path]
+                    for e in ent}).to(torch.float32)
+                S = precond.precondition_with_damping(
+                    J, U_a, D_a, U_g, D_g, phi,
+                    continuation=cont, use_kernel=use_k,
+                    dense_g=dense_swap_g, dense_a=dense_swap_a)
             out.update({name: Se for (name, _), Se
                         in buckets.scatter(ent, S).items()})
         return out
@@ -256,11 +349,14 @@ class Kfac:
 
         factors = dict(state.factors)
         if work.any:
-            factors = self._bucketed_factor_work(
-                factors, acts, probe_grads, n_tokens, rng, first, work,
-                draws=draws)
+            factor_work = (self._bucketed_factor_work if cfg.bucketed
+                           else self._tap_factor_work)
+            factors = factor_work(factors, acts, probe_grads, n_tokens, rng,
+                                  first, work, draws=draws)
 
-        S_all = self._bucketed_precondition(factors, grads, phi)
+        precondition = (self._bucketed_precondition if cfg.bucketed
+                        else self._tap_precondition)
+        S_all = precondition(factors, grads, acts, probe_grads, phi)
         updates: Params = {}
         new_mom = dict(state.momentum) if state.momentum is not None else None
         for name, t in self.taps.items():

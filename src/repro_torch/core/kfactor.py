@@ -11,8 +11,8 @@ representation* (U, D) of M is maintained:
   BRAND       no         ea_brand_step every T_brand              B-KFAC
   BRAND_RSVD  yes        Brand + RSVD overwrite every T_rsvd      B-R-KFAC
   BRAND_CORR  yes        Brand + light correction every T_corct   B-KFAC-C
-  NS          yes        Newton–Schulz refinement (nskfac slice — not
-                         ported yet)
+  NS          yes        Newton–Schulz refinement of the held     NS-KFAC
+                         dense inverse every T_inv (matmul-only)
 
 Every operation is stacked-native over leading batch axes.  The random
 inputs of the heavy ops — the RSVD test matrix ``omega`` and the Alg-6
@@ -53,15 +53,12 @@ AUX_RES = 1
 AUX_TRUNC = 2   # EVD/RSVD overwrites: truncated spectral-mass fraction
 AUX_WIDTH = 3
 
-_NS_TODO = ("Mode.NS (nskfac) is not ported yet: see ROADMAP.md, the "
-            "ns_inverse / nskfac slice")
-
-
 @dataclasses.dataclass
 class KFactorState:
     """Inverse representation of one EA K-factor (or a stack of them).
 
-    U: (…, d, width) column-orthonormal; D: (…, width) descending;
+    U: (…, d, width) column-orthonormal; D: (…, width) descending (NS: U
+    is the dense damped inverse and D is all-zero);
     M: (…, d, d) dense EA factor or a (…, 1, 1) placeholder for pure
     Brand; aux: (…, AUX_WIDTH) diagnostics."""
     U: Tensor
@@ -207,6 +204,86 @@ def light_correction(spec: KFactorSpec, st: KFactorState,
     return KFactorState(U=U_new, D=D_new, M=st.M, aux=st.aux)
 
 
+_NS_PWR_ITERS = 12   # power-iteration steps for the λ_max(M) prescale
+_NS_RES_MAX = 0.5    # Frobenius residual past which a slot falls back
+
+
+def _ns_sym(x: Tensor) -> Tensor:
+    return 0.5 * (x + x.transpose(-1, -2))
+
+
+def _ns_lmax(M: Tensor) -> Tensor:
+    """λ_max estimate of a symmetric psd M (*stack, d, d) → (*stack,) by
+    power iteration (Rayleigh quotient) from the deterministic all-ones
+    start; an M whose top eigenvector is orthogonal to it is
+    underestimated, which the residual fallback of ``ns_overwrite``
+    catches."""
+    d = M.shape[-1]
+    v = torch.full(M.shape[:-1] + (1,), 1.0 / (d ** 0.5), dtype=M.dtype,
+                   device=M.device)
+    for _ in range(_NS_PWR_ITERS):
+        w = M @ v
+        nrm = torch.sqrt(torch.sum(w * w, dim=(-2, -1), keepdim=True))
+        v = w / torch.clamp(nrm, min=1e-30)
+    return torch.sum(v * (M @ v), dim=(-2, -1))
+
+
+def _ns_resnorm(R: Tensor, iters: int = 8) -> Tensor:
+    """Spectral-norm estimate ‖R‖₂ of (*stack, d, d) → (*stack,) by power
+    iteration on RᵀR."""
+    d = R.shape[-1]
+    Rt = R.transpose(-1, -2)
+    v = torch.full(R.shape[:-1] + (1,), 1.0 / (d ** 0.5), dtype=R.dtype,
+                   device=R.device)
+    for _ in range(iters):
+        w = Rt @ (R @ v)
+        nrm = torch.sqrt(torch.sum(w * w, dim=(-2, -1), keepdim=True))
+        v = w / torch.clamp(nrm, min=1e-30)
+    w = R @ v
+    return torch.sqrt(torch.sum(w * w, dim=(-2, -1)))
+
+
+def ns_overwrite(spec: KFactorSpec, st: KFactorState) -> KFactorState:
+    """Newton–Schulz heavy refresh (Mode.NS): refine X ≈ M̂⁻¹ = (M + λ̂I)⁻¹
+    with ``spec.ns_iters`` Hotelling steps X ← X(2I − M̂X) through
+    ``ops.ns_step`` (the ``ns_inverse`` kernel on the card).
+
+    λ̂ = ns_phi · λ_max(M) by power iteration; warm start from the stale
+    inverse in U when its residual ‖I − M̂U‖₂ is below ``ns_guard``, else
+    the cold start α·I with α = 2/(λ_max + 2λ̂).  A slot whose final
+    Frobenius residual ‖I − M̂X‖_F is not below ``_NS_RES_MAX`` (NaN
+    included) takes the dense LU inverse of M̂ instead — the reference's
+    algorithm; the host check runs only on heavy steps, and the other
+    slots keep their NS result bit for bit.  Stacked-native.  U becomes
+    the damped inverse, D all-zero, aux[..., AUX_LAM] = λ̂ and
+    aux[..., AUX_RES] = the final residual."""
+    from repro_torch.kernels import ops as kops
+
+    M = _ns_sym(st.M)
+    lmax = torch.clamp(_ns_lmax(M), min=1e-12)
+    lam = spec.ns_phi * lmax                               # (*stack,)
+    eye = torch.eye(spec.d, dtype=M.dtype, device=M.device)
+    Mhat = M + lam[..., None, None] * eye
+    alpha = 2.0 / (lmax + 2.0 * lam)
+    X_cold = alpha[..., None, None] * eye
+    X_warm = _ns_sym(st.U)
+    r_warm = _ns_resnorm(eye - Mhat @ X_warm)
+    use_warm = r_warm < spec.ns_guard                      # NaN → False
+    X = torch.where(use_warm[..., None, None], X_warm, X_cold)
+    for _ in range(spec.ns_iters):
+        X = kops.ns_step(Mhat, X)
+    R = eye - Mhat @ X
+    res = torch.sqrt(torch.sum(R * R, dim=(-2, -1)))
+    bad = ~(res < _NS_RES_MAX)                             # NaN/Inf → True
+    if bool(bad.any()):                  # LU inverse of the bad slots only
+        X[bad] = torch.linalg.inv_ex(Mhat[bad])[0]
+    aux = st.aux.clone()
+    aux[..., AUX_LAM] = lam.to(aux.dtype)
+    aux[..., AUX_RES] = res.to(aux.dtype)
+    return KFactorState(U=X.to(st.U.dtype), D=torch.zeros_like(st.D),
+                        M=st.M, aux=aux)
+
+
 # ---------------------------------------------------------------------------
 # the per-bucket program
 # ---------------------------------------------------------------------------
@@ -255,6 +332,21 @@ def stats_step(spec: KFactorSpec, st: KFactorState, X: Tensor, first: bool
     return st
 
 
+def inverse_rep_step(spec: KFactorSpec, st: KFactorState, X: Tensor,
+                     first: bool, heavy: bool, use_kernel: bool = False,
+                     draws: Optional[Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> KFactorState:
+    """Scheduled inverse-representation update (flat batch axis B): the
+    Brand update for the Brand modes, then, if ``heavy``, the mode's
+    heavy op (EVD / RSVD overwrite / correction / NS refinement)."""
+    if spec.mode in _HAS_BRAND:
+        st = brand_step(spec, st, X, first, use_kernel)
+    if heavy and has_heavy_op(spec):
+        st = heavy_overwrite_batched(spec, st, draws, generator)
+    return st
+
+
 def heavy_overwrite_batched(spec: KFactorSpec, st: KFactorState,
                             draws: Optional[Tensor] = None,
                             generator: Optional[torch.Generator] = None
@@ -265,7 +357,7 @@ def heavy_overwrite_batched(spec: KFactorSpec, st: KFactorState,
     if spec.mode is Mode.EVD:
         return evd_overwrite(spec, st)
     if spec.mode is Mode.NS:
-        raise NotImplementedError(_NS_TODO)
+        return ns_overwrite(spec, st)
     if spec.mode in (Mode.RSVD, Mode.BRAND_RSVD):
         return rsvd_overwrite(spec, st, omega=draws, generator=generator)
     if spec.mode is Mode.BRAND_CORR:
@@ -286,8 +378,6 @@ def bucket_factor_step(spec: KFactorSpec, st: KFactorState, X: Tensor,
     heavy overwrite of each slot range in ``heavy_ranges``.  ``draws``
     holds the heavy op's random inputs for all B slots; each range takes
     its slice."""
-    if spec.mode is Mode.NS:
-        raise NotImplementedError(_NS_TODO)
     if stats:
         st = stats_step(spec, st, X, first)
     heavy_ranges = tuple(heavy_ranges)

@@ -56,6 +56,13 @@ class StepWork:
             return "stats"
         return "idle"
 
+    def entry_heavy(self, bucket_idx: int, offset: int, count: int) -> bool:
+        """True iff any firing range overlaps slot range [offset,
+        offset+count) — the per-tap path's heavy flag for one bucket
+        entry (scheduler chunks are entry-aligned: all or nothing)."""
+        return any(lo < offset + count and hi > offset
+                   for lo, hi in self.heavy[bucket_idx])
+
 
 def _empty(factor_buckets) -> Tuple[Ranges, ...]:
     return tuple(() for _ in factor_buckets)

@@ -7,7 +7,9 @@ Counterpart of ``examples/train_vgg_kfac.py``:
         --preset paper --steps 50
 
 Presets: ``small`` (a quick check) and ``paper`` (stages 64-128-256-512-512,
-FC hidden 2048, n_stat 256, r 230).  On the card the Brand update and the
+FC hidden 2048, n_stat 256, r 230).  ``--optimizer`` takes every variant
+of the reference (kfac, rkfac, bkfac, brkfac, bkfacc, nskfac).  On the card
+the EA absorb, the Brand update, the Newton–Schulz refinement and the
 preconditioning go through the CUDA kernels (``use_kernels=True``).
 """
 from __future__ import annotations
@@ -60,8 +62,7 @@ def build(preset: str, optimizer: str = "bkfac", batch: int = 128,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--optimizer", default="bkfac",
-                    choices=[v for v in policy_lib.VARIANTS
-                             if v != "nskfac"])
+                    choices=list(policy_lib.VARIANTS))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--preset", default="small", choices=("small", "paper"))

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("_build")
-SOURCES = ("ea_syrk.cu", "brand_panel.cu", "cholqr.cu", "precond_fused.cu")
+SOURCES = ("ea_syrk.cu", "brand_panel.cu", "cholqr.cu", "precond_fused.cu",
+           "ns_inverse.cu", "lowrank_apply.cu")
 HEADERS = ("gemm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -25,6 +25,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import brand_panel as _bp
 from repro_torch.kernels import cholqr as _cq
 from repro_torch.kernels import ea_syrk as _ea
+from repro_torch.kernels import lowrank_apply as _la
+from repro_torch.kernels import ns_inverse as _ns
 from repro_torch.kernels import precond_fused as _pf
 
 Tensor = torch.Tensor
@@ -68,6 +70,17 @@ def ea_syrk(M: Tensor, X: Tensor, rho, first) -> Tensor:
     return out.reshape(stack + (d, d))
 
 
+def ns_step(Mhat: Tensor, X: Tensor) -> Tensor:
+    """One Newton–Schulz step X ← 2X − X(M̂X) — two launches of the
+    ``ns_inverse`` kernel.  Mhat, X: (*stack, d, d)."""
+    if not X.is_cuda:
+        return ref.ns_step(Mhat, X)
+    d = X.shape[-1]
+    stack = _common_stack((Mhat, 2), (X, 2))
+    out = _ns.ns_step_batched(_flat(Mhat, 2, stack), _flat(X, 2, stack))
+    return out.reshape(stack + (d, d))
+
+
 def brand_panel(U: Tensor, A: Tensor) -> Tuple[Tensor, Tensor]:
     """(C, A⊥) = (UᵀA, A − U(UᵀA)).
     U: (*stack, d, r), A: (*stack, d, n)."""
@@ -97,6 +110,22 @@ def orthonormalize(Y: Tensor) -> Tensor:
     """Orthonormal basis of range(Y) via CholeskyQR2 — the Q-only entry
     point of the RSVD range finder."""
     return cholqr2(Y)[0]
+
+
+def lowrank_apply(X: Tensor, U: Tensor, s: Tensor, lam) -> Tensor:
+    """Y = (X U) diag(s) Uᵀ + X/λ.
+    X: (*stack, p, d), U: (*stack, d, w), s: (*stack, w), lam: scalar or
+    (*stack,).  A transposed X (the left application's view) is copied
+    to contiguous rows by ``_flat``."""
+    if not X.is_cuda:
+        return ref.lowrank_apply(X, U, s, lam)
+    p, d = X.shape[-2:]
+    stack = _common_stack((X, 2), (U, 2), (s, 1))
+    Xb = _flat(X, 2, stack)
+    ilam = 1.0 / _stack_lam(lam, stack, Xb.shape[0], X)
+    out = _la.lowrank_apply_batched(Xb, _flat(U, 2, stack),
+                                    _flat(s, 1, stack).contiguous(), ilam)
+    return out.to(X.dtype).reshape(stack + (p, d))
 
 
 def precond_fused(J: Tensor, U_g: Tensor, s_g: Tensor, lam_g,

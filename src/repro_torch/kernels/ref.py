@@ -83,6 +83,21 @@ def lowrank_apply(X: Tensor, U: Tensor, s: Tensor, lam) -> Tensor:
     return T @ mt(U) + X / scal(lam, X)
 
 
+def gemm_update(C: Tensor, A: Tensor, B: Tensor, alpha, beta) -> Tensor:
+    """out = α·C + β·A B — one launch of the ``ns_inverse`` kernel.
+    With α = 0, C is not read (as in the kernel)."""
+    AB = beta * (A @ B)
+    return AB if alpha == 0 else alpha * C + AB
+
+
+def ns_step(Mhat: Tensor, X: Tensor) -> Tensor:
+    """One Newton–Schulz/Hotelling inverse-refinement step
+    X ← X(2I − M̂X) = 2X − X(M̂X) — two GEMMs, no factorization.
+    Mhat, X: (..., d, d)."""
+    T = Mhat @ X
+    return 2.0 * X - X @ T
+
+
 def syrk_tn(A: Tensor) -> Tensor:
     """Gram matrix G = AᵀA in float32 (the CholeskyQR SYRK pass)."""
     A32 = A.to(torch.float32)

@@ -34,6 +34,7 @@ from repro_torch.core import rsvd as trsvd  # noqa: E402
 TOL = dict(atol=2e-3, rtol=2e-3)
 CPU = torch.device("cpu")
 PAPER_VARIANTS = ("kfac", "rkfac", "bkfac", "brkfac", "bkfacc")
+ALL_VARIANTS = PAPER_VARIANTS + ("nskfac",)
 
 
 def _t(x):
@@ -121,7 +122,7 @@ def _configs(variant, stagger, **kw):
                 variant=variant, r=230, max_dense_dim=4096), **common))
 
 
-@pytest.mark.parametrize("variant", PAPER_VARIANTS)
+@pytest.mark.parametrize("variant", ALL_VARIANTS)
 def test_paper_vgg_buckets_match_reference(variant):
     jtaps, ttaps = _paper_taps()
     jcfg, tcfg = _configs(variant, False)
@@ -148,10 +149,25 @@ def test_paper_vgg_buckets_match_reference(variant):
                        (2048, "brand", 2), (2304, "brand", 2),
                        (4608, "brand", 3), (16384, "brand", 1)]
         assert len(topt.precond_buckets) == 10
+    if variant == "nskfac":
+        # every factor with d ≤ 4096 is NS; the memory gate degrades the
+        # four wider ones to BRAND, so two precond buckets are mixed
+        got = [(b.spec.d, b.spec.mode.value, b.total)
+               for b in topt.factor_buckets]
+        assert got == [(10, "ns", 1), (27, "ns", 1), (64, "ns", 2),
+                       (128, "ns", 2), (256, "ns", 2), (512, "ns", 4),
+                       (576, "ns", 2), (1152, "ns", 2), (2048, "ns", 2),
+                       (2304, "ns", 2), (4608, "brand", 3),
+                       (16384, "brand", 1)]
+        mixed = [([e.name for e in b.entries], b.spec_a.mode.value,
+                  b.spec_g.mode.value) for b in topt.precond_buckets
+                 if b.spec_a.mode != b.spec_g.mode]
+        assert mixed == [(["conv3_1", "conv4_0", "conv4_1"], "brand", "ns"),
+                         (["fc0"], "brand", "ns")]
 
 
 @pytest.mark.parametrize("stagger", [False, True])
-@pytest.mark.parametrize("variant", PAPER_VARIANTS)
+@pytest.mark.parametrize("variant", ALL_VARIANTS)
 def test_step_work_matches_reference(variant, stagger):
     jtaps, ttaps = _paper_taps()
     jcfg, tcfg = _configs(variant, stagger)
@@ -168,15 +184,23 @@ def test_step_work_matches_reference(variant, stagger):
 
 
 def test_unported_paths_raise():
+    """Only the async heavy pipeline is left unported; the per-tap path,
+    nskfac and linear-apply taps now build."""
     _, ttaps = _paper_taps()
-    for kw, match in ((dict(bucketed=False), "bucketed"),
-                      (dict(async_heavy=True), "async")):
-        _, tcfg = _configs("bkfac", False, **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            tkfac.Kfac(tcfg, ttaps, device=CPU)
-    with pytest.raises(NotImplementedError, match="nskfac"):
-        tkfac.Kfac(tkfac.KfacConfig(policy=tpolicy.PolicyConfig(
-            variant="nskfac")), ttaps, device=CPU)
+    _, tcfg = _configs("bkfac", False, async_heavy=True)
+    with pytest.raises(NotImplementedError, match="async"):
+        tkfac.Kfac(tcfg, ttaps, device=CPU)
+    _, tcfg = _configs("bkfac", False, bucketed=False)
+    assert not tkfac.Kfac(tcfg, ttaps, device=CPU).cfg.bucketed
+    _, tcfg = _configs("nskfac", False)
+    opt = tkfac.Kfac(tcfg, ttaps, device=CPU)
+    assert any(b.spec.mode is tkf.Mode.NS for b in opt.factor_buckets)
+    lin = {n: dataclasses.replace(t, linear_apply=n in ("fc0", "fc1"))
+           for n, t in ttaps.items()}
+    _, tcfg = _configs("bkfac", False)
+    opt = tkfac.Kfac(tcfg, lin, device=CPU)
+    assert [[e.name for e in b.entries] for b in opt.precond_buckets
+            if b.linear_apply] == [["fc1"], ["fc0"]]
 
 
 # ---------------------------------------------------------------------------
@@ -346,3 +370,190 @@ def test_schedules_and_clip_match_reference():
                                     0.5)
     for k in tree:
         _close(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# NS-KFAC: ns_overwrite on the cases of tests/test_ns_inverse.py
+# ---------------------------------------------------------------------------
+
+def _ns_psd(seed, d, scale=1.0, decay=0.8):
+    """tests/test_ns_inverse.py's _psd, as numpy."""
+    lam = scale * np.power(np.arange(1, d + 1, dtype=np.float32), -decay)
+    Q, _ = np.linalg.qr(np.asarray(jax.random.normal(
+        jax.random.PRNGKey(seed), (d, d))))
+    return ((Q * lam) @ Q.T).astype(np.float32)
+
+
+def _ns_adversarial(d):
+    """Top eigenvector orthogonal to the power iteration's all-ones start
+    (tests/test_ns_inverse.py's _adversarial_m): plain NS diverges."""
+    u1 = np.zeros(d, np.float32)
+    u1[0], u1[1] = 1.0, -1.0
+    u1 /= np.sqrt(2.0)
+    P = np.outer(u1, u1)
+    return (2.0 * P + (np.eye(d) - P)).astype(np.float32)
+
+
+def _ns_states(M, U=None):
+    U = np.zeros_like(M) if U is None else U
+    D = np.zeros(M.shape[:-1], np.float32)
+    aux = np.zeros(M.shape[:-2] + (jkf.AUX_WIDTH,), np.float32)
+    return (jkf.KFactorState(U=jnp.asarray(U), D=jnp.asarray(D),
+                             M=jnp.asarray(M), aux=jnp.asarray(aux)),
+            tkf.KFactorState(U=_t(U), D=_t(D), M=_t(M), aux=_t(aux)))
+
+
+def _ns_specs(d, **kw):
+    js = jkf.KFactorSpec(d=d, r=16, n_stat=8, mode=jkf.Mode.NS, **kw)
+    return js, _tspec(js)
+
+
+def _rel_fro(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _check_ns(tout, jout, fallback):
+    """The port's refresh against the reference's: U to 1e-4 in relative
+    Frobenius norm (the tolerance tests/test_ns_inverse.py holds the
+    reference's U to against the exact inverse), λ̂ to 1e-5, the
+    residual flag the same, and D all-zero."""
+    assert _rel_fro(tout.U, jout.U) < 1e-4
+    _close(tout.aux[..., tkf.AUX_LAM], jout.aux[..., jkf.AUX_LAM],
+           atol=0, rtol=1e-5)
+    t_res = np.asarray(tout.aux[..., tkf.AUX_RES])
+    j_res = np.asarray(jout.aux[..., jkf.AUX_RES])
+    assert np.array_equal(~(t_res < tkf._NS_RES_MAX), ~(j_res < 0.5))
+    assert np.array_equal(~(t_res < tkf._NS_RES_MAX), np.asarray(fallback))
+    assert not torch.any(tout.D)
+
+
+@pytest.mark.parametrize("case", ["cold", "zero_init", "zero_iters",
+                                  "divergence"])
+def test_ns_overwrite_matches_reference(case):
+    d = {"cold": 256, "zero_init": 128, "zero_iters": 96,
+         "divergence": 128}[case]
+    M = (_ns_adversarial(d) if case == "divergence"
+         else _ns_psd({"cold": 0, "zero_init": 3, "zero_iters": 5}[case], d))
+    js, ts = _ns_specs(d, ns_iters=0 if case == "zero_iters" else 8)
+    jst, tst = _ns_states(M)
+    jout, tout = jkf.ns_overwrite(js, jst), tkf.ns_overwrite(ts, tst)
+    _check_ns(tout, jout, case in ("zero_iters", "divergence"))
+    if case in ("cold", "zero_init"):
+        assert float(tout.aux[tkf.AUX_RES]) < 1e-3
+
+
+def test_ns_warm_start_matches_reference():
+    """tests/test_ns_inverse.py's warm-start case: after an EA drift the
+    stale inverse passes the guard and K = 2 suffices."""
+    d = 192
+    M0 = _ns_psd(1, d)
+    M1 = (0.95 * M0 + 0.05 * _ns_psd(2, d, scale=0.05)).astype(np.float32)
+    js8, ts8 = _ns_specs(d, ns_iters=8)
+    jst, tst = _ns_states(M0)
+    jsrc, tsrc = jkf.ns_overwrite(js8, jst), tkf.ns_overwrite(ts8, tst)
+    js2, ts2 = _ns_specs(d, ns_iters=2)
+    jst, _ = _ns_states(M1, np.asarray(jsrc.U))
+    _, tst = _ns_states(M1, tsrc.U.numpy())
+    jout, tout = jkf.ns_overwrite(js2, jst), tkf.ns_overwrite(ts2, tst)
+    _check_ns(tout, jout, False)
+    cold = tkf.ns_overwrite(ts2, _ns_states(M1)[1])
+    assert float(tout.aux[tkf.AUX_RES]) < 0.01 * float(
+        cold.aux[tkf.AUX_RES])
+
+
+def test_ns_fallback_is_per_slot():
+    """One diverging slot in a bucket: the healthy slot's result is bit
+    for bit the one it gets beside a healthy sibling (torch's batched and
+    single matmuls differ in rounding, so the comparison is at the same
+    batch size), the bad slot takes the LU inverse — both as the
+    reference's (through heavy_overwrite_batched and the per-tap program
+    inverse_rep_step)."""
+    d = 128
+    good, bad = _ns_psd(4, d), _ns_adversarial(d)
+    js, ts = _ns_specs(d)
+    healthy = tkf.ns_overwrite(ts, _ns_states(np.stack([good, good]))[1])
+    jst, tst = _ns_states(np.stack([good, bad]))
+    jout = jkf.heavy_overwrite_batched(js, jst,
+                                       jnp.zeros((2, 2), jnp.uint32))
+    tout = tkf.heavy_overwrite_batched(ts, tst)
+    assert torch.equal(tout.U[0], healthy.U[0])
+    _check_ns(tout, jout, [False, True])
+    X = torch.zeros((2, d, 8))
+    rep = tkf.inverse_rep_step(ts, tst, X, first=False, heavy=True)
+    assert torch.equal(rep.U, tout.U)
+    assert torch.equal(tkf.inverse_rep_step(ts, tst, X, first=False,
+                                            heavy=False).U, tst.U)
+
+
+# ---------------------------------------------------------------------------
+# dense (NS) sides and the Alg-8 kernel route in the preconditioning
+# ---------------------------------------------------------------------------
+
+def _dense_inv(rng, b, d):
+    """A symmetric positive definite "dense damped inverse" stack."""
+    return np.linalg.inv(_psd(rng, b, d, d) + np.eye(d, dtype=np.float32)
+                         ).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("dense", ["g", "a", "both"])
+@pytest.mark.parametrize("linear", [False, True])
+def test_dense_and_linear_precondition_match_reference(linear, dense,
+                                                       use_kernel):
+    rng = np.random.default_rng(17)
+    dg, da, n, wg, wa = 20, 30, 6, 8, 9
+    dense_g, dense_a = dense in ("g", "both"), dense in ("a", "both")
+    Ug = (_dense_inv(rng, 2, dg) if dense_g else np.linalg.qr(
+        rng.standard_normal((2, dg, wg)))[0].astype(np.float32))
+    Ua = (_dense_inv(rng, 2, da) if dense_a else np.linalg.qr(
+        rng.standard_normal((2, da, wa)))[0].astype(np.float32))
+    Dg = (np.zeros((2, dg), np.float32) if dense_g
+          else np.abs(rng.standard_normal((2, wg))).astype(np.float32))
+    Da = (np.zeros((2, da), np.float32) if dense_a
+          else np.abs(rng.standard_normal((2, wa))).astype(np.float32))
+    flags = dict(continuation=True, use_kernel=use_kernel, dense_g=dense_g,
+                 dense_a=dense_a)
+    if linear:
+        G = rng.standard_normal((2, dg, n)).astype(np.float32)
+        A = rng.standard_normal((2, da, n)).astype(np.float32)
+        want = jprecond.precondition_linear_with_damping(
+            *map(jnp.asarray, (G, A, Ug, Dg, Ua, Da)), jnp.float32(0.1),
+            **flags)
+        got = tprecond.precondition_linear_with_damping(
+            *map(_t, (G, A, Ug, Dg, Ua, Da)), 0.1, **flags)
+    else:
+        J = rng.standard_normal((2, dg, da)).astype(np.float32)
+        want = jprecond.precondition_with_damping(
+            *map(jnp.asarray, (J, Ug, Dg, Ua, Da)), jnp.float32(0.1),
+            **flags)
+        got = tprecond.precondition_with_damping(
+            *map(_t, (J, Ug, Dg, Ua, Da)), 0.1, **flags)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_apply_inv_left_right_kernel_route_matches_reference(use_kernel):
+    """apply_inv_right/left through ops.lowrank_apply (``use_kernel``),
+    with a zero factor — the nskfac gated-BRAND case: U = 0, D = 0, so λ
+    sits at the _LAM_EPS floor and the application is J/λ."""
+    rng = np.random.default_rng(19)
+    J = rng.standard_normal((2, 12, 40)).astype(np.float32)
+    U = np.linalg.qr(rng.standard_normal((2, 40, 7)))[0].astype(np.float32)
+    D = np.abs(rng.standard_normal((2, 7))).astype(np.float32)
+    lam = np.array([0.2, 0.05], np.float32)
+    for Uc, Dc, lc in ((U, D, lam), (np.zeros_like(U), np.zeros_like(D),
+                                     np.zeros_like(lam))):
+        want_r = jprecond.apply_inv_right(*map(jnp.asarray, (J, Uc, Dc, lc)),
+                                          use_kernel=use_kernel)
+        got_r = tprecond.apply_inv_right(*map(_t, (J, Uc, Dc, lc)),
+                                         use_kernel=use_kernel)
+        _close(got_r / float(np.abs(want_r).max()),
+               np.asarray(want_r) / float(np.abs(want_r).max()))
+        Jl = np.swapaxes(J, -1, -2).copy()
+        want_l = jprecond.apply_inv_left(*map(jnp.asarray, (Jl, Uc, Dc, lc)),
+                                         use_kernel=use_kernel)
+        got_l = tprecond.apply_inv_left(*map(_t, (Jl, Uc, Dc, lc)),
+                                        use_kernel=use_kernel)
+        _close(got_l / float(np.abs(want_l).max()),
+               np.asarray(want_l) / float(np.abs(want_l).max()))

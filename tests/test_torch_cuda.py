@@ -82,3 +82,41 @@ def test_cuda_launch_counts_and_shared_stack(cuda):
     assert counts["ut_a"] == 1 and counts["a_perp"] == 1
     for a, b in zip((C, P), tref.brand_panel(U.expand(3, 64, 8), A)):
         _close(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128), (3, 128, 128),
+                                   (2, 2, 200, 200), (96, 96), (2, 10, 10)])
+def test_cuda_ns_step(cuda, shape):
+    """Both launches of a Newton–Schulz step (the shapes of
+    tests/test_ns_inverse.py, plus d = 10); the reference's tolerance
+    there, atol 1e-3, rtol 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    A = torch.randn(shape, generator=g, device=cuda)
+    M = A @ A.mT / shape[-1]
+    X = 0.1 * torch.randn(shape, generator=g, device=cuda)
+    _build.reset_launch_counts()
+    got = ops.ns_step(M, X)
+    assert _build.launch_counts()["ns_gemm_update"] == 2
+    _close(got.cpu(), tref.ns_step(M, X).cpu(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack,p,d,w", [((), 256, 4608, 486),
+                                         ((3,), 20, 10, 10),
+                                         ((2,), 300, 700, 33)])
+def test_cuda_lowrank_apply(cuda, stack, p, d, w):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    X = r(*stack, p, d)
+    U = torch.linalg.qr(r(*stack, d, w))[0]
+    s = -r(*stack, w).abs()
+    lam = 0.5 + r(*stack).abs() if stack else 0.7
+    _build.reset_launch_counts()
+    got = ops.lowrank_apply(X, U, s, lam)
+    assert _build.launch_counts()["lowrank_apply"] == 1
+    _close(got.cpu(), tref.lowrank_apply(X, U, s, lam).cpu())
+    # the left application's transposed operand (copied to rows by _flat)
+    Xt = r(*stack, d, p).mT
+    _close(ops.lowrank_apply(Xt, U, s, lam).cpu(),
+           tref.lowrank_apply(Xt, U, s, lam).cpu())

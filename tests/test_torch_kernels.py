@@ -10,7 +10,8 @@ against the plain versions by ``test_torch_cuda.py`` (card only) and by
 
 Tolerance: fp32 throughout, atol = rtol = 2e-3 — the tolerance of
 tests/test_kernels.py and tests/test_cholqr.py for fp32 kernel-vs-oracle
-parity (two BLAS libraries sum in different orders).
+parity (two BLAS libraries sum in different orders) — except ``ns_step``,
+held at tests/test_ns_inverse.py's atol 1e-3, rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -23,12 +24,16 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.brand_panel import brand_panel_batched_pallas  # noqa: E402
 from repro.kernels.cholqr import cholqr2_batched_pallas  # noqa: E402
 from repro.kernels.ea_syrk import ea_syrk_batched_pallas  # noqa: E402
+from repro.kernels.lowrank_apply import lowrank_apply_batched_pallas  # noqa: E402,E501
+from repro.kernels.ns_inverse import gemm_update_batched_pallas  # noqa: E402
 from repro.kernels.precond_fused import precond_fused_pallas  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import brand_panel as tbp  # noqa: E402
 from repro_torch.kernels import cholqr as tcq  # noqa: E402
 from repro_torch.kernels import ea_syrk as tea  # noqa: E402
+from repro_torch.kernels import lowrank_apply as tla  # noqa: E402
+from repro_torch.kernels import ns_inverse as tns  # noqa: E402
 from repro_torch.kernels import precond_fused as tpf  # noqa: E402
 
 TOL = dict(atol=2e-3, rtol=2e-3)
@@ -145,6 +150,46 @@ def test_precond_fused_matches_reference(stack, p, d, wg, wa):
            jref.lowrank_apply(*map(jnp.asarray, (J, Ua, sa, lam_a))))
 
 
+@pytest.mark.parametrize("stack,p,d,w,lam_kind", [
+    ((), 256, 256, 64, "scalar"),           # tests/test_kernels.py:76
+    ((2, 2), 128, 128, 8, "stack"),         # test_kernels_stacked.py:90
+    ((2,), 120, 136, 12, "stack"),
+    ((1,), 20, 10, 10, "scalar")])          # fc1's d = 10 G side
+def test_lowrank_apply_matches_reference(stack, p, d, w, lam_kind):
+    rng = _rng(p + d + w)
+    X = rng.standard_normal(stack + (p, d)).astype(np.float32)
+    U = _orth(rng, *stack, d, w)
+    s = -rng.uniform(0.1, 1.0, stack + (w,)).astype(np.float32)
+    lam = (np.float32(0.7) if lam_kind == "scalar"
+           else rng.uniform(0.3, 2.0, stack).astype(np.float32))
+    want = jref.lowrank_apply(*map(jnp.asarray, (X, U, s, lam)))
+    got = tref.lowrank_apply(_t(X), _t(U), _t(s), _t(lam))
+    _close(got, want)
+    # the ops entry point on a CPU tensor, and a transposed X (the left
+    # application's operand) give the same
+    _close(ops.lowrank_apply(_t(X), _t(U), _t(s), _t(lam)), want)
+    Xt = _t(np.swapaxes(X, -1, -2).copy()).transpose(-1, -2)
+    _close(ops.lowrank_apply(Xt, _t(U), _t(s), _t(lam)), want)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (3, 128, 128),
+                                   (2, 2, 200, 200), (96, 96), (1, 10, 10)])
+def test_ns_step_matches_reference(shape):
+    """tests/test_ns_inverse.py's shapes and tolerance (atol 1e-3, rtol
+    1e-4)."""
+    rng = _rng(0)
+    A = rng.standard_normal(shape).astype(np.float32)
+    M = (A @ np.swapaxes(A, -1, -2) / shape[-1]).astype(np.float32)
+    X = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    want = jref.ns_step(jnp.asarray(M), jnp.asarray(X))
+    for fn in (tref.ns_step, ops.ns_step):
+        _close(fn(_t(M), _t(X)), want, atol=1e-3, rtol=1e-4)
+    # a step is two gemm_update launches: T = M̂X (α = 0), 2X − X T
+    T = tref.gemm_update(None, _t(M), _t(X), 0.0, 1.0)
+    _close(tref.gemm_update(_t(X), _t(X), T, 2.0, -1.0), want,
+           atol=1e-3, rtol=1e-4)
+
+
 def test_mt_and_scal():
     x = _t(_rng(0).standard_normal((2, 3, 4)))
     assert tref.mt(x).shape == (2, 4, 3)
@@ -187,6 +232,38 @@ def test_cholqr2_vs_pallas_interpret():
     _close(R, R_got)
 
 
+def test_lowrank_apply_vs_pallas_interpret():
+    """Block-aligned, as tests/test_kernels.py:76 runs the kernel (bm = bn
+    = bk = 128), and stacked with per-element 1/λ."""
+    rng = _rng(6)
+    X = rng.standard_normal((2, 256, 256)).astype(np.float32)
+    U = _orth(rng, 2, 256, 64)
+    s = -rng.uniform(0.1, 1.0, (2, 64)).astype(np.float32)
+    lam = np.array([0.7, 1.3], np.float32)
+    got = lowrank_apply_batched_pallas(*map(jnp.asarray, (X, U, s, 1 / lam)),
+                                       bm=128, bn=128, bk=128,
+                                       interpret=True)
+    _close(tref.lowrank_apply(_t(X), _t(U), _t(s), _t(lam)), got)
+
+
+def test_ns_step_vs_pallas_interpret():
+    """Both launches of a step through the Pallas kernel (α, β = 0, 1 then
+    2, −1), against the port's plain step; atol 1e-3, rtol 1e-4 as in
+    tests/test_ns_inverse.py."""
+    rng = _rng(7)
+    A = rng.standard_normal((3, 128, 128)).astype(np.float32)
+    M = (A @ np.swapaxes(A, -1, -2) / 128).astype(np.float32)
+    X = (rng.standard_normal((3, 128, 128)) * 0.1).astype(np.float32)
+    Mj, Xj = jnp.asarray(M), jnp.asarray(X)
+    T = gemm_update_batched_pallas(Xj, Mj, Xj, 0.0, 1.0, bm=128, bn=128,
+                                   bk=128, interpret=True)
+    got = gemm_update_batched_pallas(Xj, Xj, T, 2.0, -1.0, bm=128, bn=128,
+                                     bk=128, interpret=True)
+    _close(tref.gemm_update(None, _t(M), _t(X), 0.0, 1.0), T,
+           atol=1e-3, rtol=1e-4)
+    _close(tref.ns_step(_t(M), _t(X)), got, atol=1e-3, rtol=1e-4)
+
+
 def test_precond_fused_vs_pallas_interpret():
     rng = _rng(4)
     J = rng.standard_normal((1, 128, 256)).astype(np.float32)
@@ -210,7 +287,9 @@ def test_ops_on_cpu_take_the_plain_route(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a CUDA wrapper was called for a CPU tensor")
     for mod, fn in ((tea, "ea_syrk_batched"), (tbp, "brand_panel_batched"),
-                    (tcq, "cholqr2_batched"), (tpf, "precond_fused_batched")):
+                    (tcq, "cholqr2_batched"), (tpf, "precond_fused_batched"),
+                    (tns, "ns_step_batched"),
+                    (tla, "lowrank_apply_batched")):
         monkeypatch.setattr(mod, fn, boom)
     before = _build.launch_counts()
     rng = _rng(5)
@@ -228,6 +307,9 @@ def test_ops_on_cpu_take_the_plain_route(monkeypatch):
     U_a = X.mT[..., :3]
     assert torch.equal(ops.precond_fused(X, U, s_g, 1.0, U_a, s_a, 2.0),
                        tref.precond_fused(X, U, s_g, 1.0, U_a, s_a, 2.0))
+    assert torch.equal(ops.ns_step(M, M), tref.ns_step(M, M))
+    assert torch.equal(ops.lowrank_apply(X.mT, U, s_g, 1.5),
+                       tref.lowrank_apply(X.mT, U, s_g, 1.5))
     assert _build.launch_counts() == before
 
 
@@ -255,6 +337,10 @@ def test_wrappers_reject_cpu_tensors():
         tcq.rinv_apply_batched(z(1, 8, 3), z(1, 3, 3))
     with pytest.raises(ValueError, match="CUDA"):
         tpf.precond_panel_batched(z(1, 8, 2), z(1, 8, 4), z(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tns.gemm_update_batched(z(1, 4, 4), z(1, 4, 4), z(1, 4, 4), 2., 1.)
+    with pytest.raises(ValueError, match="CUDA"):
+        tla.lowrank_apply_batched(z(1, 3, 8), z(1, 8, 2), z(1, 2), z(1))
     with pytest.raises(ValueError, match="contiguous"):
         tcq.syrk_tn_batched(z(1, 3, 8).mT)
 

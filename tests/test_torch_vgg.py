@@ -257,13 +257,14 @@ def test_grads_match_float64_witness():
 QUIET = dict(lr=0.03, clip=0.1, fallback_lr=1e-3)
 
 
-def _trajectories(n, continuation, quiet=True, jit=False, seed=0):
+def _trajectories(n, continuation, quiet=True, jit=False, seed=0,
+                  linear=()):
     """B-KFAC with use_kernels=True on the small VGG, n steps of the same
     batches from the same weights: the reference's own
     ``run_kfac_training`` (eager unless ``jit``) and the port's, with the
     reference's draws recomputed along its key chain (``PRNGKey(seed)``,
-    one ``split`` per step) and injected.  Returns (reference, port)
-    losses."""
+    one ``split`` per step) and injected.  ``linear`` names the taps set
+    to Alg-8 linear apply in both.  Returns (reference, port) losses."""
     periods = dict(T_updt=2, T_brand=2, T_inv=4, T_rsvd=4, T_corct=4)
     jc, tc = configs("bkfac", True, **periods)
     jkw = dict(spectrum_continuation=continuation)
@@ -277,7 +278,10 @@ def _trajectories(n, continuation, quiet=True, jit=False, seed=0):
     tc = dataclasses.replace(tc, **tkw)
     jparams, jloss, jtaps = jax_model()
     model, ttaps = torch_model(jparams)
-    jopt, topt = jkfac.Kfac(jc, jtaps), tkfac.Kfac(tc, ttaps, device=CPU)
+    lin = lambda taps: {k: dataclasses.replace(t, linear_apply=k in linear)
+                        for k, t in taps.items()}
+    jopt = jkfac.Kfac(jc, lin(jtaps))
+    topt = tkfac.Kfac(tc, lin(ttaps), device=CPU)
     jb = jax_batches(n)
     sched, rng, draws = jopt.scheduler(), jax.random.PRNGKey(seed), {}
     for k in range(n):
