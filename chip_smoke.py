@@ -30,6 +30,7 @@ the script exits nonzero and prints no ``ok`` line.  It has no CPU path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -72,6 +73,39 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, side, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches replayed from one
+    CUDA graph captured on the stream ``side``: the device's time without
+    the host's launch overhead, which back-to-back eager calls of a small
+    kernel measure instead.  Every call takes the same ``side``: cuBLAS
+    keeps a workspace for each stream it has run on."""
+    import torch
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):   # warm up on the capture stream (its workspaces)
+            fn()
+    # capture_begin/end directly: torch.cuda.graph() would also empty the
+    # allocator's cache, and the paths after this phase would then pay for
+    # every cudaMalloc again in their first step
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(reps):
+            fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -94,7 +128,11 @@ def phase_build():
     seconds = _build.build_timed()
     emit({"phase": "build", "seconds": seconds,
           "library": str(_build.library_path().relative_to(ROOT)),
-          "nvcc_flags": " ".join(_build.NVCC_FLAGS)})
+          "nvcc_flags": " ".join(_build.NVCC_FLAGS),
+          # blocks of the pipelined GEMM resident at once, by cluster size
+          "pipe_resident_blocks": {
+              f"{c}x{per_sm}": _build.resident_blocks(c, per_sm)
+              for c in range(1, 9) for per_sm in (1, 2)}})
 
 
 def _rel_err(got, want) -> tuple:
@@ -132,18 +170,25 @@ def phase_kernels():
     TOL = 2e-4
     TOL_CHOLQR = 1e-3   # two eigh-based roots in the chain
     results = {}
+    side = torch.cuda.Stream()   # the graph timings' capture stream
 
     def shapes(args):
         return [list(x.shape) for x in args if isinstance(x, torch.Tensor)]
 
     def record(name, source, replaces, cases, kernel, plain, library, fl_by,
-               tol=TOL):
-        """Check every case against the plain version, then time every
-        case; the row's own numbers are the first case's."""
+               tol=TOL, bitwise=False, graph=False):
+        """Check every case against the plain version (and, with
+        ``bitwise``, that a second launch gives the same bits), then time
+        every case (with ``graph``, also the device time of the kernel and
+        of the library call, replayed from a CUDA graph); the row's own
+        numbers are the first case's."""
         worst = 0.0
         worst_abs = 0.0
         for args in cases:
             got, want = kernel(*args), plain(*args)
+            if bitwise and not torch.equal(got, kernel(*args)):
+                raise AssertionError(f"{name}: two launches differ at shapes "
+                                     f"{shapes(args)}")
             pairs = got if isinstance(got, tuple) else (got,)
             wants = want if isinstance(want, tuple) else (want,)
             for a, b in zip(pairs, wants):
@@ -164,11 +209,19 @@ def phase_kernels():
                                 if library is not None else None),
                  "bound_ms": bms, "bound_by": by}
             t["bound_share"] = t["bound_ms"] / t["ms"]
+            if t["library_ms"] is not None:
+                t["vs_library"] = t["ms"] / t["library_ms"]
+            if graph:
+                t["device_ms"] = graph_ms(lambda: kernel(*args), side)
+                t["library_device_ms"] = graph_ms(lambda: library(*args),
+                                                  side)
+                t["vs_library_device"] = (t["device_ms"]
+                                          / t["library_device_ms"])
             timed.append(t)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": worst_abs,
                "max_rel_err": worst, "tol_rel": tol, **timed[0],
-               "cases": timed}
+               "cases": timed} | ({"bitwise_repeat": True} if bitwise else {})
         emit({"phase": "kernels", **row})
         results[name] = row
 
@@ -194,13 +247,20 @@ def phase_kernels():
     # Brand panel: fc0's bucket (d = 16384, B = 1) and the d = 512, B = 4
     brand = [(orth(1, 16384, 230), rnd(1, 16384, 256)),
              (orth(4, 512, 230), rnd(4, 512, 256))]
+    # ut_a at fc0 with a contiguous U, then at every Brand bucket of the
+    # path with U as the path passes it: the [..., :230] column slice of
+    # the (B, d, 486) state (row stride 486: 8-byte aligned rows)
+    ut_a_cases = [brand[0]] + [
+        (orth(b, d, 486)[..., :230], rnd(b, d, 256))
+        for b, d in BRAND_BUCKETS]
     record("ut_a", csrc + "brand_panel.cu",
-           "src/repro/kernels/brand_panel.py:58", brand,
+           "src/repro/kernels/brand_panel.py:58", ut_a_cases,
            bp.ut_a_batched, ref.ut_a, lambda U, A: torch.bmm(U.mT, A),
            lambda U, A: (2 * U.shape[0] * U.shape[1] * U.shape[2]
                          * A.shape[2],
                          F * (U.numel() + A.numel()
-                              + U.shape[0] * U.shape[2] * A.shape[2])))
+                              + U.shape[0] * U.shape[2] * A.shape[2])),
+           bitwise=True, graph=True)
     perp = [(A, U, ref.ut_a(U, A).contiguous()) for U, A in brand]
     record("a_perp", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:82", perp,
@@ -220,14 +280,19 @@ def phase_kernels():
            lambda A: (A.shape[0] * A.shape[1] * A.shape[2]
                       * (A.shape[2] + 1),
                       F * (A.numel() + A.shape[0] * A.shape[2] ** 2)))
+    # rinv_apply at fc0's A⊥, then every Brand bucket's (B, d, 256) and the
+    # RSVD range finder's (2, 256, 240)
     roots = [(A, ref.gram_inv_sqrt(ref.syrk_tn(A), ref.CHOLQR_FLOOR_RESOLVE,
                                    "tr")[1].contiguous())
-             for (A,) in panels]
+             for A in [panels[0][0]]
+             + [rnd(b, d, 256) for b, d in BRAND_BUCKETS[:-1]]
+             + [panels[1][0]]]
     record("rinv_apply", csrc + "cholqr.cu",
            "src/repro/kernels/cholqr.py:95", roots,
            cq.rinv_apply_batched, ref.rinv_apply, torch.bmm,
            lambda A, R: (2 * A.shape[0] * A.shape[1] * A.shape[2] ** 2,
-                         F * (2 * A.numel() + R.numel())))
+                         F * (2 * A.numel() + R.numel())),
+           graph=True)
 
     # precond: fc0 in parameter layout (J 16384×2048, w = 486 both sides),
     # then conv0_0 (27×64, w 27 / 64) and fc1 (2048×10, w 486 / 10)
@@ -401,6 +466,12 @@ def phase_agree(variant: str = "bkfac", linear_taps=()):
           "losses_cpu": b.tolist(), "max_rel_err": err, "tol_rel": 1e-3})
 
 
+#: (stack, d) of the Brand buckets of a B-KFAC light step on the paper's
+#: VGG16_bn (a bucket runs the Brand update when d > r + n_stat = 486);
+#: fc0's (1, 16384) last
+BRAND_BUCKETS = ((4, 512), (2, 576), (2, 1152), (2, 2048), (2, 2304),
+                 (3, 4608), (1, 16384))
+
 #: kernels each path must launch (the others may stay at 0 there)
 PATH_KERNELS = {
     "slice": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
@@ -409,6 +480,40 @@ PATH_KERNELS = {
     "slice_linear": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
                      "precond_panel", "precond_apply", "lowrank_apply"),
 }
+
+
+@contextlib.contextmanager
+def calls_by_shape():
+    """Count the wrapper calls of ut_a and rinv_apply by operand shape
+    (and U's row stride) while the block runs; the launch counters are
+    left to the wrappers."""
+    from repro_torch.kernels import brand_panel as bp
+    from repro_torch.kernels import cholqr as cq
+    seen = {}
+
+    def counted(mod, fn_name, key):
+        fn = getattr(mod, fn_name)
+
+        def wrapper(*args):
+            k = f"{fn_name.split('_batched')[0]} {key(*args)}"
+            seen[k] = seen.get(k, 0) + 1
+            return fn(*args)
+        setattr(mod, fn_name, wrapper)
+        return fn
+
+    fmt = lambda t: "x".join(map(str, t.shape))
+    saved = [
+        (bp, "ut_a_batched", counted(
+            bp, "ut_a_batched",
+            lambda U, A: f"U {fmt(U)} ld {U.stride(1)} A {fmt(A)}")),
+        (cq, "rinv_apply_batched", counted(
+            cq, "rinv_apply_batched",
+            lambda A, R: f"A {fmt(A)} B {fmt(R)}"))]
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def phase_path(phase: str, optimizer: str, linear_taps=()):
@@ -447,9 +552,10 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
 
     _build.reset_launch_counts()
     t_prev[0] = time.perf_counter()
-    state, losses = loop.run_kfac_training(model.loss, opt, model.params(),
-                                           batches, n_tokens=128, seed=0,
-                                           callback=cb, device=dev)
+    with calls_by_shape() as by_shape:
+        state, losses = loop.run_kfac_training(
+            model.loss, opt, model.params(), batches, n_tokens=128, seed=0,
+            callback=cb, device=dev)
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
@@ -475,6 +581,7 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
           "steps": steps, "kinds": kinds,
           "wall_s_by_kind": {k: v for k, v in by_kind.items()},
           "peak_mem_bytes": peak, "launches": counts,
+          "calls_by_shape": by_shape,
           "buckets": [f"d={b.spec.d} {b.spec.mode.value} B={b.total}"
                       for b in opt.factor_buckets]}
          | ({"ns_res_max": max(ns_res.values()),

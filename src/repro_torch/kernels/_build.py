@@ -16,13 +16,14 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +31,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("_build")
 SOURCES = ("ea_syrk.cu", "brand_panel.cu", "cholqr.cu", "precond_fused.cu",
            "ns_inverse.cu", "lowrank_apply.cu")
-HEADERS = ("gemm.cuh",)
+HEADERS = ("gemm_common.cuh", "gemm.cuh", "sgemm_pipe.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libkfac_kernels.so"
@@ -206,15 +207,19 @@ def check_shape(kernel: str, name: str, t: torch.Tensor,
                          f"{tuple(t.shape)}")
 
 
-def mat_args(t: torch.Tensor) -> List:
-    """(pointer, row stride, batch stride) of a (B, rows, cols) operand."""
-    return [P(t.data_ptr()), L(t.stride(1) if t.shape[1] > 1 else t.shape[2]),
-            L(t.stride(0) if t.shape[0] > 1 else 0)]
+def mat_args(t: torch.Tensor) -> List[int]:
+    """(pointer, row stride, batch stride) of a (B, rows, cols) operand, as
+    plain ints (ctypes converts them by the entry point's argtypes)."""
+    return [t.data_ptr(), t.stride(1) if t.shape[1] > 1 else t.shape[2],
+            t.stride(0) if t.shape[0] > 1 else 0]
 
 
 _SMS = 132          # H100 SXM streaming multiprocessors
-_TILE = 64          # output tile of the shared GEMM (gemm.cuh BM = BN)
+_TILE = 64          # output tile of the 64×64 GEMM (gemm.cuh BM = BN)
 _MIN_K_PER_SPLIT = 256
+PIPE_TILE = 128     # output tile of the pipelined GEMM (sgemm_pipe.cuh)
+PIPE_BK = 16        # its k-step
+PIPE_MAX_CLUSTER = 8
 
 
 def split_k(M: int, N: int, K: int, batch: int, sym: bool = False) -> int:
@@ -228,6 +233,110 @@ def split_k(M: int, N: int, K: int, batch: int, sym: bool = False) -> int:
     return max(1, min(2 * _SMS // tiles, K // _MIN_K_PER_SPLIT, 64))
 
 
+def pipe_tiles(M: int, N: int) -> int:
+    return -(-M // PIPE_TILE) * -(-N // PIPE_TILE)
+
+
+def pipe_split(M: int, N: int, K: int, batch: int,
+               resident: Callable[[int, int], int]) -> Tuple[int, int]:
+    """(splits, cluster) of a product on the pipelined GEMM, split over K
+    when its output has few 128 × 128 tiles.
+
+    ``resident(c, per_sm)`` is the number of blocks the card holds at once
+    in clusters of c blocks with ``per_sm`` (1 or 2) blocks an SM.  A
+    cluster must sit within one GPC, so clusters of 3 or more spread over
+    fewer SMs (120 of 132 on an H100) and hold two blocks an SM only up to
+    a limit; a launch past that packs two blocks on some SMs and not on
+    others, or needs a second wave.  The time of a launch is modelled as
+    (blocks an SM) × (16-deep k-steps a block), plus the final reduction
+    of the G = splits / cluster cluster partials of a tile, which one
+    block reads alone (G / cluster, in the same units).  The choice with
+    the least modelled time wins, fewer splits on a tie; no split is left
+    empty."""
+    tiles = pipe_tiles(M, N) * batch
+
+    def ktiles(s: int) -> int:   # k-steps of a split (the kernel's kchunk)
+        return -(-(-(-K // s)) // PIPE_BK)
+
+    layers = 1 if tiles <= resident(1, 1) else 2 * -(-tiles // resident(1, 2))
+    best = (layers * ktiles(1), 1, 1)
+    for cluster in range(2, PIPE_MAX_CLUSTER + 1):
+        for s in range(cluster, 65, cluster):
+            if -(-K // (ktiles(s) * PIPE_BK)) < s:   # a split would be empty
+                break
+            blocks = tiles * s
+            if blocks <= resident(cluster, 1):
+                layers = 1
+            elif blocks <= resident(cluster, 2):
+                layers = 2
+            else:
+                break
+            cost = layers * ktiles(s) + (s // cluster - 1) / cluster
+            best = min(best, (cost, s, cluster))
+    return best[1], best[2]
+
+
+_RESIDENT: Dict[Tuple[int, int, int], int] = {}
+
+
+def resident_blocks(cluster: int, per_sm: int) -> int:
+    """Blocks of the pipelined GEMM the current card holds at once in
+    clusters of ``cluster``, ``per_sm`` (1 or 2) an SM
+    (cudaOccupancyMaxActiveClusters), cached."""
+    key = (torch.cuda.current_device(), cluster, per_sm)
+    if key not in _RESIDENT:
+        fn = load().kfk_pipe_resident_blocks
+        fn.argtypes, fn.restype = [I, I], ctypes.c_int
+        n = fn(cluster, per_sm)
+        if n <= 0:
+            raise RuntimeError(f"cluster occupancy query failed: "
+                               f"cudaError {-n}")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(n: int, like: torch.Tensor) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for the pipelined GEMM's
+    split-K, one buffer per device and stream.  Zeroed once, when
+    allocated; every launch leaves them at 0 (the last block to arrive on a
+    counter resets it), so launches on one stream can share them."""
+    key = (like.device.index,
+           torch.cuda.current_stream(like.device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), device=like.device, dtype=torch.int32)
+        _COUNTERS[key] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _pipe_split_cached(M: int, N: int, K: int, batch: int,
+                       device: int) -> Tuple[int, int]:
+    return pipe_split(M, N, K, batch, resident_blocks)
+
+
+def pipe_launch_args(M: int, N: int, K: int, batch: int,
+                     like: torch.Tensor) -> List:
+    """[ws, counters, splits, cluster] for a launch of the pipelined GEMM
+    on ``like``'s card: the split choice (cached by shape), and the
+    workspace (splits / cluster, batch, tiles, 128, 128) and arrival
+    counters only when more than one cluster shares a tile (one cluster
+    sums in distributed shared memory and writes C itself)."""
+    splits, cluster = _pipe_split_cached(M, N, K, batch, like.device.index)
+    # the workspace is freed on return, after the launch is queued: the
+    # caching allocator hands it out again only to later work on the stream
+    if splits == cluster:
+        return [0, 0, splits, cluster]
+    tiles = pipe_tiles(M, N)
+    ws = torch.empty((splits // cluster, batch, tiles, PIPE_TILE, PIPE_TILE),
+                     device=like.device, dtype=torch.float32)
+    counters = arrival_counters(batch * tiles * cluster, like)
+    return [ws.data_ptr(), counters.data_ptr(), splits, cluster]
+
+
 def workspace(splits: int, batch: int, M: int, N: int,
               like: torch.Tensor) -> torch.Tensor:
     """Split-K partial sums, (splits, batch, M, N); empty when unsplit."""
@@ -235,5 +344,5 @@ def workspace(splits: int, batch: int, M: int, N: int,
     return torch.empty(shape, device=like.device, dtype=torch.float32)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return P(t.data_ptr() if t.numel() else 0)
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr() if t.numel() else 0

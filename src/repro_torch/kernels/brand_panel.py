@@ -14,24 +14,24 @@ import torch
 from repro_torch.kernels import _build as B
 
 UT_A = B.Kernel("ut_a", "kfk_ut_a",
-                [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P,
-                 B.I, B.I, B.I, B.I, B.I])
+                [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P, B.P,
+                 B.I, B.I, B.I, B.I, B.I, B.I])
 A_PERP = B.Kernel("a_perp", "kfk_a_perp",
                   [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P,
                    B.I, B.I, B.I, B.I])
 
 
 def ut_a_batched(U: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """C = UᵀA.  U: (B, d, r), A: (B, d, n) → (B, r, n)."""
+    """C = UᵀA.  U: (B, d, r), A: (B, d, n) → (B, r, n).  One launch,
+    bitwise the same from run to run."""
     batch, d, r = U.shape
     n = A.shape[-1]
     B.check_stack("ut_a", batch, U=U, A=A)
     B.check_shape("ut_a", "A", A, (batch, d, n))
     C = torch.empty((batch, r, n), device=A.device, dtype=torch.float32)
-    splits = B.split_k(r, n, d, batch)
-    ws = B.workspace(splits, batch, r, n, A)
-    UT_A(*B.mat_args(U), *B.mat_args(A), B.ptr(C), B.ptr(ws),
-         batch, d, r, n, splits)
+    ws, counters, splits, cluster = B.pipe_launch_args(r, n, d, batch, A)
+    UT_A(*B.mat_args(U), *B.mat_args(A), B.ptr(C), ws, counters,
+         batch, d, r, n, splits, cluster)
     return C
 
 

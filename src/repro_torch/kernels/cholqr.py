@@ -19,7 +19,8 @@ from repro_torch.kernels import ref
 SYRK_TN = B.Kernel("syrk_tn", "kfk_syrk_tn",
                    [B.P, B.L, B.L, B.P, B.P, B.I, B.I, B.I, B.I])
 RINV_APPLY = B.Kernel("rinv_apply", "kfk_rinv_apply",
-                      [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.I, B.I, B.I])
+                      [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P, B.P,
+                       B.I, B.I, B.I, B.I, B.I])
 
 
 def syrk_tn_batched(A: torch.Tensor) -> torch.Tensor:
@@ -39,7 +40,9 @@ def rinv_apply_batched(A: torch.Tensor, Rinv: torch.Tensor) -> torch.Tensor:
     B.check_stack("rinv_apply", batch, A=A, Rinv=Rinv)
     B.check_shape("rinv_apply", "Rinv", Rinv, (batch, n, n))
     Q = torch.empty((batch, d, n), device=A.device, dtype=torch.float32)
-    RINV_APPLY(*B.mat_args(A), *B.mat_args(Rinv), B.ptr(Q), batch, d, n)
+    ws, counters, splits, cluster = B.pipe_launch_args(d, n, n, batch, A)
+    RINV_APPLY(*B.mat_args(A), *B.mat_args(Rinv), B.ptr(Q), ws, counters,
+               batch, d, n, splits, cluster)
     return Q
 
 

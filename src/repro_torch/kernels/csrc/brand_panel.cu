@@ -10,19 +10,26 @@
 // launch is 1.9 GFLOP against ~33 MB (ut_a) or ~50 MB (a_perp) of traffic,
 // ~40–60 FLOP per byte, above the fp32 ridge of 20.
 //
-// Design: ut_a reduces over d into a small 230×256 output — only 16 output
-// tiles per factor, far too few blocks for 132 SMs.  The wrapper therefore
-// splits d across blocks (split-K) and the shared GEMM sums the partials in
-// a deterministic second pass.  a_perp has d/64 row blocks and needs no
-// split; its epilogue fuses the subtraction (alpha = −1, addend A), so A⊥ is
-// written once.  C (230×256 fp32, 235 KB) is re-read by every row block and
-// stays in the 50 MB L2 rather than in shared memory.
+// Mainloops: ut_a runs on the pipelined 128×128 mainloop of sgemm_pipe.cuh;
+// a_perp stays on the 64×64 one of gemm.cuh.
+//
+// Design: ut_a reduces over d into a small 230×256 output — only 4 output
+// tiles of 128×128 per factor, far too few blocks for 132 SMs.  The wrapper
+// therefore splits d across blocks (split-K: 28 splits in clusters of 4 at
+// fc0, one block on each of 112 SMs), and the mainloop sums the partials
+// in one launch, in a fixed order (sgemm_pipe.cuh).  U arrives as the column slice [:, :230] of the (d, 486)
+// Brand state, whose rows are 8-byte aligned: it is read by 8-byte
+// cp.async, in place.  a_perp has d/64 row blocks and needs no split; its
+// epilogue fuses the subtraction (alpha = −1, addend A), so A⊥ is written
+// once.  C (230×256 fp32, 235 KB) is re-read by every row block and stays
+// in the 50 MB L2 rather than in shared memory.
 #include "gemm.cuh"
+#include "sgemm_pipe.cuh"
 
 extern "C" int kfk_ut_a(const float* U, long long ldU, long long sU,
                         const float* A, long long ldA, long long sA,
-                        float* C, float* ws, int batch, int d, int r, int n,
-                        int splits, void* stream) {
+                        float* C, float* ws, int* counters, int batch, int d,
+                        int r, int n, int splits, int cluster, void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = r;
@@ -33,7 +40,8 @@ extern "C" int kfk_ut_a(const float* U, long long ldU, long long sU,
   p.C = C;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::gemm<true, false>(p, (cudaStream_t)stream);
+  return (int)kfk::pipe::gemm_pipe<true, false>(p, cluster, counters,
+                                                (cudaStream_t)stream);
 }
 
 extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
@@ -55,4 +63,11 @@ extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
   p.epi.addend_b = sA;
   p.epi.beta = 1.f;
   return (int)kfk::gemm<false, false>(p, (cudaStream_t)stream);
+}
+
+// Blocks of the pipelined GEMM resident at once in clusters of `cluster`,
+// two or one an SM (negative: a CUDA error); the wrappers size split-K by
+// them.
+extern "C" int kfk_pipe_resident_blocks(int cluster, int per_sm) {
+  return kfk::pipe::resident_blocks(cluster, per_sm);
 }

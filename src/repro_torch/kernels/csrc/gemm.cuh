@@ -1,15 +1,13 @@
-// Batched, tiled fp32 GEMM with a fused epilogue — the one device routine
-// that every kernel of this package instantiates.
+// Batched, tiled fp32 GEMM with a fused epilogue: the simple 64×64 SIMT
+// mainloop.  ea_syrk, a_perp, syrk_tn, ns_gemm_update, lowrank_apply and
+// both precond_fused passes run on it; ut_a and rinv_apply run on the
+// pipelined 128×128 mainloop of sgemm_pipe.cuh, which takes the same
+// Problem (gemm_common.cuh), so a kernel moves by changing its
+// instantiation.
 //
-//   C[b] = epilogue(op(A[b]) @ op(B[b]))
-//   epilogue(acc)[i, j] = alpha * row_scale[b, i] * col_scale[b, j] * acc
-//                         + beta * beta_vec[b] * addend[b, i, j]
-//
-// Every scale term is optional (null pointer = 1, null addend = no term).
-// Each operand is a stack of row-major matrices with its own row stride
-// (`ld`, so column slices of a wider matrix need no copy) and batch stride
-// (0 = one matrix shared by the whole stack).  The template flags say how
-// the stored matrix maps onto the product:
+// The problem (operands, strides, epilogue) is described in
+// gemm_common.cuh.  The template flags say how each stored matrix maps
+// onto the product:
 //   AT = false: A stored [M][K];  AT = true: A stored [K][M]  (op = Aᵀ)
 //   BT = false: B stored [K][N];  BT = true: B stored [N][K]  (op = Bᵀ)
 //
@@ -20,10 +18,10 @@
 // w = 486, d = 10 or 27) are masked on load (zero fill) and on store.
 //
 // Cross-block reductions: a product whose output has few tiles but a long K
-// (Uᵀ A and AᵀA over d = 16384 into a 230×256 or 256×256 result) splits K
-// over `splits` blocks.  Each writes its partial tile to the workspace, and
-// a second pass sums the partials in split order and applies the epilogue —
-// no float atomics, so the result is the same from run to run.
+// (AᵀA over d = 16384 into a 256×256 result) splits K over `splits`
+// blocks.  Each writes its partial tile to the workspace, and a second pass
+// sums the partials in split order and applies the epilogue — no float
+// atomics, so the result is the same from run to run.
 //
 // Symmetric products (template flag SYM: AᵀA or X Xᵀ, M == N, A and B the
 // same stored matrix): the grid holds only the output tiles on or above
@@ -36,12 +34,12 @@
 // H100).
 //
 // Bound on an H100: fp32 FMA throughput (67 TFLOP/s) for the large
-// products; the tiling reuses every loaded element 64 times from shared
-// memory, which keeps the loads below that line.  wgmma/TMA and double
-// buffering are left to later work.
+// products.  This mainloop reaches 18–31 % of it: each thread reads 8
+// scalars from shared memory for 16 FMAs, and no global load is in flight
+// while the tile is computed.  sgemm_pipe.cuh is the redesign.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "gemm_common.cuh"
 
 namespace kfk {
 
@@ -52,52 +50,7 @@ constexpr int TM = 4;
 constexpr int TN = 4;
 constexpr int THREADS = 256;
 
-struct Operand {
-  const float* ptr;
-  long long ld;       // row stride of the stored matrix, in elements
-  long long bstride;  // batch stride, in elements (0 = shared)
-};
-
-struct Epilogue {
-  float alpha = 1.f;
-  const float* row_scale = nullptr;  // (batch, M), batch stride row_scale_b
-  long long row_scale_b = 0;
-  const float* col_scale = nullptr;  // (batch, N), batch stride col_scale_b
-  long long col_scale_b = 0;
-  const float* addend = nullptr;     // (batch, M, N) row-major
-  long long addend_ld = 0;
-  long long addend_b = 0;
-  float beta = 0.f;
-  const float* beta_vec = nullptr;   // (batch,) per-element beta multiplier
-};
-
-struct Problem {
-  int batch = 0, M = 0, N = 0, K = 0;
-  Operand A{}, B{};
-  float* C = nullptr;                // (batch, M, N) row-major, contiguous
-  Epilogue epi{};
-  int splits = 1;                    // > 1: K split over blocks, see above
-  int sym = 0;                       // set by gemm<…, SYM> for the reduce
-  float* ws = nullptr;               // (splits, batch, M, N) when splits > 1
-};
-
-// Internal linkage for the kernels and their launcher: every .cu of the
-// library includes this header, and one library links them all.
 namespace {
-
-__device__ __forceinline__ float epilogue_value(const Problem& p, int b,
-                                                int i, int j, float acc) {
-  const Epilogue& e = p.epi;
-  float v = e.alpha * acc;
-  if (e.row_scale) v *= e.row_scale[b * e.row_scale_b + i];
-  if (e.col_scale) v *= e.col_scale[b * e.col_scale_b + j];
-  if (e.addend) {
-    float beta = e.beta;
-    if (e.beta_vec) beta *= e.beta_vec[b];
-    v += beta * e.addend[b * e.addend_b + (long long)i * e.addend_ld + j];
-  }
-  return v;
-}
 
 template <bool AT, bool BT, bool SYM>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {

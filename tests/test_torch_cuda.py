@@ -43,17 +43,61 @@ def test_cuda_ea_syrk(cuda, d, n, batch):
            tref.ea_syrk(M, X, 0.95, False).cpu())
 
 
+#: (d, r, n, batch, layout of U).  "contig": a (batch, d, r) tensor (r = 230:
+#: row stride 920 bytes, 8-byte aligned); "slice486": the [..., :r] column
+#: slice of a (batch, d, 486) state, as the Brand update passes it;
+#: "shared": one (d, r) matrix for the whole stack (batch stride 0).
+BRAND_CASES = [
+    (512, 230, 256, 4, "contig"), (27, 23, 16, 2, "contig"),
+    # every Brand bucket of the paper VGG's light step, and fc0
+    (512, 230, 256, 4, "slice486"), (576, 230, 256, 2, "slice486"),
+    (1152, 230, 256, 2, "slice486"), (2048, 230, 256, 2, "slice486"),
+    (2304, 230, 256, 2, "slice486"), (4608, 230, 256, 3, "slice486"),
+    (16384, 230, 256, 1, "slice486"), (16384, 230, 256, 1, "contig"),
+    (700, 33, 45, 3, "shared"), (2048, 230, 256, 2, "shared"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,r,n,batch", [(512, 230, 256, 4), (27, 23, 16, 2)])
-def test_cuda_brand_panel_and_cholqr2(cuda, d, r, n, batch):
+@pytest.mark.parametrize("d,r,n,batch,layout", BRAND_CASES)
+def test_cuda_brand_panel_and_cholqr2(cuda, d, r, n, batch, layout):
     g = torch.Generator(device=cuda).manual_seed(1)
-    U = torch.linalg.qr(torch.randn((batch, d, r), generator=g,
-                                    device=cuda))[0]
+    # row-major Q (linalg.qr returns it column-major, which ops._flat would
+    # copy to contiguous rows, hiding the strides under test)
+    qr = lambda *s: torch.linalg.qr(torch.randn(s, generator=g,
+                                                device=cuda))[0].contiguous()
+    if layout == "slice486":
+        U = qr(batch, d, 486)[..., :r]
+    elif layout == "shared":
+        U = qr(d, r).expand(batch, d, r)
+    else:
+        U = qr(batch, d, r)
     A = torch.randn((batch, d, n), generator=g, device=cuda)
-    for a, b in zip(ops.brand_panel(U, A), tref.brand_panel(U, A)):
+    assert U.stride(-1) == 1 and U.stride(-2) == {"slice486": 486}.get(
+        layout, r) and U.stride(0) == (0 if layout == "shared" else
+                                       U.stride(-2) * d)
+    got = ops.brand_panel(U, A)
+    for a, b in zip(got, tref.brand_panel(U, A)):
         _close(a.cpu(), b.cpu())
+    # ut_a sums its split-K partials in a fixed order: same bits each run
+    assert torch.equal(got[0], ops.brand_panel(U, A)[0])
     Q, R = ops.cholqr2(A)
     _close((Q @ R).cpu(), A.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_cholqr2_rsvd_panel(cuda):
+    """cholqr2 at the RSVD range finder's (2, 256, 240) panel: a Gaussian
+    256×240 block is ill-conditioned enough that the clamped spectral root
+    engages, so Q R does not reproduce A; the kernels are held to the plain
+    version on the same card instead."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    A = torch.randn((2, 256, 240), generator=g, device=cuda)
+    _build.reset_launch_counts()
+    got = ops.cholqr2(A)
+    assert _build.launch_counts()["rinv_apply"] == 2
+    for a, b in zip(got, tref.cholqr2(A)):
+        _close(a.cpu(), b.cpu())
 
 
 @pytest.mark.cuda

@@ -354,3 +354,49 @@ def test_split_k_choice():
     # two blocks per SM of 132
     assert _build.split_k(256, 256, 16384, 1) == 16
     assert _build.split_k(256, 256, 16384, 1, sym=True) == 26
+
+
+#: Blocks of the pipelined GEMM an H100 SXM holds at once in clusters of c
+#: with one or two blocks an SM, as (one, two): cudaOccupancyMaxActiveClusters
+#: × c at 67.6 KB of shared memory a block (chip_smoke.py prints them).  A
+#: cluster sits within one GPC, so clusters of 3 or more reach fewer SMs.
+H100_RESIDENT = {1: (132, 264), 2: (132, 264), 3: (117, 237), 4: (120, 248),
+                 5: (110, 235), 6: (102, 234), 7: (105, 224), 8: (120, 240)}
+
+
+#: ut_a at every Brand bucket of the paper VGG's light step (M = r = 230,
+#: N = n = 256, K = d, batch = stack) and rinv_apply at every CholeskyQR2
+#: panel of the path (M = d, N = K = n) → (splits, cluster)
+@pytest.mark.parametrize("M,N,K,batch,want", [
+    # fc0: 4 tiles; 28 splits in clusters of 4 put one block on each of 112
+    # SMs (64 in clusters of 8 would need 32 clusters; the card holds 30)
+    (230, 256, 16384, 1, (28, 4)),
+    (230, 256, 4608, 3, (10, 2)),
+    (230, 256, 2304, 2, (12, 6)),
+    (230, 256, 2048, 2, (12, 6)),
+    (230, 256, 1152, 2, (12, 6)),
+    (230, 256, 576, 2, (12, 6)),
+    (230, 256, 512, 4, (8, 2)),
+    (230, 256, 27, 1, (2, 2)),             # 16 + 11: no split left empty
+    (16384, 256, 256, 1, (1, 1)),          # rinv_apply at fc0: 256 tiles
+    (4608, 256, 256, 3, (1, 1)),
+    (2304, 256, 256, 2, (3, 3)),
+    (2048, 256, 256, 2, (2, 2)),
+    (1152, 256, 256, 2, (3, 3)),
+    (576, 256, 256, 2, (4, 4)),
+    (512, 256, 256, 4, (4, 2)),
+    (256, 240, 240, 2, (8, 8)),            # the RSVD range finder's panel
+])
+def test_split_k_choice_pipe(M, N, K, batch, want):
+    resident = lambda c, per_sm: H100_RESIDENT[c][per_sm - 1]
+    splits, cluster = _build.pipe_split(M, N, K, batch, resident)
+    assert (splits, cluster) == want
+    assert splits % cluster == 0 and cluster <= 8
+    # every block resident at once, no split empty
+    tiles = _build.pipe_tiles(M, N) * batch
+    assert tiles * splits <= resident(cluster, 2)
+    kchunk = -(-(-(-K // splits)) // 16) * 16
+    assert (splits - 1) * kchunk < K
+    # the 64×64 GEMM's choice is unchanged by the new tile's
+    assert _build.split_k(M, N, K, batch) == max(
+        1, min(264 // (-(-M // 64) * -(-N // 64) * batch), K // 256, 64))
