@@ -7,8 +7,9 @@ Phases, run in this order (each prints one JSON line):
   device   card name and power limit (nvidia-smi), torch and CUDA versions
   build    the CUDA kernels built by nvcc for sm_90a from the checkout
   kernels  every kernel body (and cholqr2 as a whole) at the shapes of the
-           main path, held against its plain PyTorch version on the card,
-           timed with CUDA events beside its bound and one PyTorch call
+           main path, held against its plain PyTorch version on the card
+           (the tensor-core kernels also against float64), timed with CUDA
+           events beside its bound and one PyTorch call
   agree    a small VGG trained a few steps on the card through the kernels
            and on the CPU through the plain versions, from the same
            weights, batches and random draws: the losses must agree
@@ -41,8 +42,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, TF32 on them (dense), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -50,8 +52,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS
+def bound_ms(flops: float, nbytes: float, tc_k: int = 0):
+    """The least time for ``flops`` fp32 operations and ``nbytes`` of
+    traffic on the route a kernel runs on: fp32 FMA, or (``tc_k``, the
+    contraction length) the tensor cores at TF32, three products an fp32
+    one (3xTF32), four where the contraction is one k-step of
+    csrc/tc_gemm.cuh."""
+    from repro_torch.kernels import _build
+    products = 4 if tc_k <= _build.TC_BK else 3
+    t_ops = (products * flops / PEAK_TF32_FLOPS if tc_k
+             else flops / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -132,7 +142,10 @@ def phase_build():
           # blocks of the pipelined GEMM resident at once, by cluster size
           "pipe_resident_blocks": {
               f"{c}x{per_sm}": _build.resident_blocks(c, per_sm)
-              for c in range(1, 9) for per_sm in (1, 2)}})
+              for c in range(1, 9) for per_sm in (1, 2)},
+          # blocks of the tensor-core GEMM resident at once, by cluster size
+          "tc_resident_blocks": {c: _build.tc_resident_blocks(c)
+                                 for c in range(1, 9)}})
 
 
 def _rel_err(got, want) -> tuple:
@@ -167,6 +180,8 @@ def phase_kernels():
 
     # tolerance: fp32 in, fp32 accumulate, another summation order over K
     # up to 16384 — error relative to the largest entry of the plain result
+    # (the tensor-core rows: fp32-accurate 3xTF32, the same tolerance, and
+    # F64_RATIO against a float64 product)
     TOL = 2e-4
     TOL_CHOLQR = 1e-3   # two eigh-based roots in the chain
     results = {}
@@ -176,14 +191,20 @@ def phase_kernels():
         return [list(x.shape) for x in args if isinstance(x, torch.Tensor)]
 
     def record(name, source, replaces, cases, kernel, plain, library, fl_by,
-               tol=TOL, bitwise=False, graph=False):
+               tol=TOL, bitwise=False, graph=False, exact=None, tc_k=None):
         """Check every case against the plain version (and, with
-        ``bitwise``, that a second launch gives the same bits), then time
-        every case (with ``graph``, also the device time of the kernel and
-        of the library call, replayed from a CUDA graph); the row's own
-        numbers are the first case's."""
+        ``bitwise``, that a second launch gives the same bits; with
+        ``exact``, the float64 result, that the kernel's largest error
+        against it is at most F64_RATIO times the plain version's), then
+        time every case (with ``graph``, also the device time of the
+        kernel and of the library call, replayed from a CUDA graph); the
+        row's own numbers are the first case's.  A row with ``tc_k`` (the
+        contraction length of a case) runs on the tensor cores: its bound
+        is the TF32 route's, and each case also prints the fp32-FMA
+        bound."""
         worst = 0.0
         worst_abs = 0.0
+        f64 = []
         for args in cases:
             got, want = kernel(*args), plain(*args)
             if bitwise and not torch.equal(got, kernel(*args)):
@@ -199,9 +220,22 @@ def phase_kernels():
             if worst > tol:
                 raise AssertionError(f"{name}: rel err {worst:.3g} > {tol} "
                                      f"at shapes {shapes(args)}")
+            if exact is not None:
+                ref64 = exact(*args)
+                e_k = float((got.double() - ref64).abs().max())
+                e_p = float((want.double() - ref64).abs().max())
+                f64.append({"f64_err": e_k, "plain_f64_err": e_p,
+                            "f64_ratio": e_k / max(e_p, 1e-300)})
+                del ref64
+                if not e_k <= F64_RATIO * e_p:
+                    raise AssertionError(
+                        f"{name}: error against float64 {e_k:.3g} > "
+                        f"{F64_RATIO} × the plain version's {e_p:.3g} at "
+                        f"shapes {shapes(args)}")
         timed = []
-        for args in cases:
-            bms, by = bound_ms(*fl_by(*args))
+        for i, args in enumerate(cases):
+            fl, nb = fl_by(*args)
+            bms, by = bound_ms(fl, nb, tc_k=tc_k(*args) if tc_k else 0)
             t = {"shape": shapes(args),
                  "ms": time_ms(lambda: kernel(*args)),
                  "plain_ms": time_ms(lambda: plain(*args)),
@@ -209,10 +243,15 @@ def phase_kernels():
                                 if library is not None else None),
                  "bound_ms": bms, "bound_by": by}
             t["bound_share"] = t["bound_ms"] / t["ms"]
+            if tc_k is not None:
+                t["bound_fp32_ms"] = bound_ms(fl, nb)[0]
+            if f64:
+                t.update(f64[i])
             if t["library_ms"] is not None:
                 t["vs_library"] = t["ms"] / t["library_ms"]
             if graph:
                 t["device_ms"] = graph_ms(lambda: kernel(*args), side)
+                t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
                 t["library_device_ms"] = graph_ms(lambda: library(*args),
                                                   side)
                 t["vs_library_device"] = (t["device_ms"]
@@ -222,6 +261,8 @@ def phase_kernels():
                "replaces": replaces, "max_abs_err": worst_abs,
                "max_rel_err": worst, "tol_rel": tol, **timed[0],
                "cases": timed} | ({"bitwise_repeat": True} if bitwise else {})
+        if f64:
+            row["max_f64_ratio"] = max(c["f64_ratio"] for c in f64)
         emit({"phase": "kernels", **row})
         results[name] = row
 
@@ -261,14 +302,19 @@ def phase_kernels():
                          F * (U.numel() + A.numel()
                               + U.shape[0] * U.shape[2] * A.shape[2])),
            bitwise=True, graph=True)
-    perp = [(A, U, ref.ut_a(U, A).contiguous()) for U, A in brand]
+    # a_perp (3xTF32 on the tensor cores) at fc0 with a contiguous U, then
+    # at every Brand bucket with the path's U, as ut_a above
+    perp = [(A, U, ref.ut_a(U, A).contiguous()) for U, A in ut_a_cases]
     record("a_perp", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:82", perp,
            bp.a_perp_batched, ref.a_perp,
            lambda A, U, C: torch.baddbmm(A, U, C, alpha=-1.0),
            lambda A, U, C: (2 * U.shape[0] * U.shape[1] * U.shape[2]
                             * A.shape[2],
-                            F * (2 * A.numel() + U.numel() + C.numel())))
+                            F * (2 * A.numel() + U.numel() + C.numel())),
+           bitwise=True, graph=True,
+           exact=lambda A, U, C: A.double() - U.double() @ C.double(),
+           tc_k=lambda A, U, C: U.shape[2])
 
     # CholeskyQR2 passes: fc0's A⊥ (1, 16384, 256) and the step-0 RSVD
     # range finder's (2, 256, 240)
@@ -325,22 +371,29 @@ def phase_kernels():
                F * (2 * J.numel() + Ug.numel() + Cg.numel() + Ua.numel()
                     + sa.numel() + 2 * ilg.numel())))
 
-    # Newton–Schulz GEMM update at NS-KFAC's largest bucket (d = 2304,
-    # B = 2), both launches of a step: T = M̂X (α, β = 0, 1; C not read)
-    # and X' = 2X − XT (α, β = 2, −1).  baddbmm computes the same function.
-    d_ns = 2304
-    Mh = (lambda a: a @ a.mT / d_ns)(rnd(2, d_ns, d_ns)).contiguous()
-    Xn = 0.1 * rnd(2, d_ns, d_ns)
-    Tn = (Mh @ Xn).contiguous()
+    # Newton–Schulz GEMM update (3xTF32 on the tensor cores) at every
+    # (B, d) of NS-KFAC's path, the largest bucket (d = 2304, B = 2) first,
+    # both launches of a step: T = M̂X (α, β = 0, 1; C not read) and
+    # X' = 2X − XT (α, β = 2, −1).  baddbmm computes the same function.
+    def ns_cases(b, d):
+        Mh = (lambda a: a @ a.mT / d)(rnd(b, d, d)).contiguous()
+        Xn = 0.1 * rnd(b, d, d)
+        Tn = (Mh @ Xn).contiguous()
+        return [(Xn, Mh, Xn, 0.0, 1.0), (Xn, Xn, Tn, 2.0, -1.0)]
+
     record("ns_gemm_update", csrc + "ns_inverse.cu",
            "src/repro/kernels/ns_inverse.py:54",
-           [(Xn, Mh, Xn, 0.0, 1.0), (Xn, Xn, Tn, 2.0, -1.0)],
+           [c for b, d in NS_BUCKETS[::-1] for c in ns_cases(b, d)],
            ns.gemm_update_batched, ref.gemm_update,
            lambda C, A, B, al, be: torch.baddbmm(C, A, B, beta=al, alpha=be),
            lambda C, A, B, al, be: (
                2 * A.shape[0] * A.shape[1] * A.shape[2] * B.shape[2],
                F * (A.numel() + B.numel() + C.numel()
-                    + (C.numel() if al != 0 else 0))))
+                    + (C.numel() if al != 0 else 0))),
+           bitwise=True, graph=True,
+           exact=lambda C, A, B, al, be: (be * (A.double() @ B.double())
+                                          + al * C.double()),
+           tc_k=lambda C, A, B, al, be: A.shape[2])
 
     # lowrank_apply: NS-KFAC's fc0 (X = (J U_G)ᵀ, 2048×16384, w = 486),
     # its conv4 bucket (3 × 512×4608), and the Alg-8 fc0 A side (the 256
@@ -472,6 +525,15 @@ def phase_agree(variant: str = "bkfac", linear_taps=()):
 BRAND_BUCKETS = ((4, 512), (2, 576), (2, 1152), (2, 2048), (2, 2304),
                  (3, 4608), (1, 16384))
 
+#: (stack, d) of the NS buckets of NS-KFAC on the paper's VGG16_bn
+#: (max_dense_dim 4096: every factor with d ≤ 2304 is NS)
+NS_BUCKETS = ((1, 10), (1, 27), (2, 64), (2, 128), (2, 256), (4, 512),
+              (2, 576), (2, 1152), (2, 2048), (2, 2304))
+
+#: the tensor-core kernels' largest error against a float64 product may be
+#: at most this many times the plain fp32 version's (cuBLAS)
+F64_RATIO = 4.0
+
 #: kernels each path must launch (the others may stay at 0 there)
 PATH_KERNELS = {
     "slice": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
@@ -484,11 +546,12 @@ PATH_KERNELS = {
 
 @contextlib.contextmanager
 def calls_by_shape():
-    """Count the wrapper calls of ut_a and rinv_apply by operand shape
-    (and U's row stride) while the block runs; the launch counters are
-    left to the wrappers."""
+    """Count the wrapper calls of ut_a, a_perp, rinv_apply and
+    ns_gemm_update by operand shape (and U's row stride) while the block
+    runs; the launch counters are left to the wrappers."""
     from repro_torch.kernels import brand_panel as bp
     from repro_torch.kernels import cholqr as cq
+    from repro_torch.kernels import ns_inverse as ns
     seen = {}
 
     def counted(mod, fn_name, key):
@@ -506,9 +569,15 @@ def calls_by_shape():
         (bp, "ut_a_batched", counted(
             bp, "ut_a_batched",
             lambda U, A: f"U {fmt(U)} ld {U.stride(1)} A {fmt(A)}")),
+        (bp, "a_perp_batched", counted(
+            bp, "a_perp_batched",
+            lambda A, U, C: f"U {fmt(U)} ld {U.stride(1)} A {fmt(A)}")),
         (cq, "rinv_apply_batched", counted(
             cq, "rinv_apply_batched",
-            lambda A, R: f"A {fmt(A)} B {fmt(R)}"))]
+            lambda A, R: f"A {fmt(A)} B {fmt(R)}")),
+        (ns, "gemm_update_batched", counted(
+            ns, "gemm_update_batched",
+            lambda C, A, B, al, be: f"A {fmt(A)} alpha {al:g}"))]
     try:
         yield seen
     finally:

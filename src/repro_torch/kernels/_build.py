@@ -31,7 +31,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("_build")
 SOURCES = ("ea_syrk.cu", "brand_panel.cu", "cholqr.cu", "precond_fused.cu",
            "ns_inverse.cu", "lowrank_apply.cu")
-HEADERS = ("gemm_common.cuh", "gemm.cuh", "sgemm_pipe.cuh")
+HEADERS = ("gemm_common.cuh", "gemm.cuh", "sgemm_pipe.cuh", "tc_gemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libkfac_kernels.so"
@@ -216,6 +216,10 @@ def mat_args(t: torch.Tensor) -> List[int]:
 
 _SMS = 132          # H100 SXM streaming multiprocessors
 _TILE = 64          # output tile of the 64×64 GEMM (gemm.cuh BM = BN)
+TC_TILE = 128       # output tile of the tensor-core GEMM (tc_gemm.cuh)
+TC_BK = 32          # its k-step
+TC_MAX_SPLIT = 8    # its largest cluster
+TC_FIXED = 2        # a block's fixed cost in its k-steps (tc_split)
 _MIN_K_PER_SPLIT = 256
 PIPE_TILE = 128     # output tile of the pipelined GEMM (sgemm_pipe.cuh)
 PIPE_BK = 16        # its k-step
@@ -335,6 +339,66 @@ def pipe_launch_args(M: int, N: int, K: int, batch: int,
                      device=like.device, dtype=torch.float32)
     counters = arrival_counters(batch * tiles * cluster, like)
     return [ws.data_ptr(), counters.data_ptr(), splits, cluster]
+
+
+def tc_tiles(M: int, N: int) -> int:
+    return -(-M // TC_TILE) * -(-N // TC_TILE)
+
+
+def tc_split(M: int, N: int, K: int, batch: int,
+             resident: Callable[[int], int]) -> int:
+    """Blocks (one cluster) to split K over on the tensor-core GEMM, 1 … 8.
+
+    ``resident(c)`` is the number of blocks the card holds at once in
+    clusters of c, one block an SM (a cluster sits within one GPC, so
+    clusters of 3 or more reach fewer SMs).  A launch is modelled as
+    (waves of blocks) × (32-deep k-steps a block + ``TC_FIXED`` for a
+    block's own fixed cost: filling the ring, the epilogue), plus one
+    k-step for the cluster launch and its sum of the partial tiles when
+    split.  The least modelled time wins, fewer splits on a tie; no split
+    is left empty."""
+    tiles = tc_tiles(M, N) * batch
+
+    def ktiles(s: int) -> int:   # k-steps of a split (the kernel's kchunk)
+        return -(-(-(-K // s)) // TC_BK)
+
+    best = (-(-tiles // resident(1)) * (ktiles(1) + TC_FIXED), 1)
+    for s in range(2, TC_MAX_SPLIT + 1):
+        if (s - 1) * ktiles(s) * TC_BK >= K:       # a split would be empty
+            continue
+        waves = -(-tiles * s // resident(s))
+        best = min(best, (waves * (ktiles(s) + TC_FIXED) + 1, s))
+    return best[1]
+
+
+_TC_RESIDENT: Dict[Tuple[int, int], int] = {}
+
+
+def tc_resident_blocks(cluster: int) -> int:
+    """Blocks of the tensor-core GEMM the current card holds at once in
+    clusters of ``cluster`` (cudaOccupancyMaxActiveClusters), cached."""
+    key = (torch.cuda.current_device(), cluster)
+    if key not in _TC_RESIDENT:
+        fn = load().kfk_tc_resident_blocks
+        fn.argtypes, fn.restype = [I], ctypes.c_int
+        n = fn(cluster)
+        if n <= 0:
+            raise RuntimeError(f"cluster occupancy query failed: "
+                               f"cudaError {-n}")
+        _TC_RESIDENT[key] = n
+    return _TC_RESIDENT[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_split_cached(M: int, N: int, K: int, batch: int, device: int) -> int:
+    return tc_split(M, N, K, batch, tc_resident_blocks)
+
+
+def tc_launch_split(M: int, N: int, K: int, batch: int,
+                    like: torch.Tensor) -> int:
+    """The split choice of a tensor-core GEMM launch on ``like``'s card,
+    cached by shape."""
+    return _tc_split_cached(M, N, K, batch, like.device.index)
 
 
 def workspace(splits: int, batch: int, M: int, N: int,

@@ -18,7 +18,7 @@ UT_A = B.Kernel("ut_a", "kfk_ut_a",
                  B.I, B.I, B.I, B.I, B.I, B.I])
 A_PERP = B.Kernel("a_perp", "kfk_a_perp",
                   [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P,
-                   B.I, B.I, B.I, B.I])
+                   B.I, B.I, B.I, B.I, B.I])
 
 
 def ut_a_batched(U: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -37,15 +37,18 @@ def ut_a_batched(U: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 
 def a_perp_batched(A: torch.Tensor, U: torch.Tensor, C: torch.Tensor
                    ) -> torch.Tensor:
-    """A⊥ = A − U C.  A: (B, d, n), U: (B, d, r), C: (B, r, n)."""
+    """A⊥ = A − U C.  A: (B, d, n), U: (B, d, r), C: (B, r, n).  One
+    launch on the 3xTF32 tensor-core mainloop, bitwise the same from run
+    to run."""
     batch, d, n = A.shape
     r = U.shape[-1]
     B.check_stack("a_perp", batch, A=A, U=U, C=C)
     B.check_shape("a_perp", "U", U, (batch, d, r))
     B.check_shape("a_perp", "C", C, (batch, r, n))
     P = torch.empty((batch, d, n), device=A.device, dtype=torch.float32)
+    splits = B.tc_launch_split(d, n, r, batch, A)
     A_PERP(*B.mat_args(A), *B.mat_args(U), *B.mat_args(C), B.ptr(P),
-           batch, d, r, n)
+           batch, d, r, n, splits)
     return P
 
 

@@ -6,25 +6,30 @@
 // ut_a_batched_pallas (body _ut_a_kernel) and a_perp_batched_pallas (body
 // _a_perp_kernel), composed there by brand_panel_batched_pallas.
 //
-// Bound on an H100: operations.  At fc0 (d = 16384, r = 230, n = 256) each
-// launch is 1.9 GFLOP against ~33 MB (ut_a) or ~50 MB (a_perp) of traffic,
-// ~40–60 FLOP per byte, above the fp32 ridge of 20.
+// Bound on an H100, at fc0 (d = 16384, r = 230, n = 256), each launch 1.9
+// GFLOP: ut_a by operations (fp32 FMA, 0.029 ms; ~33 MB of traffic);
+// a_perp, on the tensor cores, by bytes: it reads A (16.8 MB) and U
+// (15.1 MB) and writes A⊥ (16.8 MB), 0.0146 ms at 3.35 TB/s against
+// 0.0117 ms of 3xTF32 work.
 //
-// Mainloops: ut_a runs on the pipelined 128×128 mainloop of sgemm_pipe.cuh;
-// a_perp stays on the 64×64 one of gemm.cuh.
+// Mainloops: ut_a runs on the pipelined 128×128 SIMT mainloop of
+// sgemm_pipe.cuh; a_perp on the 3xTF32 wgmma mainloop of tc_gemm.cuh.
 //
 // Design: ut_a reduces over d into a small 230×256 output — only 4 output
 // tiles of 128×128 per factor, far too few blocks for 132 SMs.  The wrapper
 // therefore splits d across blocks (split-K: 28 splits in clusters of 4 at
 // fc0, one block on each of 112 SMs), and the mainloop sums the partials
-// in one launch, in a fixed order (sgemm_pipe.cuh).  U arrives as the column slice [:, :230] of the (d, 486)
-// Brand state, whose rows are 8-byte aligned: it is read by 8-byte
-// cp.async, in place.  a_perp has d/64 row blocks and needs no split; its
-// epilogue fuses the subtraction (alpha = −1, addend A), so A⊥ is written
-// once.  C (230×256 fp32, 235 KB) is re-read by every row block and stays
-// in the 50 MB L2 rather than in shared memory.
-#include "gemm.cuh"
+// in one launch, in a fixed order (sgemm_pipe.cuh).  U arrives as the
+// column slice [:, :230] of the (d, 486) Brand state, whose rows are
+// 8-byte aligned: both kernels read it by 8-byte cp.async, in place.
+// a_perp has d/128 row stripes of two 128-column tiles; the two tiles of
+// a stripe are neighbours in the grid, so U is read from HBM once, and
+// its K = 230 runs as 232 (zero-filled).  Its epilogue fuses the subtraction
+// (alpha = −1, addend A, read as 16-byte vectors), so A⊥ is written once.
+// C (230×256 fp32, 235 KB) is re-read by every block and stays in the
+// 50 MB L2.  Small buckets split K over a cluster (_build.tc_split).
 #include "sgemm_pipe.cuh"
+#include "tc_gemm.cuh"
 
 extern "C" int kfk_ut_a(const float* U, long long ldU, long long sU,
                         const float* A, long long ldA, long long sA,
@@ -48,7 +53,7 @@ extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
                           const float* U, long long ldU, long long sU,
                           const float* C, long long ldC, long long sC,
                           float* P, int batch, int d, int r, int n,
-                          void* stream) {
+                          int splits, void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = d;
@@ -62,7 +67,8 @@ extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
   p.epi.addend_ld = ldA;
   p.epi.addend_b = sA;
   p.epi.beta = 1.f;
-  return (int)kfk::gemm<false, false>(p, (cudaStream_t)stream);
+  p.splits = splits;
+  return (int)kfk::tc::tc_gemm(p, (cudaStream_t)stream);
 }
 
 // Blocks of the pipelined GEMM resident at once in clusters of `cluster`,

@@ -1,9 +1,9 @@
 // Batched, tiled fp32 GEMM with a fused epilogue: the simple 64×64 SIMT
-// mainloop.  ea_syrk, a_perp, syrk_tn, ns_gemm_update, lowrank_apply and
-// both precond_fused passes run on it; ut_a and rinv_apply run on the
-// pipelined 128×128 mainloop of sgemm_pipe.cuh, which takes the same
-// Problem (gemm_common.cuh), so a kernel moves by changing its
-// instantiation.
+// mainloop.  ea_syrk, syrk_tn, lowrank_apply and both precond_fused
+// passes run on it; ut_a and rinv_apply run on the pipelined 128×128 SIMT
+// mainloop of sgemm_pipe.cuh, ns_gemm_update and a_perp on the 3xTF32
+// tensor-core mainloop of tc_gemm.cuh.  All three take the same Problem
+// (gemm_common.cuh), so a kernel moves by changing its instantiation.
 //
 // The problem (operands, strides, epilogue) is described in
 // gemm_common.cuh.  The template flags say how each stored matrix maps
@@ -30,8 +30,8 @@
 // with its own epilogue (so an addend need not be symmetric).  The split-K
 // pass reads a lower entry's partials from its mirror.  A template flag,
 // so that the other products compile without its branches (as a run-time
-// flag it slowed a_perp, rinv_apply and precond_apply by 6–12 % on an
-// H100).
+// flag it slowed the general products — a_perp, rinv_apply and
+// precond_apply, as they stood then — by 6–12 % on an H100).
 //
 // Bound on an H100: fp32 FMA throughput (67 TFLOP/s) for the large
 // products.  This mainloop reaches 18–31 % of it: each thread reads 8

@@ -10,19 +10,24 @@
 //
 // Bound on an H100: operations.  At the largest bucket of the paper VGG
 // under nskfac (d = 2304, B = 2) a launch is 2·B·d³ ≈ 49 GFLOP against
-// 4·4·B·d² ≈ 170 MB: 0.73 ms of fp32 FMA at 67 TFLOP/s, 0.05 ms of
-// memory.  Design: the shared tiled GEMM (gemm.cuh) as it is — β is the
-// epilogue's product scale `alpha`, α the addend's `beta` — so C and the
-// output make one round trip.  It is a general product: X·T is not
-// symmetric in floating point, so the SYM instantiation is not used.
-#include "gemm.cuh"
+// 4·4·B·d² ≈ 170 MB: 0.296 ms of 3xTF32 tensor-core work at 495 TFLOP/s
+// (0.73 ms of fp32 FMA at 67 TFLOP/s), 0.05 ms of memory.
+//
+// Design: the 3xTF32 wgmma mainloop of tc_gemm.cuh — β is the epilogue's
+// product scale `alpha`, α the addend's `beta` — so C and the output make
+// one round trip.  128×128 tiles: 648 blocks at d = 2304, B = 2, one an
+// SM, no split.  The smaller buckets (d = 10 … 2048) split K over a
+// cluster of up to 8 blocks when their tiles leave SMs idle
+// (_build.tc_split), summed in one launch in a fixed order.  It is a
+// general product: X·T is not symmetric in floating point.
+#include "tc_gemm.cuh"
 
 extern "C" int kfk_ns_gemm_update(const float* C, long long ldC, long long sC,
                                   const float* A, long long ldA, long long sA,
                                   const float* B, long long ldB, long long sB,
-                                  float* out, float* ws, int batch, int m,
-                                  int n, int k, float alpha, float beta,
-                                  int splits, void* stream) {
+                                  float* out, int batch, int m, int n, int k,
+                                  float alpha, float beta, int splits,
+                                  void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = m;
@@ -39,6 +44,12 @@ extern "C" int kfk_ns_gemm_update(const float* C, long long ldC, long long sC,
     p.epi.beta = alpha;
   }
   p.splits = splits;
-  p.ws = ws;
-  return (int)kfk::gemm<false, false>(p, (cudaStream_t)stream);
+  return (int)kfk::tc::tc_gemm(p, (cudaStream_t)stream);
+}
+
+// Blocks of the tensor-core GEMM resident at once in clusters of
+// `cluster`, one an SM (negative: a CUDA error); the wrappers size
+// split-K by them.
+extern "C" int kfk_tc_resident_blocks(int cluster) {
+  return kfk::tc::resident_blocks(cluster);
 }

@@ -90,29 +90,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// Copy V floats (4, 8 or 16 bytes) global → shared; the bytes past
-// `src_bytes` are zero-filled (src_bytes = 0: nothing is read).
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (V == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-                 "l"(src), "n"(V * 4), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // One BK × 128 tile of an operand stored k-major ([K][X], X contiguous)
 // into dst[k][x]: vectors of V floats.  A thread's column is the same in
 // every pass; its row steps by THREADS / (BM / V).
@@ -152,29 +129,6 @@ __device__ __forceinline__ void load_xmajor(float* dst, const float* src,
     cp_async<1>(dst + k * LD + x + l * STEP, in ? g : src, in ? 4 : 0);
     g += STEP * ld;
   }
-}
-
-// Store four consecutive outputs (i, j … j+3) through the epilogue.
-__device__ __forceinline__ void store4(const Problem& p, int b, int i, int j,
-                                       float4 v) {
-  if (i >= p.M) return;
-  float* c = p.C + ((long long)b * p.M + i) * p.N + j;
-  if (j + 3 < p.N && (p.N & 3) == 0 && ((uintptr_t)p.C & 15) == 0) {
-    *reinterpret_cast<float4*>(c) =
-        make_float4(epilogue_value(p, b, i, j, v.x),
-                    epilogue_value(p, b, i, j + 1, v.y),
-                    epilogue_value(p, b, i, j + 2, v.z),
-                    epilogue_value(p, b, i, j + 3, v.w));
-    return;
-  }
-  const float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    if (j + t < p.N) c[t] = epilogue_value(p, b, i, j + t, e[t]);
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // AT/BT as in gemm.cuh; VA/VB: copy width (floats) of a k-major operand.
@@ -402,15 +356,6 @@ inline int resident_blocks(int cluster, int per_sm) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err == cudaSuccess) err = reset;
   return err == cudaSuccess ? n * cluster : -(int)err;
-}
-
-// Copy width (floats) at which every row of an operand is aligned.
-inline int vec_width(const Operand& o) {
-  auto aligned = [&](long long bytes) {
-    return (uintptr_t)o.ptr % bytes == 0 && (o.ld * 4) % bytes == 0 &&
-           (o.bstride * 4) % bytes == 0;
-  };
-  return aligned(16) ? 4 : aligned(8) ? 2 : 1;
 }
 
 template <bool AT, bool BT, int VA, int VB>

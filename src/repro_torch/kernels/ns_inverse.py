@@ -2,8 +2,9 @@
 out = α·C + β·A B — the Newton–Schulz refinement's building block.
 
 Counterpart of ``src/repro/kernels/ns_inverse.py`` (Pallas,
-``gemm_update_batched_pallas``); the kernel is ``csrc/ns_inverse.cu`` and
-its plain version ``ref.gemm_update`` (``ref.ns_step`` for a whole step).
+``gemm_update_batched_pallas``); the kernel is ``csrc/ns_inverse.cu``, on
+the 3xTF32 tensor-core mainloop of ``csrc/tc_gemm.cuh``, and its plain
+version ``ref.gemm_update`` (``ref.ns_step`` for a whole step).
 With α = 0 the addend C is not read and may be ``None``.  CUDA tensors
 only — ``ops.ns_step`` dispatches and sends CPU tensors to the plain
 version.
@@ -17,7 +18,7 @@ import torch
 from repro_torch.kernels import _build as B
 
 KERNEL = B.Kernel("ns_gemm_update", "kfk_ns_gemm_update",
-                  [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P,
+                  [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P,
                    B.I, B.I, B.I, B.I, B.F, B.F, B.I])
 
 
@@ -39,9 +40,8 @@ def gemm_update_batched(C: Optional[torch.Tensor], A: torch.Tensor,
     else:
         c_args = [B.P(0), B.L(0), B.L(0)]
     out = torch.empty((batch, m, n), device=A.device, dtype=torch.float32)
-    splits = B.split_k(m, n, k, batch)
-    ws = B.workspace(splits, batch, m, n, A)
-    KERNEL(*c_args, *B.mat_args(A), *B.mat_args(Bm), B.ptr(out), B.ptr(ws),
+    splits = B.tc_launch_split(m, n, k, batch, A)
+    KERNEL(*c_args, *B.mat_args(A), *B.mat_args(Bm), B.ptr(out),
            batch, m, n, k, float(alpha), float(beta), splits)
     return out
 

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import brand_panel as tbp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 TOL = dict(atol=2e-3, rtol=2e-3)
@@ -86,6 +87,30 @@ def test_cuda_brand_panel_and_cholqr2(cuda, d, r, n, batch, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,r,n,batch,layout", BRAND_CASES)
+def test_cuda_a_perp(cuda, d, r, n, batch, layout):
+    """a_perp alone (the 3xTF32 tensor-core mainloop) at every U layout of
+    BRAND_CASES, ragged K = r = 230 and 23 included: against the plain
+    version, the same bits on a second launch, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qr = lambda *s: torch.linalg.qr(torch.randn(s, generator=g,
+                                                device=cuda))[0].contiguous()
+    if layout == "slice486":
+        U = qr(batch, d, 486)[..., :r]
+    elif layout == "shared":
+        U = qr(d, r).expand(batch, d, r)
+    else:
+        U = qr(batch, d, r)
+    A = torch.randn((batch, d, n), generator=g, device=cuda)
+    C = tref.ut_a(U, A).contiguous()
+    _build.reset_launch_counts()
+    got = tbp.a_perp_batched(A, U, C)
+    assert _build.launch_counts()["a_perp"] == 1
+    _close(got.cpu(), tref.a_perp(A, U, C).cpu())
+    assert torch.equal(got, tbp.a_perp_batched(A, U, C))
+
+
+@pytest.mark.cuda
 def test_cuda_cholqr2_rsvd_panel(cuda):
     """cholqr2 at the RSVD range finder's (2, 256, 240) panel: a Gaussian
     256×240 block is ill-conditioned enough that the clamped spectral root
@@ -130,11 +155,14 @@ def test_cuda_launch_counts_and_shared_stack(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(128, 128), (3, 128, 128),
-                                   (2, 2, 200, 200), (96, 96), (2, 10, 10)])
+                                   (2, 2, 200, 200), (96, 96), (2, 10, 10),
+                                   (2, 2304, 2304)])
 def test_cuda_ns_step(cuda, shape):
     """Both launches of a Newton–Schulz step (the shapes of
-    tests/test_ns_inverse.py, plus d = 10); the reference's tolerance
-    there, atol 1e-3, rtol 1e-4."""
+    tests/test_ns_inverse.py, plus d = 10 and NS-KFAC's largest bucket on
+    the paper VGG) on the 3xTF32 tensor-core mainloop; the reference's
+    tolerance there, atol 1e-3, rtol 1e-4; the same bits on a second
+    step."""
     g = torch.Generator(device=cuda).manual_seed(4)
     A = torch.randn(shape, generator=g, device=cuda)
     M = A @ A.mT / shape[-1]
@@ -143,6 +171,7 @@ def test_cuda_ns_step(cuda, shape):
     got = ops.ns_step(M, X)
     assert _build.launch_counts()["ns_gemm_update"] == 2
     _close(got.cpu(), tref.ns_step(M, X).cpu(), atol=1e-3, rtol=1e-4)
+    assert torch.equal(got, ops.ns_step(M, X))
 
 
 @pytest.mark.cuda
