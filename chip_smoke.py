@@ -156,6 +156,7 @@ def _rel_err(got, want) -> tuple:
 
 def phase_kernels():
     """Each kernel body at the path's shapes against its plain version."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import brand_panel as bp
@@ -269,21 +270,29 @@ def phase_kernels():
     F = 4  # bytes per fp32
     csrc = "src/repro_torch/kernels/csrc/"
 
-    # ea_syrk: B-KFAC's largest bucket (RSVD d=256, B=2) first, then
-    # d = 27 and 10, then NS-KFAC's largest (d = 2304, B = 2)
-    keep, coef = 0.95, 1.0 - 0.95
+    # ea_syrk (3xTF32 on the tensor cores, one triangle of X Xᵀ): B-KFAC's
+    # largest dense bucket (RSVD d = 256, B = 2) first, then every dense
+    # bucket of the two paths (B-KFAC's d ≤ 256 are NS-KFAC's smallest
+    # five), X (B, d, 256) with its n = 256 stats rows; keep and coef as
+    # ops.ea_syrk computes them in fp32
+    keep = float(np.float32(0.95))
+    coef = float(np.float32(1.0) - np.float32(0.95))
     sym = lambda b, d: (lambda m: (m + m.mT) / 2)(rnd(b, d, d)).contiguous()
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
-           [(sym(2, 256), rnd(2, 256, 256)), (sym(1, 27), rnd(1, 27, 256)),
-            (sym(1, 10), rnd(1, 10, 256)),
-            (sym(2, 2304), rnd(2, 2304, 256))],
+           [(sym(b, d), rnd(b, d, 256))
+            for b, d in ((2, 256),) + tuple(x for x in NS_BUCKETS
+                                            if x != (2, 256))],
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
            # X Xᵀ is symmetric: n·d·(d+1) FLOP for one triangle
            lambda M, X: (X.shape[0] * X.shape[2] * X.shape[1]
                          * (X.shape[1] + 1),
-                         F * (2 * M.numel() + X.numel())))
+                         F * (2 * M.numel() + X.numel())),
+           bitwise=True, graph=True,
+           exact=lambda M, X: (keep * M.double()
+                               + coef * (X.double() @ X.double().mT)),
+           tc_k=lambda M, X: X.shape[2])
 
     # Brand panel: fc0's bucket (d = 16384, B = 1) and the d = 512, B = 4
     brand = [(orth(1, 16384, 230), rnd(1, 16384, 256)),
@@ -316,23 +325,26 @@ def phase_kernels():
            exact=lambda A, U, C: A.double() - U.double() @ C.double(),
            tc_k=lambda A, U, C: U.shape[2])
 
-    # CholeskyQR2 passes: fc0's A⊥ (1, 16384, 256) and the step-0 RSVD
-    # range finder's (2, 256, 240)
-    panels = [(rnd(1, 16384, 256),), (rnd(2, 256, 240),)]
+    # CholeskyQR2 passes: fc0's A⊥ (1, 16384, 256), every other Brand
+    # bucket's (B, d, 256) and the step-0 RSVD range finder's (2, 256, 240)
+    panels = ([(rnd(1, 16384, 256),)]
+              + [(rnd(b, d, 256),) for b, d in BRAND_BUCKETS[:-1]]
+              + [(rnd(2, 256, 240),)])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
            # AᵀA is symmetric: d·n·(n+1) FLOP for one triangle
            lambda A: (A.shape[0] * A.shape[1] * A.shape[2]
                       * (A.shape[2] + 1),
-                      F * (A.numel() + A.shape[0] * A.shape[2] ** 2)))
+                      F * (A.numel() + A.shape[0] * A.shape[2] ** 2)),
+           bitwise=True, graph=True,
+           exact=lambda A: A.double().mT @ A.double(),
+           tc_k=lambda A: A.shape[1])
     # rinv_apply at fc0's A⊥, then every Brand bucket's (B, d, 256) and the
     # RSVD range finder's (2, 256, 240)
     roots = [(A, ref.gram_inv_sqrt(ref.syrk_tn(A), ref.CHOLQR_FLOOR_RESOLVE,
                                    "tr")[1].contiguous())
-             for A in [panels[0][0]]
-             + [rnd(b, d, 256) for b, d in BRAND_BUCKETS[:-1]]
-             + [panels[1][0]]]
+             for (A,) in panels]
     record("rinv_apply", csrc + "cholqr.cu",
            "src/repro/kernels/cholqr.py:95", roots,
            cq.rinv_apply_batched, ref.rinv_apply, torch.bmm,
@@ -546,11 +558,12 @@ PATH_KERNELS = {
 
 @contextlib.contextmanager
 def calls_by_shape():
-    """Count the wrapper calls of ut_a, a_perp, rinv_apply and
-    ns_gemm_update by operand shape (and U's row stride) while the block
-    runs; the launch counters are left to the wrappers."""
+    """Count the wrapper calls of ea_syrk, ut_a, a_perp, syrk_tn,
+    rinv_apply and ns_gemm_update by operand shape (and U's row stride)
+    while the block runs; the launch counters are left to the wrappers."""
     from repro_torch.kernels import brand_panel as bp
     from repro_torch.kernels import cholqr as cq
+    from repro_torch.kernels import ea_syrk as ea
     from repro_torch.kernels import ns_inverse as ns
     seen = {}
 
@@ -566,6 +579,11 @@ def calls_by_shape():
 
     fmt = lambda t: "x".join(map(str, t.shape))
     saved = [
+        (ea, "ea_syrk_batched", counted(
+            ea, "ea_syrk_batched",
+            lambda M, X, keep, coef: f"X {fmt(X)}")),
+        (cq, "syrk_tn_batched", counted(
+            cq, "syrk_tn_batched", lambda A: f"A {fmt(A)}")),
         (bp, "ut_a_batched", counted(
             bp, "ut_a_batched",
             lambda U, A: f"U {fmt(U)} ld {U.stride(1)} A {fmt(A)}")),

@@ -219,21 +219,19 @@ _TILE = 64          # output tile of the 64×64 GEMM (gemm.cuh BM = BN)
 TC_TILE = 128       # output tile of the tensor-core GEMM (tc_gemm.cuh)
 TC_BK = 32          # its k-step
 TC_MAX_SPLIT = 8    # its largest cluster
-TC_FIXED = 2        # a block's fixed cost in its k-steps (tc_split)
+TC_FIXED = 2        # a block's fixed cost in its k-steps (tc_plan)
 _MIN_K_PER_SPLIT = 256
 PIPE_TILE = 128     # output tile of the pipelined GEMM (sgemm_pipe.cuh)
 PIPE_BK = 16        # its k-step
 PIPE_MAX_CLUSTER = 8
 
 
-def split_k(M: int, N: int, K: int, batch: int, sym: bool = False) -> int:
-    """Blocks to split a long contraction over when the output has too few
-    tiles to fill the card: at most two blocks per SM (rounded down, so no
-    SM gets a third while others wait), with at least ``_MIN_K_PER_SPLIT``
-    of K per split.  A symmetric product (``sym``, M == N) computes only
-    the tiles on or above the diagonal."""
-    tm, tn = -(-M // _TILE), -(-N // _TILE)
-    tiles = (tm * (tm + 1) // 2 if sym else tm * tn) * batch
+def split_k(M: int, N: int, K: int, batch: int) -> int:
+    """Blocks to split a long contraction over on the 64×64 GEMM when the
+    output has too few tiles to fill the card: at most two blocks per SM
+    (rounded down, so no SM gets a third while others wait), with at least
+    ``_MIN_K_PER_SPLIT`` of K per split."""
+    tiles = -(-M // _TILE) * -(-N // _TILE) * batch
     return max(1, min(2 * _SMS // tiles, K // _MIN_K_PER_SPLIT, 64))
 
 
@@ -303,10 +301,11 @@ _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def arrival_counters(n: int, like: torch.Tensor) -> torch.Tensor:
-    """At least ``n`` int32 arrival counters for the pipelined GEMM's
-    split-K, one buffer per device and stream.  Zeroed once, when
-    allocated; every launch leaves them at 0 (the last block to arrive on a
-    counter resets it), so launches on one stream can share them."""
+    """At least ``n`` int32 arrival counters for the split-K of the
+    pipelined and the tensor-core GEMM, one buffer per device and stream.
+    Zeroed once, when allocated; every launch leaves them at 0 (the last
+    block to arrive on a counter resets it), so launches on one stream can
+    share them."""
     key = (like.device.index,
            torch.cuda.current_stream(like.device).cuda_stream)
     buf = _COUNTERS.get(key)
@@ -341,13 +340,18 @@ def pipe_launch_args(M: int, N: int, K: int, batch: int,
     return [ws.data_ptr(), counters.data_ptr(), splits, cluster]
 
 
-def tc_tiles(M: int, N: int) -> int:
-    return -(-M // TC_TILE) * -(-N // TC_TILE)
+def tc_tiles(M: int, N: int, sym: bool = False) -> int:
+    """Output tiles of a tensor-core GEMM launch: under ``sym`` (M == N)
+    only those on or above the diagonal."""
+    t = -(-M // TC_TILE)
+    return t * (t + 1) // 2 if sym else t * -(-N // TC_TILE)
 
 
-def tc_split(M: int, N: int, K: int, batch: int,
-             resident: Callable[[int], int]) -> int:
-    """Blocks (one cluster) to split K over on the tensor-core GEMM, 1 … 8.
+def tc_plan(M: int, N: int, K: int, batch: int,
+            resident: Callable[[int], int],
+            sym: bool = False) -> Tuple[int, int]:
+    """(splits, cluster) of a product on the tensor-core GEMM: K split over
+    ``splits`` blocks in clusters of ``cluster`` ≤ 8.
 
     ``resident(c)`` is the number of blocks the card holds at once in
     clusters of c, one block an SM (a cluster sits within one GPC, so
@@ -355,20 +359,40 @@ def tc_split(M: int, N: int, K: int, batch: int,
     (waves of blocks) × (32-deep k-steps a block + ``TC_FIXED`` for a
     block's own fixed cost: filling the ring, the epilogue), plus one
     k-step for the cluster launch and its sum of the partial tiles when
-    split.  The least modelled time wins, fewer splits on a tie; no split
-    is left empty."""
-    tiles = tc_tiles(M, N) * batch
+    split.  More than one cluster a tile (splits = G · cluster) is tried
+    only where one cluster of 8 a tile leaves SMs idle, and only in one
+    wave; it costs one k-step more for the workspace and the arrival
+    counters, and (G − 1) / cluster for the last block's sum of the G
+    cluster partials.  The least modelled time wins, fewer splits on a
+    tie; no split is left empty.  ``sym``: only the triangle's tiles."""
+    tiles = tc_tiles(M, N, sym) * batch
 
     def ktiles(s: int) -> int:   # k-steps of a split (the kernel's kchunk)
         return -(-(-(-K // s)) // TC_BK)
 
-    best = (-(-tiles // resident(1)) * (ktiles(1) + TC_FIXED), 1)
+    def empty(s: int) -> bool:   # the last split would get no k
+        return (s - 1) * ktiles(s) * TC_BK >= K
+
+    best = (-(-tiles // resident(1)) * (ktiles(1) + TC_FIXED), 1, 1)
     for s in range(2, TC_MAX_SPLIT + 1):
-        if (s - 1) * ktiles(s) * TC_BK >= K:       # a split would be empty
+        if empty(s):
             continue
         waves = -(-tiles * s // resident(s))
-        best = min(best, (waves * (ktiles(s) + TC_FIXED) + 1, s))
-    return best[1]
+        best = min(best, (waves * (ktiles(s) + TC_FIXED) + 1, s, s))
+    if tiles * TC_MAX_SPLIT < resident(TC_MAX_SPLIT):
+        for c in range(2, TC_MAX_SPLIT + 1):
+            for s in range(2 * c, resident(c) // tiles + 1, c):
+                if empty(s):
+                    continue
+                cost = ktiles(s) + TC_FIXED + 2 + (s // c - 1) / c
+                best = min(best, (cost, s, c))
+    return best[1], best[2]
+
+
+def tc_split(M: int, N: int, K: int, batch: int,
+             resident: Callable[[int], int]) -> int:
+    """The splits of ``tc_plan`` for a general (not symmetric) product."""
+    return tc_plan(M, N, K, batch, resident)[0]
 
 
 _TC_RESIDENT: Dict[Tuple[int, int], int] = {}
@@ -390,15 +414,26 @@ def tc_resident_blocks(cluster: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _tc_split_cached(M: int, N: int, K: int, batch: int, device: int) -> int:
-    return tc_split(M, N, K, batch, tc_resident_blocks)
+def _tc_plan_cached(M: int, N: int, K: int, batch: int, sym: bool,
+                    device: int) -> Tuple[int, int]:
+    return tc_plan(M, N, K, batch, tc_resident_blocks, sym)
 
 
-def tc_launch_split(M: int, N: int, K: int, batch: int,
-                    like: torch.Tensor) -> int:
-    """The split choice of a tensor-core GEMM launch on ``like``'s card,
-    cached by shape."""
-    return _tc_split_cached(M, N, K, batch, like.device.index)
+def tc_launch_args(M: int, N: int, K: int, batch: int, like: torch.Tensor,
+                   sym: bool = False) -> List:
+    """[ws, counters, splits, cluster] for a launch of the tensor-core GEMM
+    on ``like``'s card: the plan (cached by shape), and the workspace
+    (splits / cluster, batch, tiles, 128, 128) and arrival counters only
+    when more than one cluster shares a tile."""
+    splits, cluster = _tc_plan_cached(M, N, K, batch, sym,
+                                      like.device.index)
+    if splits == cluster:
+        return [0, 0, splits, cluster]
+    tiles = tc_tiles(M, N, sym)
+    ws = torch.empty((splits // cluster, batch, tiles, TC_TILE, TC_TILE),
+                     device=like.device, dtype=torch.float32)
+    counters = arrival_counters(batch * tiles * cluster, like)
+    return [ws.data_ptr(), counters.data_ptr(), splits, cluster]
 
 
 def workspace(splits: int, batch: int, M: int, N: int,

@@ -17,8 +17,8 @@ UT_A = B.Kernel("ut_a", "kfk_ut_a",
                 [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P, B.P,
                  B.I, B.I, B.I, B.I, B.I, B.I])
 A_PERP = B.Kernel("a_perp", "kfk_a_perp",
-                  [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P,
-                   B.I, B.I, B.I, B.I, B.I])
+                  [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P,
+                   B.P, B.I, B.I, B.I, B.I, B.I, B.I])
 
 
 def ut_a_batched(U: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -46,9 +46,9 @@ def a_perp_batched(A: torch.Tensor, U: torch.Tensor, C: torch.Tensor
     B.check_shape("a_perp", "U", U, (batch, d, r))
     B.check_shape("a_perp", "C", C, (batch, r, n))
     P = torch.empty((batch, d, n), device=A.device, dtype=torch.float32)
-    splits = B.tc_launch_split(d, n, r, batch, A)
-    A_PERP(*B.mat_args(A), *B.mat_args(U), *B.mat_args(C), B.ptr(P),
-           batch, d, r, n, splits)
+    ws, counters, splits, cluster = B.tc_launch_args(d, n, r, batch, A)
+    A_PERP(*B.mat_args(A), *B.mat_args(U), *B.mat_args(C), B.ptr(P), ws,
+           counters, batch, d, r, n, splits, cluster)
     return P
 
 

@@ -17,20 +17,22 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels import ref
 
 SYRK_TN = B.Kernel("syrk_tn", "kfk_syrk_tn",
-                   [B.P, B.L, B.L, B.P, B.P, B.I, B.I, B.I, B.I])
+                   [B.P, B.L, B.L, B.P, B.P, B.P, B.I, B.I, B.I, B.I, B.I])
 RINV_APPLY = B.Kernel("rinv_apply", "kfk_rinv_apply",
                       [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.P, B.P,
                        B.I, B.I, B.I, B.I, B.I])
 
 
 def syrk_tn_batched(A: torch.Tensor) -> torch.Tensor:
-    """G = AᵀA in fp32.  A: (B, d, n) → (B, n, n)."""
+    """G = AᵀA in fp32.  A: (B, d, n) → (B, n, n).  One launch on the
+    3xTF32 tensor-core mainloop, bitwise the same from run to run."""
     batch, d, n = A.shape
     B.check_stack("syrk_tn", batch, A=A)
     G = torch.empty((batch, n, n), device=A.device, dtype=torch.float32)
-    splits = B.split_k(n, n, d, batch, sym=True)
-    ws = B.workspace(splits, batch, n, n, A)
-    SYRK_TN(*B.mat_args(A), B.ptr(G), B.ptr(ws), batch, d, n, splits)
+    ws, counters, splits, cluster = B.tc_launch_args(n, n, d, batch, A,
+                                                     sym=True)
+    SYRK_TN(*B.mat_args(A), B.ptr(G), ws, counters, batch, d, n, splits,
+            cluster)
     return G
 
 

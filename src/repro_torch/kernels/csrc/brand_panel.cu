@@ -27,7 +27,7 @@
 // its K = 230 runs as 232 (zero-filled).  Its epilogue fuses the subtraction
 // (alpha = −1, addend A, read as 16-byte vectors), so A⊥ is written once.
 // C (230×256 fp32, 235 KB) is re-read by every block and stays in the
-// 50 MB L2.  Small buckets split K over a cluster (_build.tc_split).
+// 50 MB L2.  Small buckets split K over a cluster (_build.tc_plan).
 #include "sgemm_pipe.cuh"
 #include "tc_gemm.cuh"
 
@@ -52,8 +52,9 @@ extern "C" int kfk_ut_a(const float* U, long long ldU, long long sU,
 extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
                           const float* U, long long ldU, long long sU,
                           const float* C, long long ldC, long long sC,
-                          float* P, int batch, int d, int r, int n,
-                          int splits, void* stream) {
+                          float* P, float* ws, int* counters, int batch,
+                          int d, int r, int n, int splits, int cluster,
+                          void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = d;
@@ -68,7 +69,9 @@ extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
   p.epi.addend_b = sA;
   p.epi.beta = 1.f;
   p.splits = splits;
-  return (int)kfk::tc::tc_gemm(p, (cudaStream_t)stream);
+  p.ws = ws;
+  return (int)kfk::tc::tc_gemm<false, false, false>(p, cluster, counters,
+                                                    (cudaStream_t)stream);
 }
 
 // Blocks of the pipelined GEMM resident at once in clusters of `cluster`,

@@ -10,30 +10,37 @@
 // rinv_apply_batched_pallas (body _rinv_apply_kernel), orchestrated by
 // cholqr2_batched_pallas.
 //
-// Bound on an H100: operations.  At fc0's A⊥ (d = 16384, n = 256) each
-// pass needs 1.1 GFLOP (syrk_tn, one triangle of the Gram) or 2.1 GFLOP
-// (rinv_apply) against 17 MB or 34 MB, 60–65 FLOP per byte, above the
-// fp32 ridge of 20.
+// Bound on an H100: operations.  At fc0's A⊥ (d = 16384, n = 256)
+// syrk_tn needs 1.08 GFLOP (one triangle of the Gram) against 17 MB:
+// 0.0065 ms of 3xTF32 work on the tensor cores (0.0051 ms of bytes);
+// rinv_apply 2.1 GFLOP against 34 MB, 60 FLOP per byte, above the fp32
+// ridge of 20: 0.032 ms on the FMA pipes.
 //
-// Mainloops: rinv_apply runs on the pipelined 128×128 mainloop of
-// sgemm_pipe.cuh; syrk_tn stays on the 64×64 one of gemm.cuh.
+// Mainloops: syrk_tn runs on the 3xTF32 wgmma mainloop of tc_gemm.cuh,
+// rinv_apply on the pipelined 128×128 SIMT mainloop of sgemm_pipe.cuh.
 //
-// Design: syrk_tn reduces over d into a 256×256 Gram (16 output tiles per
-// panel), so the wrapper splits d over blocks and the shared GEMM sums the
-// partials in a deterministic second pass (no atomics).  The Gram is
-// symmetric: only the 10 tiles on or above the diagonal of its 4×4 tile
-// grid are computed, and each off-diagonal one is stored twice.
+// Design: syrk_tn contracts over A's stored rows: op(A) = Aᵀ with A
+// stored [d][n] = [K][M] (AT: its stage lands along M and the split
+// transposes it into wgmma's K-major planes), op(B) = A as stored
+// ([K][N]).  The Gram is symmetric (SYM): only the 3 tiles of 128 on or
+// above the diagonal of its 2 × 2 tile grid are computed, and the
+// off-diagonal one is stored twice.  Three tiles cannot fill 132 SMs, so
+// the wrapper splits d over 40 blocks at fc0, 5 clusters of 8 a tile
+// (_build.tc_plan): each cluster sums its partials in distributed shared
+// memory and the last cluster to arrive sums the 5 cluster partials in
+// order through a workspace, in one launch, with no float atomics.
 // rinv_apply is row-parallel (d/128 row blocks × 2 column blocks); a
 // small stack splits its short K (n = 256) as well, to fill the card.  A
 // is stored with K contiguous and is copied element by element
 // into the k-major shared tile, B (256 KB) is re-read by every row block
 // from L2 by 16-byte cp.async.
-#include "gemm.cuh"
 #include "sgemm_pipe.cuh"
+#include "tc_gemm.cuh"
 
 extern "C" int kfk_syrk_tn(const float* A, long long ldA, long long sA,
-                           float* G, float* ws, int batch, int d, int n,
-                           int splits, void* stream) {
+                           float* G, float* ws, int* counters, int batch,
+                           int d, int n, int splits, int cluster,
+                           void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = n;
@@ -44,7 +51,8 @@ extern "C" int kfk_syrk_tn(const float* A, long long ldA, long long sA,
   p.C = G;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::gemm<true, false, true>(p, (cudaStream_t)stream);
+  return (int)kfk::tc::tc_gemm<true, false, true>(p, cluster, counters,
+                                                  (cudaStream_t)stream);
 }
 
 extern "C" int kfk_rinv_apply(const float* A, long long ldA, long long sA,

@@ -3,29 +3,37 @@
 // Replaces the TPU kernel src/repro/kernels/ea_syrk.py,
 // ea_syrk_batched_pallas (body _ea_syrk_kernel).
 //
-// Bound on an H100: at the path's shapes (d ≤ 256, n = 256) the symmetric
-// product needs n·d·(d+1) FLOP against 4·(2d² + d·n) bytes, about 20 FLOP
-// per byte — at the fp32 ridge (67 TFLOP/s ÷ 3.35 TB/s = 20), and at these
-// small sizes launch latency dominates in practice.  Design: one tiled GEMM
-// (X stored [d][n] is both the non-transposed A and the transposed B) with
-// the EA decay fused into the store, so M is read once and the result
-// written once — the same single round-trip the TPU kernel's epilogue
-// gives.  X Xᵀ is symmetric: only the tiles on or above the diagonal are
-// computed, each off-diagonal one stored at both places with its own M
-// entry.
-#include "gemm.cuh"
+// Bound on an H100, counting one triangle of X Xᵀ (n·d·(d+1) FLOP) and
+// the traffic of reading M and X once and writing the output once: at
+// NS-KFAC's largest bucket (d = 2304, n = 256, B = 2; 2.7 GFLOP against
+// 89 MB) bytes, 0.0268 ms at 3.35 TB/s against 0.0165 ms of 3xTF32 work;
+// at B-KFAC's dense buckets (d ≤ 256) bytes too, under a microsecond, so
+// the launch and the wrapper's host work set the time.
+//
+// Mainloop: the 3xTF32 wgmma mainloop of tc_gemm.cuh, with op(A) = X
+// stored [d][n] (K-major as wgmma's shared-memory operand wants) and
+// op(B) = Xᵀ, the same X read as [N][K] (BT).  X Xᵀ is symmetric (SYM):
+// only the 128 × 128 tiles on or above the diagonal are computed (342 of
+// 648 at d = 2304, B = 2: 2.6 waves, unsplit), and each off-diagonal one
+// is stored at both places, each entry with its own M entry.  The EA decay
+// is fused into the store (alpha = coef, addend M, beta = keep), so M is
+// read once and the result written once — the same single round trip the
+// TPU kernel's epilogue gives.  The small buckets split K = n over a
+// cluster (_build.tc_plan), summed in one launch in a fixed order.
+#include "tc_gemm.cuh"
 
 extern "C" int kfk_ea_syrk(const float* M, long long ldM, long long sM,
                            const float* X, long long ldX, long long sX,
-                           float* out, float* ws, int batch, int d, int n,
-                           float keep, float coef, int splits, void* stream) {
+                           float* out, float* ws, int* counters, int batch,
+                           int d, int n, float keep, float coef, int splits,
+                           int cluster, void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = d;
   p.N = d;
   p.K = n;
-  p.A = {X, ldX, sX};
-  p.B = {X, ldX, sX};
+  p.A = {X, ldX, sX};  // stored [d][n] = [M][K]
+  p.B = {X, ldX, sX};  // stored [d][n] = [N][K]
   p.C = out;
   p.epi.alpha = coef;
   p.epi.addend = M;
@@ -34,5 +42,6 @@ extern "C" int kfk_ea_syrk(const float* M, long long ldM, long long sM,
   p.epi.beta = keep;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::gemm<false, true, true>(p, (cudaStream_t)stream);
+  return (int)kfk::tc::tc_gemm<false, true, true>(p, cluster, counters,
+                                                  (cudaStream_t)stream);
 }

@@ -1,9 +1,10 @@
 // Batched, tiled fp32 GEMM with a fused epilogue: the simple 64×64 SIMT
-// mainloop.  ea_syrk, syrk_tn, lowrank_apply and both precond_fused
-// passes run on it; ut_a and rinv_apply run on the pipelined 128×128 SIMT
-// mainloop of sgemm_pipe.cuh, ns_gemm_update and a_perp on the 3xTF32
-// tensor-core mainloop of tc_gemm.cuh.  All three take the same Problem
-// (gemm_common.cuh), so a kernel moves by changing its instantiation.
+// mainloop.  lowrank_apply and both precond_fused passes run on it; ut_a
+// and rinv_apply run on the pipelined 128×128 SIMT mainloop of
+// sgemm_pipe.cuh, ns_gemm_update, a_perp, ea_syrk and syrk_tn on the
+// 3xTF32 tensor-core mainloop of tc_gemm.cuh.  All three take the same
+// Problem (gemm_common.cuh), so a kernel moves by changing its
+// instantiation.
 //
 // The problem (operands, strides, epilogue) is described in
 // gemm_common.cuh.  The template flags say how each stored matrix maps
@@ -18,20 +19,11 @@
 // w = 486, d = 10 or 27) are masked on load (zero fill) and on store.
 //
 // Cross-block reductions: a product whose output has few tiles but a long K
-// (AᵀA over d = 16384 into a 256×256 result) splits K over `splits`
-// blocks.  Each writes its partial tile to the workspace, and a second pass
-// sums the partials in split order and applies the epilogue — no float
-// atomics, so the result is the same from run to run.
-//
-// Symmetric products (template flag SYM: AᵀA or X Xᵀ, M == N, A and B the
-// same stored matrix): the grid holds only the output tiles on or above
-// the diagonal (blockIdx.x walks that triangle row by row); each
-// off-diagonal tile stores its entries twice, at (i, j) and (j, i), each
-// with its own epilogue (so an addend need not be symmetric).  The split-K
-// pass reads a lower entry's partials from its mirror.  A template flag,
-// so that the other products compile without its branches (as a run-time
-// flag it slowed the general products — a_perp, rinv_apply and
-// precond_apply, as they stood then — by 6–12 % on an H100).
+// (lowrank_apply's X U under Alg 8: a 256 × 486 output contracted over
+// d = 16384) splits K over `splits` blocks.  Each writes its partial
+// tile to the workspace, and a second pass sums the partials in split
+// order and applies the epilogue — no float atomics, so the result is the
+// same from run to run.
 //
 // Bound on an H100: fp32 FMA throughput (67 TFLOP/s) for the large
 // products.  This mainloop reaches 18–31 % of it: each thread reads 8
@@ -52,18 +44,11 @@ constexpr int THREADS = 256;
 
 namespace {
 
-template <bool AT, bool BT, bool SYM>
+template <bool AT, bool BT>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
-  int tile_m = blockIdx.y, tile_n = blockIdx.x;
-  if (SYM) {  // blockIdx.x-th tile of the upper triangle, row by row
-    const int tiles = (p.M + BM - 1) / BM;
-    int t = blockIdx.x;
-    tile_m = 0;
-    while (t >= tiles - tile_m) t -= tiles - tile_m++;
-    tile_n = tile_m + t;
-  }
+  const int tile_m = blockIdx.y, tile_n = blockIdx.x;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -135,9 +120,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {
       const long long off = ((long long)b * p.M + gi) * p.N + gj;
       if (p.splits == 1) {
         p.C[off] = epilogue_value(p, b, gi, gj, acc[i][j]);
-        if (SYM && tile_m < tile_n)
-          p.C[((long long)b * p.M + gj) * p.N + gi] =
-              epilogue_value(p, b, gj, gi, acc[i][j]);
       } else {
         p.ws[(long long)s * p.batch * p.M * p.N + off] = acc[i][j];
       }
@@ -155,26 +137,19 @@ __global__ void splitk_reduce_kernel(const Problem p) {
     const long long t = idx / p.N;
     const int i = (int)(t % p.M);
     const int b = (int)(t / p.M);
-    const long long src = (p.sym && i / BM > j / BN)
-                              ? ((long long)b * p.M + j) * p.N + i
-                              : idx;
     float acc = 0.f;
-    for (int s = 0; s < p.splits; ++s) acc += p.ws[s * total + src];
+    for (int s = 0; s < p.splits; ++s) acc += p.ws[s * total + idx];
     p.C[idx] = epilogue_value(p, b, i, j, acc);
   }
 }
 
 // Launch on `stream`; returns the first launch error (cudaSuccess if none).
-template <bool AT, bool BT, bool SYM = false>
-inline cudaError_t gemm(Problem p, cudaStream_t stream) {
-  if (p.batch <= 0 || p.M <= 0 || p.N <= 0 || p.splits < 1 ||
-      (SYM && p.M != p.N))
+template <bool AT, bool BT>
+inline cudaError_t gemm(const Problem& p, cudaStream_t stream) {
+  if (p.batch <= 0 || p.M <= 0 || p.N <= 0 || p.splits < 1)
     return cudaErrorInvalidValue;
-  p.sym = SYM;
-  const int tm = (p.M + BM - 1) / BM;
-  dim3 grid(SYM ? tm * (tm + 1) / 2 : (p.N + BN - 1) / BN, SYM ? 1 : tm,
-            p.batch * p.splits);
-  gemm_kernel<AT, BT, SYM><<<grid, THREADS, 0, stream>>>(p);
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.splits);
+  gemm_kernel<AT, BT><<<grid, THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   const long long total = (long long)p.batch * p.M * p.N;

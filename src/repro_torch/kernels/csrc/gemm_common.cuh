@@ -44,7 +44,6 @@ struct Problem {
   float* C = nullptr;                // (batch, M, N) row-major, contiguous
   Epilogue epi{};
   int splits = 1;                    // > 1: K split over blocks
-  int sym = 0;                       // set by gemm<…, SYM> for the reduce
   float* ws = nullptr;               // split-K partial sums
 };
 

@@ -18,7 +18,7 @@
 // one round trip.  128×128 tiles: 648 blocks at d = 2304, B = 2, one an
 // SM, no split.  The smaller buckets (d = 10 … 2048) split K over a
 // cluster of up to 8 blocks when their tiles leave SMs idle
-// (_build.tc_split), summed in one launch in a fixed order.  It is a
+// (_build.tc_plan), summed in one launch in a fixed order.  It is a
 // general product: X·T is not symmetric in floating point.
 #include "tc_gemm.cuh"
 
@@ -26,7 +26,8 @@ extern "C" int kfk_ns_gemm_update(const float* C, long long ldC, long long sC,
                                   const float* A, long long ldA, long long sA,
                                   const float* B, long long ldB, long long sB,
                                   float* out, int batch, int m, int n, int k,
-                                  float alpha, float beta, int splits,
+                                  float alpha, float beta, float* ws,
+                                  int* counters, int splits, int cluster,
                                   void* stream) {
   kfk::Problem p;
   p.batch = batch;
@@ -44,12 +45,36 @@ extern "C" int kfk_ns_gemm_update(const float* C, long long ldC, long long sC,
     p.epi.beta = alpha;
   }
   p.splits = splits;
-  return (int)kfk::tc::tc_gemm(p, (cudaStream_t)stream);
+  p.ws = ws;
+  return (int)kfk::tc::tc_gemm<false, false, false>(p, cluster, counters,
+                                                    (cudaStream_t)stream);
 }
 
 // Blocks of the tensor-core GEMM resident at once in clusters of
-// `cluster`, one an SM (negative: a CUDA error); the wrappers size
-// split-K by them.
+// `cluster` (cudaOccupancyMaxActiveClusters × cluster; negative: a CUDA
+// error); the wrappers size split-K by them.  Every instantiation has the
+// same block size and one block an SM (its shared memory, 164–200 KB by
+// the layout flags, leaves no room for a second), so this file's NN one
+// stands for all.
 extern "C" int kfk_tc_resident_blocks(int cluster) {
-  return kfk::tc::resident_blocks(cluster);
+  using namespace kfk::tc;
+  auto kernel = tc_gemm_kernel<false, false, false, 4, 4>;
+  constexpr int smem = Smem<false, false>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n * cluster : -(int)err;
 }

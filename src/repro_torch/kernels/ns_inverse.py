@@ -19,7 +19,7 @@ from repro_torch.kernels import _build as B
 
 KERNEL = B.Kernel("ns_gemm_update", "kfk_ns_gemm_update",
                   [B.P, B.L, B.L, B.P, B.L, B.L, B.P, B.L, B.L, B.P,
-                   B.I, B.I, B.I, B.I, B.F, B.F, B.I])
+                   B.I, B.I, B.I, B.I, B.F, B.F, B.P, B.P, B.I, B.I])
 
 
 def gemm_update_batched(C: Optional[torch.Tensor], A: torch.Tensor,
@@ -40,9 +40,10 @@ def gemm_update_batched(C: Optional[torch.Tensor], A: torch.Tensor,
     else:
         c_args = [B.P(0), B.L(0), B.L(0)]
     out = torch.empty((batch, m, n), device=A.device, dtype=torch.float32)
-    splits = B.tc_launch_split(m, n, k, batch, A)
+    ws, counters, splits, cluster = B.tc_launch_args(m, n, k, batch, A)
     KERNEL(*c_args, *B.mat_args(A), *B.mat_args(Bm), B.ptr(out),
-           batch, m, n, k, float(alpha), float(beta), splits)
+           batch, m, n, k, float(alpha), float(beta), ws, counters, splits,
+           cluster)
     return out
 
 

@@ -1,14 +1,20 @@
-"""``ns_gemm_update`` and ``a_perp`` at every shape the paper VGG's paths
-give them, by device time.
+"""The tensor-core kernels (``ns_gemm_update``, ``a_perp``, ``ea_syrk``,
+``syrk_tn``) at every shape the paper VGG's paths give them, by device
+time.
 
     PYTHONPATH=src python -m repro_torch.tools.tc_shapes [--label NAME]
+        [--kernels ea_syrk,syrk_tn]
 
-Times the two wrappers (``ns_inverse.gemm_update_batched``,
-``brand_panel.a_perp_batched``) as the ``repro_torch`` package on the path
+Times the four wrappers (``ns_inverse.gemm_update_batched``,
+``brand_panel.a_perp_batched``, ``ea_syrk.ea_syrk_batched``,
+``cholqr.syrk_tn_batched``) as the ``repro_torch`` package on the path
 builds them: ``ns_gemm_update`` at every NS bucket of NS-KFAC (both
-launches of a Newton–Schulz step, T = M̂X and X' = 2X − XT) and
+launches of a Newton–Schulz step, T = M̂X and X' = 2X − XT);
 ``a_perp`` at fc0 with a contiguous U and at every Brand bucket with U as
-the path passes it (the ``[..., :230]`` slice of the (B, d, 486) state).
+the path passes it (the ``[..., :230]`` slice of the (B, d, 486) state);
+``ea_syrk`` at every dense bucket of both paths, X (B, d, 256); and
+``syrk_tn`` at every Brand bucket's A⊥ (B, d, 256) and the RSVD range
+finder's (2, 256, 240) panel.  ``--kernels`` picks some of them.
 Each case: the device time of one call from 20 replayed as one CUDA graph,
 and the eager time over 20 back-to-back calls (CUDA events), with the
 largest difference from the plain version.  One JSON line per case,
@@ -24,10 +30,13 @@ import argparse
 import json
 import sys
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels import brand_panel as bp
+from repro_torch.kernels import cholqr as cq
+from repro_torch.kernels import ea_syrk as ea
 from repro_torch.kernels import ns_inverse as ns
 from repro_torch.kernels import ref
 from repro_torch.tools.pipe_splits import graph_ms
@@ -57,7 +66,10 @@ def eager_ms(fn, reps: int = 20) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", default="ns_gemm_update,a_perp,ea_syrk,"
+                    "syrk_tn", help="comma-separated kernels to time")
     args = ap.parse_args(argv)
+    kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("tc_shapes: needs a CUDA card", file=sys.stderr)
         return 1
@@ -76,7 +88,7 @@ def main(argv=None) -> int:
                           "ms": eager_ms(fn), "max_abs_err": err}),
               flush=True)
 
-    for b, d in NS_BUCKETS:
+    for b, d in NS_BUCKETS if "ns_gemm_update" in kernels else ():
         Mh = (lambda a: a @ a.mT / d)(rnd(b, d, d)).contiguous()
         X = 0.1 * rnd(b, d, d)
         T = (Mh @ X).contiguous()
@@ -86,7 +98,8 @@ def main(argv=None) -> int:
         report("ns_gemm_update", [b, d], "X' = 2X − XT",
                lambda: ns.gemm_update_batched(X, X, T, 2.0, -1.0),
                ref.gemm_update(X, X, T, 2.0, -1.0))
-    for i, (b, d) in enumerate(BRAND_BUCKETS + ((1, 16384),)):
+    for i, (b, d) in enumerate(BRAND_BUCKETS + ((1, 16384),)
+                               if "a_perp" in kernels else ()):
         contiguous = i == len(BRAND_BUCKETS)
         Q = torch.linalg.qr(rnd(b, d, 230 if contiguous else 486))[0]
         U = Q.contiguous()[..., :230]
@@ -94,6 +107,20 @@ def main(argv=None) -> int:
         C = ref.ut_a(U, A).contiguous()
         report("a_perp", [b, d], f"U ld {U.stride(1)}",
                lambda: bp.a_perp_batched(A, U, C), ref.a_perp(A, U, C))
+    # ea_syrk's keep and coef as ops.ea_syrk computes them in fp32
+    keep = float(np.float32(0.95))
+    coef = float(np.float32(1.0) - np.float32(0.95))
+    for b, d in NS_BUCKETS if "ea_syrk" in kernels else ():
+        M = (lambda m: (m + m.mT) / 2)(rnd(b, d, d)).contiguous()
+        X = rnd(b, d, 256)
+        report("ea_syrk", [b, d], "X (B, d, 256)",
+               lambda: ea.ea_syrk_batched(M, X, keep, coef),
+               ref.ea_syrk(M, X, 0.95, False))
+    for b, d, n in (tuple((b, d, 256) for b, d in BRAND_BUCKETS)
+                    + ((2, 256, 240),) if "syrk_tn" in kernels else ()):
+        A = rnd(b, d, n)
+        report("syrk_tn", [b, d, n], f"n {n}",
+               lambda: cq.syrk_tn_batched(A), ref.syrk_tn(A))
     return 0
 
 

@@ -16,6 +16,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import brand_panel as tbp  # noqa: E402
+from repro_torch.kernels import cholqr as tcq  # noqa: E402
+from repro_torch.kernels import ea_syrk as tea  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 TOL = dict(atol=2e-3, rtol=2e-3)
@@ -33,15 +35,78 @@ def cuda():
     return torch.device("cuda")
 
 
+#: (d, n, batch) of ea_syrk: ragged d = 27 and 10 and n = 33, then every
+#: dense bucket of the paper VGG's paths with its n = 256 stats rows
+#: (B-KFAC's d ≤ 256, NS-KFAC's up to 2304: one cluster, split or not)
+EA_CASES = [(27, 256, 1), (256, 256, 2), (10, 33, 3),
+            (10, 256, 1), (64, 256, 2), (128, 256, 2), (512, 256, 4),
+            (576, 256, 2), (1152, 256, 2), (2048, 256, 2), (2304, 256, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,n,batch", [(27, 256, 1), (256, 256, 2),
-                                       (10, 33, 3)])
+@pytest.mark.parametrize("d,n,batch", EA_CASES)
 def test_cuda_ea_syrk(cuda, d, n, batch):
+    """ea_syrk (3xTF32, one triangle of X Xᵀ, each off-diagonal tile
+    stored twice) with a non-symmetric M, so that every entry must take
+    its own addend: against the plain version, one launch a call, the same
+    bits on a second launch."""
     g = torch.Generator(device=cuda).manual_seed(0)
     M = torch.randn((batch, d, d), generator=g, device=cuda)
     X = torch.randn((batch, d, n), generator=g, device=cuda)
-    _close(ops.ea_syrk(M, X, 0.95, False).cpu(),
-           tref.ea_syrk(M, X, 0.95, False).cpu())
+    _build.reset_launch_counts()
+    got = ops.ea_syrk(M, X, 0.95, False)
+    assert _build.launch_counts()["ea_syrk"] == 1
+    _close(got.cpu(), tref.ea_syrk(M, X, 0.95, False).cpu())
+    assert torch.equal(got, ops.ea_syrk(M, X, 0.95, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ld", [258, 257])
+def test_cuda_ea_syrk_strides(cuda, ld):
+    """X shared by the stack (batch stride 0) and a column slice of a
+    wider matrix (rows 8- or 4-byte aligned), M a column slice too."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    X = torch.randn((300, ld), generator=g,
+                    device=cuda)[:, :256].expand(3, 300, 256)
+    M = torch.randn((3, 300, 310), generator=g, device=cuda)[..., :300]
+    assert X.stride() == (0, ld, 1) and M.stride(1) == 310
+    got = tea.ea_syrk_batched(M, X, 0.95, 0.05)
+    _close(got.cpu(), (0.95 * M + 0.05 * X @ X.mT).cpu())
+    assert torch.equal(got, tea.ea_syrk_batched(M, X, 0.95, 0.05))
+
+
+#: (batch, d, n, layout of A) of syrk_tn: fc0's A⊥ (more splits than one
+#: cluster), a Brand bucket, the RSVD range finder's (2, 256, 240) panel;
+#: "slice": the [..., :n] column slice of a wider matrix (8- or 4-byte
+#: aligned rows); "shared": one matrix for the stack (batch stride 0)
+SYRK_CASES = [(1, 16384, 256, "contig"), (4, 512, 256, "contig"),
+              (2, 256, 240, "contig"), (2, 700, 240, "slice"),
+              (2, 130, 33, "slice"), (3, 1000, 100, "shared")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,d,n,layout", SYRK_CASES)
+def test_cuda_syrk_tn(cuda, batch, d, n, layout):
+    """syrk_tn (3xTF32, AᵀA over the stored rows, one triangle): against
+    the plain version, one launch a call, the same bits on a second
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    if layout == "slice":
+        A = torch.randn((batch, d, n + 10 if n > 100 else n + 2),
+                        generator=g, device=cuda)[..., :n]
+    elif layout == "shared":
+        A = torch.randn((d, n), generator=g, device=cuda).expand(batch, d, n)
+    else:
+        A = torch.randn((batch, d, n), generator=g, device=cuda)
+    _build.reset_launch_counts()
+    got = tcq.syrk_tn_batched(A)
+    assert _build.launch_counts()["syrk_tn"] == 1
+    _close(got.cpu(), tref.syrk_tn(A).cpu())
+    assert torch.equal(got, tcq.syrk_tn_batched(A))
+    splits, cluster = _build._tc_plan_cached(n, n, d, batch, True,
+                                             A.device.index)
+    if d == 16384:          # the workspace path: 5 clusters of 8 a tile
+        assert splits > cluster
 
 
 #: (d, r, n, batch, layout of U).  "contig": a (batch, d, r) tensor (r = 230:

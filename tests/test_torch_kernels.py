@@ -350,10 +350,9 @@ def test_split_k_choice():
     assert _build.split_k(230, 256, 16384, 1) > 1
     assert _build.split_k(16384, 2048, 486, 1) == 1
     assert _build.split_k(27, 27, 256, 1) == 1       # K too short to split
-    # fc0's Gram: 16 tiles, or the 10 on or above the diagonal, at most
-    # two blocks per SM of 132
+    # a 256×256 output over 16384: 16 tiles, at most two blocks per SM of
+    # 132
     assert _build.split_k(256, 256, 16384, 1) == 16
-    assert _build.split_k(256, 256, 16384, 1, sym=True) == 26
 
 
 #: Blocks of the pipelined GEMM an H100 SXM holds at once in clusters of c

@@ -1,6 +1,6 @@
 """The 3xTF32 arithmetic of the tensor-core mainloop (``csrc/tc_gemm.cuh``,
-under ``ns_gemm_update`` and ``a_perp``), emulated on the CPU, and the
-split picker that sizes its launches.
+under ``ns_gemm_update``, ``a_perp``, ``ea_syrk`` and ``syrk_tn``),
+emulated on the CPU, and the split picker that sizes its launches.
 
 The kernel runs only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to its plain version there).  Its arithmetic is
@@ -21,7 +21,13 @@ What the emulation shows:
   and columns where the CPU time needs it, K kept;
 - NS-KFAC's refresh takes the same decisions (warm or cold start, the
   residual check, the LU repair) and reaches the same inverses on the
-  small VGG's NS factors when its ``ns_step`` runs through the emulation.
+  small VGG's NS factors when its ``ns_step`` runs through the emulation;
+- the symmetric products as the ``SYM`` launches compute them (only the
+  128-tiles on or above the diagonal, each off-diagonal one stored again
+  at the mirrored place with its own addend, K split and summed as the
+  plan says) stay within the same 4× at every path shape, and
+  CholeskyQR2 with its Gram passes through them keeps the plain
+  version's clamped-root decisions and orthonormality.
 """
 import numpy as np
 import pytest
@@ -37,6 +43,17 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 RATIO = 4.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The emulation is many small products: on one intra-op thread they
+    cost the same alone and do not crawl when parallel test workers share
+    the cores (each worker's thread pool spans all of them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """Round fp32 to the nearest tf32 value (ties away from zero) by its
     bit pattern, as the kernel does."""
@@ -44,13 +61,15 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32x3_matmul(A: torch.Tensor, B: torch.Tensor,
-                  bk: int = _build.TC_BK) -> torch.Tensor:
+                  bk: int = _build.TC_BK, small_small=None) -> torch.Tensor:
     """A @ B as the kernel computes it (fp32 in, fp32 out): the fourth
-    product A_s·B_s only where K fits one k-step."""
+    product A_s·B_s only where K fits one k-step (``small_small``: where
+    the whole contraction of which A @ B is one split does)."""
     Ab, Bb = tf32(A), tf32(B)
     As, Bs = tf32(A - Ab), tf32(B - Bb)
     acc = torch.zeros(A.shape[:-1] + B.shape[-1:], dtype=torch.float32)
-    small_small = A.shape[-1] <= bk
+    if small_small is None:
+        small_small = A.shape[-1] <= bk
     for k0 in range(0, A.shape[-1], bk):
         k = slice(k0, k0 + bk)
         part = Ab[..., k] @ Bs[..., k, :] + As[..., k] @ Bb[..., k, :]
@@ -144,6 +163,158 @@ def test_tf32x3_a_perp_error_within_ratio(b, d):
     emu, plain = _errors(A - tf32x3_matmul(U, C), exact,
                          tref.a_perp(A, U, C))
     assert emu <= RATIO * plain, (emu, plain)
+
+
+# ---------------------------------------------------------------------------
+# the symmetric products: ea_syrk (X Xᵀ) and syrk_tn (AᵀA)
+# ---------------------------------------------------------------------------
+
+def tf32x3_split(A, B, splits, cluster):
+    """A @ B as a launch split ``splits`` ways over K in clusters of
+    ``cluster`` sums it: each split's k-steps from zero, the splits of a
+    cluster added in rank order, then the clusters' sums in order."""
+    K = A.shape[-1]
+    kchunk = -(-(-(-K // splits)) // _build.TC_BK) * _build.TC_BK
+    parts = []
+    for s in range(splits):
+        k = slice(min(K, s * kchunk), min(K, (s + 1) * kchunk))
+        parts.append(tf32x3_matmul(A[..., k], B[..., k, :],
+                                   small_small=K <= _build.TC_BK))
+    total = None
+    for g in range(0, splits, cluster):
+        acc = parts[g]
+        for r in range(1, cluster):
+            acc = acc + parts[g + r]
+        total = acc if total is None else total + acc
+    return total
+
+
+def tf32x3_syrk(opA, opB, plan, alpha=1.0, beta=0.0, addend=None):
+    """alpha · opA opB + beta · addend as the SYM kernel stores it:
+    opA (B, d, K) and opB (B, K, d) give a symmetric product; only the
+    128-tiles on or above the diagonal are computed (split as ``plan``
+    says), each off-diagonal one stored again, transposed, at the mirrored
+    place, every entry through the epilogue with its own addend entry."""
+    d = opA.shape[-2]
+    T = _build.TC_TILE
+    out = torch.empty(opA.shape[:-2] + (d, d), dtype=torch.float32)
+
+    def epi(P, i, j):
+        v = alpha * P
+        return v if addend is None else v + beta * addend[..., i, j]
+    for t0 in range(0, d, T):
+        for u0 in range(t0, d, T):
+            i, j = slice(t0, t0 + T), slice(u0, u0 + T)
+            P = tf32x3_split(opA[..., i, :], opB[..., :, j], *plan)
+            out[..., i, j] = epi(P, i, j)
+            if u0 != t0:
+                out[..., j, i] = epi(P.mT, j, i)
+    return out
+
+
+#: ea_syrk at every dense bucket of the paper VGG's paths, (stack, d): the
+#: five of B-KFAC (d ≤ 256), then NS-KFAC's larger ones; X (B, d, 256)
+EA_BUCKETS = [(1, 10), (1, 27), (2, 64), (2, 128), (2, 256), (4, 512),
+              (2, 576), (2, 1152), (2, 2048), (2, 2304)]
+#: syrk_tn at every Brand bucket of a B-KFAC light step, A⊥ (B, d, 256),
+#: and the RSVD range finder's (2, 256, 240) panel: (stack, d, n)
+SYRK_PANELS = [(1, 16384, 256), (3, 4608, 256), (2, 2304, 256),
+               (2, 2048, 256), (2, 1152, 256), (2, 576, 256), (4, 512, 256),
+               (2, 256, 240)]
+
+
+def _plan(M, K, batch):
+    return _build.tc_plan(M, M, K, batch, H100_TC_RESIDENT.__getitem__,
+                          sym=True)
+
+
+@pytest.mark.parametrize("b,d", EA_BUCKETS)
+def test_tf32x3_ea_syrk_error_within_ratio(b, d):
+    """keep·M + coef·X Xᵀ through the emulated SYM/BT launch (the plan of
+    the real shape; rows cut to 384, K = 256 kept), M not symmetric."""
+    rng = np.random.default_rng(100 + d)
+    rows = min(d, 384)
+    M = _t(rng.standard_normal((b, rows, rows)))
+    X = _t(rng.standard_normal((b, rows, 256)))
+    keep = np.float32(0.95)
+    coef = np.float32(1.0) - keep
+    emu = tf32x3_syrk(X, X.mT, _plan(d, 256, b), float(coef), float(keep),
+                      M)
+    exact = (float(keep) * M.double()
+             + float(coef) * (X.double() @ X.double().mT))
+    e, p = _errors(emu, exact, tref.ea_syrk(M, X, 0.95, False))
+    assert e <= RATIO * p, (e, p)
+
+
+def _a_perp_panel(b, d, n, rng, dependent=0):
+    """A⊥ = A − U UᵀA of a Brand update (U orthonormal, r = 230), or for
+    d < 486 a Gaussian panel; its last ``dependent`` columns are
+    combinations of the others, so the clamped root has work to do."""
+    A = rng.standard_normal((b, d, n))
+    if dependent:
+        A[..., n - dependent:] = (A[..., :n - dependent]
+                                  @ rng.standard_normal((n - dependent,
+                                                         dependent)) / 16)
+    if d >= 486:
+        U = np.linalg.qr(rng.standard_normal((b, d, 230)))[0]
+        A = A - U @ (U.transpose(0, 2, 1) @ A)
+    return _t(A)
+
+
+@pytest.mark.parametrize("b,d,n", SYRK_PANELS)
+def test_tf32x3_syrk_tn_error_within_ratio(b, d, n):
+    """AᵀA through the emulated SYM/AT launch at every panel of the path,
+    K = d kept (fc0's 16384: 40 splits in 5 clusters of 8)."""
+    A = _a_perp_panel(b, d, n, np.random.default_rng(200 + d))
+    emu = tf32x3_syrk(A.mT, A, _plan(n, d, b))
+    e, p = _errors(emu, A.double().mT @ A.double(), tref.syrk_tn(A))
+    assert e <= RATIO * p, (e, p)
+
+
+def _cholqr2(A, syrk):
+    """``ref.cholqr2`` with its Gram pass taken by ``syrk``; returns Q and
+    both passes' clamp decisions (the eigenvalues kept)."""
+    R1, B1, keep1 = _root(syrk(A), tref.CHOLQR_FLOOR_RESOLVE, "tr")
+    Q0 = tref.rinv_apply(A, B1)
+    R2, B2, keep2 = _root(syrk(Q0), tref.CHOLQR_FLOOR_REFINE, "max")
+    return tref.rinv_apply(Q0, B2), (keep1, keep2)
+
+
+def _root(G, floor_rel, mode):
+    vals = tref.eigh(G)[0]
+    scale = (torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) if mode == "tr"
+             else vals[..., -1])
+    R, Bm = tref.gram_inv_sqrt(G, floor_rel, mode)
+    return R, Bm, vals > floor_rel * scale[..., None] + 1e-30
+
+
+@pytest.mark.parametrize("dependent", [0, 16])
+@pytest.mark.parametrize("b,d,n", SYRK_PANELS[1:])
+def test_cholqr2_same_decisions_under_tf32x3_syrk_tn(b, d, n, dependent):
+    """CholeskyQR2 with its Gram passes through the emulated syrk_tn keeps
+    the same eigenvalues in both clamped roots as the plain version, and
+    its Q is as orthonormal: the eigenvalues of QᵀQ (those of ‖QᵀQ − I‖
+    over the kept directions, 0 over the dropped ones) within 2× the plain
+    version's distance, both under 1e-5 (fp32 rounding of a 256-wide
+    Gram).  With ``dependent`` columns the first root must drop them.
+    (fc0's panel is held to float64 above; here it would double the
+    file's time.)"""
+    A = _a_perp_panel(b, d, n, np.random.default_rng(300 + d),
+                      dependent=dependent)
+    plan = _plan(n, d, b)
+    Qe, keep_e = _cholqr2(A, lambda X: tf32x3_syrk(X.mT, X, plan))
+    Qp, keep_p = _cholqr2(A, tref.syrk_tn)
+    for ke, kp in zip(keep_e, keep_p):
+        assert torch.equal(ke, kp)
+    assert int(keep_p[0].sum(-1).max()) <= n - dependent
+    kept = keep_p[1].sum(-1)
+
+    def orth(Q):   # largest distance of QᵀQ's spectrum from 1 (kept) or 0
+        ev = torch.linalg.eigvalsh((Q.mT @ Q).double())
+        want = (torch.arange(n) >= n - kept[..., None]).double()
+        return float((ev - want).abs().max())
+    assert orth(Qe) <= max(2 * orth(Qp), 1e-6), (orth(Qe), orth(Qp))
+    assert orth(Qe) < 1e-5 and orth(Qp) < 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -259,3 +430,46 @@ def test_tc_split_choice(M, N, K, batch, want):
         unsplit = -(-tiles // resident(1)) * -(-K // _build.TC_BK)
         split = -(-tiles * s // resident(s)) * (kchunk // _build.TC_BK)
         assert split < unsplit
+
+
+#: the symmetric products (one triangle of 128-tiles) → (splits, cluster):
+#: syrk_tn at every CholeskyQR2 panel of the path (M = N = n, K = d) and
+#: ea_syrk at every dense bucket (M = N = d, K = n = 256)
+@pytest.mark.parametrize("M,K,batch,want", [
+    # fc0's Gram: 3 tiles; 5 clusters of 8 a tile fill 120 SMs at once,
+    # 13 k-steps a block (one cluster a tile: 24 blocks of 64 k-steps)
+    (256, 16384, 1, (40, 8)),
+    (256, 4608, 3, (12, 4)),
+    (256, 2304, 2, (15, 5)),
+    (256, 2048, 2, (16, 8)),
+    (256, 1152, 2, (12, 6)),
+    (256, 576, 2, (6, 6)),
+    (256, 512, 4, (8, 8)),
+    (240, 256, 2, (8, 8)),           # the RSVD range finder's panel
+    (10, 256, 1, (8, 8)),            # ea_syrk: one tile, 8 k-steps
+    (27, 256, 1, (8, 8)),
+    (64, 256, 2, (8, 8)),
+    (128, 256, 2, (8, 8)),
+    (256, 256, 2, (8, 8)),
+    (512, 256, 4, (2, 2)),           # 40 triangle tiles
+    (576, 256, 2, (4, 4)),
+    (1152, 256, 2, (1, 1)),          # 90 tiles: one wave unsplit
+    (2048, 256, 2, (1, 1)),
+    (2304, 256, 2, (1, 1)),          # 342 tiles, 2.6 waves
+])
+def test_tc_plan_sym_choice(M, K, batch, want):
+    resident = H100_TC_RESIDENT.__getitem__
+    splits, cluster = _build.tc_plan(M, M, K, batch, resident, sym=True)
+    assert (splits, cluster) == want
+    assert splits % cluster == 0 and 1 <= cluster <= _build.TC_MAX_SPLIT
+    assert splits == 1 or cluster >= 2
+    # no split empty
+    kchunk = -(-(-(-K // splits)) // _build.TC_BK) * _build.TC_BK
+    assert (splits - 1) * kchunk < K
+    tiles = _build.tc_tiles(M, M, sym=True) * batch
+    assert tiles == batch * (-(-M // 128)) * (-(-M // 128) + 1) // 2
+    if splits > cluster:
+        # past one cluster only where one of 8 a tile leaves SMs idle, and
+        # then every block resident at once
+        assert tiles * _build.TC_MAX_SPLIT < resident(_build.TC_MAX_SPLIT)
+        assert tiles * splits <= resident(cluster)
