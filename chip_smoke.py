@@ -9,7 +9,8 @@ Phases, run in this order (each prints one JSON line):
   kernels  every kernel body (and cholqr2 as a whole) at the shapes of the
            main path, held against its plain PyTorch version on the card
            (the tensor-core kernels also against float64), timed with CUDA
-           events beside its bound and one PyTorch call
+           events (and from a CUDA graph) beside its bound and one PyTorch
+           call
   agree    a small VGG trained a few steps on the card through the kernels
            and on the CPU through the plain versions, from the same
            weights, batches and random draws: the losses must agree
@@ -52,16 +53,20 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(flops: float, nbytes: float, tc_k: int = 0):
+def bound_ms(flops, nbytes: float, tc_k=0):
     """The least time for ``flops`` fp32 operations and ``nbytes`` of
     traffic on the route a kernel runs on: fp32 FMA, or (``tc_k``, the
     contraction length) the tensor cores at TF32, three products an fp32
     one (3xTF32), four where the contraction is one k-step of
-    csrc/tc_gemm.cuh."""
+    csrc/tc_gemm.cuh.  A kernel that is a chain of products gives
+    ``flops`` and ``tc_k`` as sequences, one entry a product."""
     from repro_torch.kernels import _build
-    products = 4 if tc_k <= _build.TC_BK else 3
-    t_ops = (products * flops / PEAK_TF32_FLOPS if tc_k
-             else flops / PEAK_FP32_FLOPS)
+    chain = isinstance(flops, (list, tuple))
+    fl = flops if chain else (flops,)
+    ks = tc_k if chain else (tc_k,)
+    t_ops = (sum((4 if k <= _build.TC_BK else 3) * f
+                 for f, k in zip(fl, ks)) / PEAK_TF32_FLOPS if tc_k
+             else sum(fl) / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -165,6 +170,7 @@ def phase_kernels():
     from repro_torch.kernels import lowrank_apply as la
     from repro_torch.kernels import ns_inverse as ns
     from repro_torch.kernels import precond_fused as pf
+    from repro_torch.tools.tc_shapes import PRECOND_BUCKETS
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -198,11 +204,11 @@ def phase_kernels():
         ``exact``, the float64 result, that the kernel's largest error
         against it is at most F64_RATIO times the plain version's), then
         time every case (with ``graph``, also the device time of the
-        kernel and of the library call, replayed from a CUDA graph); the
-        row's own numbers are the first case's.  A row with ``tc_k`` (the
-        contraction length of a case) runs on the tensor cores: its bound
-        is the TF32 route's, and each case also prints the fp32-FMA
-        bound."""
+        kernel and of the library call if any, replayed from a CUDA
+        graph); the row's own numbers are the first case's.  A row with
+        ``tc_k`` (the contraction length of a case, or one a product of a
+        chain) runs on the tensor cores: its bound is the TF32 route's,
+        and each case also prints the fp32-FMA bound."""
         worst = 0.0
         worst_abs = 0.0
         f64 = []
@@ -253,10 +259,11 @@ def phase_kernels():
             if graph:
                 t["device_ms"] = graph_ms(lambda: kernel(*args), side)
                 t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
-                t["library_device_ms"] = graph_ms(lambda: library(*args),
-                                                  side)
-                t["vs_library_device"] = (t["device_ms"]
-                                          / t["library_device_ms"])
+                if library is not None:
+                    t["library_device_ms"] = graph_ms(
+                        lambda: library(*args), side)
+                    t["vs_library_device"] = (t["device_ms"]
+                                              / t["library_device_ms"])
             timed.append(t)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": worst_abs,
@@ -352,16 +359,17 @@ def phase_kernels():
                          F * (2 * A.numel() + R.numel())),
            graph=True)
 
-    # precond: fc0 in parameter layout (J 16384×2048, w = 486 both sides),
-    # then conv0_0 (27×64, w 27 / 64) and fc1 (2048×10, w 486 / 10)
+    # both precond passes (four 3xTF32 products on the tensor cores) at
+    # every precond bucket of B-KFAC, fc0 in parameter layout first (J
+    # 16384×2048, w = 486 both sides).  No one PyTorch call computes
+    # either pass.
     def pcase(b, p, d, wg, wa):
         s_g, lam_g = inv_diag(b, wg)
         s_a, lam_a = inv_diag(b, wa)
         return (rnd(b, p, d), orth(b, p, wg), s_g, 1.0 / lam_g,
                 orth(b, d, wa), s_a, 1.0 / lam_a)
 
-    pc = [pcase(1, 16384, 2048, 486, 486), pcase(1, 27, 64, 27, 64),
-          pcase(1, 2048, 10, 486, 10)]
+    pc = [pcase(*c) for c in PRECOND_BUCKETS]
     record("precond_panel", csrc + "precond_fused.cu",
            "src/repro/kernels/precond_fused.py:122",
            [(Ug, J, sg) for J, Ug, sg, _, _, _, _ in pc],
@@ -369,9 +377,23 @@ def phase_kernels():
            lambda Ug, J, sg: (2 * J.numel() * Ug.shape[2],
                               F * (Ug.numel() + J.numel() + sg.numel()
                                    + Ug.shape[0] * Ug.shape[2]
-                                   * J.shape[2])))
+                                   * J.shape[2])),
+           bitwise=True, graph=True,
+           exact=lambda Ug, J, sg: ((Ug.double().mT @ J.double())
+                                    * sg.double()[..., :, None]),
+           tc_k=lambda Ug, J, sg: Ug.shape[1])
     apply_cases = [(J, Ug, ref.precond_panel(Ug, J, sg).contiguous(), Ua, sa,
                     ilg, ila) for J, Ug, sg, ilg, Ua, sa, ila in pc]
+    del pc
+
+    def apply_f64(J, Ug, Cg, Ua, sa, ilg, ila):
+        W = Ug.double() @ Cg.double() + ilg.double()[:, None, None] * J
+        Ua = Ua.double()
+        return (((W @ Ua) * sa.double()[:, None, :]) @ Ua.mT
+                + ila.double()[:, None, None] * W)
+
+    # the apply is three products: W = U_g Cg (K = w_g), W U_a (K = d),
+    # Tw U_aᵀ (K = w_a)
     record("precond_apply", csrc + "precond_fused.cu",
            "src/repro/kernels/precond_fused.py:140", apply_cases,
            pf.precond_apply_batched,
@@ -379,9 +401,14 @@ def phase_kernels():
                J, Ug, Cg, Ua, sa, 1.0 / ilg, 1.0 / ila),
            None,
            lambda J, Ug, Cg, Ua, sa, ilg, ila: (
-               2 * J.numel() * (Ug.shape[2] + 2 * Ua.shape[2]),
+               (2 * J.numel() * Ug.shape[2], 2 * J.numel() * Ua.shape[2],
+                2 * J.numel() * Ua.shape[2]),
                F * (2 * J.numel() + Ug.numel() + Cg.numel() + Ua.numel()
-                    + sa.numel() + 2 * ilg.numel())))
+                    + sa.numel() + 2 * ilg.numel())),
+           bitwise=True, graph=True, exact=apply_f64,
+           tc_k=lambda J, Ug, Cg, Ua, sa, ilg, ila: (
+               Ug.shape[2], J.shape[2], Ua.shape[2]))
+    del apply_cases
 
     # Newton–Schulz GEMM update (3xTF32 on the tensor cores) at every
     # (B, d) of NS-KFAC's path, the largest bucket (d = 2304, B = 2) first,
@@ -559,12 +586,14 @@ PATH_KERNELS = {
 @contextlib.contextmanager
 def calls_by_shape():
     """Count the wrapper calls of ea_syrk, ut_a, a_perp, syrk_tn,
-    rinv_apply and ns_gemm_update by operand shape (and U's row stride)
-    while the block runs; the launch counters are left to the wrappers."""
+    rinv_apply, ns_gemm_update and both precond passes by operand shape
+    (and U's row stride) while the block runs; the launch counters are
+    left to the wrappers."""
     from repro_torch.kernels import brand_panel as bp
     from repro_torch.kernels import cholqr as cq
     from repro_torch.kernels import ea_syrk as ea
     from repro_torch.kernels import ns_inverse as ns
+    from repro_torch.kernels import precond_fused as pf
     seen = {}
 
     def counted(mod, fn_name, key):
@@ -595,7 +624,14 @@ def calls_by_shape():
             lambda A, R: f"A {fmt(A)} B {fmt(R)}")),
         (ns, "gemm_update_batched", counted(
             ns, "gemm_update_batched",
-            lambda C, A, B, al, be: f"A {fmt(A)} alpha {al:g}"))]
+            lambda C, A, B, al, be: f"A {fmt(A)} alpha {al:g}")),
+        (pf, "precond_panel_batched", counted(
+            pf, "precond_panel_batched",
+            lambda Ug, J, sg: f"J {fmt(J)} U_g {fmt(Ug)}")),
+        (pf, "precond_apply_batched", counted(
+            pf, "precond_apply_batched",
+            lambda J, Ug, Cg, Ua, *_: f"J {fmt(J)} U_g {fmt(Ug)} "
+                                      f"U_a {fmt(Ua)}"))]
     try:
         yield seen
     finally:

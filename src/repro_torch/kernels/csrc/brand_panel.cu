@@ -70,8 +70,12 @@ extern "C" int kfk_a_perp(const float* A, long long ldA, long long sA,
   p.epi.beta = 1.f;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::tc::tc_gemm<false, false, false>(p, cluster, counters,
-                                                    (cudaStream_t)stream);
+  // the path's U is the [..., :230] slice of the (B, d, 486) state, rows
+  // 8-byte aligned; C is (B, 230, 256)
+  using kfk::tc::Widths;
+  return (int)kfk::tc::tc_gemm<false, false, false>(
+      p, cluster, counters, (cudaStream_t)stream, Widths<2, 4>{},
+      Widths<1, 1>{});
 }
 
 // Blocks of the pipelined GEMM resident at once in clusters of `cluster`,

@@ -51,8 +51,11 @@ extern "C" int kfk_syrk_tn(const float* A, long long ldA, long long sA,
   p.C = G;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::tc::tc_gemm<true, false, true>(p, cluster, counters,
-                                                  (cudaStream_t)stream);
+  // A⊥ is (B, d, 256) and the RSVD panel (2, 256, 240): 16-byte copies
+  using kfk::tc::Widths;
+  return (int)kfk::tc::tc_gemm<true, false, true>(
+      p, cluster, counters, (cudaStream_t)stream, Widths<4, 4>{},
+      Widths<1, 1>{});
 }
 
 extern "C" int kfk_rinv_apply(const float* A, long long ldA, long long sA,

@@ -42,6 +42,9 @@ extern "C" int kfk_ea_syrk(const float* M, long long ldM, long long sM,
   p.epi.beta = keep;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::tc::tc_gemm<false, true, true>(p, cluster, counters,
-                                                  (cudaStream_t)stream);
+  // X is (B, d, 256) on the path: 16-byte copies
+  using kfk::tc::Widths;
+  return (int)kfk::tc::tc_gemm<false, true, true>(
+      p, cluster, counters, (cudaStream_t)stream, Widths<4, 4>{},
+      Widths<1, 1>{});
 }

@@ -1,15 +1,13 @@
 // Batched, tiled fp32 GEMM with a fused epilogue: the simple 64×64 SIMT
-// mainloop.  lowrank_apply and both precond_fused passes run on it; ut_a
-// and rinv_apply run on the pipelined 128×128 SIMT mainloop of
-// sgemm_pipe.cuh, ns_gemm_update, a_perp, ea_syrk and syrk_tn on the
-// 3xTF32 tensor-core mainloop of tc_gemm.cuh.  All three take the same
-// Problem (gemm_common.cuh), so a kernel moves by changing its
-// instantiation.
+// mainloop.  Only lowrank_apply runs on it now; ut_a and rinv_apply run on
+// the pipelined 128×128 SIMT mainloop of sgemm_pipe.cuh, ns_gemm_update,
+// a_perp, ea_syrk, syrk_tn and both precond_fused passes on the 3xTF32
+// tensor-core mainloop of tc_gemm.cuh.  All three take the same Problem
+// (gemm_common.cuh), so a kernel moves by changing its instantiation.
 //
 // The problem (operands, strides, epilogue) is described in
-// gemm_common.cuh.  The template flags say how each stored matrix maps
+// gemm_common.cuh.  A is stored [M][K]; the template flag says how B maps
 // onto the product:
-//   AT = false: A stored [M][K];  AT = true: A stored [K][M]  (op = Aᵀ)
 //   BT = false: B stored [K][N];  BT = true: B stored [N][K]  (op = Bᵀ)
 //
 // Design (the simple version): 64×64 output tile per 256-thread block,
@@ -44,7 +42,7 @@ constexpr int THREADS = 256;
 
 namespace {
 
-template <bool AT, bool BT>
+template <bool BT>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
@@ -72,13 +70,12 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const Problem p) {
 #pragma unroll
     for (int l = 0; l < (BM * BK) / THREADS; ++l) {
       const int idx = tid + l * THREADS;
-      const int mm = AT ? idx % BM : idx / BK;
-      const int kk = AT ? idx / BM : idx % BK;
+      const int mm = idx / BK;
+      const int kk = idx % BK;
       const int gm = m0 + mm;
       const int gk = k0 + kk;
       float v = 0.f;
-      if (gm < p.M && gk < kend)
-        v = AT ? A[(long long)gk * p.A.ld + gm] : A[(long long)gm * p.A.ld + gk];
+      if (gm < p.M && gk < kend) v = A[(long long)gm * p.A.ld + gk];
       As[kk][mm] = v;
     }
 #pragma unroll
@@ -144,12 +141,12 @@ __global__ void splitk_reduce_kernel(const Problem p) {
 }
 
 // Launch on `stream`; returns the first launch error (cudaSuccess if none).
-template <bool AT, bool BT>
+template <bool BT>
 inline cudaError_t gemm(const Problem& p, cudaStream_t stream) {
   if (p.batch <= 0 || p.M <= 0 || p.N <= 0 || p.splits < 1)
     return cudaErrorInvalidValue;
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.splits);
-  gemm_kernel<AT, BT><<<grid, THREADS, 0, stream>>>(p);
+  gemm_kernel<BT><<<grid, THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   const long long total = (long long)p.batch * p.M * p.N;

@@ -43,7 +43,7 @@ extern "C" int kfk_lowrank_apply(const float* X, long long ldX, long long sX,
   a.epi.col_scale_b = s_s;
   a.splits = splits;
   a.ws = ws;
-  cudaError_t err = kfk::gemm<false, false>(a, st);
+  cudaError_t err = kfk::gemm<false>(a, st);
   if (err != cudaSuccess) return (int)err;
   // Y = T Uᵀ + X/λ
   kfk::Problem b;
@@ -59,5 +59,5 @@ extern "C" int kfk_lowrank_apply(const float* X, long long ldX, long long sX,
   b.epi.addend_b = sX;
   b.epi.beta = 1.f;
   b.epi.beta_vec = ilam;
-  return (int)kfk::gemm<false, true>(b, st);
+  return (int)kfk::gemm<true>(b, st);
 }

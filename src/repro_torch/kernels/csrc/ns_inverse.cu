@@ -46,8 +46,12 @@ extern "C" int kfk_ns_gemm_update(const float* C, long long ldC, long long sC,
   }
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::tc::tc_gemm<false, false, false>(p, cluster, counters,
-                                                    (cudaStream_t)stream);
+  // X, M̂ and T are (B, d, d) on the path: 16-byte copies, 8-byte at
+  // d = 10, 4-byte at d = 27
+  using kfk::tc::Widths;
+  return (int)kfk::tc::tc_gemm<false, false, false>(
+      p, cluster, counters, (cudaStream_t)stream, Widths<4, 4>{},
+      Widths<2, 2>{}, Widths<1, 1>{});
 }
 
 // Blocks of the tensor-core GEMM resident at once in clusters of

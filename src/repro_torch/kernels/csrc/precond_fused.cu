@@ -11,26 +11,80 @@
 // second (body _apply_kernel).
 //
 // Bound on an H100: operations.  At fc0 in parameter layout (J 16384×2048,
-// w_g = w_a = 486) the whole application is 4·p·d·w ≈ 65 GFLOP — about
-// 1 ms of fp32 FMA at 67 TFLOP/s — against ~330 MB of compulsory traffic
-// (0.1 ms at 3.35 TB/s).
+// w_g = w_a = 486) the panel is 2·p·d·w_g = 32.6 GFLOP against 170 MB and
+// the apply three times that against ~308 MB: on the tensor cores at 3
+// TF32 products an fp32 one, 0.198 and 0.593 ms (bytes 0.051 and 0.092
+// ms; fp32 FMA would take 0.487 and 1.460 ms).
+//
+// Mainloop: all four products run on the 3xTF32 wgmma mainloop of
+// tc_gemm.cuh, each with its epilogue fused, so the J/λ_g and W/λ_a terms
+// and the s_g and s_a scales never take a pass of their own:
+//   panel  AT: U_g stored [p][w_g] = [K][M] (it lands along M and the split
+//          writes K-major planes, as syrk_tn's A), J stored [K][N]; s_g is
+//          the row scale.  Few output tiles (64 at fc0) over a long K
+//          (p = 16384): the wrapper splits p over a cluster
+//          (_build.tc_plan; 2 at fc0, 128 blocks).
+//   W      NN: U_g [M][K], Cg [K][N]; addend J, beta_vec 1/λ_g.
+//   Tw     NN: W [M][K], U_a stored [d][w_a] = [K][N]; column scale s_a.
+//   S      BT: Tw [M][K], U_a read as [N][K] (ea_syrk's stage layout);
+//          addend W, beta_vec 1/λ_a.
+// W and S (p·d each, 33.5 M entries at fc0) keep the vectorised epilogue
+// (an addend with a per-batch beta, no scale); Cg and Tw, small beside
+// them, take the row-by-row one that applies a scale.
 //
 // Design: the TPU kernel keeps a (bm, d) W stripe in VMEM and sweeps it
 // twice.  fc0's stripe is 8 KB per row, so a useful bm does not fit the
 // 227 KB of shared memory; here W and Tw go to workspaces the wrapper
-// allocates, and the apply pass is three launches of the shared tiled GEMM
-// (each with its epilogue fused: the J/λ_g and W/λ_a terms and the s_a
-// column scale never take a separate pass).  Every shape of the path is
-// taken as is: ragged w = 486, d = 10 and p = 27 are masked in the GEMM.
-// The panel pass contracts over p into a (w_g, d) output, which for small
-// buckets has few tiles, so the wrapper may split p over blocks.
-#include "gemm.cuh"
+// allocates (W's write and two reads are ~0.12 ms of HBM at fc0, under
+// the apply's operations bound).  The path's w = 486 puts the rows of U_g,
+// U_a and Tw 1944 bytes apart: they are copied at 8 bytes.  Every shape of
+// the path is taken as is: ragged w = 486, d = 10 and p = 27 are masked in
+// the mainloop, and K ≤ 32 (conv0_0's p and w_g = 27) issues the fourth
+// split product.
+//
+// Instantiations: the copy-width pairs (A, B) that the path's operands
+// give, then (1, 1) for any other layout (tc_gemm).
+#include "tc_gemm.cuh"
+
+namespace {
+
+using kfk::tc::Widths;
+
+cudaError_t panel_gemm(const kfk::Problem& p, int cluster, int* counters,
+                       cudaStream_t st) {
+  // (U_g, J): w_g = 486 (8-byte rows) or 27 (4-byte), d = 10 (8-byte)
+  return kfk::tc::tc_gemm<true, false, false>(
+      p, cluster, counters, st, Widths<2, 4>{}, Widths<2, 2>{},
+      Widths<1, 4>{}, Widths<1, 1>{});
+}
+
+cudaError_t nn_gemm(const kfk::Problem& p, int cluster, int* counters,
+                    cudaStream_t st) {
+  // W = U_g Cg: (2, 4), (1, 4) at conv0_0, (2, 2) at d = 10;
+  // Tw = W U_a: (4, 2) (U_a's w_a = 486 or 230; 64 and 128 take it too),
+  // (2, 2) at d = 10
+  return kfk::tc::tc_gemm<false, false, false>(
+      p, cluster, counters, st, Widths<4, 2>{}, Widths<2, 4>{},
+      Widths<2, 2>{}, Widths<1, 4>{}, Widths<1, 1>{});
+}
+
+cudaError_t s_gemm(const kfk::Problem& p, int cluster, int* counters,
+                   cudaStream_t st) {
+  // (Tw, U_a), both w_a wide: 16-byte rows at w_a = 128 and 64, 8-byte at
+  // 486, 230 and 10
+  return kfk::tc::tc_gemm<false, true, false>(
+      p, cluster, counters, st, Widths<4, 4>{}, Widths<2, 2>{},
+      Widths<1, 1>{});
+}
+
+}  // namespace
 
 extern "C" int kfk_precond_panel(const float* Ug, long long ldUg, long long sUg,
                                  const float* J, long long ldJ, long long sJ,
-                                 const float* sg, long long s_sg,
-                                 float* Cg, float* ws, int batch, int p_rows,
-                                 int d, int wg, int splits, void* stream) {
+                                 const float* sg, long long s_sg, float* Cg,
+                                 float* ws, int* counters, int batch,
+                                 int p_rows, int d, int wg, int splits,
+                                 int cluster, void* stream) {
   kfk::Problem p;
   p.batch = batch;
   p.M = wg;
@@ -43,48 +97,55 @@ extern "C" int kfk_precond_panel(const float* Ug, long long ldUg, long long sUg,
   p.epi.row_scale_b = s_sg;
   p.splits = splits;
   p.ws = ws;
-  return (int)kfk::gemm<true, false>(p, (cudaStream_t)stream);
+  return (int)panel_gemm(p, cluster, counters, (cudaStream_t)stream);
 }
 
-extern "C" int kfk_precond_apply(const float* J, long long ldJ, long long sJ,
-                                 const float* Ug, long long ldUg, long long sUg,
-                                 const float* Cg, long long ldCg, long long sCg,
-                                 const float* Ua, long long ldUa, long long sUa,
-                                 const float* sa, long long s_sa,
-                                 const float* ilam_g, const float* ilam_a,
-                                 float* W, float* Tw, float* S, int batch,
-                                 int p_rows, int d, int wg, int wa,
-                                 void* stream) {
+// plan: (ws, counters, splits, cluster) of each of the three products, in
+// the order W, Tw, S (_build.tc_launch_args).
+extern "C" int kfk_precond_apply(
+    const float* J, long long ldJ, long long sJ, const float* Ug,
+    long long ldUg, long long sUg, const float* Cg, long long ldCg,
+    long long sCg, const float* Ua, long long ldUa, long long sUa,
+    const float* sa, long long s_sa, const float* ilam_g,
+    const float* ilam_a, float* W, float* Tw, float* S,
+    float* ws_w, int* cnt_w, int splits_w, int cluster_w, float* ws_t,
+    int* cnt_t, int splits_t, int cluster_t, float* ws_s, int* cnt_s,
+    int splits_s, int cluster_s, int batch, int p_rows, int d, int wg, int wa,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const long long pd = (long long)p_rows * d;
   // W = U_g Cg + J/λ_g
   kfk::Problem w;
   w.batch = batch;
   w.M = p_rows;
   w.N = d;
   w.K = wg;
-  w.A = {Ug, ldUg, sUg};
-  w.B = {Cg, ldCg, sCg};
+  w.A = {Ug, ldUg, sUg};  // stored [p][w_g] = [M][K]
+  w.B = {Cg, ldCg, sCg};  // stored [w_g][d] = [K][N]
   w.C = W;
   w.epi.addend = J;
   w.epi.addend_ld = ldJ;
   w.epi.addend_b = sJ;
   w.epi.beta = 1.f;
   w.epi.beta_vec = ilam_g;
-  cudaError_t err = kfk::gemm<false, false>(w, st);
+  w.splits = splits_w;
+  w.ws = ws_w;
+  cudaError_t err = nn_gemm(w, cluster_w, cnt_w, st);
   if (err != cudaSuccess) return (int)err;
   // Tw = (W U_a) diag(s_a)
-  const long long pd = (long long)p_rows * d;
   kfk::Problem t;
   t.batch = batch;
   t.M = p_rows;
   t.N = wa;
   t.K = d;
-  t.A = {W, d, pd};
-  t.B = {Ua, ldUa, sUa};
+  t.A = {W, d, pd};       // [p][d] = [M][K]
+  t.B = {Ua, ldUa, sUa};  // stored [d][w_a] = [K][N]
   t.C = Tw;
   t.epi.col_scale = sa;
   t.epi.col_scale_b = s_sa;
-  err = kfk::gemm<false, false>(t, st);
+  t.splits = splits_t;
+  t.ws = ws_t;
+  err = nn_gemm(t, cluster_t, cnt_t, st);
   if (err != cudaSuccess) return (int)err;
   // S = Tw U_aᵀ + W/λ_a
   kfk::Problem s;
@@ -92,7 +153,7 @@ extern "C" int kfk_precond_apply(const float* J, long long ldJ, long long sJ,
   s.M = p_rows;
   s.N = d;
   s.K = wa;
-  s.A = {Tw, wa, (long long)p_rows * wa};
+  s.A = {Tw, wa, (long long)p_rows * wa};  // [p][w_a] = [M][K]
   s.B = {Ua, ldUa, sUa};  // stored [d][w_a] = [N][K]
   s.C = S;
   s.epi.addend = W;
@@ -100,5 +161,7 @@ extern "C" int kfk_precond_apply(const float* J, long long ldJ, long long sJ,
   s.epi.addend_b = pd;
   s.epi.beta = 1.f;
   s.epi.beta_vec = ilam_a;
-  return (int)kfk::gemm<false, true>(s, st);
+  s.splits = splits_s;
+  s.ws = ws_s;
+  return (int)s_gemm(s, cluster_s, cnt_s, st);
 }

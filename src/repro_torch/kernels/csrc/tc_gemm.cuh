@@ -1,14 +1,17 @@
 // Batched fp32 GEMM on Hopper's tensor cores, fp32-accurate by the 3xTF32
-// split: the mainloop of ns_gemm_update, a_perp, ea_syrk and syrk_tn.
+// split: the mainloop of ns_gemm_update, a_perp, ea_syrk, syrk_tn and the
+// four products of precond_fused's panel and apply passes.
 //
-// Replaces, through those four kernels, the TPU kernels
+// Replaces, through those kernels, the TPU kernels
 // src/repro/kernels/ns_inverse.py gemm_update_batched_pallas (body
 // _gemm_update_kernel; out = α·C + β·A B), src/repro/kernels/
 // brand_panel.py a_perp_batched_pallas (body _a_perp_kernel; A⊥ = A − U C),
 // src/repro/kernels/ea_syrk.py ea_syrk_batched_pallas (body
 // _ea_syrk_kernel; out = keep·M + coef·X Xᵀ) and src/repro/kernels/
-// cholqr.py syrk_tn_batched_pallas (body _syrk_tn_kernel; G = AᵀA).  It
-// takes the Problem of gemm_common.cuh, as gemm.cuh and sgemm_pipe.cuh do.
+// cholqr.py syrk_tn_batched_pallas (body _syrk_tn_kernel; G = AᵀA) and
+// src/repro/kernels/precond_fused.py precond_fused_pallas (bodies
+// _panel_kernel and _apply_kernel; see precond_fused.cu).  It takes the
+// Problem of gemm_common.cuh, as gemm.cuh and sgemm_pipe.cuh do.
 // Three template flags say how the stored matrices map onto the product
 // (template flags, not run-time ones: as a run-time flag, the symmetric
 // case slowed the other products of the 64×64 mainloop by 6–12 %):
@@ -18,7 +21,8 @@
 //        only the tiles on or above the diagonal are computed, and each
 //        off-diagonal one is stored at both places.
 // ns_gemm_update and a_perp are NN; ea_syrk (X Xᵀ) is BT + SYM; syrk_tn
-// (AᵀA) is AT + SYM.
+// (AᵀA) is AT + SYM; the precond panel (U_gᵀ J) is AT, its apply NN, NN
+// and BT.
 //
 // Bound on an H100.  3xTF32 runs three TF32 products for each fp32 one,
 // at 495 TFLOP/s TF32: 165 TFLOP/s of fp32 work, 2.5× the FMA pipes' 67.
@@ -109,10 +113,11 @@
 // Loads.  A ring of STAGES = 4 k-steps filled by cp.async.  Each operand
 // is copied as vectors of V floats, V = 4, 2 or 1 (16, 8 or 4 bytes) by
 // the alignment of its pointer, row and batch strides, picked per launch
-// as in sgemm_pipe.cuh (under SYM one width serves both operands: they
-// are one matrix).  TMA is not used: its tensor maps need 16-byte strides,
-// and the path's U is the [..., :230] column slice of the (d, 486) Brand
-// state, rows 1944 bytes apart, read in place by 8-byte copies.
+// from the pairs its caller lists (tc_gemm; under SYM one width serves
+// both operands: they are one matrix).  TMA is not used: its tensor maps
+// need 16-byte strides, and the path's U is the [..., :230] column slice
+// of the (d, 486) Brand state, rows 1944 bytes apart, read in place by
+// 8-byte copies.
 //
 // Edges.  Rows past M, columns past N and k past the split's end are
 // zero-filled by cp.async's source size and masked on store; k8 slices
@@ -276,7 +281,8 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 
 // Whether the epilogue runs on 16-byte vectors throughout: C's rows and
 // the addend's (if any) 16-byte aligned, no scale vectors (every product
-// of the paths but those with d = 10 or 27 columns).
+// of the paths but those with d = 10 or 27 columns and those with a row or
+// column scale).
 __device__ __forceinline__ bool vec_epilogue(const Problem& p) {
   const Epilogue& e = p.epi;
   return (p.N & 3) == 0 && ((uintptr_t)p.C & 15) == 0 && !e.row_scale &&
@@ -839,44 +845,50 @@ cudaError_t launch(const Problem& p, int cluster, int* counters,
   return cudaGetLastError();
 }
 
-template <bool AT, bool BT, bool SYM, int VA>
-cudaError_t launch_vb(const Problem& p, int cluster, int* counters,
-                      cudaStream_t stream) {
-  switch (vec_width(p.B)) {
-    case 4: return launch<AT, BT, SYM, VA, 4>(p, cluster, counters, stream);
-    case 2: return launch<AT, BT, SYM, VA, 2>(p, cluster, counters, stream);
-    default: return launch<AT, BT, SYM, VA, 1>(p, cluster, counters, stream);
-  }
+// A pair of copy widths (floats) of A and B, as tc_gemm's callers list
+// them.
+template <int VA, int VB>
+struct Widths {};
+
+template <bool AT, bool BT, bool SYM, int VA, int VB, typename... Rest>
+cudaError_t launch_first(const Problem& p, int va, int vb, int cluster,
+                         int* counters, cudaStream_t stream, Widths<VA, VB>,
+                         Rest... rest) {
+  static_assert(!SYM || VA == VB, "under SYM A and B are one matrix");
+  if (VA <= va && VB <= vb)
+    return launch<AT, BT, SYM, VA, VB>(p, cluster, counters, stream);
+  if constexpr (sizeof...(Rest) > 0)
+    return launch_first<AT, BT, SYM>(p, va, vb, cluster, counters, stream,
+                                     rest...);
+  else
+    return cudaErrorInvalidValue;
 }
 
 // Launch C = epilogue(op(A) op(B)) on `stream`; returns the first launch
 // error (cudaSuccess if none).  splits > 1 needs 2 ≤ cluster ≤ 8 dividing
 // splits; splits > cluster also needs the workspace p.ws (splits / cluster
 // · batch · tiles · BM · BN floats) and `counters` (batch · tiles ·
-// cluster ints, all 0).  Under SYM, A and B are one stored matrix, copied
-// at one width (instantiations for three widths, not nine).
-template <bool AT, bool BT, bool SYM>
+// cluster ints, all 0).
+//
+// Copy widths: A and B are copied at the first pair (VA, VB) of `pairs`
+// that their alignment allows (vec_width), and only the listed pairs are
+// instantiated.  Each caller lists the pairs its path's operands give and
+// ends with Widths<1, 1>, which every operand allows; an operand of
+// another alignment runs at the first listed pair it allows, which may be
+// narrower than its own (slower copies, the same result).  Under SYM, A
+// and B are one stored matrix and each pair has one width.  The kernels
+// have internal linkage, so a pair listed in two sources is compiled in
+// each (the sources build in parallel).
+template <bool AT, bool BT, bool SYM, typename... Pairs>
 inline cudaError_t tc_gemm(const Problem& p, int cluster, int* counters,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, Pairs... pairs) {
   if (p.batch <= 0 || p.M <= 0 || p.N <= 0 || p.K <= 0 || p.splits < 1 ||
       cluster < 1 || cluster > MAX_CLUSTER || p.splits % cluster != 0 ||
       (p.splits > 1 && cluster < 2) ||
       (p.splits > cluster && (!p.ws || !counters)) || (SYM && p.M != p.N))
     return cudaErrorInvalidValue;
-  if constexpr (SYM) {
-    const int v = min(vec_width(p.A), vec_width(p.B));
-    switch (v) {
-      case 4: return launch<AT, BT, SYM, 4, 4>(p, cluster, counters, stream);
-      case 2: return launch<AT, BT, SYM, 2, 2>(p, cluster, counters, stream);
-      default: return launch<AT, BT, SYM, 1, 1>(p, cluster, counters, stream);
-    }
-  } else {
-    switch (vec_width(p.A)) {
-      case 4: return launch_vb<AT, BT, SYM, 4>(p, cluster, counters, stream);
-      case 2: return launch_vb<AT, BT, SYM, 2>(p, cluster, counters, stream);
-      default: return launch_vb<AT, BT, SYM, 1>(p, cluster, counters, stream);
-    }
-  }
+  return launch_first<AT, BT, SYM>(p, vec_width(p.A), vec_width(p.B),
+                                   cluster, counters, stream, pairs...);
 }
 
 }  // namespace

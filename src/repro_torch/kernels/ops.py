@@ -7,6 +7,10 @@ fallback: a CUDA kernel masks its own ragged edges, so it takes every shape
 (d = 10 and 27 included) without the TPU's 128-lane padding, and the CUDA
 ``precond_fused`` covers every shape itself (no unfused route).
 
+Output dtypes are the reference's (Pallas ``out_shape``): every kernel
+computes in fp32, and the op casts its output back to the input's dtype
+(``cholqr2``'s R stays fp32, as in the reference).
+
 Stacked inputs: every op accepts leading stack axes.  They are broadcast
 to one shape (``_common_stack``) and flattened into one batch axis
 (``_flat``), so a whole stack runs as one batched launch.  A matrix shared
@@ -67,7 +71,7 @@ def ea_syrk(M: Tensor, X: Tensor, rho, first) -> Tensor:
     coef = np.float32(1.0) - keep
     out = _ea.ea_syrk_batched(_flat(M, 2, stack), _flat(X, 2, stack),
                               float(keep), float(coef))
-    return out.reshape(stack + (d, d))
+    return out.to(M.dtype).reshape(stack + (d, d))
 
 
 def ns_step(Mhat: Tensor, X: Tensor) -> Tensor:
@@ -78,7 +82,7 @@ def ns_step(Mhat: Tensor, X: Tensor) -> Tensor:
     d = X.shape[-1]
     stack = _common_stack((Mhat, 2), (X, 2))
     out = _ns.ns_step_batched(_flat(Mhat, 2, stack), _flat(X, 2, stack))
-    return out.reshape(stack + (d, d))
+    return out.to(X.dtype).reshape(stack + (d, d))
 
 
 def brand_panel(U: Tensor, A: Tensor) -> Tuple[Tensor, Tensor]:
@@ -90,7 +94,8 @@ def brand_panel(U: Tensor, A: Tensor) -> Tuple[Tensor, Tensor]:
     n = A.shape[-1]
     stack = _common_stack((U, 2), (A, 2))
     C, P = _bp.brand_panel_batched(_flat(U, 2, stack), _flat(A, 2, stack))
-    return C.reshape(stack + (r, n)), P.reshape(stack + (d, n))
+    return (C.to(U.dtype).reshape(stack + (r, n)),
+            P.to(A.dtype).reshape(stack + (d, n)))
 
 
 def cholqr2(A: Tensor) -> Tuple[Tensor, Tensor]:

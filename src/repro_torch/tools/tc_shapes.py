@@ -1,20 +1,24 @@
 """The tensor-core kernels (``ns_gemm_update``, ``a_perp``, ``ea_syrk``,
-``syrk_tn``) at every shape the paper VGG's paths give them, by device
-time.
+``syrk_tn``, ``precond_panel``, ``precond_apply``) at every shape the
+paper VGG's paths give them, by device time.
 
     PYTHONPATH=src python -m repro_torch.tools.tc_shapes [--label NAME]
         [--kernels ea_syrk,syrk_tn]
 
-Times the four wrappers (``ns_inverse.gemm_update_batched``,
+Times the six wrappers (``ns_inverse.gemm_update_batched``,
 ``brand_panel.a_perp_batched``, ``ea_syrk.ea_syrk_batched``,
-``cholqr.syrk_tn_batched``) as the ``repro_torch`` package on the path
+``cholqr.syrk_tn_batched``, ``precond_fused.precond_panel_batched`` and
+``precond_apply_batched``) as the ``repro_torch`` package on the path
 builds them: ``ns_gemm_update`` at every NS bucket of NS-KFAC (both
 launches of a Newton–Schulz step, T = M̂X and X' = 2X − XT);
 ``a_perp`` at fc0 with a contiguous U and at every Brand bucket with U as
 the path passes it (the ``[..., :230]`` slice of the (B, d, 486) state);
 ``ea_syrk`` at every dense bucket of both paths, X (B, d, 256); and
 ``syrk_tn`` at every Brand bucket's A⊥ (B, d, 256) and the RSVD range
-finder's (2, 256, 240) panel.  ``--kernels`` picks some of them.
+finder's (2, 256, 240) panel; both ``precond_fused`` passes at every
+precond bucket of B-KFAC (``PRECOND_BUCKETS``: J (B, p, d) in parameter
+layout, U_g (B, p, w_g), U_a (B, d, w_a)), the apply pass with the plain
+version's Cg.  ``--kernels`` picks some of them.
 Each case: the device time of one call from 20 replayed as one CUDA graph,
 and the eager time over 20 back-to-back calls (CUDA events), with the
 largest difference from the plain version.  One JSON line per case,
@@ -38,6 +42,7 @@ from repro_torch.kernels import brand_panel as bp
 from repro_torch.kernels import cholqr as cq
 from repro_torch.kernels import ea_syrk as ea
 from repro_torch.kernels import ns_inverse as ns
+from repro_torch.kernels import precond_fused as pf
 from repro_torch.kernels import ref
 from repro_torch.tools.pipe_splits import graph_ms
 
@@ -47,6 +52,16 @@ NS_BUCKETS = ((2, 2304), (2, 2048), (2, 1152), (2, 576), (4, 512),
               (2, 256), (2, 128), (2, 64), (1, 27), (1, 10))
 BRAND_BUCKETS = ((1, 16384), (3, 4608), (2, 2304), (2, 2048), (2, 1152),
                  (2, 576), (4, 512))
+#: (stack, p, d, w_g, w_a) of B-KFAC's precond buckets on the paper's
+#: VGG16_bn, J in parameter layout (d_in, d_out), U_g the A side's U (a
+#: Brand factor's d × 486, or conv0_0's 27 × 27), U_a the G side's (Brand,
+#: EVD or RSVD); fc0 first.  Under Alg 8 (``slice_linear``) fc0 and fc1
+#: take lowrank_apply instead.  chip_smoke.py and the tests read it here.
+PRECOND_BUCKETS = ((1, 16384, 2048, 486, 486), (3, 4608, 512, 486, 486),
+                   (1, 2304, 512, 486, 486), (1, 2304, 256, 486, 230),
+                   (1, 1152, 256, 486, 230), (1, 1152, 128, 486, 128),
+                   (1, 576, 128, 486, 128), (1, 576, 64, 486, 64),
+                   (1, 2048, 10, 486, 10), (1, 27, 64, 27, 64))
 
 
 def eager_ms(fn, reps: int = 20) -> float:
@@ -67,7 +82,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default="ns_gemm_update,a_perp,ea_syrk,"
-                    "syrk_tn", help="comma-separated kernels to time")
+                    "syrk_tn,precond_panel,precond_apply",
+                    help="comma-separated kernels to time")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -121,6 +137,22 @@ def main(argv=None) -> int:
         A = rnd(b, d, n)
         report("syrk_tn", [b, d, n], f"n {n}",
                lambda: cq.syrk_tn_batched(A), ref.syrk_tn(A))
+    orth = lambda *s: torch.linalg.qr(rnd(*s))[0].contiguous()
+    for b, p, d, wg, wa in (PRECOND_BUCKETS if kernels & {
+            "precond_panel", "precond_apply"} else ()):
+        J, Ug, Ua = rnd(b, p, d), orth(b, p, wg), orth(b, d, wa)
+        sg, sa = -rnd(b, wg).abs(), -rnd(b, wa).abs()
+        ilg, ila = 1.0 + rnd(b).abs(), 1.0 + rnd(b).abs()
+        Cg = ref.precond_panel(Ug, J, sg).contiguous()
+        if "precond_panel" in kernels:
+            report("precond_panel", [b, p, d], f"w_g {wg}",
+                   lambda: pf.precond_panel_batched(Ug, J, sg), Cg)
+        if "precond_apply" in kernels:
+            report("precond_apply", [b, p, d], f"w_g {wg} w_a {wa}",
+                   lambda: pf.precond_apply_batched(J, Ug, Cg, Ua, sa, ilg,
+                                                    ila),
+                   ref.precond_apply(J, Ug, Cg, Ua, sa, 1.0 / ilg,
+                                     1.0 / ila))
     return 0
 
 

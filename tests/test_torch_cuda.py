@@ -7,7 +7,8 @@ on the H100 machine, which has none:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: fp32 in and out with another summation order than cuBLAS,
-atol = rtol = 2e-3 (the reference's fp32 kernel-parity tolerance).
+atol = rtol = 2e-3 (the reference's fp32 kernel-parity tolerance); bf16
+in and out, atol = rtol = 5e-2 (tests/test_kernels.py's bf16 tolerance).
 """
 import numpy as np
 import pytest
@@ -190,17 +191,87 @@ def test_cuda_cholqr2_rsvd_panel(cuda):
         _close(a.cpu(), b.cpu())
 
 
+#: (stack, p, d, w_g, w_a, layout of U_a) of precond_fused: an fc0-like
+#: bucket with its rows cut (the panel split over a cluster, the three
+#: apply launches at w = 486: U rows 1944 bytes apart), the ragged fc1 and
+#: conv0_0 buckets (d = 10; p = w_g = 27, K ≤ 32), and a stack whose U_a
+#: is one matrix for all (batch stride 0) with per-element λ
+PRECOND_CASES = [((1,), 2048, 2048, 486, 486, "own"),
+                 ((1,), 2048, 10, 486, 10, "own"),
+                 ((1,), 27, 64, 27, 64, "own"),
+                 ((3,), 300, 70, 33, 50, "shared")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,d,wg,wa", [(2048, 10, 486, 10), (27, 64, 27, 64)])
-def test_cuda_precond_fused(cuda, p, d, wg, wa):
+@pytest.mark.parametrize("stack,p,d,wg,wa,layout", PRECOND_CASES)
+def test_cuda_precond_fused(cuda, stack, p, d, wg, wa, layout):
+    """Both passes (four 3xTF32 products) against the plain version: one
+    panel and one apply launch per call, the same bits on a second call."""
     g = torch.Generator(device=cuda).manual_seed(2)
     r = lambda *s: torch.randn(s, generator=g, device=cuda)
-    J = r(1, p, d)
-    Ug = torch.linalg.qr(r(1, p, wg))[0]
-    Ua = torch.linalg.qr(r(1, d, wa))[0]
-    sg, sa = -r(1, wg).abs(), -r(1, wa).abs()
-    _close(ops.precond_fused(J, Ug, sg, 2.0, Ua, sa, 3.0).cpu(),
-           tref.precond_fused(J, Ug, sg, 2.0, Ua, sa, 3.0).cpu())
+    qr = lambda *s: torch.linalg.qr(r(*s))[0].contiguous()
+    J = r(*stack, p, d)
+    Ug = qr(*stack, p, wg)
+    Ua = (qr(d, wa).expand(*stack, d, wa) if layout == "shared"
+          else qr(*stack, d, wa))
+    sg, sa = -r(*stack, wg).abs(), -r(*stack, wa).abs()
+    lam_g = 2.0 if layout == "own" else 1.0 + r(*stack).abs()
+    _build.reset_launch_counts()
+    got = ops.precond_fused(J, Ug, sg, lam_g, Ua, sa, 3.0)
+    counts = _build.launch_counts()
+    assert counts["precond_panel"] == 1 and counts["precond_apply"] == 1
+    _close(got.cpu(), tref.precond_fused(J, Ug, sg, lam_g, Ua, sa,
+                                         3.0).cpu())
+    assert torch.equal(got, ops.precond_fused(J, Ug, sg, lam_g, Ua, sa, 3.0))
+    if p == 2048 and d == 2048:   # the panel splits p over one cluster
+        splits, cluster = _build._tc_plan_cached(wg, d, p, 1, False,
+                                                 J.device.index)
+        assert splits == cluster > 1
+
+
+def _bf16_case(op, g, dev):
+    """(args, kernels launched) of one op at the reference's bf16 shapes
+    (tests/test_kernels.py) or near them, every array bf16."""
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    qr = lambda *s: torch.linalg.qr(r(*s))[0]
+    bf = lambda *xs: [x.to(torch.bfloat16) for x in xs]
+    if op == "ea_syrk":
+        M = r(384, 384)
+        return bf((M + M.mT) / 2, r(384, 128)) + [0.95, True], ["ea_syrk"]
+    if op == "brand_panel":
+        return bf(qr(256, 8), r(256, 128)), ["ut_a", "a_perp"]
+    if op == "cholqr2":
+        return bf(r(256, 64)), ["syrk_tn", "rinv_apply"]
+    if op == "ns_step":
+        A = r(128, 128)
+        return bf(A @ A.mT / 128, 0.1 * r(128, 128)), ["ns_gemm_update"]
+    if op == "lowrank_apply":
+        return (bf(r(384, 256), qr(256, 8), -(0.1 + 0.9 * r(8).abs()))
+                + [0.7], ["lowrank_apply"])
+    J, Ug, Ua = bf(r(384, 256), qr(384, 64), qr(256, 8))
+    sg, sa = bf(-r(64).abs(), -r(8).abs())
+    return [J, Ug, sg, 2.0, Ua, sa, 3.0], ["precond_panel", "precond_apply"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ea_syrk", "brand_panel", "cholqr2",
+                                "ns_step", "lowrank_apply", "precond_fused"])
+def test_cuda_bf16(cuda, op):
+    """bf16 operands through every kernel: the op launches its kernels
+    (fp32 inside), returns the reference's dtypes (bf16; cholqr2's R fp32)
+    and agrees with the plain version on the same bf16 inputs."""
+    args, kernels = _bf16_case(op, torch.Generator(device=cuda).manual_seed(
+        10), cuda)
+    _build.reset_launch_counts()
+    got = getattr(ops, op)(*args)
+    counts = _build.launch_counts()
+    assert all(counts[k] >= 1 for k in kernels), counts
+    want = getattr(tref, op)(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        _close(a.float().cpu(), b.float().cpu(), atol=5e-2, rtol=5e-2)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.brand_panel import brand_panel_batched_pallas  # noqa: E402
 from repro.kernels.cholqr import cholqr2_batched_pallas  # noqa: E402
@@ -311,6 +312,55 @@ def test_ops_on_cpu_take_the_plain_route(monkeypatch):
     assert torch.equal(ops.lowrank_apply(X.mT, U, s_g, 1.5),
                        tref.lowrank_apply(X.mT, U, s_g, 1.5))
     assert _build.launch_counts() == before
+
+
+def _dtype_case(op, rng):
+    """(args, non-array args) of one public op at a small shape, as fp32
+    numpy arrays; lam, rho, first as plain scalars."""
+    M = rng.standard_normal((2, 16, 16))
+    X = rng.standard_normal((2, 16, 8))
+    U = _orth(rng, 2, 16, 4)
+    s = -np.abs(rng.standard_normal((2, 4)))
+    return {
+        "ea_syrk": ((M, X), (0.95, False)),
+        "ns_step": ((M @ M.transpose(0, 2, 1) / 16, 0.1 * M), ()),
+        "brand_panel": ((U, X), ()),
+        "cholqr2": ((X,), ()),
+        "orthonormalize": ((X,), ()),
+        "lowrank_apply": ((X.transpose(0, 2, 1), U, s), (1.5,)),
+        "precond_fused": ((X, U[:, :, :3], s[:, :3], X.transpose(0, 2, 1)[
+            ..., :4]), ()),
+    }[op]
+
+
+OPS = ("ea_syrk", "ns_step", "brand_panel", "cholqr2", "orthonormalize",
+       "lowrank_apply", "precond_fused")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", OPS)
+def test_ops_output_dtype_matches_reference(op, dtype):
+    """Every public op returns the reference's output dtype (Pallas
+    ``out_shape``: the input's, and fp32 for cholqr2's R) for fp32 and bf16
+    inputs, on the CPU route; the card's route casts the fp32 kernel output
+    back to the same dtype (tests/test_torch_cuda.py's bf16 cases)."""
+    arrays, rest = _dtype_case(op, _rng(21))
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    jargs = [jnp.asarray(np.asarray(a, np.float32), jt) for a in arrays]
+    targs = [_t(a).to(tt) for a in arrays]
+    if op == "precond_fused":     # J, U_g, s_g, λ_g, U_a, s_a, λ_a
+        s_a = -np.abs(_rng(22).standard_normal((2, 4)))
+        jargs = jargs[:3] + [2.0, jargs[3], jnp.asarray(s_a, jt), 3.0]
+        targs = targs[:3] + [2.0, targs[3], _t(s_a).to(tt), 3.0]
+    want = getattr(jops, op)(*jargs, *rest)
+    got = getattr(ops, op)(*targs, *rest)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), (
+            g.dtype, w.dtype)
+        assert tuple(g.shape) == tuple(w.shape)
 
 
 @pytest.mark.parametrize("bad,match", [

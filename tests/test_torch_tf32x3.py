@@ -1,6 +1,7 @@
 """The 3xTF32 arithmetic of the tensor-core mainloop (``csrc/tc_gemm.cuh``,
-under ``ns_gemm_update``, ``a_perp``, ``ea_syrk`` and ``syrk_tn``),
-emulated on the CPU, and the split picker that sizes its launches.
+under ``ns_gemm_update``, ``a_perp``, ``ea_syrk``, ``syrk_tn`` and both
+``precond_fused`` passes), emulated on the CPU, and the split picker that
+sizes its launches.
 
 The kernel runs only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to its plain version there).  Its arithmetic is
@@ -27,8 +28,14 @@ What the emulation shows:
   at the mirrored place with its own addend, K split and summed as the
   plan says) stay within the same 4× at every path shape, and
   CholeskyQR2 with its Gram passes through them keeps the plain
-  version's clamped-root decisions and orthonormality.
+  version's clamped-root decisions and orthonormality;
+- the precond panel (Uᵀ_g J, K = p split as the plan says, s_g as the row
+  scale) and the apply chain (W = U_g Cg + J/λ_g, Tw = W U_a diag(s_a),
+  S = Tw U_aᵀ + W/λ_a, each product split as its plan says) stay within
+  the same 4× at every precond bucket of the path.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -37,6 +44,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import kfactor  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.tools.tc_shapes import PRECOND_BUCKETS  # noqa: E402
 
 #: the kernel's largest error against float64 may be at most this many
 #: times the plain fp32 version's (chip_smoke.py's bound on the card)
@@ -318,6 +326,61 @@ def test_cholqr2_same_decisions_under_tf32x3_syrk_tn(b, d, n, dependent):
 
 
 # ---------------------------------------------------------------------------
+# the two precond_fused passes
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _precond_operands(b, p, d, wg, wa):
+    """J, U_g (orthonormal columns), s_g, U_a, s_a, 1/λ_g, 1/λ_a of one
+    bucket, in fp32."""
+    rng = np.random.default_rng(400 + p + d)
+    orth = lambda *s: _t(np.linalg.qr(rng.standard_normal(s))[0])
+    neg = lambda *s: _t(-np.abs(rng.standard_normal(s)))
+    return (_t(rng.standard_normal((b, p, d))), orth(b, p, wg), neg(b, wg),
+            orth(b, d, wa), neg(b, wa), 1.0 - neg(b), 1.0 - neg(b))
+
+
+def _tc_plan(M, N, K, batch):
+    return _build.tc_plan(M, N, K, batch, H100_TC_RESIDENT.__getitem__)
+
+
+@pytest.mark.parametrize("b,p,d,wg,wa", PRECOND_BUCKETS)
+def test_tf32x3_precond_panel_error_within_ratio(b, p, d, wg, wa):
+    """Cg = diag(s_g) U_gᵀ J through the emulated AT launch, K = p kept and
+    split as the plan of the real shape says; columns cut to 128."""
+    J, Ug, sg = _precond_operands(b, p, d, wg, wa)[:3]
+    J = J[..., :128]
+    emu = tf32x3_split(Ug.mT, J, *_tc_plan(wg, d, p, b)) * sg[..., :, None]
+    exact = (Ug.double().mT @ J.double()) * sg.double()[..., :, None]
+    e, pl = _errors(emu, exact, tref.precond_panel(Ug, J, sg))
+    assert e <= RATIO * pl, (e, pl)
+
+
+@pytest.mark.parametrize("b,p,d,wg,wa", PRECOND_BUCKETS)
+def test_tf32x3_precond_apply_error_within_ratio(b, p, d, wg, wa):
+    """S = (W U_a) diag(s_a) U_aᵀ + W/λ_a, W = U_g Cg + J/λ_g, as the three
+    launches compute it (each product split as the plan of the real shape
+    says; S's U_a read as Bᵀ), from the plain version's Cg; rows cut to
+    256, every K (w_g, d, w_a) kept."""
+    J, Ug, sg, Ua, sa, ilg, ila = _precond_operands(b, p, d, wg, wa)
+    rows = min(p, 256)
+    Cg = tref.precond_panel(Ug, J, sg)
+    J, Ug = J[:, :rows], Ug[:, :rows]
+    ig, ia = ilg[:, None, None], ila[:, None, None]
+    W = tf32x3_split(Ug, Cg, *_tc_plan(p, d, wg, b)) + ig * J
+    Tw = tf32x3_split(W, Ua, *_tc_plan(p, wa, d, b)) * sa[..., None, :]
+    emu = tf32x3_split(Tw, Ua.mT, *_tc_plan(p, d, wa, b)) + ia * W
+    W64 = Ug.double() @ Cg.double() + ig.double() * J.double()
+    Ua64 = Ua.double()
+    exact = (((W64 @ Ua64) * sa.double()[..., None, :]) @ Ua64.mT
+             + ia.double() * W64)
+    e, pl = _errors(emu, exact, tref.precond_apply(J, Ug, Cg, Ua, sa,
+                                                   1.0 / ilg, 1.0 / ila))
+    assert e <= RATIO * pl, (e, pl)
+
+
+# ---------------------------------------------------------------------------
 # NS-KFAC's decisions on the small VGG's NS factors
 # ---------------------------------------------------------------------------
 
@@ -415,6 +478,13 @@ H100_TC_RESIDENT = {1: 132, 2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105,
     (1152, 256, 230, 2, 3),
     (576, 256, 230, 2, 4),
     (512, 256, 230, 4, 3),
+    # the precond panel (M = w_g, N = d, K = p): 64 tiles at fc0 and 48 at
+    # the conv4 bucket, split 2 ways in one cluster (128 and 96 blocks)
+    (486, 2048, 16384, 1, 2),
+    (486, 512, 4608, 3, 2),
+    # fc0's apply: W and S (M = p, N = d, K = w) and Tw (N = w, K = d)
+    (16384, 2048, 486, 1, 1),        # 2048 tiles, 15.5 waves
+    (16384, 486, 2048, 1, 1),        # 512 tiles, 3.9 waves
 ])
 def test_tc_split_choice(M, N, K, batch, want):
     resident = H100_TC_RESIDENT.__getitem__
