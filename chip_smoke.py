@@ -10,7 +10,8 @@ Phases, run in this order (each prints one JSON line):
            main path, held against its plain PyTorch version on the card
            (the tensor-core kernels also against float64), timed with CUDA
            events (and from a CUDA graph) beside its bound and one PyTorch
-           call
+           call; lowrank_apply must take the left application's
+           transposed operand without a copy
   agree    a small VGG trained a few steps on the card through the kernels
            and on the CPU through the plain versions, from the same
            weights, batches and random draws: the losses must agree
@@ -25,7 +26,8 @@ Phases, run in this order (each prints one JSON line):
            path 3: B-KFAC with fc0 and fc1 as Alg-8 linear-apply taps, 11
            steps: lowrank_apply on every step
 Each path is driven with every launch count reset just before and read
-just after; then the ``kernels`` line (launches summed over the three
+just after (and lowrank_apply's shapes there must be ones the ``kernels``
+phase checked); then the ``kernels`` line (launches summed over the three
 paths) and, last, the ``ok`` line.  Any failure raises:
 the script exits nonzero and prints no ``ok`` line.  It has no CPU path.
 """
@@ -170,7 +172,8 @@ def phase_kernels():
     from repro_torch.kernels import lowrank_apply as la
     from repro_torch.kernels import ns_inverse as ns
     from repro_torch.kernels import precond_fused as pf
-    from repro_torch.tools.tc_shapes import PRECOND_BUCKETS
+    from repro_torch.kernels import ops
+    from repro_torch.tools.tc_shapes import LOWRANK_CASES, PRECOND_BUCKETS
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -196,6 +199,13 @@ def phase_kernels():
 
     def shapes(args):
         return [list(x.shape) for x in args if isinstance(x, torch.Tensor)]
+
+    def columns(args):
+        """Positions of the operands passed by columns (a transposed view
+        of a tensor with contiguous rows)."""
+        return [i for i, x in enumerate(a for a in args
+                                        if isinstance(a, torch.Tensor))
+                if x.dim() >= 2 and la.columns(x)]
 
     def record(name, source, replaces, cases, kernel, plain, library, fl_by,
                tol=TOL, bitwise=False, graph=False, exact=None, tc_k=None):
@@ -244,6 +254,7 @@ def phase_kernels():
             fl, nb = fl_by(*args)
             bms, by = bound_ms(fl, nb, tc_k=tc_k(*args) if tc_k else 0)
             t = {"shape": shapes(args),
+                 **({"columns": columns(args)} if columns(args) else {}),
                  "ms": time_ms(lambda: kernel(*args)),
                  "plain_ms": time_ms(lambda: plain(*args)),
                  "library_ms": (time_ms(lambda: library(*args))
@@ -434,29 +445,70 @@ def phase_kernels():
                                           + al * C.double()),
            tc_k=lambda C, A, B, al, be: A.shape[2])
 
-    # lowrank_apply: NS-KFAC's fc0 (X = (J U_G)ᵀ, 2048×16384, w = 486),
-    # its conv4 bucket (3 × 512×4608), and the Alg-8 fc0 A side (the 256
-    # stats rows of the activations, 16384 wide).  No one PyTorch call
-    # computes it.
-    def lcase(b, p, d, w):
+    # lowrank_apply (two 3xTF32 products on the tensor cores) at every
+    # launch of the paths (LOWRANK_CASES), each in the path's layout:
+    # NS-KFAC's fc0 first (X = (J U_G)ᵀ, the transposed view of a
+    # contiguous 16384×2048, w = 486), its conv4 bucket (3 × 512×4608, by
+    # columns too), then the Alg-8 taps' stats rows (256 × 16384, 256 ×
+    # 2048, 256 × 10 with w = 10).  No one PyTorch call computes it.
+    def lcase(b, p, d, w, cols):
         s, lam = inv_diag(b, w)
-        return (rnd(b, p, d), orth(b, d, w), s, 1.0 / lam)
+        X = rnd(b, d, p).mT if cols else rnd(b, p, d)
+        return (X, orth(b, d, w), s, 1.0 / lam)
+
+    def lowrank_f64(X, U, s, il):
+        X, U = X.double(), U.double()
+        return ((X @ U) * s.double()[:, None, :]) @ U.mT + (
+            il.double()[:, None, None] * X)
 
     record("lowrank_apply", csrc + "lowrank_apply.cu",
            "src/repro/kernels/lowrank_apply.py:61",
-           [lcase(1, 2048, 16384, 486), lcase(3, 512, 4608, 486),
-            lcase(1, 256, 16384, 486)],
+           [lcase(*c) for c in LOWRANK_CASES],
            la.lowrank_apply_batched,
            lambda X, U, s, il: ref.lowrank_apply(X, U, s, 1.0 / il), None,
-           lambda X, U, s, il: (4 * X.numel() * U.shape[2],
+           lambda X, U, s, il: ((2 * X.numel() * U.shape[2],
+                                 2 * X.numel() * U.shape[2]),
                                 F * (2 * X.numel() + U.numel() + s.numel()
-                                     + il.numel())))
+                                     + il.numel())),
+           bitwise=True, graph=True, exact=lowrank_f64,
+           # X U over d, then T Uᵀ (or U C) over w
+           tc_k=lambda X, U, s, il: (U.shape[1], U.shape[2]))
     # the left application hands ops.lowrank_apply a transposed view of
-    # fc0's (16384, 2048) J U_G; ops._flat copies it to contiguous rows
-    Jt = rnd(1, 16384, 2048).mT
-    emit({"phase": "kernels", "name": "lowrank_apply_operand_copy",
-          "shape": list(Jt.shape), "ms": time_ms(lambda: Jt.contiguous()),
-          "bound_ms": bound_ms(0, 2 * F * Jt.numel())[0]})
+    # fc0's (16384, 2048) J U_G: the kernel must read it where it lies and
+    # return Y as the transposed view of a contiguous (16384, 2048), with
+    # no copy of X on the way (which would take another X's worth of
+    # memory beside Y's)
+    (Jt, U, s, il) = lcase(*LOWRANK_CASES[0])
+    handed = []
+    wrapper = la.lowrank_apply_batched
+
+    def spy(X, *rest):
+        handed.append(X)
+        return wrapper(X, *rest)
+    la.lowrank_apply_batched = spy
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        Y = ops.lowrank_apply(Jt, U, s, 1.0 / il)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+    finally:
+        la.lowrank_apply_batched = wrapper
+    nbytes = F * Jt.numel()
+    # (the batch stride of a stack of one is not compared: it is never read)
+    if not (len(handed) == 1 and handed[0].data_ptr() == Jt.data_ptr()
+            and handed[0].stride()[1:] == Jt.stride()[1:]
+            and Y.mT.is_contiguous() and extra < 2 * nbytes):
+        raise AssertionError(
+            f"lowrank_apply copied its columns operand: strides handed "
+            f"{[x.stride() for x in handed]} vs {Jt.stride()}, result "
+            f"strides {Y.stride()}, {extra} bytes taken for {nbytes} of X")
+    emit({"phase": "kernels", "name": "lowrank_apply_no_copy",
+          "shape": list(Jt.shape), "x_strides": list(Jt.stride()),
+          "y_strides": list(Y.stride()), "peak_extra_bytes": extra,
+          "x_bytes": nbytes})
+    del Jt, U, s, il, Y, handed
 
     # cholqr2 as a whole (kernels + the two small eighs) — not a kernel
     # entry of its own, so it is reported but not listed
@@ -583,15 +635,22 @@ PATH_KERNELS = {
 }
 
 
+def lowrank_key(b, p, d, w, cols) -> str:
+    """calls_by_shape's key of a lowrank_apply launch (after the kernel's
+    name): X (b, p, d) by rows or columns, U (b, d, w)."""
+    return f"X {b}x{p}x{d} {'columns' if cols else 'rows'} U {b}x{d}x{w}"
+
+
 @contextlib.contextmanager
 def calls_by_shape():
     """Count the wrapper calls of ea_syrk, ut_a, a_perp, syrk_tn,
-    rinv_apply, ns_gemm_update and both precond passes by operand shape
-    (and U's row stride) while the block runs; the launch counters are
-    left to the wrappers."""
+    rinv_apply, ns_gemm_update, both precond passes and lowrank_apply by
+    operand shape (and U's row stride, X's layout) while the block runs;
+    the launch counters are left to the wrappers."""
     from repro_torch.kernels import brand_panel as bp
     from repro_torch.kernels import cholqr as cq
     from repro_torch.kernels import ea_syrk as ea
+    from repro_torch.kernels import lowrank_apply as la
     from repro_torch.kernels import ns_inverse as ns
     from repro_torch.kernels import precond_fused as pf
     seen = {}
@@ -631,7 +690,11 @@ def calls_by_shape():
         (pf, "precond_apply_batched", counted(
             pf, "precond_apply_batched",
             lambda J, Ug, Cg, Ua, *_: f"J {fmt(J)} U_g {fmt(Ug)} "
-                                      f"U_a {fmt(Ua)}"))]
+                                      f"U_a {fmt(Ua)}")),
+        (la, "lowrank_apply_batched", counted(
+            la, "lowrank_apply_batched",
+            lambda X, U, s, il: lowrank_key(*X.shape, U.shape[2],
+                                            la.columns(X))))]
     try:
         yield seen
     finally:
@@ -648,6 +711,7 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
     from repro_torch.core import kfactor
     from repro_torch.examples.train_vgg_kfac import build
     from repro_torch.kernels import _build
+    from repro_torch.tools.tc_shapes import LOWRANK_CASES
     from repro_torch.train import loop
 
     dev = torch.device("cuda")
@@ -693,6 +757,12 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
     missing = [k for k in PATH_KERNELS[phase] if counts[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels never launched: {missing}")
+    checked = {"lowrank_apply " + lowrank_key(*c) for c in LOWRANK_CASES}
+    unchecked = [k for k in by_shape
+                 if k.startswith("lowrank_apply ") and k not in checked]
+    if unchecked:
+        raise AssertionError(f"{phase}: lowrank_apply launched at shapes the "
+                             f"kernels phase did not check: {unchecked}")
     for k in range(steps):
         emit({"phase": phase, "step": k, "kind": kinds[k],
               "loss": losses[k], "wall_s": walls[k]})

@@ -30,8 +30,9 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("_build")
 SOURCES = ("ea_syrk.cu", "brand_panel.cu", "cholqr.cu", "precond_fused.cu",
-           "ns_inverse.cu", "lowrank_apply.cu")
-HEADERS = ("gemm_common.cuh", "gemm.cuh", "sgemm_pipe.cuh", "tc_gemm.cuh")
+           "ns_inverse.cu", "lowrank_apply.cu", "tc_products.cu")
+HEADERS = ("gemm_common.cuh", "sgemm_pipe.cuh", "tc_gemm.cuh",
+           "tc_products.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libkfac_kernels.so"
@@ -214,25 +215,13 @@ def mat_args(t: torch.Tensor) -> List[int]:
             t.stride(0) if t.shape[0] > 1 else 0]
 
 
-_SMS = 132          # H100 SXM streaming multiprocessors
-_TILE = 64          # output tile of the 64×64 GEMM (gemm.cuh BM = BN)
 TC_TILE = 128       # output tile of the tensor-core GEMM (tc_gemm.cuh)
 TC_BK = 32          # its k-step
 TC_MAX_SPLIT = 8    # its largest cluster
 TC_FIXED = 2        # a block's fixed cost in its k-steps (tc_plan)
-_MIN_K_PER_SPLIT = 256
 PIPE_TILE = 128     # output tile of the pipelined GEMM (sgemm_pipe.cuh)
 PIPE_BK = 16        # its k-step
 PIPE_MAX_CLUSTER = 8
-
-
-def split_k(M: int, N: int, K: int, batch: int) -> int:
-    """Blocks to split a long contraction over on the 64×64 GEMM when the
-    output has too few tiles to fill the card: at most two blocks per SM
-    (rounded down, so no SM gets a third while others wait), with at least
-    ``_MIN_K_PER_SPLIT`` of K per split."""
-    tiles = -(-M // _TILE) * -(-N // _TILE) * batch
-    return max(1, min(2 * _SMS // tiles, K // _MIN_K_PER_SPLIT, 64))
 
 
 def pipe_tiles(M: int, N: int) -> int:
@@ -434,13 +423,6 @@ def tc_launch_args(M: int, N: int, K: int, batch: int, like: torch.Tensor,
                      device=like.device, dtype=torch.float32)
     counters = arrival_counters(batch * tiles * cluster, like)
     return [ws.data_ptr(), counters.data_ptr(), splits, cluster]
-
-
-def workspace(splits: int, batch: int, M: int, N: int,
-              like: torch.Tensor) -> torch.Tensor:
-    """Split-K partial sums, (splits, batch, M, N); empty when unsplit."""
-    shape = (splits, batch, M, N) if splits > 1 else (0,)
-    return torch.empty(shape, device=like.device, dtype=torch.float32)
 
 
 def ptr(t: torch.Tensor) -> int:

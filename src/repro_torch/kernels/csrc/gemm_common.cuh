@@ -1,7 +1,6 @@
-// The problem description shared by the package's three GEMM mainloops
-// (gemm.cuh, the 64×64 SIMT GEMM; sgemm_pipe.cuh, the pipelined 128×128
-// SIMT one; tc_gemm.cuh, the 3xTF32 tensor-core one), and the copy and
-// store helpers of the two pipelined ones:
+// The problem description shared by the package's two GEMM mainloops
+// (sgemm_pipe.cuh, the pipelined 128×128 SIMT one; tc_gemm.cuh, the
+// 3xTF32 tensor-core one), and the copy and store helpers of both:
 //
 //   C[b] = epilogue(op(A[b]) @ op(B[b]))
 //   epilogue(acc)[i, j] = alpha * row_scale[b, i] * col_scale[b, j] * acc

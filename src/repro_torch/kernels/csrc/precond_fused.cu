@@ -42,42 +42,13 @@
 // the mainloop, and K ≤ 32 (conv0_0's p and w_g = 27) issues the fourth
 // split product.
 //
-// Instantiations: the copy-width pairs (A, B) that the path's operands
-// give, then (1, 1) for any other layout (tc_gemm).
-#include "tc_gemm.cuh"
+// Products: the three layouts are shared with lowrank_apply.cu and
+// defined once, with their copy-width pairs, in tc_products.cu.
+#include "tc_products.cuh"
 
-namespace {
-
-using kfk::tc::Widths;
-
-cudaError_t panel_gemm(const kfk::Problem& p, int cluster, int* counters,
-                       cudaStream_t st) {
-  // (U_g, J): w_g = 486 (8-byte rows) or 27 (4-byte), d = 10 (8-byte)
-  return kfk::tc::tc_gemm<true, false, false>(
-      p, cluster, counters, st, Widths<2, 4>{}, Widths<2, 2>{},
-      Widths<1, 4>{}, Widths<1, 1>{});
-}
-
-cudaError_t nn_gemm(const kfk::Problem& p, int cluster, int* counters,
-                    cudaStream_t st) {
-  // W = U_g Cg: (2, 4), (1, 4) at conv0_0, (2, 2) at d = 10;
-  // Tw = W U_a: (4, 2) (U_a's w_a = 486 or 230; 64 and 128 take it too),
-  // (2, 2) at d = 10
-  return kfk::tc::tc_gemm<false, false, false>(
-      p, cluster, counters, st, Widths<4, 2>{}, Widths<2, 4>{},
-      Widths<2, 2>{}, Widths<1, 4>{}, Widths<1, 1>{});
-}
-
-cudaError_t s_gemm(const kfk::Problem& p, int cluster, int* counters,
-                   cudaStream_t st) {
-  // (Tw, U_a), both w_a wide: 16-byte rows at w_a = 128 and 64, 8-byte at
-  // 486, 230 and 10
-  return kfk::tc::tc_gemm<false, true, false>(
-      p, cluster, counters, st, Widths<4, 4>{}, Widths<2, 2>{},
-      Widths<1, 1>{});
-}
-
-}  // namespace
+using kfk::tc_products::at_gemm;
+using kfk::tc_products::bt_gemm;
+using kfk::tc_products::nn_gemm;
 
 extern "C" int kfk_precond_panel(const float* Ug, long long ldUg, long long sUg,
                                  const float* J, long long ldJ, long long sJ,
@@ -97,7 +68,7 @@ extern "C" int kfk_precond_panel(const float* Ug, long long ldUg, long long sUg,
   p.epi.row_scale_b = s_sg;
   p.splits = splits;
   p.ws = ws;
-  return (int)panel_gemm(p, cluster, counters, (cudaStream_t)stream);
+  return (int)at_gemm(p, cluster, counters, (cudaStream_t)stream);
 }
 
 // plan: (ws, counters, splits, cluster) of each of the three products, in
@@ -163,5 +134,5 @@ extern "C" int kfk_precond_apply(
   s.epi.beta_vec = ilam_a;
   s.splits = splits_s;
   s.ws = ws_s;
-  return (int)s_gemm(s, cluster_s, cnt_s, st);
+  return (int)bt_gemm(s, cluster_s, cnt_s, st);
 }

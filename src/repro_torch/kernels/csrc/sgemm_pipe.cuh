@@ -5,8 +5,8 @@
 // src/repro/kernels/brand_panel.py ut_a_batched_pallas (body _ut_a_kernel;
 // C = UᵀA, contracted over d) and src/repro/kernels/cholqr.py
 // rinv_apply_batched_pallas (body _rinv_apply_kernel; Q = A B).  It takes
-// the Problem of gemm_common.cuh, as gemm.cuh does, so another kernel
-// moves onto it by changing its instantiation.
+// the Problem of gemm_common.cuh, as tc_gemm.cuh does, so a kernel moves
+// between the two by changing its instantiation.
 //
 // Bound on an H100: fp32 FMA throughput, 67 TFLOP/s (full fp32: no TF32,
 // no tensor cores).  At fc0 ut_a is 1.9 GFLOP against 33 MB and
@@ -19,7 +19,8 @@
 //   apart) by two groups of 4 columns (16 apart), as CUTLASS's SIMT GEMMs
 //   do: a warp covers 64×32, and every fragment read is one 16-byte
 //   shared-memory load with no bank conflict — 4 loads feed 64 FMAs per
-//   k-step (the 64×64 mainloop of gemm.cuh reads 8 scalars for 16).
+//   k-step (a 64×64 tile with 4×4 outputs a thread reads 8 scalars for
+//   16).
 //   Fragments are double-buffered in registers across the k-steps.
 //   __launch_bounds__(256, 2): two blocks per SM, at most 128 registers.
 // - Loads: a ring of STAGES = 4 tiles in dynamic shared memory (67.6 KB),
@@ -131,7 +132,8 @@ __device__ __forceinline__ void load_xmajor(float* dst, const float* src,
   }
 }
 
-// AT/BT as in gemm.cuh; VA/VB: copy width (floats) of a k-major operand.
+// AT/BT as in tc_gemm.cuh (A stored [K][M], B stored [N][K]); VA/VB: copy
+// width (floats) of a k-major operand.
 // Grid: (splits, tiles_m · tiles_n, batch), clusters of `cluster` along x.
 template <bool AT, bool BT, int VA, int VB>
 __global__ void __launch_bounds__(THREADS, 2)

@@ -1,6 +1,7 @@
 // Batched fp32 GEMM on Hopper's tensor cores, fp32-accurate by the 3xTF32
-// split: the mainloop of ns_gemm_update, a_perp, ea_syrk, syrk_tn and the
-// four products of precond_fused's panel and apply passes.
+// split: the mainloop of ns_gemm_update, a_perp, ea_syrk, syrk_tn, the
+// four products of precond_fused's panel and apply passes and the two of
+// lowrank_apply.
 //
 // Replaces, through those kernels, the TPU kernels
 // src/repro/kernels/ns_inverse.py gemm_update_batched_pallas (body
@@ -10,11 +11,14 @@
 // _ea_syrk_kernel; out = keep·M + coef·X Xᵀ) and src/repro/kernels/
 // cholqr.py syrk_tn_batched_pallas (body _syrk_tn_kernel; G = AᵀA) and
 // src/repro/kernels/precond_fused.py precond_fused_pallas (bodies
-// _panel_kernel and _apply_kernel; see precond_fused.cu).  It takes the
-// Problem of gemm_common.cuh, as gemm.cuh and sgemm_pipe.cuh do.
+// _panel_kernel and _apply_kernel; see precond_fused.cu) and
+// src/repro/kernels/lowrank_apply.py lowrank_apply_batched_pallas (bodies
+// _xu_kernel and _tut_kernel; see lowrank_apply.cu).  It takes the
+// Problem of gemm_common.cuh, as sgemm_pipe.cuh does.
 // Three template flags say how the stored matrices map onto the product
 // (template flags, not run-time ones: as a run-time flag, the symmetric
-// case slowed the other products of the 64×64 mainloop by 6–12 %):
+// case slowed the other products of an earlier 64×64 SIMT mainloop by
+// 6–12 %):
 //   AT = false: A stored [M][K];  AT = true: A stored [K][M]  (op = Aᵀ)
 //   BT = false: B stored [K][N];  BT = true: B stored [N][K]  (op = Bᵀ)
 //   SYM: op(A) op(B) is symmetric (M == N, A and B one stored matrix):
@@ -22,7 +26,8 @@
 //        off-diagonal one is stored at both places.
 // ns_gemm_update and a_perp are NN; ea_syrk (X Xᵀ) is BT + SYM; syrk_tn
 // (AᵀA) is AT + SYM; the precond panel (U_gᵀ J) is AT, its apply NN, NN
-// and BT.
+// and BT; lowrank_apply NN and BT (X by rows) or AT and NN (X by
+// columns).
 //
 // Bound on an H100.  3xTF32 runs three TF32 products for each fp32 one,
 // at 495 TFLOP/s TF32: 165 TFLOP/s of fp32 work, 2.5× the FMA pipes' 67.
@@ -878,7 +883,8 @@ cudaError_t launch_first(const Problem& p, int va, int vb, int cluster,
 // narrower than its own (slower copies, the same result).  Under SYM, A
 // and B are one stored matrix and each pair has one width.  The kernels
 // have internal linkage, so a pair listed in two sources is compiled in
-// each (the sources build in parallel).
+// each (the sources build in parallel); sources that launch the same
+// layouts share one definition instead (tc_products.cu).
 template <bool AT, bool BT, bool SYM, typename... Pairs>
 inline cudaError_t tc_gemm(const Problem& p, int cluster, int* counters,
                            cudaStream_t stream, Pairs... pairs) {

@@ -15,7 +15,8 @@ Stacked inputs: every op accepts leading stack axes.  They are broadcast
 to one shape (``_common_stack``) and flattened into one batch axis
 (``_flat``), so a whole stack runs as one batched launch.  A matrix shared
 across the stack keeps batch stride 0 (no copy); the kernels read each
-operand through its row and batch strides, and only need rows contiguous.
+operand through its row and batch strides, and only need rows contiguous
+(``lowrank_apply``'s X: rows or columns).
 """
 from __future__ import annotations
 
@@ -42,13 +43,16 @@ def _common_stack(*xs_cores: Tuple[Tensor, int]) -> Tuple[int, ...]:
         *(x.shape[:x.dim() - core] for x, core in xs_cores)))
 
 
-def _flat(x: Tensor, core: int, stack: Tuple[int, ...]) -> Tensor:
+def _flat(x: Tensor, core: int, stack: Tuple[int, ...],
+          columns: bool = False) -> Tensor:
     """(*stack-broadcastable, *core_shape) → (B, *core_shape), fp32, with
-    contiguous rows (batch and row strides are left as they are)."""
+    contiguous rows (batch and row strides are left as they are) — or,
+    with ``columns``, contiguous columns left as they are too."""
     tail = tuple(x.shape[x.dim() - core:])
     b = math.prod(stack) if stack else 1
     x = x.to(torch.float32).expand(stack + tail).reshape((b,) + tail)
-    if x.shape[-1] > 1 and x.stride(-1) != 1:
+    if x.shape[-1] > 1 and x.stride(-1) != 1 and not (
+            columns and _la.columns(x)):
         x = x.contiguous()
     return x
 
@@ -120,13 +124,18 @@ def orthonormalize(Y: Tensor) -> Tensor:
 def lowrank_apply(X: Tensor, U: Tensor, s: Tensor, lam) -> Tensor:
     """Y = (X U) diag(s) Uᵀ + X/λ.
     X: (*stack, p, d), U: (*stack, d, w), s: (*stack, w), lam: scalar or
-    (*stack,).  A transposed X (the left application's view) is copied
-    to contiguous rows by ``_flat``."""
+    (*stack,).  A transposed X (the left application's view of a stack
+    with contiguous rows) goes to the kernel as it lies, and Y comes back
+    the same way, a transposed view of a contiguous (*stack, d, p): neither
+    is copied.  X is copied to contiguous rows only where its stack axes
+    do not flatten into one batch stride (``reshape`` copies: a slice or a
+    broadcast across one of two or more stack axes) or neither its rows nor
+    its columns are contiguous."""
     if not X.is_cuda:
         return ref.lowrank_apply(X, U, s, lam)
     p, d = X.shape[-2:]
     stack = _common_stack((X, 2), (U, 2), (s, 1))
-    Xb = _flat(X, 2, stack)
+    Xb = _flat(X, 2, stack, columns=True)
     ilam = 1.0 / _stack_lam(lam, stack, Xb.shape[0], X)
     out = _la.lowrank_apply_batched(Xb, _flat(U, 2, stack),
                                     _flat(s, 1, stack).contiguous(), ilam)

@@ -1,16 +1,17 @@
 """The tensor-core kernels (``ns_gemm_update``, ``a_perp``, ``ea_syrk``,
-``syrk_tn``, ``precond_panel``, ``precond_apply``) at every shape the
-paper VGG's paths give them, by device time.
+``syrk_tn``, ``precond_panel``, ``precond_apply``, ``lowrank_apply``) at
+every shape the paper VGG's paths give them, by device time.
 
     PYTHONPATH=src python -m repro_torch.tools.tc_shapes [--label NAME]
         [--kernels ea_syrk,syrk_tn]
 
-Times the six wrappers (``ns_inverse.gemm_update_batched``,
+Times the seven wrappers (``ns_inverse.gemm_update_batched``,
 ``brand_panel.a_perp_batched``, ``ea_syrk.ea_syrk_batched``,
-``cholqr.syrk_tn_batched``, ``precond_fused.precond_panel_batched`` and
-``precond_apply_batched``) as the ``repro_torch`` package on the path
-builds them: ``ns_gemm_update`` at every NS bucket of NS-KFAC (both
-launches of a Newton–Schulz step, T = M̂X and X' = 2X − XT);
+``cholqr.syrk_tn_batched``, ``precond_fused.precond_panel_batched``,
+``precond_apply_batched`` and ``lowrank_apply.lowrank_apply_batched``) as
+the ``repro_torch`` package on the path builds them: ``ns_gemm_update``
+at every NS bucket of NS-KFAC (both launches of a Newton–Schulz step,
+T = M̂X and X' = 2X − XT);
 ``a_perp`` at fc0 with a contiguous U and at every Brand bucket with U as
 the path passes it (the ``[..., :230]`` slice of the (B, d, 486) state);
 ``ea_syrk`` at every dense bucket of both paths, X (B, d, 256); and
@@ -18,7 +19,12 @@ the path passes it (the ``[..., :230]`` slice of the (B, d, 486) state);
 finder's (2, 256, 240) panel; both ``precond_fused`` passes at every
 precond bucket of B-KFAC (``PRECOND_BUCKETS``: J (B, p, d) in parameter
 layout, U_g (B, p, w_g), U_a (B, d, w_a)), the apply pass with the plain
-version's Cg.  ``--kernels`` picks some of them.
+version's Cg; ``lowrank_apply`` at every launch of NS-KFAC and the Alg-8
+taps (``LOWRANK_CASES``) in the layout the path hands it, then in the
+other layout (a package whose wrapper takes X only by rows gets the
+columns cases copied to rows first, as its ``ops.lowrank_apply`` copies
+them, and the copy is timed with the kernel).  ``--kernels`` picks some
+of them.
 Each case: the device time of one call from 20 replayed as one CUDA graph,
 and the eager time over 20 back-to-back calls (CUDA events), with the
 largest difference from the plain version.  One JSON line per case,
@@ -41,6 +47,7 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels import brand_panel as bp
 from repro_torch.kernels import cholqr as cq
 from repro_torch.kernels import ea_syrk as ea
+from repro_torch.kernels import lowrank_apply as la
 from repro_torch.kernels import ns_inverse as ns
 from repro_torch.kernels import precond_fused as pf
 from repro_torch.kernels import ref
@@ -62,6 +69,17 @@ PRECOND_BUCKETS = ((1, 16384, 2048, 486, 486), (3, 4608, 512, 486, 486),
                    (1, 1152, 256, 486, 230), (1, 1152, 128, 486, 128),
                    (1, 576, 128, 486, 128), (1, 576, 64, 486, 64),
                    (1, 2048, 10, 486, 10), (1, 27, 64, 27, 64))
+#: (stack, p, d, w, columns) of every lowrank_apply launch of the paper's
+#: VGG16_bn paths, X (B, p, d), U (B, d, w).  NS-KFAC (``slice_nskfac``,
+#: 11 calls each): fc0 and the conv4 bucket, the left application's X,
+#: the transposed view of a contiguous (B, d, p) — its columns are
+#: contiguous.  The Alg-8 taps (``slice_linear``): fc0's A side (11
+#: calls), fc0's G side and fc1's A side (22), fc1's G side (w = 10, 11),
+#: X the stats rows with contiguous rows.  chip_smoke.py and the tests
+#: read it here.
+LOWRANK_CASES = ((1, 2048, 16384, 486, True), (3, 512, 4608, 486, True),
+                 (1, 256, 16384, 486, False), (1, 256, 2048, 486, False),
+                 (1, 256, 10, 10, False))
 
 
 def eager_ms(fn, reps: int = 20) -> float:
@@ -82,7 +100,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default="ns_gemm_update,a_perp,ea_syrk,"
-                    "syrk_tn,precond_panel,precond_apply",
+                    "syrk_tn,precond_panel,precond_apply,lowrank_apply",
                     help="comma-separated kernels to time")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
@@ -153,6 +171,22 @@ def main(argv=None) -> int:
                                                     ila),
                    ref.precond_apply(J, Ug, Cg, Ua, sa, 1.0 / ilg,
                                      1.0 / ila))
+    # the path's layout of each launch, then the other
+    takes_columns = hasattr(la, "columns")
+    for b, p, d, w, cols in (
+            LOWRANK_CASES + tuple(c[:4] + (not c[4],) for c in LOWRANK_CASES)
+            if "lowrank_apply" in kernels else ()):
+        X = rnd(b, d, p).mT if cols else rnd(b, p, d)
+        U, s = orth(b, d, w), -rnd(b, w).abs()
+        il = 1.0 + rnd(b).abs()
+        launch = f"w {w} " + ("columns" if cols else "rows")
+        if cols and not takes_columns:
+            launch += " (copied to rows)"
+            fn = lambda: la.lowrank_apply_batched(X.contiguous(), U, s, il)
+        else:
+            fn = lambda: la.lowrank_apply_batched(X, U, s, il)
+        report("lowrank_apply", [b, p, d], launch, fn,
+               ref.lowrank_apply(X, U, s, 1.0 / il))
     return 0
 
 

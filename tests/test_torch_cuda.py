@@ -19,6 +19,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import brand_panel as tbp  # noqa: E402
 from repro_torch.kernels import cholqr as tcq  # noqa: E402
 from repro_torch.kernels import ea_syrk as tea  # noqa: E402
+from repro_torch.kernels import lowrank_apply as tla  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 TOL = dict(atol=2e-3, rtol=2e-3)
@@ -245,8 +246,9 @@ def _bf16_case(op, g, dev):
     if op == "ns_step":
         A = r(128, 128)
         return bf(A @ A.mT / 128, 0.1 * r(128, 128)), ["ns_gemm_update"]
-    if op == "lowrank_apply":
-        return (bf(r(384, 256), qr(256, 8), -(0.1 + 0.9 * r(8).abs()))
+    if op.startswith("lowrank_apply"):   # X by rows, or by columns
+        X = r(256, 384).mT if op.endswith(":columns") else r(384, 256)
+        return (bf(X, qr(256, 8), -(0.1 + 0.9 * r(8).abs()))
                 + [0.7], ["lowrank_apply"])
     J, Ug, Ua = bf(r(384, 256), qr(384, 64), qr(256, 8))
     sg, sa = bf(-r(64).abs(), -r(8).abs())
@@ -255,13 +257,16 @@ def _bf16_case(op, g, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["ea_syrk", "brand_panel", "cholqr2",
-                                "ns_step", "lowrank_apply", "precond_fused"])
+                                "ns_step", "lowrank_apply",
+                                "lowrank_apply:columns", "precond_fused"])
 def test_cuda_bf16(cuda, op):
     """bf16 operands through every kernel: the op launches its kernels
     (fp32 inside), returns the reference's dtypes (bf16; cholqr2's R fp32)
-    and agrees with the plain version on the same bf16 inputs."""
+    and agrees with the plain version on the same bf16 inputs
+    (lowrank_apply with X by rows and by columns)."""
     args, kernels = _bf16_case(op, torch.Generator(device=cuda).manual_seed(
         10), cuda)
+    op = op.split(":")[0]
     _build.reset_launch_counts()
     got = getattr(ops, op)(*args)
     counts = _build.launch_counts()
@@ -310,22 +315,43 @@ def test_cuda_ns_step(cuda, shape):
     assert torch.equal(got, ops.ns_step(M, X))
 
 
+#: (stack, p, d, w) of lowrank_apply: small ragged shapes, then the paths'
+#: largest launches: NS-KFAC's fc0 (X 2048 × 16384, by columns on the
+#: path) and conv4 bucket (stack 3), the Alg-8 fc0 A side (256 × 16384, by
+#: rows); every case in both layouts
+LOWRANK_CASES = [((), 256, 4608, 486), ((3,), 20, 10, 10),
+                 ((2,), 300, 700, 33), ((), 2048, 16384, 486),
+                 ((3,), 512, 4608, 486), ((), 256, 16384, 486)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("stack,p,d,w", [((), 256, 4608, 486),
-                                         ((3,), 20, 10, 10),
-                                         ((2,), 300, 700, 33)])
-def test_cuda_lowrank_apply(cuda, stack, p, d, w):
+@pytest.mark.parametrize("stack,p,d,w", LOWRANK_CASES)
+def test_cuda_lowrank_apply(cuda, monkeypatch, stack, p, d, w):
+    """Both layouts of X — rows, and the left application's transposed
+    view of a tensor with contiguous rows — against the plain version: one
+    launch a call, the same bits on a second call; by columns, the kernel
+    gets X where it lies and Y comes back as the transposed view of a
+    contiguous (…, d, p), so neither is copied."""
     g = torch.Generator(device=cuda).manual_seed(5)
     r = lambda *s: torch.randn(s, generator=g, device=cuda)
-    X = r(*stack, p, d)
     U = torch.linalg.qr(r(*stack, d, w))[0]
     s = -r(*stack, w).abs()
     lam = 0.5 + r(*stack).abs() if stack else 0.7
-    _build.reset_launch_counts()
-    got = ops.lowrank_apply(X, U, s, lam)
-    assert _build.launch_counts()["lowrank_apply"] == 1
-    _close(got.cpu(), tref.lowrank_apply(X, U, s, lam).cpu())
-    # the left application's transposed operand (copied to rows by _flat)
-    Xt = r(*stack, d, p).mT
-    _close(ops.lowrank_apply(Xt, U, s, lam).cpu(),
-           tref.lowrank_apply(Xt, U, s, lam).cpu())
+    handed = []
+    wrapper = tla.lowrank_apply_batched
+
+    def spy(X, *rest):
+        handed.append(X)
+        return wrapper(X, *rest)
+    monkeypatch.setattr(tla, "lowrank_apply_batched", spy)
+    for cols in (False, True):
+        X = r(*stack, d, p).mT if cols else r(*stack, p, d)
+        handed.clear()
+        _build.reset_launch_counts()
+        got = ops.lowrank_apply(X, U, s, lam)
+        assert _build.launch_counts()["lowrank_apply"] == 1
+        _close(got.cpu(), tref.lowrank_apply(X, U, s, lam).cpu())
+        assert torch.equal(got, ops.lowrank_apply(X, U, s, lam))
+        if cols:
+            assert handed[0].data_ptr() == X.data_ptr()
+            assert tla.columns(handed[0]) and got.mT.is_contiguous()

@@ -395,16 +395,6 @@ def test_wrappers_reject_cpu_tensors():
         tcq.syrk_tn_batched(z(1, 3, 8).mT)
 
 
-def test_split_k_choice():
-    # a small output over a long contraction splits; a wide one does not
-    assert _build.split_k(230, 256, 16384, 1) > 1
-    assert _build.split_k(16384, 2048, 486, 1) == 1
-    assert _build.split_k(27, 27, 256, 1) == 1       # K too short to split
-    # a 256×256 output over 16384: 16 tiles, at most two blocks per SM of
-    # 132
-    assert _build.split_k(256, 256, 16384, 1) == 16
-
-
 #: Blocks of the pipelined GEMM an H100 SXM holds at once in clusters of c
 #: with one or two blocks an SM, as (one, two): cudaOccupancyMaxActiveClusters
 #: × c at 67.6 KB of shared memory a block (chip_smoke.py prints them).  A
@@ -446,6 +436,3 @@ def test_split_k_choice_pipe(M, N, K, batch, want):
     assert tiles * splits <= resident(cluster, 2)
     kchunk = -(-(-(-K // splits)) // 16) * 16
     assert (splits - 1) * kchunk < K
-    # the 64×64 GEMM's choice is unchanged by the new tile's
-    assert _build.split_k(M, N, K, batch) == max(
-        1, min(264 // (-(-M // 64) * -(-N // 64) * batch), K // 256, 64))

@@ -1,7 +1,7 @@
 """The 3xTF32 arithmetic of the tensor-core mainloop (``csrc/tc_gemm.cuh``,
-under ``ns_gemm_update``, ``a_perp``, ``ea_syrk``, ``syrk_tn`` and both
-``precond_fused`` passes), emulated on the CPU, and the split picker that
-sizes its launches.
+under ``ns_gemm_update``, ``a_perp``, ``ea_syrk``, ``syrk_tn``, both
+``precond_fused`` passes and ``lowrank_apply``), emulated on the CPU, and
+the split picker that sizes its launches.
 
 The kernel runs only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to its plain version there).  Its arithmetic is
@@ -32,7 +32,11 @@ What the emulation shows:
 - the precond panel (Uᵀ_g J, K = p split as the plan says, s_g as the row
   scale) and the apply chain (W = U_g Cg + J/λ_g, Tw = W U_a diag(s_a),
   S = Tw U_aᵀ + W/λ_a, each product split as its plan says) stay within
-  the same 4× at every precond bucket of the path.
+  the same 4× at every precond bucket of the path;
+- ``lowrank_apply``'s two products, X by rows (T = (X U) diag(s), Y =
+  T Uᵀ + X/λ) and by columns (C = diag(s) Uᵀ Z, Yᵀ = U C + Z/λ for
+  X = Zᵀ), each split as its plan says, stay within the same 4× at every
+  launch of the paths, in both layouts.
 """
 import functools
 
@@ -44,6 +48,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import kfactor  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.tools.tc_shapes import LOWRANK_CASES  # noqa: E402
 from repro_torch.tools.tc_shapes import PRECOND_BUCKETS  # noqa: E402
 
 #: the kernel's largest error against float64 may be at most this many
@@ -380,6 +385,43 @@ def test_tf32x3_precond_apply_error_within_ratio(b, p, d, wg, wa):
     assert e <= RATIO * pl, (e, pl)
 
 
+@pytest.mark.parametrize("cols", [False, True], ids=["rows", "columns"])
+@pytest.mark.parametrize("b,p,d,w,path_cols", LOWRANK_CASES)
+def test_tf32x3_lowrank_apply_error_within_ratio(b, p, d, w, path_cols,
+                                                 cols):
+    """Y = (X U) diag(s) Uᵀ + X/λ as the two launches compute it, X by
+    rows (T = X U, column scale s; Y = T Uᵀ, U read as Bᵀ, addend X) or by
+    columns (C = Uᵀ Z, row scale s, U read as Aᵀ; Yᵀ = U C, addend Z), each
+    product split as the plan of the real shape says.  Every K (d, then w)
+    kept; Y cut to a block of at most 64 of its p rows and 1024 of its d
+    columns."""
+    rng = np.random.default_rng(500 + p + d + w)
+    rows, keep = min(p, 64), min(d, 1024)
+    X = _t(rng.standard_normal((b, rows, d)))
+    U = _t(np.linalg.qr(rng.standard_normal((b, d, w)))[0])
+    # s = (D + λ)⁻¹ − 1/λ, λ = 0.1 max D, as the path damps a spectrum: on
+    # the span the two terms nearly cancel (wholly where w = d)
+    D = -np.sort(-np.abs(rng.standard_normal((b, w))) - 0.01, axis=-1)
+    lam = 0.1 * D[:, :1]
+    s, il = _t(1.0 / (D + lam) - 1.0 / lam), _t(1.0 / lam[:, 0])
+    ia = il[:, None, None]
+    if cols:
+        Z = X.mT
+        C = tf32x3_split(U.mT, Z, *_tc_plan(w, p, d, b)) * s[..., :, None]
+        emu = (tf32x3_split(U[:, :keep], C, *_tc_plan(d, p, w, b))
+               + ia * Z[:, :keep]).mT
+    else:
+        T = tf32x3_split(X, U, *_tc_plan(p, w, d, b)) * s[..., None, :]
+        emu = (tf32x3_split(T, U[:, :keep].mT, *_tc_plan(p, d, w, b))
+               + ia * X[..., :keep])
+    X64, U64 = X.double(), U.double()
+    exact = (((X64 @ U64) * s.double()[..., None, :]) @ U64[:, :keep].mT
+             + ia.double() * X64[..., :keep])
+    plain = tref.lowrank_apply(X, U, s, 1.0 / il)[..., :keep]
+    e, pl = _errors(emu, exact, plain)
+    assert e <= RATIO * pl, (e, pl)
+
+
 # ---------------------------------------------------------------------------
 # NS-KFAC's decisions on the small VGG's NS factors
 # ---------------------------------------------------------------------------
@@ -485,20 +527,43 @@ H100_TC_RESIDENT = {1: 132, 2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105,
     # fc0's apply: W and S (M = p, N = d, K = w) and Tw (N = w, K = d)
     (16384, 2048, 486, 1, 1),        # 2048 tiles, 15.5 waves
     (16384, 486, 2048, 1, 1),        # 512 tiles, 3.9 waves
+    # lowrank_apply → (splits, cluster).  X by rows: T = X U (M = p, N = w,
+    # K = d), Y = T Uᵀ (N = d, K = w), at NS-KFAC's fc0 and conv4 and the
+    # Alg-8 fc0 A side.  By columns the fc0 and conv4 products are the
+    # precond panel's (M = w, N = p, K = d; above) and the W product's
+    # (M = d, N = p, K = w; fc0's above)
+    (2048, 486, 16384, 1, (2, 2)),   # 64 tiles, as the panel
+    (2048, 16384, 486, 1, (1, 1)),   # 2048 tiles
+    (512, 486, 4608, 3, (2, 2)),     # 48 tiles
+    (512, 4608, 486, 3, (2, 2)),     # 432 tiles
+    (4608, 512, 486, 3, (2, 2)),
+    # Alg 8's X U: 8 tiles over K = 16384, 8 clusters of 2 a tile (128
+    # blocks of 32 k-steps); then 256 tiles of 16 k-steps, unsplit
+    (256, 486, 16384, 1, (16, 2)),
+    (256, 16384, 486, 1, (1, 1)),
+    (486, 256, 16384, 1, (16, 2)),
+    (16384, 256, 486, 1, (1, 1)),
 ])
 def test_tc_split_choice(M, N, K, batch, want):
     resident = H100_TC_RESIDENT.__getitem__
+    splits, cluster = _build.tc_plan(M, N, K, batch, resident)
     s = _build.tc_split(M, N, K, batch, resident)
-    assert s == want
-    assert 1 <= s <= _build.TC_MAX_SPLIT
+    assert s == splits
+    assert (s, cluster) == want if isinstance(want, tuple) else s == want
+    # one cluster of at most 8 a tile, or more than one cluster only where
+    # one of 8 a tile leaves SMs idle, and then every block resident at once
+    assert 1 <= cluster <= _build.TC_MAX_SPLIT and s % cluster == 0
+    tiles = _build.tc_tiles(M, N) * batch
+    if s > cluster:
+        assert tiles * _build.TC_MAX_SPLIT < resident(_build.TC_MAX_SPLIT)
+        assert tiles * s <= resident(cluster)
     # no split empty; a split launch fits the card at once or needs fewer
     # waves × k-steps than the unsplit one
     kchunk = -(-(-(-K // s)) // _build.TC_BK) * _build.TC_BK
     assert (s - 1) * kchunk < K
-    tiles = _build.tc_tiles(M, N) * batch
     if s > 1:
         unsplit = -(-tiles // resident(1)) * -(-K // _build.TC_BK)
-        split = -(-tiles * s // resident(s)) * (kchunk // _build.TC_BK)
+        split = -(-tiles * s // resident(cluster)) * (kchunk // _build.TC_BK)
         assert split < unsplit
 
 
