@@ -25,11 +25,29 @@ Phases, run in this order (each prints one JSON line):
   slice_linear
            path 3: B-KFAC with fc0 and fc1 as Alg-8 linear-apply taps, 11
            steps: lowrank_apply on every step
+  agree    (async) the small VGG under B-R-KFAC with the async heavy
+           pipeline (T_updt = T_brand = 1, T_rsvd = 2, heavy_lag = 1: two
+           launches and two landings in 6 steps): card vs CPU, and on the
+           card the runner's overlapped landing vs the in-line one
+  agree    (baselines) the small VGG under SGD and under SENG (a refresh
+           every 2 steps), at the settings of paths 6 and 7: card vs CPU
+  slice_brkfac
+           path 4: B-R-KFAC on the full-width VGG16_bn, 31 steps (RSVD
+           overwrites inline at steps 0 and 25; T_rsvd = 25)
+  slice_async
+           path 5: the same with the async heavy pipeline (heavy_lag 5,
+           overlap=True): the step-25 overwrite launches on a CUDA side
+           stream in the runner's worker thread and lands at step 30
+  slice_sgd, slice_seng
+           paths 6 and 7: the baselines SGD and SENG (T_fim = 5) on the
+           same model and batch, 11 steps each; the first 6 steps are
+           replayed on the host's CPU and printed beside the card's
 Each path is driven with every launch count reset just before and read
-just after (and lowrank_apply's shapes there must be ones the ``kernels``
-phase checked); then the ``kernels`` line (launches summed over the three
-paths) and, last, the ``ok`` line.  Any failure raises:
-the script exits nonzero and prints no ``ok`` line.  It has no CPU path.
+just after (lowrank_apply's shapes there must be ones the ``kernels``
+phase checked; on paths 4 and 5 every kernel's); then the ``kernels`` line
+(launches summed over the paths) and, last, the ``ok`` line.  Any failure
+raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
+path.
 """
 from __future__ import annotations
 
@@ -38,6 +56,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -283,6 +302,8 @@ def phase_kernels():
         if f64:
             row["max_f64_ratio"] = max(c["f64_ratio"] for c in f64)
         emit({"phase": "kernels", **row})
+        # the calls_by_shape keys of the cases held here
+        row["checked"] = {call_key(name, *args) for args in cases}
         results[name] = row
 
     F = 4  # bytes per fp32
@@ -344,10 +365,13 @@ def phase_kernels():
            tc_k=lambda A, U, C: U.shape[2])
 
     # CholeskyQR2 passes: fc0's A⊥ (1, 16384, 256), every other Brand
-    # bucket's (B, d, 256) and the step-0 RSVD range finder's (2, 256, 240)
+    # bucket's (B, d, 256), the step-0 RSVD range finder's (2, 256, 240),
+    # and B-R-KFAC's RSVD panels (B, d, 240) of every Brand bucket that
+    # holds M (d ≤ 4096), which the async path runs on its side stream
     panels = ([(rnd(1, 16384, 256),)]
               + [(rnd(b, d, 256),) for b, d in BRAND_BUCKETS[:-1]]
-              + [(rnd(2, 256, 240),)])
+              + [(rnd(2, 256, 240),)]
+              + [(rnd(b, d, 240),) for b, d in BRAND_BUCKETS if d <= 4096])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -529,7 +553,8 @@ def phase_kernels():
 
 def numpy_draws(opt, seed: int):
     """The heavy ops' random inputs made with numpy from (seed, step,
-    bucket), so the card and the CPU runs consume the same draws."""
+    bucket), so the card and the CPU runs consume the same draws: for
+    every bucket that fires a heavy range or launches one."""
     import numpy as np
     import torch
     from repro_torch.core import kfactor
@@ -540,7 +565,8 @@ def numpy_draws(opt, seed: int):
         work, out = sched.work(step), {}
         for bi, b in enumerate(opt.factor_buckets):
             s = b.spec
-            if not (work.heavy[bi] and kfactor.needs_draws(s)):
+            if not ((work.heavy[bi] or work.launch[bi])
+                    and kfactor.needs_draws(s)):
                 continue
             rs = np.random.default_rng([seed, step, bi])
             if s.mode is kfactor.Mode.BRAND_CORR:
@@ -554,22 +580,35 @@ def numpy_draws(opt, seed: int):
     return draws
 
 
-def phase_agree(variant: str = "bkfac", linear_taps=()):
-    """Small VGG: kernel route on the card vs plain route on the CPU, for
-    one variant (nskfac: fc0's 4096-wide A side is a gated BRAND factor
-    beside an NS G side, so lowrank_apply and the NS kernel both run) and
-    optionally with Alg-8 linear-apply taps."""
-    import dataclasses
-    import numpy as np
+def agree_model(dev):
+    """The agree phases' small VGG on ``dev`` from weights made on the CPU
+    (seed 3), its taps and six batches (seed 1, batch 16) on ``dev``."""
     import torch
-    from repro_torch.core import kfac as kfac_lib
-    from repro_torch.core import policy as policy_lib
     from repro_torch.data.synthetic import ImageStream
     from repro_torch.models.cnn import VggConfig, make_vgg
+
+    cfg = VggConfig(stages=(8, 16), fc_hidden=64, n_stat=32)
+    cpu = torch.device("cpu")
+    batches = [ImageStream(batch=16, seed=1, device=cpu).batch_at(i)
+               for i in range(6)]
+    weights = {k: v.detach().clone() for k, v in make_vgg(
+        cfg, device=cpu, seed=3)[0].params().items()}
+    model, taps = make_vgg(cfg, device=dev, seed=3)
+    model.load_params({k: v.to(dev) for k, v in weights.items()})
+    return model, taps, [(x.to(dev), y.to(dev)) for x, y in batches]
+
+
+def agree_losses(variant: str, dev, linear_taps=(), overlap=False,
+                 **periods):
+    """Six steps of the small VGG (``agree_model``, numpy draws seed 5) on
+    ``dev`` through ``run_kfac_training`` → (losses, the async runner when
+    ``overlap``)."""
+    import dataclasses
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import policy as policy_lib
     from repro_torch.optim import base as optbase
     from repro_torch.train import loop
 
-    cfg = VggConfig(stages=(8, 16), fc_hidden=64, n_stat=32)
     # a step size at which fp32 rounding does not grow from step to step
     # (see tests/test_torch_vgg.py: the spectrum continuation and Adam on
     # pre-batch-norm biases amplify rounding, so both are kept quiet)
@@ -577,28 +616,39 @@ def phase_agree(variant: str = "bkfac", linear_taps=()):
         policy=policy_lib.PolicyConfig(variant=variant, r=16,
                                        max_dense_dim=1024),
         lr=optbase.constant(0.03), damping_phi=optbase.constant(0.1),
-        clip=0.1, spectrum_continuation=False, T_updt=2, T_inv=4,
-        T_brand=2, T_rsvd=4, T_corct=4, use_kernels=True,
-        fallback_lr=optbase.constant(1e-3))
-    cpu = torch.device("cpu")
-    batches = [ImageStream(batch=16, seed=1, device=cpu).batch_at(i)
-               for i in range(6)]
-    losses, weights = {}, None
-    for dev in (cpu, torch.device("cuda")):
-        model, taps = make_vgg(cfg, device=dev, seed=3)
-        if weights is None:
-            weights = {k: v.detach().clone()
-                       for k, v in model.params().items()}
-        model.load_params(weights)
-        taps = {n: dataclasses.replace(t, linear_apply=n in linear_taps)
-                for n, t in taps.items()}
-        opt = kfac_lib.Kfac(kcfg, taps, device=dev)
-        _, losses[dev.type] = loop.run_kfac_training(
-            model.loss, opt, model.params(),
-            [(x.to(dev), y.to(dev)) for x, y in batches], n_tokens=16,
-            seed=0, device=dev, draws=numpy_draws(opt, seed=5))
+        clip=0.1, spectrum_continuation=False,
+        **({"T_updt": 2, "T_inv": 4, "T_brand": 2, "T_rsvd": 4,
+            "T_corct": 4} | periods),
+        use_kernels=True, fallback_lr=optbase.constant(1e-3))
+    model, taps, batches = agree_model(dev)
+    taps = {n: dataclasses.replace(t, linear_apply=n in linear_taps)
+            for n, t in taps.items()}
+    opt = kfac_lib.Kfac(kcfg, taps, device=dev)
+    runner = loop.AsyncInverseRunner.for_opt(opt) if overlap else None
+    _, losses = loop.run_kfac_training(
+        model.loss, opt, model.params(), batches, n_tokens=16,
+        seed=0, device=dev, draws=numpy_draws(opt, seed=5),
+        overlap=runner or False)
+    return losses, runner
+
+
+def _max_rel(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+
+
+def phase_agree(variant: str = "bkfac", linear_taps=()):
+    """Small VGG: kernel route on the card vs plain route on the CPU, for
+    one variant (nskfac: fc0's 4096-wide A side is a gated BRAND factor
+    beside an NS G side, so lowrank_apply and the NS kernel both run) and
+    optionally with Alg-8 linear-apply taps."""
+    import numpy as np
+    import torch
+    losses = {dev.type: agree_losses(variant, dev, linear_taps)[0]
+              for dev in (torch.device("cpu"), torch.device("cuda"))}
     a, b = np.asarray(losses["cuda"]), np.asarray(losses["cpu"])
-    err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+    err = _max_rel(a, b)
     # tolerance: the card and the CPU sum in other orders and their eighs
     # and SVDs come from other libraries; over 6 steps that stays < 1e-3
     # (measured 3e-5 at step 6 on an H100; it grows ~10x a step after)
@@ -608,6 +658,46 @@ def phase_agree(variant: str = "bkfac", linear_taps=()):
     emit({"phase": "agree", "variant": variant,
           "linear_apply_taps": list(linear_taps), "losses_cuda": a.tolist(),
           "losses_cpu": b.tolist(), "max_rel_err": err, "tol_rel": 1e-3})
+
+
+#: the async agree phase's schedule: light steps every step, an RSVD
+#: firing every 2 and a lag of 1, so steps 2 and 4 launch, 3 and 5 land
+ASYNC_AGREE = dict(T_updt=1, T_brand=1, T_rsvd=2, async_heavy=True,
+                   heavy_lag=1)
+
+
+def phase_agree_async():
+    """Small VGG, B-R-KFAC with the async heavy pipeline: the card's
+    overlapped run (the heavy op on the runner's side stream) against the
+    CPU's (tolerance 1e-3, as the other agree phases), and on the card
+    against the in-line landing (rtol 1e-6 / atol 1e-7, the reference's
+    overlapped-landing tolerance); the runner must land every range it
+    launched and miss none."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    cuda = torch.device("cuda")
+    cpu, _ = agree_losses("brkfac", torch.device("cpu"), **ASYNC_AGREE)
+    inline, _ = agree_losses("brkfac", cuda, **ASYNC_AGREE)
+    _build.reset_launch_counts()
+    over, runner = agree_losses("brkfac", cuda, overlap=True, **ASYNC_AGREE)
+    side = {k: v for k, v in _build.side_launch_counts().items() if v}
+    err = _max_rel(over, cpu)
+    h = runner.health
+    ok_lanes = h["launched"] == h["landed"] >= 1 and h["missed"] == 0
+    same = bool(np.allclose(over, inline, rtol=1e-6, atol=1e-7))
+    emit({"phase": "agree", "variant": "brkfac", "async": ASYNC_AGREE,
+          "losses_cuda": over, "losses_cuda_inline": inline,
+          "losses_cpu": cpu, "max_rel_err": err, "tol_rel": 1e-3,
+          "overlap_vs_inline_max_abs": float(np.max(np.abs(
+              np.asarray(over) - np.asarray(inline)))),
+          "overlap_equals_inline": same, "runner_health": h,
+          "heavy_s": runner.durations, "side_launches": side})
+    if not (np.all(np.isfinite(over)) and err < 1e-3 and same and ok_lanes
+            and side.get("syrk_tn", 0) > 0):
+        raise AssertionError(f"agree async: card {over} vs cpu {cpu} (rel "
+                             f"{err:.3g}), in line {inline}, runner {h}, "
+                             f"side-stream launches {side}")
 
 
 #: (stack, d) of the Brand buckets of a B-KFAC light step on the paper's
@@ -632,6 +722,10 @@ PATH_KERNELS = {
     "slice_nskfac": ("ea_syrk", "ns_gemm_update", "lowrank_apply"),
     "slice_linear": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
                      "precond_panel", "precond_apply", "lowrank_apply"),
+    "slice_brkfac": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                     "precond_panel", "precond_apply"),
+    "slice_async": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                    "precond_panel", "precond_apply"),
 }
 
 
@@ -641,60 +735,66 @@ def lowrank_key(b, p, d, w, cols) -> str:
     return f"X {b}x{p}x{d} {'columns' if cols else 'rows'} U {b}x{d}x{w}"
 
 
+def _fmt(t) -> str:
+    return "x".join(map(str, t.shape))
+
+
+def _lowrank_shape_key(X, U, s, il) -> str:
+    from repro_torch.kernels import lowrank_apply as la
+    return lowrank_key(*X.shape, U.shape[2], la.columns(X))
+
+
+#: kernel → (module of repro_torch.kernels, wrapper, key of a call from
+#: the wrapper's arguments: operand shapes, U's row stride, X's layout)
+WRAPPERS = {
+    "ea_syrk": ("ea_syrk", "ea_syrk_batched",
+                lambda M, X, *_: f"X {_fmt(X)}"),
+    "syrk_tn": ("cholqr", "syrk_tn_batched", lambda A: f"A {_fmt(A)}"),
+    "ut_a": ("brand_panel", "ut_a_batched",
+             lambda U, A: f"U {_fmt(U)} ld {U.stride(1)} A {_fmt(A)}"),
+    "a_perp": ("brand_panel", "a_perp_batched",
+               lambda A, U, C: f"U {_fmt(U)} ld {U.stride(1)} A {_fmt(A)}"),
+    "rinv_apply": ("cholqr", "rinv_apply_batched",
+                   lambda A, R: f"A {_fmt(A)} B {_fmt(R)}"),
+    "ns_gemm_update": ("ns_inverse", "gemm_update_batched",
+                       lambda C, A, B, al, be: f"A {_fmt(A)} alpha {al:g}"),
+    "precond_panel": ("precond_fused", "precond_panel_batched",
+                      lambda Ug, J, sg: f"J {_fmt(J)} U_g {_fmt(Ug)}"),
+    "precond_apply": ("precond_fused", "precond_apply_batched",
+                      lambda J, Ug, Cg, Ua, *_: f"J {_fmt(J)} U_g "
+                                                f"{_fmt(Ug)} U_a {_fmt(Ua)}"),
+    "lowrank_apply": ("lowrank_apply", "lowrank_apply_batched",
+                      _lowrank_shape_key),
+}
+
+
+def call_key(kernel: str, *args) -> str:
+    """calls_by_shape's key of one call of ``kernel``'s wrapper."""
+    _, fn_name, key = WRAPPERS[kernel]
+    return f"{fn_name.split('_batched')[0]} {key(*args)}"
+
+
 @contextlib.contextmanager
 def calls_by_shape():
-    """Count the wrapper calls of ea_syrk, ut_a, a_perp, syrk_tn,
-    rinv_apply, ns_gemm_update, both precond passes and lowrank_apply by
-    operand shape (and U's row stride, X's layout) while the block runs;
-    the launch counters are left to the wrappers."""
-    from repro_torch.kernels import brand_panel as bp
-    from repro_torch.kernels import cholqr as cq
-    from repro_torch.kernels import ea_syrk as ea
-    from repro_torch.kernels import lowrank_apply as la
-    from repro_torch.kernels import ns_inverse as ns
-    from repro_torch.kernels import precond_fused as pf
+    """Count the wrapper calls of every kernel in ``WRAPPERS`` by
+    ``call_key`` while the block runs — from any thread: the async
+    pipeline's worker calls them too; the launch counters are left to the
+    wrappers."""
+    import importlib
     seen = {}
-
-    def counted(mod, fn_name, key):
+    lock = threading.Lock()
+    saved = []
+    for kernel, (mod_name, fn_name, _) in WRAPPERS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
         fn = getattr(mod, fn_name)
 
-        def wrapper(*args):
-            k = f"{fn_name.split('_batched')[0]} {key(*args)}"
-            seen[k] = seen.get(k, 0) + 1
-            return fn(*args)
+        def wrapper(*args, _fn=fn, _kernel=kernel):
+            k = call_key(_kernel, *args)
+            with lock:
+                seen[k] = seen.get(k, 0) + 1
+            return _fn(*args)
         setattr(mod, fn_name, wrapper)
-        return fn
-
-    fmt = lambda t: "x".join(map(str, t.shape))
-    saved = [
-        (ea, "ea_syrk_batched", counted(
-            ea, "ea_syrk_batched",
-            lambda M, X, keep, coef: f"X {fmt(X)}")),
-        (cq, "syrk_tn_batched", counted(
-            cq, "syrk_tn_batched", lambda A: f"A {fmt(A)}")),
-        (bp, "ut_a_batched", counted(
-            bp, "ut_a_batched",
-            lambda U, A: f"U {fmt(U)} ld {U.stride(1)} A {fmt(A)}")),
-        (bp, "a_perp_batched", counted(
-            bp, "a_perp_batched",
-            lambda A, U, C: f"U {fmt(U)} ld {U.stride(1)} A {fmt(A)}")),
-        (cq, "rinv_apply_batched", counted(
-            cq, "rinv_apply_batched",
-            lambda A, R: f"A {fmt(A)} B {fmt(R)}")),
-        (ns, "gemm_update_batched", counted(
-            ns, "gemm_update_batched",
-            lambda C, A, B, al, be: f"A {fmt(A)} alpha {al:g}")),
-        (pf, "precond_panel_batched", counted(
-            pf, "precond_panel_batched",
-            lambda Ug, J, sg: f"J {fmt(J)} U_g {fmt(Ug)}")),
-        (pf, "precond_apply_batched", counted(
-            pf, "precond_apply_batched",
-            lambda J, Ug, Cg, Ua, *_: f"J {fmt(J)} U_g {fmt(Ug)} "
-                                      f"U_a {fmt(Ua)}")),
-        (la, "lowrank_apply_batched", counted(
-            la, "lowrank_apply_batched",
-            lambda X, U, s, il: lowrank_key(*X.shape, U.shape[2],
-                                            la.columns(X))))]
+        saved.append((mod, fn_name, fn))
     try:
         yield seen
     finally:
@@ -702,9 +802,23 @@ def calls_by_shape():
             setattr(mod, name, fn)
 
 
-def phase_path(phase: str, optimizer: str, linear_taps=()):
-    """One path at full width, 11 steps at batch 128; returns the launch
-    counts of that run."""
+def step_kind(work) -> str:
+    """A step's kind: StepWork.label, with a landing without an inline
+    heavy range told apart as ``land``."""
+    return ("land" if any(work.land) and not work.any_heavy
+            else work.label)
+
+
+def phase_path(phase: str, optimizer: str, linear_taps=(), steps: int = 11,
+               lag=None, checked=None):
+    """One path at full width at batch 128, ``steps`` steps; returns the
+    launch counts of that run.  ``lag`` (an int) turns on the async heavy
+    pipeline with that heavy_lag and runs it through an
+    ``AsyncInverseRunner`` (the heavy op on a CUDA side stream); the
+    runner must land every range it launched, miss none, and launch
+    CholeskyQR2 kernels from the side stream.  With ``checked`` (the call
+    keys the ``kernels`` phase held), every kernel call of the path must
+    be at one of them; otherwise only lowrank_apply's are checked."""
     import dataclasses
     import torch
     from repro_torch.core import kfac as kfac_lib
@@ -715,24 +829,29 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
     from repro_torch.train import loop
 
     dev = torch.device("cuda")
-    steps = 11
     model, opt, stream = build("paper", optimizer, batch=128, device=dev,
                                use_kernels=True)
-    if linear_taps:
+    if linear_taps or lag is not None:
         taps = {n: dataclasses.replace(t, linear_apply=n in linear_taps)
                 for n, t in opt.taps.items()}
-        opt = kfac_lib.Kfac(opt.cfg, taps, device=dev)
+        cfg = opt.cfg if lag is None else dataclasses.replace(
+            opt.cfg, async_heavy=True, heavy_lag=lag)
+        opt = kfac_lib.Kfac(cfg, taps, device=dev)
     batches = [stream.batch_at(i) for i in range(steps)]
     sched = opt.scheduler()
-    kinds = [sched.work(k).label for k in range(steps)]
+    kinds = [step_kind(sched.work(k)) for k in range(steps)]
     n_params = sum(p.numel() for p in model.params().values())
+    runner = loop.AsyncInverseRunner.for_opt(opt) if lag is not None \
+        else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # what earlier phases left
     walls = []
     t_prev = [time.perf_counter()]
 
     def cb(k, state, loss):
-        torch.cuda.synchronize()
+        # the training stream only: the runner's side stream runs on
+        torch.cuda.current_stream().synchronize()
         now = time.perf_counter()
         walls.append(now - t_prev[0])
         t_prev[0] = now
@@ -742,8 +861,11 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
     with calls_by_shape() as by_shape:
         state, losses = loop.run_kfac_training(
             model.loss, opt, model.params(), batches, n_tokens=128, seed=0,
-            callback=cb, device=dev)
+            callback=cb, device=dev, overlap=runner or False)
+    torch.cuda.synchronize()
     counts = _build.launch_counts()
+    side_counts = {k: v for k, v in _build.side_launch_counts().items()
+                   if v}
     peak = torch.cuda.max_memory_allocated()
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
@@ -757,12 +879,23 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
     missing = [k for k in PATH_KERNELS[phase] if counts[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels never launched: {missing}")
-    checked = {"lowrank_apply " + lowrank_key(*c) for c in LOWRANK_CASES}
-    unchecked = [k for k in by_shape
-                 if k.startswith("lowrank_apply ") and k not in checked]
+    if checked is None:
+        checked = {"lowrank_apply " + lowrank_key(*c) for c in LOWRANK_CASES}
+        unchecked = [k for k in by_shape
+                     if k.startswith("lowrank_apply ") and k not in checked]
+    else:
+        unchecked = [k for k in by_shape if k not in checked]
     if unchecked:
-        raise AssertionError(f"{phase}: lowrank_apply launched at shapes the "
+        raise AssertionError(f"{phase}: kernels launched at shapes the "
                              f"kernels phase did not check: {unchecked}")
+    if runner is not None:
+        h = runner.health
+        if not (h["launched"] == h["landed"] >= 1 and h["missed"] == 0
+                and side_counts.get("syrk_tn", 0) > 0
+                and side_counts.get("rinv_apply", 0) > 0):
+            raise AssertionError(f"{phase}: runner {h}, side-stream "
+                                 f"launches {side_counts}, error "
+                                 f"{runner.last_error!r}")
     for k in range(steps):
         emit({"phase": phase, "step": k, "kind": kinds[k],
               "loss": losses[k], "wall_s": walls[k]})
@@ -773,7 +906,8 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
           "linear_apply_taps": list(linear_taps), "params": n_params,
           "steps": steps, "kinds": kinds,
           "wall_s_by_kind": {k: v for k, v in by_kind.items()},
-          "peak_mem_bytes": peak, "launches": counts,
+          "peak_mem_bytes": peak, "base_mem_bytes": base,
+          "launches": counts,
           "calls_by_shape": by_shape,
           "buckets": [f"d={b.spec.d} {b.spec.mode.value} B={b.total}"
                       for b in opt.factor_buckets]}
@@ -783,7 +917,148 @@ def phase_path(phase: str, optimizer: str, linear_taps=()):
                      "lam": float(ns_aux[k][..., kfactor.AUX_LAM].max())}
                  for k, r in ns_res.items()
                  if not r < kfactor._NS_RES_MAX}}
-            if ns_res else {}))
+            if ns_res else {})
+         | ({"heavy_lag": lag, "runner_health": runner.health,
+             "runner_heavy_s": runner.durations,
+             "side_launches": side_counts,
+             "async_buckets": {str(b): n for b, n in
+                               opt._async_buckets.items()}}
+            if runner is not None else {}))
+    return counts
+
+
+def baseline_run(phase: str, model, taps, batches, dev, n_tokens: int,
+                 T_fim: int = 5, before=None):
+    """Train ``model`` in place over ``batches`` on ``dev`` with SGD
+    (``slice_sgd``: lr 0.05, momentum 0.9, wd 7e-4, as the reference's
+    train_quality) through ``make_baseline_step``, or with SENG
+    (``slice_seng``: damping 2.0, momentum 0.9, wd 1e-2, fallback lr 3e-3,
+    a refresh every ``T_fim`` steps) → (losses, step kinds, wall seconds a
+    step); ``before()`` runs once the optimizer state exists."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.optim import base as optbase
+    from repro_torch.optim import seng as seng_lib
+    from repro_torch.optim import sgd as sgd_lib
+    from repro_torch.train import loop
+
+    if phase == "slice_sgd":
+        opt = sgd_lib.sgd(optbase.constant(0.05), momentum=0.9,
+                          weight_decay=7e-4)
+        base_step = loop.make_baseline_step(model.loss, opt)
+        step = lambda state, batch, k: base_step(state, batch)
+        kinds = ["sgd"] * len(batches)
+    else:
+        opt = seng_lib.Seng(seng_lib.SengConfig(
+            lr=optbase.constant(0.05), damping=2.0, momentum=0.9,
+            weight_decay=1e-2, T_fim=T_fim,
+            fallback_lr=optbase.constant(3e-3)), taps, device=dev)
+
+        def step(state, batch, k):
+            probes = layers.make_probes(opt.taps, device=dev)
+            loss, acts, gp, gprobe = loop.kfac_grads(
+                model.loss, state.params, probes, batch)
+            upd, ost = opt.update(gp, state.opt, state.params, acts=acts,
+                                  probe_grads=gprobe, n_tokens=n_tokens,
+                                  do_fim=opt.cfg.flags(k)["do_fim"])
+            optbase.apply_updates(state.params, upd)
+            return loop.TrainState(state.params, ost, state.rng), loss
+        kinds = ["fim" if opt.cfg.flags(k)["do_fim"] else "cached"
+                 for k in range(len(batches))]
+    params = model.params()
+    state = loop.TrainState(params=params, opt=opt.init(params),
+                            rng=torch.Generator(device=dev).manual_seed(0))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    if before is not None:
+        before()
+    losses, walls = [], []
+    for k, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, k)
+        losses.append(float(loss))
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return losses, kinds, walls
+
+
+def phase_agree_baseline(phase: str):
+    """Small VGG (``agree_model``), SGD or SENG at the full-width paths'
+    settings, with a refresh every 2 steps for SENG so that both its
+    refreshing and its cached steps run: the card's six losses against
+    the CPU's, tolerance 1e-3 as the other agree phases."""
+    import numpy as np
+    import torch
+    losses = {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        model, taps, batches = agree_model(dev)
+        losses[dev.type], kinds, _ = baseline_run(
+            phase, model, taps, batches, dev, n_tokens=16, T_fim=2)
+    a, b = np.asarray(losses["cuda"]), np.asarray(losses["cpu"])
+    err = _max_rel(a, b)
+    emit({"phase": "agree", "variant": phase, "kinds": kinds,
+          "losses_cuda": a.tolist(), "losses_cpu": b.tolist(),
+          "max_rel_err": err, "tol_rel": 1e-3})
+    if not (np.all(np.isfinite(a)) and err < 1e-3):
+        raise AssertionError(f"agree {phase}: card {a} vs cpu {b} (rel "
+                             f"{err:.3g})")
+
+
+#: steps of a full-width baseline path that are replayed on the CPU
+WITNESS_STEPS = 6
+
+
+def phase_baseline(phase: str, steps: int = 11):
+    """SGD (``slice_sgd``) or SENG (``slice_seng``, T_fim 5) training the
+    full-width VGG16_bn at batch 128 (``baseline_run``); returns the
+    launch counts (no kernel: the reference runs these in jnp).  The first
+    ``WITNESS_STEPS`` steps are then replayed on the host's CPU from the
+    same weights and batches, and both trajectories printed: a witness of
+    whether the path's loss at these settings comes from the settings or
+    from the card (the agree phases hold the card to the CPU)."""
+    import torch
+    from repro_torch.examples.train_vgg_kfac import build
+    from repro_torch.kernels import _build
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    model, kopt, stream = build("paper", "bkfac", batch=128, device=dev)
+    batches = [stream.batch_at(i) for i in range(steps)]
+    init = {k: v.detach().to(cpu, copy=True)
+            for k, v in model.params().items()}
+    mem = {}
+
+    def before():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem["base"] = torch.cuda.memory_allocated()  # earlier phases' too
+        _build.reset_launch_counts()
+
+    losses, kinds, walls = baseline_run(phase, model, kopt.taps, batches,
+                                        dev, n_tokens=128, before=before)
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    for k in range(steps):
+        emit({"phase": phase, "step": k, "kind": kinds[k],
+              "loss": losses[k], "wall_s": walls[k]})
+    by_kind = {}
+    for kind, w in zip(kinds, walls):
+        by_kind.setdefault(kind, []).append(w)
+    del model, kopt
+    cpu_model, cpu_kopt, _ = build("paper", "bkfac", batch=128, device=cpu)
+    cpu_model.load_params(init)
+    witness, _, cpu_walls = baseline_run(
+        phase, cpu_model, cpu_kopt.taps,
+        [(x.to(cpu), y.to(cpu)) for x, y in batches[:WITNESS_STEPS]], cpu,
+        n_tokens=128)
+    emit({"phase": phase, "summary": True, "steps": steps, "kinds": kinds,
+          "wall_s_by_kind": by_kind, "peak_mem_bytes": peak,
+          "base_mem_bytes": mem["base"], "launches": counts,
+          "cpu_witness": {"losses_cuda": losses[:WITNESS_STEPS],
+                          "losses_cpu": witness,
+                          "rel_err": [abs(x - y) / max(abs(y), 1e-6)
+                                      for x, y in zip(losses, witness)],
+                          "cpu_s": sum(cpu_walls)}})
     return counts
 
 
@@ -803,10 +1078,23 @@ def main(argv=None) -> int:
     phase_agree("bkfac")
     phase_agree("nskfac")
     phase_agree("bkfac", linear_taps=("fc0", "fc1"))
+    phase_agree_async()
+    phase_agree_baseline("slice_sgd")
+    phase_agree_baseline("slice_seng")
     by_path = {"slice": phase_path("slice", "bkfac"),
                "slice_nskfac": phase_path("slice_nskfac", "nskfac"),
                "slice_linear": phase_path("slice_linear", "bkfac",
                                           linear_taps=("fc0", "fc1"))}
+    # B-R-KFAC, 31 steps (the RSVD overwrite inline at 0 and 25), then the
+    # same with the step-25 overwrite on the async pipeline's side stream,
+    # landing at 30; every kernel call there at a shape checked above
+    checked = set().union(*(row["checked"] for row in kernels.values()))
+    by_path["slice_brkfac"] = phase_path("slice_brkfac", "brkfac", steps=31,
+                                         checked=checked)
+    by_path["slice_async"] = phase_path("slice_async", "brkfac", steps=31,
+                                        lag=5, checked=checked)
+    by_path["slice_sgd"] = phase_baseline("slice_sgd")
+    by_path["slice_seng"] = phase_baseline("slice_seng")
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

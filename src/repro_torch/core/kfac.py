@@ -18,10 +18,11 @@ on the card.  Each step's heavy work comes from a static
 The bucketed path (one batched call per shape-class bucket) and the
 per-tap comparison path (``bucketed=False``) run the same per-bucket
 program.  Taps with ``linear_apply`` take the Alg-8 application from
-their gradient factors.  Not ported (it raises): the async heavy
-pipeline; the distributed curvature engine is a later slice, and the
-telemetry hooks are left out (the reference's are no-ops with no
-collector active).
+their gradient factors.  ``async_heavy`` runs the two-phase launch/land
+pipeline of the reference on the bucketed path (the per-bucket in-flight
+buffers are ``KfacState.inflight``).  The distributed curvature engine is
+a later slice, and the telemetry hooks are left out (the reference's are
+no-ops with no collector active).
 """
 from __future__ import annotations
 
@@ -89,6 +90,10 @@ class KfacState:
     factors: Dict[str, TapState]
     momentum: Optional[Params]
     fallback: _adamw.AdamWState
+    # bucket idx (str) → the async pipeline's in-flight buffer; {} when
+    # cfg.async_heavy is off
+    inflight: Dict[str, kfactor.InflightState] = dataclasses.field(
+        default_factory=dict)
 
 
 class Kfac:
@@ -97,10 +102,6 @@ class Kfac:
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
                  device=None):
-        if cfg.async_heavy:
-            raise NotImplementedError(
-                "async_heavy is not ported yet: see ROADMAP.md, the async "
-                "pipeline slice")
         self.device = device_lib.resolve(device)
         self.cfg = cfg
         self.taps = dict(taps)
@@ -123,6 +124,15 @@ class Kfac:
         self._slot = {(e.name, e.side): (bi, e.offset, e.count)
                       for bi, b in enumerate(self.factor_buckets)
                       for e in b.entries}
+        # async pipeline: bucket index → interim light panels it replays
+        # at landing, for the buckets that carry an in-flight buffer
+        self._async_buckets: Dict[int, int] = {
+            bi: schedule.n_replay_panels(cfg, b.spec)
+            for bi, b in enumerate(self.factor_buckets)
+            if schedule.bucket_is_async(cfg, b.spec)}
+        if self._async_buckets and not cfg.bucketed:
+            raise ValueError("async_heavy requires bucketed=True (the "
+                             "in-flight buffers live in bucket layout)")
         self._cycle = self.scheduler().cycle
 
     def scheduler(self, **kw) -> schedule.Scheduler:
@@ -132,6 +142,13 @@ class Kfac:
                      ) -> schedule.StepWork:
         return schedule.uniform_work(do_stats, do_light, do_heavy,
                                      self.factor_buckets)
+
+    def clear_inflight(self, state: KfacState) -> KfacState:
+        """Invalidate every in-flight snapshot: each still-scheduled
+        landing becomes a per-slot no-op."""
+        return dataclasses.replace(state, inflight={
+            k: dataclasses.replace(buf, live=torch.zeros_like(buf.live))
+            for k, buf in state.inflight.items()})
 
     # -- state ------------------------------------------------------------
     def init(self, params: Params) -> KfacState:
@@ -153,8 +170,13 @@ class Kfac:
                                        dtype=torch.float32)
                    for n, t in self.taps.items()}
         fb = self._fallback.init(self._untapped(params))
+        inflight = {str(bi): kfactor.make_inflight(
+                        self.factor_buckets[bi].spec,
+                        self.factor_buckets[bi].total, n_replay,
+                        device=device)
+                    for bi, n_replay in self._async_buckets.items()}
         return KfacState(step=0, n_stats=0, phase=0, factors=factors,
-                         momentum=mom, fallback=fb)
+                         momentum=mom, fallback=fb, inflight=inflight)
 
     def _untapped(self, tree: Params) -> Params:
         paths = {t.param_path for t in self.taps.values()}
@@ -210,14 +232,22 @@ class Kfac:
             factors[name] = TapState(A=new["A"], G=new["G"])
         return factors
 
-    def _bucketed_factor_work(self, factors, acts, probe_grads, n_tokens,
-                              rng: Optional[torch.Generator], first: bool,
-                              work: schedule.StepWork, draws=None):
+    def _bucketed_factor_work(self, factors, inflight, acts, probe_grads,
+                              n_tokens, rng: Optional[torch.Generator],
+                              first: bool, work: schedule.StepWork,
+                              draws=None, landing=None):
         """Stats absorbs, Brand updates and the scheduled heavy ranges as
-        one batched call per shape-class bucket.  ``draws`` optionally maps
-        bucket index → the heavy op's random inputs for all of the
-        bucket's slots (the parity tests inject the reference's); otherwise
-        each firing bucket takes one draw from ``rng``."""
+        one batched call per shape-class bucket; async buckets also run
+        this step's pipeline phases (panel ring, launch, land) against
+        their in-flight buffer (reference ``core/kfac.py:383``).
+        ``draws`` optionally maps bucket index → the heavy op's random
+        inputs for all of the bucket's slots (the parity tests inject the
+        reference's); otherwise each bucket that fires a heavy range or
+        launches one takes one draw from ``rng``, in bucket order — the
+        same draws a synchronous step takes.  ``landing`` optionally maps
+        bucket index (str) → one pre-computed (U, D, aux) per land range.
+        Returns (factors, inflight)."""
+        inflight = dict(inflight)
         states, X_all = {}, {}
         for name in sorted(self.taps):
             X_all[(name, "A")], X_all[(name, "G")] = self._stats_factors(
@@ -226,24 +256,31 @@ class Kfac:
             states[(name, "G")] = factors[name].G
         for bi, bucket in enumerate(self.factor_buckets):
             heavy = work.heavy[bi]
+            launch = work.launch[bi] if work.launch else ()
+            land = work.land[bi] if work.land else ()
             if not kfactor.has_work(bucket.spec, work.stats, work.light,
-                                    bool(heavy)):
+                                    bool(heavy or launch or land)):
                 continue
             st = buckets.gather_states(bucket.entries, states)
             X = buckets.gather(bucket.entries, X_all)
             bdraws = None
-            if heavy and kfactor.needs_draws(bucket.spec):
+            if (heavy or launch) and kfactor.needs_draws(bucket.spec):
                 bdraws = (draws or {}).get(bi)
                 if bdraws is None:
                     bdraws = kfactor.draw_heavy(bucket.spec, bucket.total,
                                                 rng, X.device)
                 bdraws = bdraws.to(X.device)
-            st = kfactor.bucket_factor_step(
+            st, buf = kfactor.bucket_factor_step_async(
                 bucket.spec, st, X, first, work.stats, work.light, heavy,
-                self.cfg.use_kernels, draws=bdraws)
+                launch, land, inflight.get(str(bi)), self.cfg.use_kernels,
+                draws=bdraws,
+                landed=None if landing is None else landing.get(str(bi)))
+            if buf is not None:
+                inflight[str(bi)] = buf
             states.update(buckets.scatter_states(bucket.entries, st))
-        return {name: TapState(A=states[(name, "A")], G=states[(name, "G")])
-                for name in self.taps}
+        return ({name: TapState(A=states[(name, "A")],
+                                G=states[(name, "G")])
+                 for name in self.taps}, inflight)
 
     # -- preconditioning ------------------------------------------------------
     def _precondition(self, name, st: TapState, grad_w: Tensor, phi,
@@ -337,22 +374,33 @@ class Kfac:
     def update(self, grads: Params, state: KfacState, params: Params, *,
                acts, probe_grads, n_tokens: int,
                rng: Optional[torch.Generator],
-               work: schedule.StepWork, draws=None
+               work: schedule.StepWork, draws=None, landing=None
                ) -> Tuple[Params, KfacState]:
         """One optimizer step → (updates, new state).  ``work`` is the
         step's StepWork mask; ``draws`` optionally injects the heavy ops'
-        random inputs per bucket (see ``_bucketed_factor_work``)."""
+        random inputs per bucket (see ``_bucketed_factor_work``);
+        ``landing`` optionally carries pre-computed heavy results for
+        this step's land ranges (bucket idx str → one (U, D, aux) or
+        None per range, from ``train.loop.AsyncInverseRunner``); absent,
+        landings compute here from the in-flight snapshot."""
         cfg = self.cfg
         first = state.n_stats == 0
         phi = cfg.damping_phi(state.step)
         lr = cfg.lr(state.step)
 
         factors = dict(state.factors)
-        if work.any:
-            factor_work = (self._bucketed_factor_work if cfg.bucketed
-                           else self._tap_factor_work)
-            factors = factor_work(factors, acts, probe_grads, n_tokens, rng,
-                                  first, work, draws=draws)
+        inflight = dict(state.inflight)
+        if work.any and cfg.bucketed:
+            factors, inflight = self._bucketed_factor_work(
+                factors, inflight, acts, probe_grads, n_tokens, rng, first,
+                work, draws=draws, landing=landing)
+        elif work.any:
+            if work.any_async:
+                raise ValueError("async launch/land masks require the "
+                                 "bucketed optimizer path")
+            factors = self._tap_factor_work(factors, acts, probe_grads,
+                                            n_tokens, rng, first, work,
+                                            draws=draws)
 
         precondition = (self._bucketed_precondition if cfg.bucketed
                         else self._tap_precondition)
@@ -376,5 +424,6 @@ class Kfac:
             step=state.step + 1,
             n_stats=state.n_stats + int(work.stats),
             phase=(state.phase + 1) % self._cycle,
-            factors=factors, momentum=new_mom, fallback=fb_state)
+            factors=factors, momentum=new_mom, fallback=fb_state,
+            inflight=inflight)
         return updates, new_state

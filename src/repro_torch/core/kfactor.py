@@ -1,9 +1,9 @@
 """EA K-factor state and its update modes — the heart of the paper.
 
-Counterpart of ``src/repro/core/kfactor.py``, synchronous subset.  A
-K-factor is the exponential average  M_k = ρ M_{k-1} + (1-ρ) X_k X_kᵀ
-(paper eq. 5/8); each optimizer variant is a choice of how the *inverse
-representation* (U, D) of M is maintained:
+Counterpart of ``src/repro/core/kfactor.py``.  A K-factor is the
+exponential average  M_k = ρ M_{k-1} + (1-ρ) X_k X_kᵀ  (paper eq. 5/8);
+each optimizer variant is a choice of how the *inverse representation*
+(U, D) of M is maintained:
 
   mode        holds M?   update of (U, D)                         paper
   EVD         yes        dense eigh of M every T_inv              K-FAC
@@ -17,8 +17,18 @@ representation* (U, D) of M is maintained:
 Every operation is stacked-native over leading batch axes.  The random
 inputs of the heavy ops — the RSVD test matrix ``omega`` and the Alg-6
 column choice ``idx`` — are drawn from a ``torch.Generator`` or injected
-by the caller (``heavy_overwrite_batched(draws=...)``).  The async
-pipeline of the reference (``InflightState`` …) is a later slice.
+by the caller (``heavy_overwrite_batched(draws=...)``).
+
+The async heavy pipeline (``InflightState`` … ``bucket_factor_step_async``,
+reference ``core/kfactor.py:451-650``) keeps one deliberate difference
+from the reference: **draws are snapshotted, not keys.**  The reference
+snapshots per-slot PRNG keys and its heavy op redraws from them when it
+lands; the port has no ``jax.random``, so a launch stores the launch
+step's *draws* (the RSVD test matrices or the correction's columns),
+taken from the same generator in the same order as the synchronous path
+takes them on that step.  ``heavy_from_snapshot`` then draws nothing: it
+is a pure function of the buffer, which both the overlapped landing (a
+worker thread, on the card a side stream) and the in-graph landing need.
 """
 from __future__ import annotations
 
@@ -390,11 +400,168 @@ def bucket_factor_step(spec: KFactorSpec, st: KFactorState, X: Tensor,
         if (lo, hi) == (0, st.U.shape[0]):
             st = sub
             continue
-
-        def put(full, part):
-            full = full.clone()
-            full[lo:hi] = part
-            return full
-        st = KFactorState(U=put(st.U, sub.U), D=put(st.D, sub.D),
-                          M=put(st.M, sub.M), aux=put(st.aux, sub.aux))
+        st = KFactorState(U=_put(st.U, lo, hi, sub.U),
+                          D=_put(st.D, lo, hi, sub.D),
+                          M=_put(st.M, lo, hi, sub.M),
+                          aux=_put(st.aux, lo, hi, sub.aux))
     return st
+
+
+def _put(full: Tensor, lo: int, hi: int, part) -> Tensor:
+    """A copy of ``full`` with slots [lo, hi) set to ``part``."""
+    full = full.clone()
+    full[lo:hi] = part
+    return full
+
+
+# ---------------------------------------------------------------------------
+# the async heavy pipeline: snapshot at launch, swap in at land
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class InflightState:
+    """Double buffer for one bucket's async heavy pipeline (all leaves
+    slot-major, leading axis = the bucket's B slots).
+
+    U/D/M: (B, d, w) / (B, w) / (B, d, d) snapshots of the live state
+    (post-stats, post-Brand: what the inline heavy op would read).
+    draws: the launch step's random inputs of the heavy op — (B, d, k)
+    RSVD test matrices, (B, n_crc) correction columns, or (B, 0) for
+    modes that draw nothing.
+    panels: (B, n_replay, d, n_stat) ring of the last light panels,
+    oldest first.
+    live: (B,) bool — set at launch, consumed at land; a landing swaps
+    only live slots, so a dropped or never-fired launch makes it a
+    per-slot no-op."""
+    U: Tensor
+    D: Tensor
+    M: Tensor
+    draws: Tensor
+    panels: Tensor
+    live: Tensor
+
+    def map(self, fn) -> "InflightState":
+        return InflightState(U=fn(self.U), D=fn(self.D), M=fn(self.M),
+                             draws=fn(self.draws), panels=fn(self.panels),
+                             live=fn(self.live))
+
+
+def make_inflight(spec: KFactorSpec, total: int, n_replay: int,
+                  dtype=torch.float32, device=None) -> InflightState:
+    """Zero-initialized in-flight buffer for a bucket of ``total`` slots."""
+    z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
+    if spec.mode is Mode.BRAND_CORR:
+        draws = z(total, spec.n_crc, dt=torch.int64)
+    elif needs_draws(spec):
+        draws = z(total, spec.d, min(spec.r + spec.r_o, spec.d))
+    else:
+        draws = z(total, 0)
+    m_shape = (spec.d, spec.d) if spec.needs_m else (1, 1)
+    return InflightState(U=z(total, spec.d, spec.width),
+                         D=z(total, spec.width), M=z(total, *m_shape),
+                         draws=draws,
+                         panels=z(total, n_replay, spec.d, spec.n_stat),
+                         live=z(total, dt=torch.bool))
+
+
+def record_panel(buf: InflightState, X: Tensor) -> InflightState:
+    """Shift the light-panel ring left and append this step's panel."""
+    if buf.panels.shape[1] == 0:
+        return buf
+    panels = torch.cat([buf.panels[:, 1:], X[:, None].to(buf.panels.dtype)],
+                       dim=1)
+    return dataclasses.replace(buf, panels=panels)
+
+
+def launch_snapshot(buf: InflightState, st: KFactorState,
+                    draws: Optional[Tensor], lo: int, hi: int
+                    ) -> InflightState:
+    """Snapshot the live state (and this step's draws) of slots [lo, hi)
+    into the buffer — the operands of the future heavy op."""
+    return InflightState(
+        U=_put(buf.U, lo, hi, st.U[lo:hi]),
+        D=_put(buf.D, lo, hi, st.D[lo:hi]),
+        M=_put(buf.M, lo, hi, st.M[lo:hi]),
+        draws=(buf.draws if draws is None
+               else _put(buf.draws, lo, hi, draws[lo:hi])),
+        panels=buf.panels,
+        live=_put(buf.live, lo, hi, True))
+
+
+def heavy_from_snapshot(spec: KFactorSpec, buf: InflightState,
+                        lo: int, hi: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """The heavy overwrite of slots [lo, hi), computed from the snapshot
+    alone (no draws are taken: they are in the buffer) → the landed
+    (U, D, aux).  The snapshot's aux is zeros, as in the reference: no
+    heavy op reads it."""
+    snap = KFactorState(U=buf.U[lo:hi], D=buf.D[lo:hi], M=buf.M[lo:hi],
+                        aux=torch.zeros((hi - lo, AUX_WIDTH),
+                                        dtype=buf.D.dtype,
+                                        device=buf.D.device))
+    out = heavy_overwrite_batched(
+        spec, snap, buf.draws[lo:hi] if needs_draws(spec) else None)
+    return out.U, out.D, out.aux
+
+
+def replay_panels(spec: KFactorSpec, U: Tensor, D: Tensor, panels: Tensor,
+                  use_kernel: bool = False) -> Tuple[Tensor, Tensor]:
+    """Replay the interim light panels (oldest first) onto a landed
+    inverse rep, so it carries every Brand absorb the live state received
+    while the heavy op was in flight."""
+    for j in range(panels.shape[1]):
+        U, D = brand.ea_brand_step(U, D, panels[:, j], spec.rho, spec.r,
+                                   use_kernel=use_kernel)
+        if U.shape[-1] > spec.width:
+            U, D = U[..., :, :spec.width], D[..., :spec.width]
+    return U, D
+
+
+def land_swap(spec: KFactorSpec, st: KFactorState, buf: InflightState,
+              lo: int, hi: int, use_kernel: bool = False, landed=None
+              ) -> Tuple[KFactorState, InflightState]:
+    """Swap the landed inverse rep of slots [lo, hi) into the live state.
+    ``landed`` is an optionally pre-computed (U, D, aux) from an
+    overlapped dispatch; absent, the heavy op runs here from the snapshot
+    (same function, same operands, same result).  Only live slots swap,
+    and their flag is consumed."""
+    U, D, aux = (heavy_from_snapshot(spec, buf, lo, hi) if landed is None
+                 else landed)
+    if spec.mode in _HAS_BRAND:
+        U, D = replay_panels(spec, U, D, buf.panels[lo:hi], use_kernel)
+    ok = buf.live[lo:hi]
+    U = torch.where(ok[:, None, None], U, st.U[lo:hi])
+    D = torch.where(ok[:, None], D, st.D[lo:hi])
+    aux = torch.where(ok[:, None], aux, st.aux[lo:hi])
+    st = KFactorState(U=_put(st.U, lo, hi, U), D=_put(st.D, lo, hi, D),
+                      M=st.M, aux=_put(st.aux, lo, hi, aux))
+    return st, dataclasses.replace(buf, live=_put(buf.live, lo, hi, False))
+
+
+def bucket_factor_step_async(spec: KFactorSpec, st: KFactorState, X: Tensor,
+                             first: bool, stats: bool, light: bool,
+                             heavy_ranges, launch_ranges, land_ranges,
+                             buf: Optional[InflightState],
+                             use_kernel: bool = False,
+                             draws: Optional[Tensor] = None, landed=None
+                             ) -> Tuple[KFactorState, Optional[InflightState]]:
+    """One scheduled step of the async pipeline for a whole bucket: the
+    synchronous program (stats, Brand, any inline heavy such as the step-0
+    warmup), then record the light panel, *launch* (snapshot the firing
+    slots and their draws), *land* (swap in heavy-of-snapshot with the
+    interim panels replayed).  With ``lag = 0`` the landing reads the
+    snapshot just written, so the step is bit for bit the synchronous
+    one.  ``draws`` are the bucket's draws of this step (all B slots),
+    shared by the inline heavy ranges and the launch ranges; ``landed``
+    optionally holds one pre-computed (U, D, aux) per land range."""
+    st = bucket_factor_step(spec, st, X, first, stats, light, heavy_ranges,
+                            use_kernel, draws=draws)
+    if buf is None:
+        return st, None
+    if light:
+        buf = record_panel(buf, X)
+    for lo, hi in tuple(launch_ranges):
+        buf = launch_snapshot(buf, st, draws, lo, hi)
+    for i, (lo, hi) in enumerate(tuple(land_ranges)):
+        st, buf = land_swap(spec, st, buf, lo, hi, use_kernel,
+                            landed=None if landed is None else landed[i])
+    return st, buf

@@ -8,8 +8,19 @@ each unit (a bucket, or an entry-aligned chunk of one) a phase spread over
 the heavy period, snapped to multiples of ``T_brand`` for Brand-family
 buckets (pinned to 0 when ``T_brand`` does not divide the period), fires
 every unit at step 0 (warmup), and gives the dense buckets of a pure-Brand
-variant a warmup-only unit.  The async pipeline is a later slice, so the
-``launch``/``land`` ranges are always empty here.
+variant a warmup-only unit.
+
+Async launch/land (``cfg.async_heavy``), as in the reference: with
+``heavy_lag = L`` each regular heavy firing of an async unit becomes a
+*launch* (the factor state is snapshotted into the in-flight buffer) and,
+``L`` steps later, a *land* (the heavy result computed from the snapshot,
+interim Brand panels replayed on top, is swapped into the live state).
+``L = 0`` launches and lands on the same step, which is bit for bit the
+synchronous path.  ``L < T`` keeps one snapshot per unit; a Brand-family
+bucket pipelines only when ``T_brand`` divides the heavy period, so the
+number of panels to replay is the constant ``L // T_brand``; other such
+buckets stay ``sync_only`` (inline at phase 0).  The step-0 warmup stays
+inline: an empty factor has no spectrum to damp.
 """
 from __future__ import annotations
 
@@ -81,12 +92,42 @@ def uniform_work(do_stats: bool, do_light: bool, do_heavy: bool,
 @dataclasses.dataclass(frozen=True)
 class Unit:
     """Entry-aligned slot range [lo, hi) of factor bucket ``bucket``,
-    firing at steps ``k ≡ phase (mod T)``."""
+    firing at steps ``k ≡ phase (mod T)``; ``sync_only`` units fire
+    inline even under an async schedule."""
     bucket: int
     lo: int
     hi: int
     phase: int
     sync_only: bool = False
+
+
+def bucket_is_async(cfg, spec) -> bool:
+    """True iff a factor bucket with this spec pipelines its heavy work
+    under ``cfg.async_heavy`` (reference ``core/schedule.py:227``).
+    Brand-family buckets pipeline only when ``T_brand`` divides the
+    variant's heavy period."""
+    from repro_torch.core import kfactor
+    if not cfg.async_heavy or not kfactor.has_heavy_op(spec):
+        return False
+    period_field = policy_lib.heavy_period_field(cfg.policy.variant)
+    if period_field is None:
+        return False
+    T = int(getattr(cfg, period_field))
+    if (policy_lib.has_light(cfg.policy.variant)
+            and spec.mode in kfactor._HAS_BRAND):
+        return T % cfg.T_brand == 0
+    return True
+
+
+def n_replay_panels(cfg, spec) -> int:
+    """Interim Brand panels replayed at a landing: the light steps in
+    (launch, launch + lag], exactly ``lag // T_brand`` because launch
+    phases are snapped to multiples of ``T_brand`` (reference
+    ``core/schedule.py:246``)."""
+    from repro_torch.core import kfactor
+    if not bucket_is_async(cfg, spec) or spec.mode not in kfactor._HAS_BRAND:
+        return 0
+    return int(cfg.heavy_lag) // cfg.T_brand
 
 
 def _chunk_boundaries(bucket, align: int) -> Tuple[int, ...]:
@@ -132,6 +173,12 @@ class Scheduler:
         period_field = policy_lib.heavy_period_field(variant)
         self.T_heavy = (None if period_field is None
                         else int(getattr(cfg, period_field)))
+        self.async_heavy = cfg.async_heavy and self.T_heavy is not None
+        self.lag = int(cfg.heavy_lag)
+        if self.async_heavy and not 0 <= self.lag < self.T_heavy:
+            raise ValueError(
+                f"heavy_lag={self.lag} must satisfy 0 <= lag < "
+                f"T_heavy={self.T_heavy} (one in-flight snapshot per unit)")
         splits = cfg.stagger_splits if splits is None else splits
         self.units: Tuple[Unit, ...] = self._assign_phases(splits, align)
 
@@ -163,7 +210,11 @@ class Scheduler:
             else:
                 raw = (i * T) // max(n_units, 1)
                 phase = (raw // snap) * snap % T
-            units.append(Unit(bucket=bi, lo=lo, hi=hi, phase=phase))
+            sync_only = (self.async_heavy and
+                         not bucket_is_async(self.cfg,
+                                             self.buckets[bi].spec))
+            units.append(Unit(bucket=bi, lo=lo, hi=hi, phase=phase,
+                              sync_only=sync_only))
         return tuple(units)
 
     @property
@@ -180,19 +231,33 @@ class Scheduler:
         stats = step % self.cfg.T_updt == 0
         light = self.has_light and step % self.cfg.T_brand == 0
         heavy = [[] for _ in self.buckets]
+        launch = [[] for _ in self.buckets]
+        land = [[] for _ in self.buckets]
+        warm = self.warmup and step == 0
         if self.T_heavy is None:
-            if self.warmup and step == 0:
+            if warm:
                 for u in self.units:
                     heavy[u.bucket].append((u.lo, u.hi))
         else:
+            T, L = self.T_heavy, self.lag
             for u in self.units:
-                if step % self.T_heavy == u.phase or (self.warmup
-                                                      and step == 0):
+                fires = step % T == u.phase
+                if not self.async_heavy or u.sync_only:
+                    if fires or warm:
+                        heavy[u.bucket].append((u.lo, u.hi))
+                    continue
+                # async: the warmup stays inline; regular firings launch
+                # and land L steps later
+                if warm:
                     heavy[u.bucket].append((u.lo, u.hi))
+                if fires and step > 0:
+                    launch[u.bucket].append((u.lo, u.hi))
+                if step - L > 0 and (step - L) % T == u.phase:
+                    land[u.bucket].append((u.lo, u.hi))
         return StepWork(stats=stats, light=light,
                         heavy=tuple(_merge(r) for r in heavy),
-                        launch=_empty(self.buckets),
-                        land=_empty(self.buckets))
+                        launch=tuple(_merge(r) for r in launch),
+                        land=tuple(_merge(r) for r in land))
 
 
 def _merge(ranges: Sequence[Tuple[int, int]]) -> Ranges:

@@ -11,7 +11,10 @@ tests import every module of the package on a host with no ``nvcc``.
 Each kernel entry point is a :class:`Kernel`: it launches on the current
 torch stream, raises if the C function reports a launch error, and counts
 its launches (``launch_counts``), so a run can show that its main path
-went through the kernels.
+went through the kernels; launches from a stream other than the device's
+default stream (the async pipeline's side stream) are also counted apart
+(``side_launch_counts``).  The counts are kept under a lock: the async
+pipeline launches kernels from a worker thread too.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -38,6 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libkfac_kernels.so"
 
 _lib: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 KERNELS: Dict[str, "Kernel"] = {}
 
 
@@ -108,8 +114,9 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
+    with _LOAD_LOCK:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
     return _lib
 
 
@@ -138,6 +145,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.side_launches = 0
         self._fn = None
         KERNELS[name] = self
 
@@ -147,20 +155,36 @@ class Kernel:
             fn.argtypes = self.argtypes + [P]
             fn.restype = ctypes.c_int
             self._fn = fn
-        rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream()
+        rc = self._fn(*args, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {rc}")
-        self.launches += 1
+        self.count(stream.cuda_stream
+                   != torch.cuda.default_stream(stream.device).cuda_stream)
+
+    def count(self, side: bool) -> None:
+        """One launch more (``side``: from a non-default stream)."""
+        with _COUNT_LOCK:
+            self.launches += 1
+            self.side_launches += int(side)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _COUNT_LOCK:
+        return {name: k.launches for name, k in KERNELS.items()}
+
+
+def side_launch_counts() -> Dict[str, int]:
+    """Launches from a stream other than the device's default stream."""
+    with _COUNT_LOCK:
+        return {name: k.side_launches for name, k in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = k.side_launches = 0
 
 
 # ---------------------------------------------------------------------------

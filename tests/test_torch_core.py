@@ -184,12 +184,15 @@ def test_step_work_matches_reference(variant, stagger):
 
 
 def test_unported_paths_raise():
-    """Only the async heavy pipeline is left unported; the per-tap path,
-    nskfac and linear-apply taps now build."""
+    """Every path of the single-device optimizer builds: the async heavy
+    pipeline (bucketed only: per tap it raises ValueError, as in the
+    reference), the per-tap path, nskfac and linear-apply taps."""
     _, ttaps = _paper_taps()
-    _, tcfg = _configs("bkfac", False, async_heavy=True)
-    with pytest.raises(NotImplementedError, match="async"):
-        tkfac.Kfac(tcfg, ttaps, device=CPU)
+    _, tcfg = _configs("brkfac", False, async_heavy=True, heavy_lag=2)
+    assert tkfac.Kfac(tcfg, ttaps, device=CPU)._async_buckets
+    with pytest.raises(ValueError, match="bucketed"):
+        tkfac.Kfac(dataclasses.replace(tcfg, bucketed=False), ttaps,
+                   device=CPU)
     _, tcfg = _configs("bkfac", False, bucketed=False)
     assert not tkfac.Kfac(tcfg, ttaps, device=CPU).cfg.bucketed
     _, tcfg = _configs("nskfac", False)

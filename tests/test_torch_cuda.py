@@ -355,3 +355,56 @@ def test_cuda_lowrank_apply(cuda, monkeypatch, stack, p, d, w):
         if cols:
             assert handed[0].data_ptr() == X.data_ptr()
             assert tla.columns(handed[0]) and got.mT.is_contiguous()
+
+
+def _async_tiny_run(device, overlap):
+    """B-R-KFAC on one 24×8 tap (A side BRAND_RSVD, G side EVD; r 4,
+    T_rsvd 4, stagger, heavy_lag 2), 8 steps through the kernels, with or
+    without the async runner → (losses, runner, side-stream launches)."""
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.models import layers as tlayers
+    from repro_torch.optim import base as tbase
+    from repro_torch.train import loop as tloop
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((24, 8), generator=g) * 0.1
+    batches = [(torch.randn((8, 24), generator=g).to(device),
+                torch.randn((8, 8), generator=g).to(device))
+               for _ in range(8)]
+
+    def loss_fn(p, probes, batch):
+        x, y = batch
+        h, act = tlayers.tapped_matmul(p["fc/w"], x, probes.get("fc"), 8)
+        return torch.mean((h - y) ** 2), {"fc": act}
+
+    cfg = tkfac.KfacConfig(
+        policy=tpolicy.PolicyConfig(variant="brkfac", r=4),
+        lr=tbase.constant(0.05), T_updt=1, T_brand=1, T_rsvd=4,
+        stagger=True, async_heavy=True, heavy_lag=2, use_kernels=True)
+    opt = tkfac.Kfac(cfg, {"fc": tkfac.TapInfo("fc/w", 24, 8, n_stat=8)},
+                     device=device)
+    runner = tloop.AsyncInverseRunner.for_opt(opt) if overlap else None
+    _build.reset_launch_counts()
+    _, losses = tloop.run_kfac_training(
+        loss_fn, opt, {"fc/w": w.to(device).requires_grad_()}, batches,
+        n_tokens=8, device=device, overlap=runner or False)
+    torch.cuda.synchronize()
+    return losses, runner, _build.side_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_async_runner_on_side_stream(cuda):
+    """On the card the runner's heavy op runs on its side stream (the
+    RSVD's CholeskyQR2 kernels are counted there), lands every range whose
+    landing falls in the run with no miss, and gives the in-line landing's
+    losses (rtol 1e-6 / atol 1e-7, the reference's overlapped-landing
+    tolerance; the kernels are deterministic)."""
+    inline, _, side0 = _async_tiny_run(cuda, overlap=False)
+    over, runner, side = _async_tiny_run(cuda, overlap=True)
+    assert not any(side0.values())
+    assert side["syrk_tn"] > 0 and side["rinv_apply"] > 0, side
+    assert runner.stream is not None
+    h = runner.health
+    assert h["missed"] == 0 and h["landed"] >= 1, h
+    np.testing.assert_allclose(over, inline, rtol=1e-6, atol=1e-7)
