@@ -42,9 +42,27 @@ Phases, run in this order (each prints one JSON line):
            paths 6 and 7: the baselines SGD and SENG (T_fim = 5) on the
            same model and batch, 11 steps each; the first 6 steps are
            replayed on the host's CPU and printed beside the card's
+  agree_state
+           the small VGG under B-KFAC on the card, at the settings of the
+           B-KFAC agree phase: health guards on and metrics on (a flush
+           every 2 steps) each bit for bit the plain run; a checkpoint
+           after 3 steps restored into a fresh state continues as the
+           uninterrupted run, and restored on the CPU continues within
+           the agree tolerance
+  slice_resilient
+           path 8: B-KFAC on the full-width VGG16_bn (the settings of
+           ``slice``) through run_kfac_training with all four specs —
+           telemetry (events, metrics every 5 steps), checkpoints every 5
+           steps, health guards and chaos — 16 healthy steps with steps
+           4–6 profiled (the first traced breakdown of a step), the
+           step-15 snapshot truncated on disk; a resume from step 10
+           against steps 11–15; then six NaN batches drive the ladder
+           (skip, damping escalation, forced refresh, a rollback that
+           walks past the truncated snapshot to step 10) and five healthy
+           steps recover
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
-phase checked; on paths 4 and 5 every kernel's); then the ``kernels`` line
+phase checked; on paths 4, 5 and 8 every kernel's); then the ``kernels`` line
 (launches summed over the paths) and, last, the ``ok`` line.  Any failure
 raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
 path.
@@ -582,7 +600,8 @@ def numpy_draws(opt, seed: int):
 
 def agree_model(dev):
     """The agree phases' small VGG on ``dev`` from weights made on the CPU
-    (seed 3), its taps and six batches (seed 1, batch 16) on ``dev``."""
+    (seed 3), its taps and six batches (seed 1, batch 16) on ``dev`` →
+    (model, taps, batches)."""
     import torch
     from repro_torch.data.synthetic import ImageStream
     from repro_torch.models.cnn import VggConfig, make_vgg
@@ -598,16 +617,13 @@ def agree_model(dev):
     return model, taps, [(x.to(dev), y.to(dev)) for x, y in batches]
 
 
-def agree_losses(variant: str, dev, linear_taps=(), overlap=False,
-                 **periods):
-    """Six steps of the small VGG (``agree_model``, numpy draws seed 5) on
-    ``dev`` through ``run_kfac_training`` → (losses, the async runner when
-    ``overlap``)."""
+def agree_setup(variant: str, dev, linear_taps=(), **periods):
+    """The agree phases' small VGG (``agree_model``) and its optimizer on
+    ``dev`` → (model, Kfac, batches)."""
     import dataclasses
     from repro_torch.core import kfac as kfac_lib
     from repro_torch.core import policy as policy_lib
     from repro_torch.optim import base as optbase
-    from repro_torch.train import loop
 
     # a step size at which fp32 rounding does not grow from step to step
     # (see tests/test_torch_vgg.py: the spectrum continuation and Adam on
@@ -623,7 +639,16 @@ def agree_losses(variant: str, dev, linear_taps=(), overlap=False,
     model, taps, batches = agree_model(dev)
     taps = {n: dataclasses.replace(t, linear_apply=n in linear_taps)
             for n, t in taps.items()}
-    opt = kfac_lib.Kfac(kcfg, taps, device=dev)
+    return model, kfac_lib.Kfac(kcfg, taps, device=dev), batches
+
+
+def agree_losses(variant: str, dev, linear_taps=(), overlap=False,
+                 **periods):
+    """Six steps of the small VGG (``agree_setup``, numpy draws seed 5) on
+    ``dev`` through ``run_kfac_training`` → (losses, the async runner when
+    ``overlap``)."""
+    from repro_torch.train import loop
+    model, opt, batches = agree_setup(variant, dev, linear_taps, **periods)
     runner = loop.AsyncInverseRunner.for_opt(opt) if overlap else None
     _, losses = loop.run_kfac_training(
         model.loss, opt, model.params(), batches, n_tokens=16,
@@ -726,7 +751,13 @@ PATH_KERNELS = {
                      "precond_panel", "precond_apply"),
     "slice_async": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
                     "precond_panel", "precond_apply"),
+    "slice_resilient": ("ea_syrk", "ut_a", "a_perp", "syrk_tn",
+                        "rinv_apply", "precond_panel", "precond_apply"),
 }
+
+#: each path's wall seconds a step by kind (``phase_path``), for the
+#: comparisons of later paths
+PATH_WALLS = {}
 
 
 def lowrank_key(b, p, d, w, cols) -> str:
@@ -902,6 +933,7 @@ def phase_path(phase: str, optimizer: str, linear_taps=(), steps: int = 11,
     by_kind = {}
     for kind, w in zip(kinds, walls):
         by_kind.setdefault(kind, []).append(w)
+    PATH_WALLS[phase] = by_kind
     emit({"phase": phase, "summary": True, "optimizer": optimizer,
           "linear_apply_taps": list(linear_taps), "params": n_params,
           "steps": steps, "kinds": kinds,
@@ -1062,6 +1094,348 @@ def phase_baseline(phase: str, steps: int = 11):
     return counts
 
 
+def phase_agree_state():
+    """Small VGG under B-KFAC at the B-KFAC agree phase's settings, on the
+    card: health guards on, then metrics on (a flush every 2 steps), each
+    bit for bit the plain run; a checkpoint after 3 of the 6 steps,
+    restored into a fresh state, continues with steps 4–6 of the
+    uninterrupted run (largest gap printed, and whether it is exactly 0;
+    at most 1e-6 relative); the same checkpoint restored on the CPU
+    continues within the agree phases' 1e-3."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import specs
+    from repro_torch.obs import events
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import loop
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def run(dev, part=slice(None), state=None, **kw):
+        model, opt, batches = agree_setup("bkfac", dev)
+        st, losses = loop.run_kfac_training(
+            model.loss, opt, None if state is not None else model.params(),
+            batches[part], n_tokens=16, seed=0, device=dev,
+            draws=numpy_draws(opt, seed=5), state=state, **kw)
+        return st, losses
+
+    def same(a, b):
+        (sa, la), (sb, lb) = a, b
+        return la == lb and all(torch.equal(sa.params[k], sb.params[k])
+                                for k in sa.params)
+
+    def template(dev, with_rng=True):
+        model, opt, _ = agree_setup("bkfac", dev)
+        params = model.params()
+        if not with_rng:
+            return {"params": params, "opt": opt.init(params)}
+        return loop.TrainState(params=params, opt=opt.init(params),
+                               rng=torch.Generator(device=dev))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_state_") as tmp:
+        off = run(cuda)
+        health_on = run(cuda, resilience=specs.ResilienceSpec(health=True))
+        path = f"{tmp}/events.jsonl"
+        with events.TelemetryWriter(path, console=False) as w:
+            metrics_on = run(cuda, obs=specs.ObsSpec(writer=w,
+                                                     metrics_every=2))
+        windows = [e["window_steps"] for e in events.read_events(path)
+                   if e["type"] == "metrics"]
+        mid, head = run(cuda, slice(0, 3))
+        ck.save(tmp, 3, mid)
+        restored, _ = ck.restore(tmp, template(cuda), step=3)
+        _, tail = run(cuda, slice(3, 6), state=restored)
+        got, _ = ck.restore(tmp, template(cpu, with_rng=False), step=3)
+        _, tail_cpu = run(cpu, slice(3, 6), state=loop.TrainState(
+            params=got["params"], opt=got["opt"],
+            rng=torch.Generator(device=cpu)))
+    a, b = np.asarray(tail), np.asarray(off[1][3:])
+    gap = float(np.max(np.abs(a - b)))
+    err_cpu = _max_rel(tail_cpu, tail)
+    ok = {"health_on_bitwise": same(health_on, off),
+          "metrics_on_bitwise": same(metrics_on, off),
+          "metrics_windows_ok": windows == [2, 2, 2],
+          "resume": head == off[1][:3] and _max_rel(a, b) <= 1e-6,
+          "cpu_continues": bool(np.all(np.isfinite(tail_cpu)))
+          and err_cpu < 1e-3}
+    emit({"phase": "agree_state", "variant": "bkfac",
+          "losses_cuda": off[1], "losses_resumed": tail,
+          "losses_resumed_cpu": tail_cpu, "resume_max_abs_gap": gap,
+          "resume_exact": gap == 0.0, "cpu_vs_cuda_max_rel_err": err_cpu,
+          "tol_rel": 1e-3, "metrics_windows": windows} | ok)
+    if not all(ok.values()):
+        raise AssertionError(f"agree_state: {ok}")
+
+
+#: names of the port's profiler ranges (they also show on the device's
+#: timeline as annotations, which are not device work)
+_SPAN_PREFIXES = ("kfac/", "async/", "ProfilerStep")
+
+
+def _profile_breakdown(prof) -> dict:
+    """One profiled step (a StepProfiler window).  Device work is every
+    device event that is not a range annotation: kernels (those of
+    ``libkfac_kernels.so`` too, which no PyTorch op launches), copies and
+    sets.  For each kfac/* span: the device time of the work that ran
+    inside the span's range on the device's timeline, that range's length,
+    and the span's host time; then the ten device ops that took the most
+    device time, the device time of all of them, and the share of it in
+    the port's own kernels."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    work = [e for e in dev if not e.name.startswith(_SPAN_PREFIXES)]
+    ranges = [e for e in dev if e.name.startswith("kfac/")]
+    spans, extent, host, ops = {}, {}, {}, {}
+    for e in evs:
+        if e.device_type == DeviceType.CPU and e.name.startswith("kfac/"):
+            host[e.name] = host.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    for r in ranges:
+        lo, hi = r.time_range.start, r.time_range.end
+        inside = sum(w.time_range.elapsed_us() for w in work
+                     if w.time_range.start >= lo and w.time_range.end <= hi)
+        spans[r.name] = spans.get(r.name, 0.0) + inside / 1e3
+        extent[r.name] = extent.get(r.name, 0.0) + (hi - lo) / 1e3
+    for w in work:
+        n, t = ops.get(w.name, (0, 0.0))
+        ops[w.name] = (n + 1, t + w.time_range.elapsed_us() / 1e3)
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]
+    own = [t for name, (_, t) in ops.items()
+           if "tc_gemm_kernel" in name or "gemm_pipe_kernel" in name]
+    return {"span_device_ms": dict(sorted(spans.items())),
+            "span_range_ms": dict(sorted(extent.items())),
+            "span_host_ms": dict(sorted(host.items())),
+            "device_ms": sum(t for _, t in ops.values()),
+            "own_kernels": {"launches": sum(
+                c for name, (c, _) in ops.items()
+                if "tc_gemm_kernel" in name or "gemm_pipe_kernel" in name),
+                "ms": sum(own)},
+            "top_device_ops": [{"name": n[:120], "calls": c, "ms": t}
+                               for n, (c, t) in top]}
+
+
+def phase_resilient(checked, steps: int = 16, faulty: int = 6,
+                    recover: int = 5):
+    """Path 8: B-KFAC on the full-width VGG16_bn through run_kfac_training
+    with telemetry (an event log, metrics every 5 steps), checkpoints
+    every 5 steps (keep 3), health guards and chaos.  ``steps`` healthy
+    steps (saves at 0, 5, 10, 15; the step-15 snapshot truncated on disk
+    right after its save; steps 4–6 profiled, one window a step, and
+    timed apart), a resume from the step-10 snapshot against steps
+    11–15, then ``faulty`` NaN batches (skip, escalation, forced refresh,
+    and a rollback that must walk past step 15 to step 10) and
+    ``recover`` healthy steps.  Every kernel call at a shape the
+    ``kernels`` phase checked; returns the launch counts."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import specs
+    from repro_torch.examples.train_vgg_kfac import build
+    from repro_torch.kernels import _build
+    from repro_torch.obs import events, summary, trace
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import health, loop
+    from repro_torch.train.chaos import ChaosMonkey, Fault
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilient_")
+    ckpt_dir, ev_path = f"{tmp}/ckpt", f"{tmp}/events.jsonl"
+    prof = trace.StepProfiler(f"{tmp}/trace", first=4, steps=3)
+    timed = {"save": [], "restore": [], "prune": []}
+    orig = {"save": ck.save, "restore": ck.restore, "prune": ck.prune}
+
+    def timer(name):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = False
+            try:
+                out = orig[name](*a, **kw)
+                ok = True
+                return out
+            finally:
+                timed[name].append({
+                    "step": (a[1] if name == "save" else kw.get("step")
+                             if name == "restore" else None),
+                    "ok": ok, "s": time.perf_counter() - t0})
+        return wrapper
+
+    def clock(walls, profiler=None, hook=None):
+        t_prev = [time.perf_counter()]
+
+        def cb(k, state, loss):
+            torch.cuda.current_stream().synchronize()
+            walls.append(time.perf_counter() - t_prev[0])
+            if hook is not None:
+                hook(k, state)
+            if profiler is not None:
+                profiler.tick(k + 1)
+            t_prev[0] = time.perf_counter()
+        return cb, t_prev
+
+    model, opt, stream = build("paper", "bkfac", batch=128, device=dev,
+                               use_kernels=True)
+    n_all = steps + faulty + recover
+    batches = [stream.batch_at(i) for i in range(n_all)]
+    sched = opt.scheduler()
+    kinds1 = [step_kind(sched.work(k)) for k in range(steps)]
+    walls1, walls2, walls3 = [], [], []
+    ck.save, ck.restore, ck.prune = (timer("save"), timer("restore"),
+                                     timer("prune"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        with calls_by_shape() as by_shape, \
+                events.TelemetryWriter(ev_path, console=False) as writer:
+            obs = specs.ObsSpec(writer=writer, metrics_every=5)
+            ckpt = specs.CkptSpec(dir=ckpt_dir, every=5, keep=3)
+            # 1) healthy steps, the last snapshot torn on disk
+            chaos1 = ChaosMonkey((Fault(steps - 1, "truncate_ckpt"),))
+            cb, t_prev = clock(walls1, prof)
+            t_prev[0] = time.perf_counter()
+            state, losses1 = loop.run_kfac_training(
+                model.loss, opt, model.params(), batches[:steps],
+                n_tokens=128, seed=0, callback=cb, device=dev, obs=obs,
+                ckpt=ckpt, resilience=specs.ResilienceSpec(
+                    health=True, chaos=chaos1))
+            prof.close()
+            n_saves1 = len(timed["save"])
+            # 2) resume: the step-10 snapshot into a fresh template
+            model2, opt2, _ = build("paper", "bkfac", batch=128, device=dev,
+                                    use_kernels=True)
+            p2 = model2.params()
+            restored, _ = ck.restore(ckpt_dir, loop.TrainState(
+                params=p2, opt=opt2.init(p2),
+                rng=torch.Generator(device=dev)), step=10)
+            del p2
+            cb, t_prev = clock(walls2)
+            t_prev[0] = time.perf_counter()
+            _, losses2 = loop.run_kfac_training(
+                model2.loss, opt2, None, batches[11:steps], n_tokens=128,
+                callback=cb, device=dev, state=restored)
+            del model2, opt2, restored
+            # 3) NaN batches through the ladder, then recovery
+            policy = health.RemediationPolicy(writer=writer)
+            before = {k: p.detach().clone() for k, p in state.params.items()}
+            first_skip = {}
+
+            def hook(k, st):
+                if k == 0:
+                    first_skip["params_equal"] = all(
+                        torch.equal(p, before[n])
+                        for n, p in st.params.items())
+            chaos3 = ChaosMonkey(tuple(Fault(k, "nan_grad")
+                                       for k in range(faulty)))
+            cb, t_prev = clock(walls3, hook=hook)
+            t_prev[0] = time.perf_counter()
+            state, losses3 = loop.run_kfac_training(
+                model.loss, opt, None, batches[steps:], n_tokens=128,
+                callback=cb, device=dev, state=state, obs=obs, ckpt=ckpt,
+                resilience=specs.ResilienceSpec(policy=policy,
+                                                chaos=chaos3))
+            del before
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with np.load(f"{ckpt_dir}/step_{10:09d}/arrays.npz") as z:
+            n_bytes = sum(z[k].nbytes for k in z.files)
+        valid = summary.main([ev_path, "--validate"]) == 0
+        evs = list(events.read_events(ev_path))
+        report = summary.summarize(ev_path)
+        breakdown = {k: _profile_breakdown(p) for k, p in
+                     prof.windows.items()}
+    finally:
+        ck.save, ck.restore, ck.prune = (orig["save"], orig["restore"],
+                                         orig["prune"])
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    steps3 = [e for e in evs if e["type"] == "step"][-len(losses3):]
+    kinds3 = [e["phase"] for e in steps3]
+    ladder = [(e["step"], e["action"]) for e in evs
+              if e["type"] == "remediation"]
+    restores = [e for e in evs if e["type"] == "ckpt_restore"]
+    trips = sum(e["values"]["health/guard_trips"] for e in evs
+                if e["type"] == "metrics")
+    resume_gap = float(np.max(np.abs(np.asarray(losses2)
+                                     - np.asarray(losses1[11:]))))
+    # a step that saved a checkpoint is timed without the save and the
+    # prune after it (run 1 prunes after each save)
+    saves1 = {e["step"]: e["s"] + p["s"] for e, p in zip(
+        timed["save"][:n_saves1], timed["prune"][:n_saves1])}
+    steady = [w - saves1.get(k, 0.0) for k, w in enumerate(walls1)]
+    for k in range(steps):
+        emit({"phase": "slice_resilient", "run": "healthy", "step": k,
+              "kind": kinds1[k], "loss": losses1[k], "wall_s": walls1[k],
+              "wall_s_less_ckpt": steady[k],
+              "profiled": k in prof.windows})
+    for k in range(len(losses3)):
+        emit({"phase": "slice_resilient", "run": "faults", "step": k,
+              "kind": kinds3[k], "loss": losses3[k], "wall_s": walls3[k]})
+    # steady steps: neither profiled nor the one whose snapshot chaos
+    # truncates on disk (timed apart)
+    apart = set(prof.windows) | {steps - 1}
+    by_kind = {}
+    for k, (kind, w) in enumerate(zip(kinds1, steady)):
+        if k not in apart:
+            by_kind.setdefault(kind, []).append(w)
+    slice_walls = PATH_WALLS.get("slice", {})
+    actions = [a for _, a in ladder]
+    order = [actions.index(a) for a in ("skip", "escalate", "refresh",
+                                        "rollback", "restored")
+             if a in actions]
+    ok = {
+        "finite_healthy": bool(np.all(np.isfinite(losses1))),
+        "resume_matches": _max_rel(losses2, losses1[11:]) <= 1e-4,
+        "truncated": chaos1.summary() == {"truncate_ckpt": 1},
+        "skip_keeps_params": first_skip.get("params_equal") is True,
+        "nan_steps_skipped": bool(np.all(np.isnan(losses3[:faulty]))),
+        "recovered": bool(np.all(np.isfinite(losses3[faulty:]))),
+        "ladder": ([actions.count(a) for a in (
+            "skip", "escalate", "refresh", "rollback", "restored",
+            "deescalate")] == [faulty, 2, 1, 1, 1, 1]
+            and order == sorted(order) and len(order) == 5),
+        "rollback_walked_past": [(e["step"], e.get("skipped_corrupt"))
+                                 for e in restores] == [(10, [steps - 1])],
+        "guard_trips": trips == faulty,
+        "events_valid": valid,
+        "damping_back_to_1": policy.damping_scale == 1.0,
+    }
+    missing = [k for k in PATH_KERNELS["slice_resilient"] if counts[k] == 0]
+    unchecked = [k for k in by_shape if k not in checked]
+    emit({"phase": "slice_resilient", "summary": True, "steps": steps,
+          "kinds": kinds1, "wall_s_by_kind": by_kind,
+          "profiled_wall_s": {k: walls1[k] for k in sorted(prof.windows)},
+          "truncating_step_wall_s": steady[steps - 1],
+          "slice_wall_s_by_kind": slice_walls,
+          "overhead_vs_slice": {
+              kind: float(np.median(by_kind[kind])
+                          / np.median(slice_walls[kind]) - 1.0)
+              for kind in ("idle", "light")
+              if kind in by_kind and kind in slice_walls},
+          "resume_wall_s": walls2, "resume_losses": losses2,
+          "resume_max_abs_gap": resume_gap, "resume_exact": resume_gap == 0,
+          "faults_kinds": kinds3, "faults_wall_s": walls3,
+          "ladder": ladder, "ckpt_restore_events": restores,
+          "health_guard_trips": trips, "policy_damping": policy.damping_scale,
+          "ckpt_bytes": n_bytes, "ckpt_save_s": timed["save"],
+          "ckpt_prune_s": timed["prune"], "ckpt_restore_s": timed["restore"],
+          "peak_mem_bytes": peak, "base_mem_bytes": base,
+          "launches": counts, "calls_by_shape": by_shape,
+          "telemetry_summary": report} | {"checks": ok})
+    for k in sorted(breakdown):
+        emit({"phase": "slice_resilient", "trace_step": k,
+              "kind": kinds1[k], "wall_s": walls1[k]} | breakdown[k])
+    if not all(ok.values()) or missing or unchecked:
+        raise AssertionError(f"slice_resilient: checks {ok}, kernels never "
+                             f"launched {missing}, calls at unchecked shapes "
+                             f"{unchecked}")
+    return counts
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -1081,6 +1455,7 @@ def main(argv=None) -> int:
     phase_agree_async()
     phase_agree_baseline("slice_sgd")
     phase_agree_baseline("slice_seng")
+    phase_agree_state()
     by_path = {"slice": phase_path("slice", "bkfac"),
                "slice_nskfac": phase_path("slice_nskfac", "nskfac"),
                "slice_linear": phase_path("slice_linear", "bkfac",
@@ -1095,6 +1470,8 @@ def main(argv=None) -> int:
                                         lag=5, checked=checked)
     by_path["slice_sgd"] = phase_baseline("slice_sgd")
     by_path["slice_seng"] = phase_baseline("slice_seng")
+    # B-KFAC through the whole one-device trainer surface, faults injected
+    by_path["slice_resilient"] = phase_resilient(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -1,0 +1,56 @@
+"""Stable public API surface of the port.
+
+Counterpart of ``src/repro/api.py``: every name of the reference's
+``__all__`` that the port has, from the same places::
+
+    from repro_torch import api
+
+    opt = api.Kfac(api.KfacConfig(...), taps)          # on the card
+    state, losses = api.run_kfac_training(
+        loss_fn, opt, params, batches, n_tokens=...,
+        obs=api.ObsSpec(writer=api.TelemetryWriter("events.jsonl")),
+        ckpt=api.CkptSpec(dir="ckpt"),
+        resilience=api.ResilienceSpec(health=True))
+
+Names of the reference's ``__all__`` that need modules not ported yet are
+listed in :data:`NOT_YET_PORTED`; ROADMAP names the item that brings
+each (tenants and serving, launch tooling).
+"""
+from __future__ import annotations
+
+# optimizer core
+from repro_torch.core.kfac import Kfac, KfacConfig, KfacState, TapInfo
+from repro_torch.core.policy import PolicyConfig
+from repro_torch.core.schedule import Scheduler, StepWork, group_by_work
+
+# typed option specs
+from repro_torch.specs import CkptSpec, DistSpec, ObsSpec, ResilienceSpec
+
+# training entry points
+from repro_torch.train.loop import (kfac_grads, make_scheduled_kfac_step,
+                                    run_kfac_training)
+
+# observability
+from repro_torch.obs import TelemetryWriter
+
+#: the reference's ``__all__`` names this package does not have yet
+NOT_YET_PORTED = (
+    # multi-tenant bank (core/tenant.py)
+    "TenantBank", "tree_stack", "tree_unstack",
+    # serving (serve/service.py, serve/engine.py)
+    "TenantService", "FinetuneRequest", "Engine", "Request",
+    # launch tooling (launch/steps.py)
+    "build_train_step", "default_kfac_config",
+)
+
+__all__ = [
+    # optimizer
+    "Kfac", "KfacConfig", "KfacState", "PolicyConfig", "TapInfo",
+    "Scheduler", "StepWork", "group_by_work",
+    # specs
+    "DistSpec", "ObsSpec", "CkptSpec", "ResilienceSpec",
+    # training
+    "run_kfac_training", "make_scheduled_kfac_step", "kfac_grads",
+    # observability
+    "TelemetryWriter",
+]

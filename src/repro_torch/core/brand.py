@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.ref import eigh, mt as _mt
+from repro_torch.kernels.ref import eigh, mt as _mt, nonfinite_safe
 
 Tensor = torch.Tensor
 
@@ -78,10 +78,13 @@ def ea_brand_step(U: Tensor, D: Tensor, X: Tensor, rho: float, r: int,
 
 def init_from_factor(X: Tensor, m: int) -> Tuple[Tensor, Tensor]:
     """Initialize a Brand state from the first factor M₀ = X Xᵀ without
-    forming the d×d product (thin SVD of X).  Returns (U, D) padded with
-    zero modes to width ``m``."""
+    forming the d×d product (thin SVD of X; NaN for a nonfinite X, as
+    the reference).  Returns (U, D) padded with zero modes to width
+    ``m``."""
     d, n = X.shape[-2:]
-    Ux, s, _ = torch.linalg.svd(X, full_matrices=False)
+    Ux, s, _ = nonfinite_safe(
+        lambda A: torch.linalg.svd(A, full_matrices=False), X,
+        lambda: torch.zeros_like(X))
     D = s * s
     if n >= m:
         return Ux[..., :, :m], D[..., :m]

@@ -21,8 +21,14 @@ program.  Taps with ``linear_apply`` take the Alg-8 application from
 their gradient factors.  ``async_heavy`` runs the two-phase launch/land
 pipeline of the reference on the bucketed path (the per-bucket in-flight
 buffers are ``KfacState.inflight``).  The distributed curvature engine is
-a later slice, and the telemetry hooks are left out (the reference's are
-no-ops with no collector active).
+a later slice.
+
+Telemetry, as in the reference: the update records the work and damping
+metrics and, per bucket, the heavy-slot counts and refresh diagnostics
+(``obs.metrics.record``, a no-op without an active collector: the
+derived ones are computed only under one), and names its calls for the
+profiler (``kfac/factor/b{bi}_{mode}``, ``kfac/precond/b{pbi}``).
+``update(damping_scale=)`` is the remediation ladder's stage-1 knob.
 """
 from __future__ import annotations
 
@@ -33,7 +39,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import specs as specs_lib
 from repro_torch.core import buckets, kfactor, policy, precond, schedule
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw as _adamw
 from repro_torch.optim import base as optbase
 
@@ -74,6 +83,18 @@ class KfacConfig:
     heavy_lag: int = 0
     fallback_lr: optbase.Schedule = optbase.constant(1e-3)
     fallback_wd: float = 0.0
+
+    def flags(self, step: int) -> Dict[str, bool]:
+        """DEPRECATED legacy three-bool view of the step variant; the
+        scheduler's StepWork masks (``Kfac.scheduler().work(step)``)
+        subsume it.  Warns once, then delegates to
+        ``schedule.legacy_flags``."""
+        specs_lib.warn_once(
+            "KfacConfig.flags",
+            "KfacConfig.flags(step) is deprecated; use "
+            "Kfac.scheduler().work(step) (a StepWork mask) or "
+            "Kfac.uniform_work(...)")
+        return schedule.legacy_flags(self, step)
 
 
 @dataclasses.dataclass
@@ -142,6 +163,12 @@ class Kfac:
                      ) -> schedule.StepWork:
         return schedule.uniform_work(do_stats, do_light, do_heavy,
                                      self.factor_buckets)
+
+    def remedial_work(self) -> schedule.StepWork:
+        """The forced-refresh mask of the remediation ladder (stage 2):
+        full-range inline heavy + stats/light absorb, out of cadence —
+        see :func:`repro_torch.core.schedule.remedial_work`."""
+        return schedule.remedial_work(self.cfg, self.factor_buckets)
 
     def clear_inflight(self, state: KfacState) -> KfacState:
         """Invalidate every in-flight snapshot: each still-scheduled
@@ -235,7 +262,7 @@ class Kfac:
     def _bucketed_factor_work(self, factors, inflight, acts, probe_grads,
                               n_tokens, rng: Optional[torch.Generator],
                               first: bool, work: schedule.StepWork,
-                              draws=None, landing=None):
+                              draws=None, landing=None, phi=None):
         """Stats absorbs, Brand updates and the scheduled heavy ranges as
         one batched call per shape-class bucket; async buckets also run
         this step's pipeline phases (panel ring, launch, land) against
@@ -246,7 +273,8 @@ class Kfac:
         launches one takes one draw from ``rng``, in bucket order — the
         same draws a synchronous step takes.  ``landing`` optionally maps
         bucket index (str) → one pre-computed (U, D, aux) per land range.
-        Returns (factors, inflight)."""
+        ``phi`` (the step's damping ratio) only feeds telemetry.  Returns
+        (factors, inflight)."""
         inflight = dict(inflight)
         states, X_all = {}, {}
         for name in sorted(self.taps):
@@ -270,17 +298,73 @@ class Kfac:
                     bdraws = kfactor.draw_heavy(bucket.spec, bucket.total,
                                                 rng, X.device)
                 bdraws = bdraws.to(X.device)
-            st, buf = kfactor.bucket_factor_step_async(
-                bucket.spec, st, X, first, work.stats, work.light, heavy,
-                launch, land, inflight.get(str(bi)), self.cfg.use_kernels,
-                draws=bdraws,
-                landed=None if landing is None else landing.get(str(bi)))
+            with obs_trace.span(f"kfac/factor/b{bi}_"
+                                f"{bucket.spec.mode.value}"):
+                st, buf = kfactor.bucket_factor_step_async(
+                    bucket.spec, st, X, first, work.stats, work.light,
+                    heavy, launch, land, inflight.get(str(bi)),
+                    self.cfg.use_kernels, draws=bdraws,
+                    landed=None if landing is None
+                    else landing.get(str(bi)))
             if buf is not None:
                 inflight[str(bi)] = buf
+            self._record_bucket_metrics(bi, bucket, st, work, land, phi)
             states.update(buckets.scatter_states(bucket.entries, st))
         return ({name: TapState(A=states[(name, "A")],
                                 G=states[(name, "G")])
                  for name in self.taps}, inflight)
+
+    # -- telemetry (repro_torch.obs) -----------------------------------------
+    def _record_bucket_metrics(self, bi, bucket, st, work, land, phi):
+        """Per-bucket metrics off the post-step bucket state (reference
+        ``core/kfac.py:440``).  Every record is a no-op without an active
+        collector, and the derived ones are computed only under one."""
+        if not obs_metrics.active():
+            return
+        spec = bucket.spec
+        fired = (sum(hi - lo for lo, hi in work.heavy[bi])
+                 + sum(hi - lo for lo, hi in land))
+        obs_metrics.record(f"bucket{bi}/heavy_slots", float(fired))
+        if bi in self._async_buckets:
+            obs_metrics.record(f"bucket{bi}/replay_depth",
+                               float(self._async_buckets[bi]))
+        if not fired:
+            return
+        if spec.mode is kfactor.Mode.NS:
+            obs_metrics.record(f"bucket{bi}/ns_lam",
+                               torch.mean(st.aux[..., kfactor.AUX_LAM]))
+            obs_metrics.record(f"bucket{bi}/ns_res",
+                               torch.max(st.aux[..., kfactor.AUX_RES]))
+        if spec.mode in (kfactor.Mode.EVD, kfactor.Mode.RSVD,
+                         kfactor.Mode.BRAND_RSVD):
+            obs_metrics.record(f"bucket{bi}/trunc_mass",
+                               torch.max(st.aux[..., kfactor.AUX_TRUNC]))
+        if spec.needs_m and phi is not None:
+            obs_metrics.record(f"bucket{bi}/inv_err",
+                               self._inv_error_proxy(spec, st, phi))
+
+    def _inv_error_proxy(self, spec, st, phi) -> Tensor:
+        """Worst-slot ‖((M + λI) X − I)[rows]‖_F / √k over k ≤ 8 strided
+        rows (deterministic: rows 0, s, 2s, … with s = d // k), X the held
+        inverse representation and λ the damping the preconditioner
+        derives (NS: the λ̂ in aux; low-rank: φ·max D plus the
+        continuation shift).  Only computed on heavy-firing steps of an
+        instrumented run."""
+        d = spec.d
+        k = min(8, d)
+        idx = torch.arange(k, device=st.M.device) * max(1, d // k)
+        Mrows = st.M[..., idx, :]                            # (B, k, d)
+        ek = torch.eye(d, dtype=Mrows.dtype, device=Mrows.device)[idx]
+        if spec.mode is kfactor.Mode.NS:
+            lam = st.aux[..., kfactor.AUX_LAM]
+            Y = (Mrows + lam[..., None, None] * ek) @ st.U
+        else:
+            D, lam = precond._damped(st.D, phi,
+                                     self.cfg.spectrum_continuation)
+            Y = precond.apply_inv_right(
+                Mrows + lam[..., None, None] * ek, st.U, D, lam)
+        R = Y - ek
+        return torch.max(torch.sqrt(torch.sum(R * R, dim=(-2, -1)) / k))
 
     # -- preconditioning ------------------------------------------------------
     def _precondition(self, name, st: TapState, grad_w: Tensor, phi,
@@ -328,72 +412,94 @@ class Kfac:
         application with the factor roles swapped) equals (Γ̄⁻¹ gWᵀ Ā⁻¹)ᵀ
         without a transpose.  Returns {name: S} in the (…, d_in, d_out)
         layout."""
+        out = {}
+        for pbi, bucket in enumerate(self.precond_buckets):
+            with obs_trace.span(f"kfac/precond/b{pbi}"):
+                out.update(self._precondition_bucket(bucket, factors, grads,
+                                                     acts, probe_grads, phi))
+        return out
+
+    def _precondition_bucket(self, bucket, factors, grads: Params, acts,
+                             probe_grads, phi) -> Dict[str, Tensor]:
+        """One precondition bucket's steps, {name: S} (see
+        ``_bucketed_precondition``)."""
         cont = self.cfg.spectrum_continuation
         use_k = self.cfg.use_kernels
-        out = {}
-        for bucket in self.precond_buckets:
-            ent = bucket.entries
-            # role swap: the positional "g" slot carries the A factor (and
-            # vice versa), so the NS dense flags swap with it
-            dense_swap_g = bucket.spec_a.mode is kfactor.Mode.NS
-            dense_swap_a = bucket.spec_g.mode is kfactor.Mode.NS
-            key = lambda e: (e.name, "")
-            U_g = buckets.gather(ent, {key(e): factors[e.name].G.U
-                                       for e in ent})
-            D_g = buckets.gather(ent, {key(e): factors[e.name].G.D
-                                       for e in ent})
-            U_a = buckets.gather(ent, {key(e): factors[e.name].A.U
-                                       for e in ent})
-            D_a = buckets.gather(ent, {key(e): factors[e.name].A.D
-                                       for e in ent})
-            if bucket.linear_apply:
-                # Alg 8 with roles swapped:  S = (Ā⁻¹ A)(Gᵀ Γ̄⁻¹)
-                gfac = buckets.gather(ent, {
-                    key(e): probe_grads[e.name] for e in ent}
-                    ).transpose(-1, -2).to(torch.float32)   # (B, d_out, n)
-                afac = buckets.gather(ent, {
-                    key(e): acts[e.name] for e in ent}
-                    ).transpose(-1, -2).to(torch.float32)   # (B, d_in, n)
-                S = precond.precondition_linear_with_damping(
-                    afac, gfac, U_a, D_a, U_g, D_g, phi,
-                    continuation=cont, use_kernel=use_k,
-                    dense_g=dense_swap_g, dense_a=dense_swap_a)
-            else:
-                J = buckets.gather(ent, {
-                    key(e): grads[self.taps[e.name].param_path]
-                    for e in ent}).to(torch.float32)
-                S = precond.precondition_with_damping(
-                    J, U_a, D_a, U_g, D_g, phi,
-                    continuation=cont, use_kernel=use_k,
-                    dense_g=dense_swap_g, dense_a=dense_swap_a)
-            out.update({name: Se for (name, _), Se
-                        in buckets.scatter(ent, S).items()})
-        return out
+        ent = bucket.entries
+        # role swap: the positional "g" slot carries the A factor (and vice
+        # versa), so the NS dense flags swap with it
+        dense_swap_g = bucket.spec_a.mode is kfactor.Mode.NS
+        dense_swap_a = bucket.spec_g.mode is kfactor.Mode.NS
+        key = lambda e: (e.name, "")
+        U_g = buckets.gather(ent, {key(e): factors[e.name].G.U for e in ent})
+        D_g = buckets.gather(ent, {key(e): factors[e.name].G.D for e in ent})
+        U_a = buckets.gather(ent, {key(e): factors[e.name].A.U for e in ent})
+        D_a = buckets.gather(ent, {key(e): factors[e.name].A.D for e in ent})
+        if bucket.linear_apply:
+            # Alg 8 with roles swapped:  S = (Ā⁻¹ A)(Gᵀ Γ̄⁻¹)
+            gfac = buckets.gather(ent, {
+                key(e): probe_grads[e.name] for e in ent}
+                ).transpose(-1, -2).to(torch.float32)       # (B, d_out, n)
+            afac = buckets.gather(ent, {
+                key(e): acts[e.name] for e in ent}
+                ).transpose(-1, -2).to(torch.float32)       # (B, d_in, n)
+            S = precond.precondition_linear_with_damping(
+                afac, gfac, U_a, D_a, U_g, D_g, phi,
+                continuation=cont, use_kernel=use_k,
+                dense_g=dense_swap_g, dense_a=dense_swap_a)
+        else:
+            J = buckets.gather(ent, {
+                key(e): grads[self.taps[e.name].param_path]
+                for e in ent}).to(torch.float32)
+            S = precond.precondition_with_damping(
+                J, U_a, D_a, U_g, D_g, phi,
+                continuation=cont, use_kernel=use_k,
+                dense_g=dense_swap_g, dense_a=dense_swap_a)
+        return {name: Se for (name, _), Se in buckets.scatter(ent, S).items()}
 
     # -- the update ---------------------------------------------------------
     def update(self, grads: Params, state: KfacState, params: Params, *,
                acts, probe_grads, n_tokens: int,
                rng: Optional[torch.Generator],
-               work: schedule.StepWork, draws=None, landing=None
-               ) -> Tuple[Params, KfacState]:
+               work: schedule.StepWork, draws=None, landing=None,
+               damping_scale=None) -> Tuple[Params, KfacState]:
         """One optimizer step → (updates, new state).  ``work`` is the
         step's StepWork mask; ``draws`` optionally injects the heavy ops'
         random inputs per bucket (see ``_bucketed_factor_work``);
         ``landing`` optionally carries pre-computed heavy results for
         this step's land ranges (bucket idx str → one (U, D, aux) or
         None per range, from ``train.loop.AsyncInverseRunner``); absent,
-        landings compute here from the in-flight snapshot."""
+        landings compute here from the in-flight snapshot.
+
+        ``damping_scale`` (optional float) multiplies the scheduled
+        damping ratio φ — the remediation ladder's stage-1 knob
+        (train/health.py); a scale of exactly 1.0 changes no bit.  The
+        state passed in is never modified: a caller may keep it and
+        discard the new one."""
         cfg = self.cfg
         first = state.n_stats == 0
         phi = cfg.damping_phi(state.step)
+        if damping_scale is not None:
+            phi = phi * float(damping_scale)
         lr = cfg.lr(state.step)
+        if obs_metrics.active():
+            slots = lambda t: float(sum(hi - lo for r in t
+                                        for lo, hi in r))
+            obs_metrics.record("work/stats_fired",
+                               1.0 if work.stats else 0.0)
+            obs_metrics.record("work/light_fired",
+                               1.0 if work.light else 0.0)
+            obs_metrics.record("work/heavy_slots", slots(work.heavy))
+            obs_metrics.record("work/launch_slots", slots(work.launch))
+            obs_metrics.record("work/land_slots", slots(work.land))
+            obs_metrics.record("precond/damping_phi", phi)
 
         factors = dict(state.factors)
         inflight = dict(state.inflight)
         if work.any and cfg.bucketed:
             factors, inflight = self._bucketed_factor_work(
                 factors, inflight, acts, probe_grads, n_tokens, rng, first,
-                work, draws=draws, landing=landing)
+                work, draws=draws, landing=landing, phi=phi)
         elif work.any:
             if work.any_async:
                 raise ValueError("async launch/land masks require the "

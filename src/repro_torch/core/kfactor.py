@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core import brand, rsvd
 from repro_torch.kernels.ref import eigh
+from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -387,23 +388,28 @@ def bucket_factor_step(spec: KFactorSpec, st: KFactorState, X: Tensor,
     step is light OR any heavy fires — the reference's coupling), then the
     heavy overwrite of each slot range in ``heavy_ranges``.  ``draws``
     holds the heavy op's random inputs for all B slots; each range takes
-    its slice."""
+    its slice.  Each phase is a profiler span (``stats``,
+    ``light_brand``, ``heavy_{lo}_{hi}``)."""
     if stats:
-        st = stats_step(spec, st, X, first)
+        with obs_trace.span("stats"):
+            st = stats_step(spec, st, X, first)
     heavy_ranges = tuple(heavy_ranges)
     if (light or heavy_ranges) and spec.mode in _HAS_BRAND:
-        st = brand_step(spec, st, X, first, use_kernel)
+        with obs_trace.span("light_brand"):
+            st = brand_step(spec, st, X, first, use_kernel)
     for lo, hi in heavy_ranges:
-        sub = st.map(lambda x: x[lo:hi])
-        sub = heavy_overwrite_batched(
-            spec, sub, None if draws is None else draws[lo:hi], generator)
-        if (lo, hi) == (0, st.U.shape[0]):
-            st = sub
-            continue
-        st = KFactorState(U=_put(st.U, lo, hi, sub.U),
-                          D=_put(st.D, lo, hi, sub.D),
-                          M=_put(st.M, lo, hi, sub.M),
-                          aux=_put(st.aux, lo, hi, sub.aux))
+        with obs_trace.span(f"heavy_{lo}_{hi}"):
+            sub = st.map(lambda x: x[lo:hi])
+            sub = heavy_overwrite_batched(
+                spec, sub, None if draws is None else draws[lo:hi],
+                generator)
+            if (lo, hi) == (0, st.U.shape[0]):
+                st = sub
+                continue
+            st = KFactorState(U=_put(st.U, lo, hi, sub.U),
+                              D=_put(st.D, lo, hi, sub.D),
+                              M=_put(st.M, lo, hi, sub.M),
+                              aux=_put(st.aux, lo, hi, sub.aux))
     return st
 
 
@@ -560,8 +566,11 @@ def bucket_factor_step_async(spec: KFactorSpec, st: KFactorState, X: Tensor,
     if light:
         buf = record_panel(buf, X)
     for lo, hi in tuple(launch_ranges):
-        buf = launch_snapshot(buf, st, draws, lo, hi)
+        with obs_trace.span(f"launch_{lo}_{hi}"):
+            buf = launch_snapshot(buf, st, draws, lo, hi)
     for i, (lo, hi) in enumerate(tuple(land_ranges)):
-        st, buf = land_swap(spec, st, buf, lo, hi, use_kernel,
-                            landed=None if landed is None else landed[i])
+        with obs_trace.span(f"land_{lo}_{hi}"):
+            st, buf = land_swap(spec, st, buf, lo, hi, use_kernel,
+                                landed=None if landed is None
+                                else landed[i])
     return st, buf

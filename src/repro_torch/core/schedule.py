@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.core import policy as policy_lib
 
@@ -87,6 +87,40 @@ def uniform_work(do_stats: bool, do_light: bool, do_heavy: bool,
     return StepWork(stats=bool(do_stats), light=bool(do_light), heavy=heavy,
                     launch=_empty(factor_buckets),
                     land=_empty(factor_buckets))
+
+
+def remedial_work(cfg, factor_buckets) -> StepWork:
+    """An out-of-cadence *forced heavy refresh* — the remediation
+    ladder's stage-2 mask (train/health.py): every bucket with a heavy op
+    overwrites its full slot range inline, with a stats absorb (and, for
+    Brand-family variants, a light absorb) like the step-0 warmup, so the
+    inverse rep is re-established from the live M this step.  Launch and
+    land stay empty: the caller abandons the in-flight pipeline
+    (``Kfac.clear_inflight``, the runner's ``drop_pending``).  For
+    pure-Brand buckets the refresh is the stats + light re-absorb
+    (reference ``core/schedule.py:171``)."""
+    from repro_torch.core import kfactor
+    heavy = tuple((((0, b.total),) if kfactor.has_heavy_op(b.spec) else ())
+                  for b in factor_buckets)
+    return StepWork(stats=True,
+                    light=policy_lib.has_light(cfg.policy.variant),
+                    heavy=heavy,
+                    launch=_empty(factor_buckets),
+                    land=_empty(factor_buckets))
+
+
+def legacy_flags(cfg, step: int) -> Dict[str, bool]:
+    """The legacy three-bool view of a step (``KfacConfig.flags``),
+    driven by the variant table of ``core/policy.py``: one heavy period
+    per variant (reference ``core/schedule.py:198``)."""
+    variant = cfg.policy.variant
+    period_field = policy_lib.heavy_period_field(variant)
+    do_light = (policy_lib.has_light(variant)
+                and step % cfg.T_brand == 0)
+    do_heavy = (period_field is not None
+                and step % getattr(cfg, period_field) == 0)
+    return dict(do_stats=step % cfg.T_updt == 0, do_light=do_light,
+                do_heavy=do_heavy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,6 +293,10 @@ class Scheduler:
                         launch=tuple(_merge(r) for r in launch),
                         land=tuple(_merge(r) for r in land))
 
+    def flags(self, step: int) -> Dict[str, bool]:
+        """Legacy three-bool view of this schedule (un-staggered)."""
+        return legacy_flags(self.cfg, step)
+
 
 def _merge(ranges: Sequence[Tuple[int, int]]) -> Ranges:
     """Sort and merge adjacent/overlapping ranges."""
@@ -269,3 +307,14 @@ def _merge(ranges: Sequence[Tuple[int, int]]) -> Ranges:
         else:
             out.append((lo, hi))
     return tuple(out)
+
+
+def group_by_work(sched: Scheduler, steps: Sequence[int]
+                  ) -> Dict[StepWork, Tuple[int, ...]]:
+    """Group schedule positions by their StepWork mask: ``steps[i]`` is
+    member i's step counter; the result maps each distinct mask to the
+    indices that would run it (reference ``core/schedule.py:463``)."""
+    groups: Dict[StepWork, list] = {}
+    for i, k in enumerate(steps):
+        groups.setdefault(sched.work(int(k)), []).append(i)
+    return {w: tuple(ix) for w, ix in groups.items()}

@@ -29,6 +29,25 @@ def scal(v, like: Tensor) -> Tensor:
     return v[..., None, None]
 
 
+def nonfinite_safe(fn, A: Tensor, fill):
+    """``fn(A)`` for a batched factorization that raises on a matrix with
+    a nonfinite entry (LAPACK / cuSOLVER convergence errors): the batch
+    elements with one give NaN outputs instead, as the reference's
+    factorizations do, so a poisoned step reaches the health guard
+    (``train/health.py``) which drops it; the finite elements are
+    factorized as usual (``fill()``, a finite matrix, stands in for the
+    others).  The check runs only after ``fn`` has raised."""
+    try:
+        return fn(A)
+    except torch.linalg.LinAlgError:
+        ok = torch.isfinite(A).all(-1).all(-1)
+        if bool(ok.all()):
+            raise
+        outs = fn(torch.where(ok[..., None, None], A, fill()))
+        return tuple(o.masked_fill(~ok.reshape(ok.shape + (1,) * (
+            o.dim() - ok.dim())), float("nan")) for o in outs)
+
+
 def eigh(M: Tensor) -> Tuple[Tensor, Tensor]:
     """Symmetric eigendecomposition (ascending), computed in float64 and
     returned in M's dtype.  Every eigh of the path is small — (n, n)
@@ -43,8 +62,12 @@ def eigh(M: Tensor) -> Tuple[Tensor, Tensor]:
     - H100: cuSOLVER's fp32 eigh converges on every matrix of the path,
       but for n ≥ 106 it takes 1.4–3.4× the time of this float64 route,
       and its eigenvalues stray by up to 4.6e-4 of max |M|.
+
+    A matrix with a nonfinite entry gives NaN results (``nonfinite_safe``).
     """
-    vals, vecs = torch.linalg.eigh(M.to(torch.float64))
+    M64 = M.to(torch.float64)
+    vals, vecs = nonfinite_safe(torch.linalg.eigh, M64, lambda: torch.eye(
+        M.shape[-1], dtype=M64.dtype, device=M.device))
     return vals.to(M.dtype), vecs.to(M.dtype)
 
 

@@ -15,8 +15,11 @@ and hands the result to the land step ``lag`` steps later, which then
 only swaps tensors and replays the interim Brand panels.  Without a
 runner the land step computes the same function in line.
 
-The reference's distributed, telemetry, checkpoint and resilience specs
-are later slices.
+:func:`run_kfac_training` takes the reference's whole one-device option
+surface: ``state=`` (resume), the four ``repro_torch.specs`` objects
+(``obs`` telemetry and metrics, ``ckpt`` checkpoints, ``resilience``
+health guards, remediation ladder and chaos; ``dist`` raises while the
+distributed engine is not ported) and the legacy flat kwargs.
 """
 from __future__ import annotations
 
@@ -30,9 +33,12 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import specs as specs_lib
 from repro_torch.core import kfac as kfac_lib
 from repro_torch.core import kfactor
 from repro_torch.models import layers
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import base as optbase
 
 Tensor = torch.Tensor
@@ -64,25 +70,67 @@ def kfac_grads(loss_fn, params, probes, batch):
             gprobe)
 
 
+def make_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac, n_tokens: int,
+                   probe_dtype=torch.float32):
+    """DEPRECATED legacy three-bool step factory (reference
+    ``train/loop.py:55``): converts the flags with ``opt.uniform_work``
+    and delegates to :func:`make_scheduled_kfac_step` — the same
+    numbers.  Returns step(state, batch, do_stats, do_light, do_heavy)
+    → (state, loss)."""
+    specs_lib.warn_once(
+        "make_kfac_step",
+        "make_kfac_step is deprecated; use make_scheduled_kfac_step with "
+        "a StepWork mask (opt.uniform_work / opt.scheduler().work)")
+    scheduled = make_scheduled_kfac_step(loss_fn, opt, n_tokens,
+                                         probe_dtype=probe_dtype)
+
+    def step(state: TrainState, batch, do_stats: bool, do_light: bool,
+             do_heavy: bool):
+        work = opt.uniform_work(bool(do_stats), bool(do_light),
+                                bool(do_heavy))
+        return scheduled(state, batch, work)
+
+    return step
+
+
 def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
-                             n_tokens: int, probe_dtype=torch.float32):
+                             n_tokens: int, probe_dtype=torch.float32,
+                             meter: Optional[obs_metrics.Meter] = None,
+                             obs: Optional[specs_lib.ObsSpec] = None):
     """Returns step(state, batch, work, draws=None, landing=None) →
     (state, loss), with ``work`` the step's StepWork mask and ``landing``
     the pre-computed heavy results of its land ranges (see
     :class:`AsyncInverseRunner`; ``None`` lands in line).  Parameters are
-    updated in place."""
+    updated in place.
 
-    def step(state: TrainState, batch, work, draws=None, landing=None):
+    With a ``meter`` (or an ``obs`` spec whose ``make_meter`` builds one)
+    the step becomes step(state, batch, work, draws=None, landing=None,
+    mbuf=None) → (state, loss, mbuf): the optimizer runs under the
+    meter's collector, the metric buffer is merged and flushed, and the
+    parameters and loss are bit for bit the meter-less step's."""
+    if obs is not None and meter is None:
+        meter = obs.make_meter(opt)
+
+    def step(state: TrainState, batch, work, draws=None, landing=None,
+             mbuf=None):
         dev = next(iter(state.params.values())).device
         probes = layers.make_probes(opt.taps, device=dev, dtype=probe_dtype)
         loss, acts, gp, gprobe = kfac_grads(loss_fn, state.params, probes,
                                             batch)
-        updates, opt_state = opt.update(
-            gp, state.opt, state.params, acts=acts, probe_grads=gprobe,
-            n_tokens=n_tokens, rng=state.rng, work=work, draws=draws,
-            landing=landing)
+        kw = dict(acts=acts, probe_grads=gprobe, n_tokens=n_tokens,
+                  rng=state.rng, work=work, draws=draws, landing=landing)
+        if meter is None:
+            updates, opt_state = opt.update(gp, state.opt, state.params,
+                                            **kw)
+        else:
+            with meter.collecting() as col:
+                updates, opt_state = opt.update(gp, state.opt,
+                                                state.params, **kw)
+            mbuf = meter.maybe_flush(meter.merge(mbuf, col),
+                                     opt_state.step)
         optbase.apply_updates(state.params, updates)
-        return dataclasses.replace(state, opt=opt_state), loss
+        out = dataclasses.replace(state, opt=opt_state)
+        return (out, loss) if meter is None else (out, loss, mbuf)
 
     return step
 
@@ -118,8 +166,11 @@ class AsyncInverseRunner:
     before the first).  ``health`` counts launched, landed and missed
     ranges, respawns, and misses by reason; ``durations`` holds each
     range's heavy time in seconds (worker clock, from start to its
-    stream's completion), in order of completion.  ``writer`` (telemetry)
-    is a later slice: only ``None`` is accepted.
+    stream's completion), in order of completion.  A
+    :class:`repro_torch.obs.TelemetryWriter` passed as ``writer`` gets
+    the reference's per-range ``async_launch`` / ``async_land`` /
+    ``async_miss`` events (a miss carries its ``reason``); the heavy op
+    runs inside the profiler span ``async/heavy/b{bi}``.
 
     One worker thread runs the heavy ops (``_WORKERS``).  ``close()``
     returns at once, as the reference's does: ranges not yet started are
@@ -130,9 +181,8 @@ class AsyncInverseRunner:
     def __init__(self, opt: kfac_lib.Kfac, stream=None, writer=None,
                  deadline_s: Optional[float] = None,
                  deadline_factor: float = 4.0, min_deadline_s: float = 5.0):
-        if writer is not None:
-            raise ValueError("telemetry writers are not ported yet")
         self.opt = opt
+        self.writer = writer
         self.stream = stream
         self.deadline_s = deadline_s
         self.deadline_factor = deadline_factor
@@ -165,15 +215,16 @@ class AsyncInverseRunner:
         spec = self.opt.factor_buckets[bi].spec
         t0 = time.perf_counter()
         done = None
-        if self.stream is None:
-            out = kfactor.heavy_from_snapshot(spec, snap, 0, count)
-        else:
-            with torch.cuda.stream(self.stream):
-                self.stream.wait_event(ready)
+        with obs_trace.host_span(f"async/heavy/b{bi}"):
+            if self.stream is None:
                 out = kfactor.heavy_from_snapshot(spec, snap, 0, count)
-                done = torch.cuda.Event()
-                done.record(self.stream)
-            done.synchronize()
+            else:
+                with torch.cuda.stream(self.stream):
+                    self.stream.wait_event(ready)
+                    out = kfactor.heavy_from_snapshot(spec, snap, 0, count)
+                    done = torch.cuda.Event()
+                    done.record(self.stream)
+                done.synchronize()
         with self._lock:
             self.durations.append(time.perf_counter() - t0)
         return out, done
@@ -210,12 +261,17 @@ class AsyncInverseRunner:
             self._dropped[key] = reason
         self._pending.clear()
 
-    def _miss(self, reason: str) -> None:
+    def _miss(self, key, reason: str, step) -> None:
         self.health["missed"] += 1
         reasons = self.health["miss_reasons"]
         reasons[reason] = reasons.get(reason, 0) + 1
+        if self.writer is not None:
+            bi, lo, hi = key
+            self.writer.emit("async_miss", step=int(step or 0), bucket=bi,
+                             lo=lo, hi=hi, reason=reason)
 
-    def launch(self, opt_state: kfac_lib.KfacState, work) -> None:
+    def launch(self, opt_state: kfac_lib.KfacState, work,
+               step: Optional[int] = None) -> None:
         for bi, ranges in enumerate(work.launch):
             for lo, hi in ranges:
                 snap = opt_state.inflight[str(bi)].map(
@@ -229,8 +285,11 @@ class AsyncInverseRunner:
                 self._pending[(bi, lo, hi)] = self._submit(bi, hi - lo,
                                                            snap, ready)
                 self.health["launched"] += 1
+                if self.writer is not None:
+                    self.writer.emit("async_launch", step=int(step or 0),
+                                     bucket=bi, lo=lo, hi=hi)
 
-    def landing(self, work):
+    def landing(self, work, step: Optional[int] = None):
         out = {}
         for bi, ranges in enumerate(work.land):
             if not ranges:
@@ -241,20 +300,21 @@ class AsyncInverseRunner:
                 fut = self._pending.pop(key, None)
                 if fut is None:
                     results.append(None)
-                    self._miss(self._dropped.pop(key, "resume"))
+                    self._miss(key, self._dropped.pop(key, "resume"), step)
                     continue
+                overlapped = fut.done()
                 try:
                     res, done = fut.result(timeout=self._deadline())
                 except FuturesTimeout:
                     fut.cancel()
                     results.append(None)
-                    self._miss("timeout")
+                    self._miss(key, "timeout", step)
                     self._respawn()
                     continue
                 except Exception as e:  # the worker raised: land in line
                     self.last_error = e
                     results.append(None)
-                    self._miss("crash")
+                    self._miss(key, "crash", step)
                     self._respawn()
                     continue
                 if done is not None:
@@ -264,6 +324,10 @@ class AsyncInverseRunner:
                         t.record_stream(cur)
                 results.append(res)
                 self.health["landed"] += 1
+                if self.writer is not None:
+                    self.writer.emit("async_land", step=int(step or 0),
+                                     bucket=bi, lo=lo, hi=hi,
+                                     overlapped=bool(overlapped))
             out[str(bi)] = tuple(results)
         return out or None
 
@@ -288,47 +352,187 @@ def make_baseline_step(loss_fn: Callable, opt):
     return step
 
 
-def run_kfac_training(loss_fn, opt: kfac_lib.Kfac, params: Dict[str, Tensor],
-                      batches: Iterable, n_tokens: int, seed: int = 0,
-                      callback=None, device=None,
+@torch.no_grad()
+def _adopt_params(live: Dict[str, Tensor], restored: Dict[str, Tensor]
+                  ) -> Dict[str, Tensor]:
+    """Copy restored parameter values into the live tensors (the caller's
+    model keeps training the tensors it handed in) → ``live``."""
+    for k, p in live.items():
+        p.copy_(restored[k])
+    return live
+
+
+def run_kfac_training(loss_fn, opt: kfac_lib.Kfac,
+                      params: Optional[Dict[str, Tensor]], batches: Iterable,
+                      n_tokens: int, seed: int = 0, callback=None,
+                      state: Optional[TrainState] = None, overlap=False,
+                      dist: Optional[specs_lib.DistSpec] = None,
+                      obs: Optional[specs_lib.ObsSpec] = None,
+                      ckpt: Optional[specs_lib.CkptSpec] = None,
+                      resilience: Optional[specs_lib.ResilienceSpec] = None,
+                      device=None,
                       draws: Optional[Callable[[int], Dict]] = None,
-                      overlap=False):
+                      **legacy):
     """Drive the scheduled steps over ``batches`` (the work scheduler picks
     each step's mask; ``cfg.stagger`` phases heavy work,
-    ``cfg.async_heavy``/``heavy_lag`` pipeline it).  ``device=None`` means
-    the card, and a host without one raises; the parameters must already
-    live on the device.  ``draws(step)`` optionally injects the heavy
-    ops' random inputs per bucket (parity tests); otherwise they come from
-    a generator seeded with ``seed``.  ``overlap=True`` dispatches the
-    launched heavy work through an :class:`AsyncInverseRunner` built by
-    ``for_opt`` (None for a synchronous config); a runner passed as
-    ``overlap`` is used instead, so the caller can read its ``health``.
-    Either way landings give the same result as in line.  Returns (final
-    TrainState, losses as floats); ``callback(k, state, loss)`` sees the
-    loss as a device tensor."""
+    ``cfg.async_heavy``/``heavy_lag`` pipeline it) — the reference's
+    ``run_kfac_training`` step for step (``src/repro/train/loop.py:405``).
+
+    ``device=None`` means the card, and a host without one raises; the
+    parameters must already live on the device.  ``draws(step)``
+    optionally injects the heavy ops' random inputs per bucket, keyed by
+    schedule step (parity tests); otherwise they come from the state's
+    generator, seeded with ``seed``.  ``overlap=True`` dispatches launched
+    heavy work through an :class:`AsyncInverseRunner` built by ``for_opt``
+    (None for a synchronous config); a runner passed as ``overlap`` is
+    used instead.  Either way landings give the same result as in line.
+
+    Passing a restored ``state`` resumes (``params`` may then be None):
+    the schedule position is re-derived from ``state.opt.phase``, and an
+    async config's in-flight snapshots restore with it, so a landing
+    scheduled before the save fires on time after the restore.
+
+    ``obs`` (:class:`~repro_torch.specs.ObsSpec`) — its writer receives a
+    ``step`` event per step and the async runner's events;
+    ``metrics_every > 0`` adds a device-resident
+    :class:`~repro_torch.obs.metrics.Meter` flushed to the writer every
+    that many steps.  Both are numerically inert.
+
+    ``resilience`` (:class:`~repro_torch.specs.ResilienceSpec`) — health
+    (truthy, or a :class:`~repro_torch.train.health.HealthConfig`) swaps
+    in the guarded step and drives the remediation ladder: skip →
+    damping escalation → forced heavy refresh → rollback (the last needs
+    a ``ckpt`` spec); ``policy`` rides a caller-built
+    :class:`~repro_torch.train.health.RemediationPolicy`; ``chaos`` (a
+    :class:`~repro_torch.train.chaos.ChaosMonkey`) injects its faults,
+    keyed on the loop iteration ``k``.  A healthy run with health on is
+    bit for bit the run with it off.
+
+    ``ckpt`` (:class:`~repro_torch.specs.CkptSpec`) — a checkpoint every
+    ``ckpt.every`` healthy schedule steps into ``ckpt.dir`` (pruned to
+    ``ckpt.keep``); rollbacks restore from there, walking past corrupted
+    snapshots, and copy the restored parameters into the live tensors.
+
+    ``dist`` (:class:`~repro_torch.specs.DistSpec`) — an active spec
+    raises ``NotImplementedError``: the curvature engine is not ported.
+    The legacy flat kwargs (``writer=``, ``ckpt_dir=``, …) warn once and
+    fold into their specs.  Returns (final TrainState, losses as floats);
+    ``callback(k, state, loss)`` sees the loss as a device tensor."""
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import health as health_lib
+    dist, obs, ckpt, resilience = specs_lib.consolidate_training_kwargs(
+        legacy, dist=dist, obs=obs, ckpt=ckpt, resilience=resilience,
+        caller="run_kfac_training")
+    dist.attach(opt)
     dev = device_lib.resolve(device)
-    wrong = [k for k, p in params.items() if p.device.type != dev.type]
-    if wrong:
-        raise ValueError(f"parameters {wrong[:3]} are not on {dev}")
+    writer = obs.writer
+    health, policy, chaos = (resilience.health, resilience.policy,
+                             resilience.chaos)
     sched = opt.scheduler()
-    state = TrainState(params=params, opt=opt.init(params),
-                       rng=torch.Generator(device=dev).manual_seed(seed))
-    step_fn = make_scheduled_kfac_step(loss_fn, opt, n_tokens)
+    k_off = 0
+    if state is None:
+        wrong = [k for k, p in params.items() if p.device.type != dev.type]
+        if wrong:
+            raise ValueError(f"parameters {wrong[:3]} are not on {dev}")
+        state = TrainState(params=params, opt=opt.init(params),
+                           rng=torch.Generator(device=dev).manual_seed(seed))
+    else:
+        k_off = int(state.opt.phase)
     runner = (overlap if isinstance(overlap, AsyncInverseRunner)
-              else AsyncInverseRunner.for_opt(opt) if overlap else None)
+              else AsyncInverseRunner.for_opt(opt, writer=writer)
+              if overlap else None)
+    meter = obs.make_meter(opt)
+    if health or policy is not None:
+        hcfg = health if isinstance(health, health_lib.HealthConfig) \
+            else None
+        if policy is None:
+            policy = health_lib.RemediationPolicy(hcfg, writer=writer)
+        step_fn = health_lib.make_resilient_kfac_step(
+            loss_fn, opt, n_tokens, health=policy.cfg, meter=meter)
+    else:
+        step_fn = make_scheduled_kfac_step(loss_fn, opt, n_tokens,
+                                           meter=meter)
+    mbuf = meter.init() if meter is not None else None
     losses: List[Tensor] = []
     try:
         for k, batch in enumerate(batches):
-            work = sched.work(k)
-            landing = runner.landing(work) if runner is not None else None
-            state, loss = step_fn(state, batch, work,
-                                  draws=None if draws is None else draws(k),
-                                  landing=landing)
+            kk = k_off + k
+            # chaos faults are keyed on the loop iteration k, not the
+            # schedule step kk: a rollback re-anchors kk into the past,
+            # and external faults must not replay with it
+            if chaos is not None:
+                chaos.check(k)                    # host_loss raises here
+                batch = chaos.corrupt_batch(k, batch)
+                state = chaos.corrupt_state(k, state)
+            work = sched.work(kk)
+            if policy is not None and policy.take_refresh():
+                # stage 2: abandon the (possibly poisoned) pipeline and
+                # re-establish the inverse rep from the live M this step
+                work = opt.remedial_work()
+                state = dataclasses.replace(
+                    state, opt=opt.clear_inflight(state.opt))
+                if runner is not None:
+                    runner.drop_pending(reason="dropped")
+            if runner is not None and chaos is not None:
+                chaos.harass_runner(k, runner)
+            landing = (runner.landing(work, step=kk) if runner is not None
+                       else None)
+            t0 = time.perf_counter()
+            kw = dict(draws=None if draws is None else draws(kk),
+                      landing=landing)
+            if meter is not None:
+                kw["mbuf"] = mbuf
+            report = None
+            if policy is not None:
+                out = step_fn(state, batch, work,
+                              damping_scale=policy.damping_scale, **kw)
+                state, loss, report = out[:3]
+            else:
+                out = step_fn(state, batch, work, **kw)
+                state, loss = out[:2]
+            if meter is not None:
+                mbuf = out[-1]
             if runner is not None:
-                runner.launch(state.opt, work)
+                runner.launch(state.opt, work, step=kk)
             losses.append(loss)
+            if writer is not None:
+                writer.emit("step", step=kk, loss=float(loss),
+                            dt_s=time.perf_counter() - t0, phase=work.label)
+            faulty = False
+            if policy is not None:
+                faulty = policy.observe(kk, float(loss), report)
+                if policy.take_rollback() and ckpt.dir is not None:
+                    # stage 3: restore the newest snapshot that verifies,
+                    # walking past corrupt ones; re-anchor the schedule
+                    # on the restored phase
+                    if runner is not None:
+                        runner.drop_pending(reason="dropped")
+                    restored, man = ckpt_lib.restore_latest_healthy(
+                        ckpt.dir, state)
+                    state = dataclasses.replace(restored, params=(
+                        _adopt_params(state.params, restored.params)))
+                    k_off = int(state.opt.phase) - (k + 1)
+                    policy.notify_rollback(kk, man["step"], ckpt.dir)
+                    if writer is not None:
+                        # beyond the reference's fields: the steps of the
+                        # snapshots walked past
+                        writer.emit("ckpt_restore", step=int(man["step"]),
+                                    path=ckpt.dir, skipped_corrupt=[
+                                        e["step"] for e in
+                                        man["skipped_corrupt"]])
+                    faulty = False          # restored state is healthy
+            if (ckpt.dir is not None and ckpt.every > 0 and not faulty
+                    and kk % ckpt.every == 0):
+                path = ckpt_lib.save(ckpt.dir, kk, state)
+                ckpt_lib.prune(ckpt.dir, keep=ckpt.keep)
+                if writer is not None:
+                    writer.emit("ckpt_save", step=kk, path=path)
+                if chaos is not None:
+                    chaos.corrupt_ckpt(k, ckpt.dir)
             if callback is not None:
                 callback(k, state, loss)
+        if meter is not None:
+            meter.drain(mbuf, int(state.opt.step))
     finally:
         if runner is not None:
             runner.close()

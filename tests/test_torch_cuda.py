@@ -408,3 +408,26 @@ def test_cuda_async_runner_on_side_stream(cuda):
     h = runner.health
     assert h["missed"] == 0 and h["landed"] >= 1, h
     np.testing.assert_allclose(over, inline, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_factorizations_give_nan_for_a_nonfinite_matrix(cuda):
+    """cuSOLVER's eigh and SVD on a batch holding one NaN matrix: that
+    element comes back NaN (the health guard then drops the step), the
+    others as if alone — as on the CPU (test_torch_resilience.py)."""
+    from repro_torch.core import brand as tbrand
+    g = torch.Generator(device=cuda).manual_seed(0)
+    A = torch.randn((3, 12, 12), generator=g, device=cuda)
+    M = A @ A.mT
+    M[1, 3, 2] = float("nan")   # eigh reads the lower triangle
+    vals, vecs = tref.eigh(M)
+    assert torch.isnan(vals[1]).all() and torch.isnan(vecs[1]).all()
+    for i in (0, 2):
+        v, U = tref.eigh(M[i:i + 1])
+        torch.testing.assert_close(vals[i:i + 1], v)
+        torch.testing.assert_close((vecs[i] * vals[i]) @ vecs[i].mT, M[i],
+                                   atol=1e-4, rtol=1e-4)
+    X = torch.randn((2, 12, 5), generator=g, device=cuda)
+    X[0, 0, 0] = float("nan")
+    U, D = tbrand.init_from_factor(X, 8)
+    assert torch.isnan(D[0, :5]).all() and torch.isfinite(D[1]).all()
