@@ -60,9 +60,21 @@ Phases, run in this order (each prints one JSON line):
            (skip, damping escalation, forced refresh, a rollback that
            walks past the truncated snapshot to step 10) and five healthy
            steps recover
+  agree_lm the LM stack's ten architectures at their reduced configs
+           (B = 2, T = 32): weights made on the CPU, then forward logits,
+           loss, every tap's act and probe gradient and two B-KFAC steps on
+           the card (kernels) against the CPU (plain versions); 8 decoded
+           tokens against the forward for gemma3, mamba2, recurrentgemma
+  slice_lm path 9: gemma3-4b at full width (d_model 2560, 8 × 256 heads,
+           4 KV heads, d_ff 10240, vocab 262144, bf16 activations), cut
+           from 34 to 16 layers, batch 4 × 2048 from TokenStream(seed=0),
+           11 B-KFAC steps at examples/train_lm_kfac.py's settings (every
+           factor a Brand one: light on even steps, idle on odd), every
+           kernel call at a shape the ``kernels`` phase held; then a 64-token
+           prompt and 16 greedy tokens decoded against the forward
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
-phase checked; on paths 4, 5 and 8 every kernel's); then the ``kernels`` line
+phase checked; on paths 4, 5, 8 and 9 every kernel's); then the ``kernels`` line
 (launches summed over the paths) and, last, the ``ok`` line.  Any failure
 raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
 path.
@@ -275,9 +287,15 @@ def phase_kernels():
                 raise AssertionError(f"{name}: rel err {worst:.3g} > {tol} "
                                      f"at shapes {shapes(args)}")
             if exact is not None:
-                ref64 = exact(*args)
-                e_k = float((got.double() - ref64).abs().max())
-                e_p = float((want.double() - ref64).abs().max())
+                # a case of more than GRAPH_BIG_BYTES is held to float64
+                # on its first stack element (each element is its own
+                # product): its float64 copies would not fit beside it
+                one = fl_by(*args)[1] > GRAPH_BIG_BYTES
+                first = (lambda x: x[:1] if isinstance(x, torch.Tensor)
+                         else x) if one else (lambda x: x)
+                ref64 = exact(*map(first, args))
+                e_k = float((first(got).double() - ref64).abs().max())
+                e_p = float((first(want).double() - ref64).abs().max())
                 f64.append({"f64_err": e_k, "plain_f64_err": e_p,
                             "f64_ratio": e_k / max(e_p, 1e-300)})
                 del ref64
@@ -305,13 +323,20 @@ def phase_kernels():
             if t["library_ms"] is not None:
                 t["vs_library"] = t["ms"] / t["library_ms"]
             if graph:
-                t["device_ms"] = graph_ms(lambda: kernel(*args), side)
+                # a graph keeps every call's output in its private pool
+                # until it goes: a case that moves gigabytes (slice_lm's)
+                # replays two calls, and its pool is released after
+                big = nb > GRAPH_BIG_BYTES
+                reps = 2 if big else 20
+                t["device_ms"] = graph_ms(lambda: kernel(*args), side, reps)
                 t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
                 if library is not None:
                     t["library_device_ms"] = graph_ms(
-                        lambda: library(*args), side)
+                        lambda: library(*args), side, reps)
                     t["vs_library_device"] = (t["device_ms"]
                                               / t["library_device_ms"])
+                if big:
+                    torch.cuda.empty_cache()
             timed.append(t)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": worst_abs,
@@ -360,6 +385,11 @@ def phase_kernels():
     ut_a_cases = [brand[0]] + [
         (orth(b, d, 486)[..., :230], rnd(b, d, 256))
         for b, d in BRAND_BUCKETS]
+    # slice_lm's Brand buckets (gemma3-4b at full width): U the [..., :r]
+    # slice of the (B, d, r + n_stat) state, the stats panel (B, d, n_stat)
+    lm_brand, lm_precond, (lm_r, lm_n) = lm_kernel_shapes()
+    ut_a_cases += [(orth(b, d, lm_r + lm_n)[..., :lm_r], rnd(b, d, lm_n))
+                   for b, d in lm_brand]
     record("ut_a", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:58", ut_a_cases,
            bp.ut_a_batched, ref.ut_a, lambda U, A: torch.bmm(U.mT, A),
@@ -389,7 +419,8 @@ def phase_kernels():
     panels = ([(rnd(1, 16384, 256),)]
               + [(rnd(b, d, 256),) for b, d in BRAND_BUCKETS[:-1]]
               + [(rnd(2, 256, 240),)]
-              + [(rnd(b, d, 240),) for b, d in BRAND_BUCKETS if d <= 4096])
+              + [(rnd(b, d, 240),) for b, d in BRAND_BUCKETS if d <= 4096]
+              + [(rnd(b, d, lm_n),) for b, d in lm_brand])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -422,7 +453,7 @@ def phase_kernels():
         return (rnd(b, p, d), orth(b, p, wg), s_g, 1.0 / lam_g,
                 orth(b, d, wa), s_a, 1.0 / lam_a)
 
-    pc = [pcase(*c) for c in PRECOND_BUCKETS]
+    pc = [pcase(*c) for c in PRECOND_BUCKETS + lm_precond]
     record("precond_panel", csrc + "precond_fused.cu",
            "src/repro/kernels/precond_fused.py:122",
            [(Ug, J, sg) for J, Ug, sg, _, _, _, _ in pc],
@@ -567,6 +598,19 @@ def phase_kernels():
           "ms": time_ms(lambda: cq.cholqr2_batched(A)),
           "plain_ms": time_ms(lambda: ref.cholqr2(A))})
     return results
+
+
+def lm_kernel_shapes():
+    """slice_lm's kernel shapes from its optimizer's buckets: the Brand
+    buckets (stack, d), the precond buckets (stack, p, d, w_g, w_a) in
+    parameter layout (p = d_in, U_g the A side's), and (r, n_stat)."""
+    import torch
+    _, opt = lm_slice_opt(torch.device("cpu"))
+    brand = [(b.total, b.spec.d) for b in opt.factor_buckets]
+    spec = opt.factor_buckets[0].spec
+    precond = [(b.total, b.spec_a.d, b.spec_g.d, b.spec_a.width,
+                b.spec_g.width) for b in opt.precond_buckets]
+    return brand, tuple(precond), (spec.r, spec.n_stat)
 
 
 def numpy_draws(opt, seed: int):
@@ -736,6 +780,10 @@ BRAND_BUCKETS = ((4, 512), (2, 576), (2, 1152), (2, 2048), (2, 2304),
 NS_BUCKETS = ((1, 10), (1, 27), (2, 64), (2, 128), (2, 256), (4, 512),
               (2, 576), (2, 1152), (2, 2048), (2, 2304))
 
+#: a kernels-phase case moving more bytes than this is replayed twice, not
+#: 20 times, in its CUDA graph (see ``record``)
+GRAPH_BIG_BYTES = 1e9
+
 #: the tensor-core kernels' largest error against a float64 product may be
 #: at most this many times the plain fp32 version's (cuBLAS)
 F64_RATIO = 4.0
@@ -753,6 +801,10 @@ PATH_KERNELS = {
                     "precond_panel", "precond_apply"),
     "slice_resilient": ("ea_syrk", "ut_a", "a_perp", "syrk_tn",
                         "rinv_apply", "precond_panel", "precond_apply"),
+    # every factor of gemma3-4b at full width is a pure Brand one (d ≥
+    # 2048 > r + n_stat): no EA absorb, no heavy op
+    "slice_lm": ("ut_a", "a_perp", "syrk_tn", "rinv_apply", "precond_panel",
+                 "precond_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -1436,6 +1488,325 @@ def phase_resilient(checked, steps: int = 16, faulty: int = 6,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the LM stack: agree_lm (all ten architectures, reduced) and slice_lm
+# ---------------------------------------------------------------------------
+
+#: agree_lm's batch (the CPU parity tests' B and T)
+LM_AGREE_B, LM_AGREE_T = 2, 32
+#: decode against forward: the reference's bf16 tolerance
+#: (tests/test_arch_smoke.py)
+DECODE_TOL = 2e-2
+#: slice_lm: gemma3-4b at full width, 34 layers cut to 16 (the first
+#: segment, 5 local + 1 global, at 2 repeats of its 5; the 4-local tail
+#: kept), batch 4 × 2048 from TokenStream(seed=0), 11 B-KFAC steps at
+#: examples/train_lm_kfac.py's settings; remat per repeat (see
+#: ``phase_slice_lm``)
+LM_SLICE = dict(arch="gemma3_4b", repeats=(2, 1), batch=4, seq=2048,
+                steps=11, remat=True, prompt=64, generate=16)
+
+
+def _lm_batch(arch, dev, seed=0):
+    """The CPU parity tests' batch layout for ``arch``, drawn with numpy,
+    on ``dev``."""
+    import numpy as np
+    import torch
+    B, T = LM_AGREE_B, LM_AGREE_T
+    rs = np.random.default_rng(seed)
+    n_tok = T - (arch.n_prefix if arch.frontend == "vision" else 0)
+    batch = {"tokens": rs.integers(0, arch.vocab, (B, n_tok)),
+             "targets": rs.integers(0, arch.vocab, (B, n_tok))}
+    if arch.is_encdec:
+        batch["frames"] = (rs.standard_normal((B, T, arch.d_model))
+                           * 0.1).astype(np.float32)
+        batch["tokens"] = batch["tokens"][:, : T // arch.dec_ratio]
+        batch["targets"] = batch["targets"][:, : T // arch.dec_ratio]
+    if arch.frontend == "vision":
+        batch["embeds"] = (rs.standard_normal((B, arch.n_prefix,
+                                               arch.d_model))
+                           * 0.1).astype(np.float32)
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def _scale_err(got, want) -> float:
+    """``_rel_err``'s relative error of two tensors on any devices."""
+    return _rel_err(got.detach().double().cpu(),
+                    want.detach().double().cpu())[1]
+
+
+def _lm_run(name, dev, weights, steps=2):
+    """Reduced ``name`` on ``dev`` from ``weights`` (CPU tensors): the
+    forward's logits, loss, acts and probe gradients, then ``steps``
+    B-KFAC steps (examples/train_lm_kfac.py's settings, the kernels on
+    the card) → dict of CPU tensors and the step losses."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.examples.train_lm_kfac import kfac_config
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.train import loop
+
+    arch = get_arch(name).reduced()
+    lm = LM(arch, remat=False, device=dev)
+    fresh = lambda: {k: v.detach().to(dev, copy=True).requires_grad_()
+                     for k, v in weights.items()}
+    batch = _lm_batch(arch, dev)
+    params = fresh()
+    probes = layers.make_probes(lm.taps, device=dev)
+    with torch.no_grad():
+        logits = lm.forward(params, batch, probes, train=True)[0]
+    loss, acts, _, gprobe = loop.kfac_grads(lm.loss_fn, params, probes,
+                                            batch)
+    opt = kfac_lib.Kfac(kfac_config(), lm.taps, device=dev)
+    _, losses = loop.run_kfac_training(
+        lm.loss_fn, opt, fresh(), [batch] * steps,
+        n_tokens=batch["tokens"].numel(), seed=0, device=dev)
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    return dict(logits=logits.cpu(), loss=loss.cpu(), acts=cpu(acts),
+                probe_grads=cpu(gprobe), step_losses=losses,
+                opt=opt, lm=lm)
+
+
+def _decode_vs_forward(lm, params, tokens):
+    """Teacher-forced decode of ``tokens`` (B, n) with ``decode_step``
+    against ``forward(train=False)`` on the same tokens →
+    (largest |Δ| over the forward's largest |logit|, allclose at
+    DECODE_TOL, ms a token)."""
+    import torch
+    with torch.no_grad():
+        full = lm.forward(params, {"tokens": tokens, "targets": tokens},
+                          train=False)[0]
+        cache = lm.init_cache(tokens.shape[0], tokens.shape[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(tokens.shape[1]):
+            lg, cache = lm.decode_step(params, cache, tokens[:, t:t + 1], t)
+            outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
+        dec = torch.stack(outs, 1)
+    ok = bool(torch.allclose(dec.float(), full.float(), atol=DECODE_TOL,
+                             rtol=DECODE_TOL))
+    return _scale_err(dec.float(), full.float()), ok, ms
+
+
+def phase_agree_lm():
+    """Every architecture at its ``reduced()`` config, B = 2, T = 32:
+    weights made on the CPU from a seed, then on the card (kernels) and
+    on the CPU (plain versions) — forward logits, loss, every tap's act
+    and probe gradient, and two B-KFAC steps' losses — held to the agree
+    phases' 1e-3 (of each tensor's largest entry; losses relative); for
+    gemma3, mamba2 and recurrentgemma, 8 tokens decoded on the card
+    against the card's forward at DECODE_TOL."""
+    import torch
+    from repro_torch.configs.base import ARCH_NAMES, get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import LM
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    tol = 1e-3
+    failed = []
+    for name in ARCH_NAMES:
+        weights = LM(get_arch(name).reduced(), device=cpu).init(
+            torch.Generator().manual_seed(0))
+        weights = {k: v.detach() for k, v in weights.items()}
+        _build.reset_launch_counts()
+        card = _lm_run(name, cuda, weights)
+        launches = {k: v for k, v in _build.launch_counts().items() if v}
+        host = _lm_run(name, cpu, weights)
+        errs = {"logits": _scale_err(card["logits"], host["logits"]),
+                "loss": _scale_err(card["loss"], host["loss"]),
+                "acts": max(_scale_err(card["acts"][n], host["acts"][n])
+                            for n in host["acts"]),
+                "probe_grads": max(_scale_err(card["probe_grads"][n],
+                                              host["probe_grads"][n])
+                                   for n in host["probe_grads"]),
+                "step_losses": max(abs(a - b) / max(abs(b), 1e-6)
+                                   for a, b in zip(card["step_losses"],
+                                                   host["step_losses"]))}
+        line = {"phase": "agree_lm", "arch": name, "errors": errs,
+                "tol": tol, "losses_cuda": card["step_losses"],
+                "losses_cpu": host["step_losses"], "launches": launches,
+                "buckets": [f"d={b.spec.d} {b.spec.mode.value} B={b.total}"
+                            for b in card["opt"].factor_buckets]}
+        bad = [k for k, e in errs.items() if not e <= tol]
+        if not launches.get("precond_panel"):
+            bad.append("no kernel launched")
+        if name in ("gemma3_4b", "mamba2_2p7b", "recurrentgemma_2b"):
+            lm = card["lm"]
+            params = {k: v.to(cuda) for k, v in weights.items()}
+            tokens = torch.randint(0, lm.arch.vocab, (LM_AGREE_B, 8),
+                                   generator=torch.Generator().manual_seed(3)
+                                   ).to(cuda)
+            err, ok, ms = _decode_vs_forward(lm, params, tokens)
+            line["decode"] = {"max_err_of_scale": err, "allclose": ok,
+                              "tol": DECODE_TOL, "ms_per_token": ms}
+            if not ok:
+                bad.append("decode")
+        emit(line)
+        if bad:
+            failed.append((name, bad))
+    if failed:
+        raise AssertionError(f"agree_lm: {failed}")
+
+
+def lm_slice_arch():
+    """gemma3-4b at full width, cut in depth as LM_SLICE says."""
+    from repro_torch.configs.base import get_arch
+    return get_arch(LM_SLICE["arch"]).with_repeats(LM_SLICE["repeats"])
+
+
+def lm_slice_opt(dev):
+    """slice_lm's model (no weights yet) and optimizer."""
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.examples.train_lm_kfac import kfac_config
+    from repro_torch.models.lm import LM
+    lm = LM(lm_slice_arch(), remat=LM_SLICE["remat"], device=dev)
+    return lm, kfac_lib.Kfac(kfac_config(), lm.taps, device=dev)
+
+
+def phase_slice_lm(checked):
+    """Path 9: gemma3-4b at full width (LM_SLICE), 11 B-KFAC steps through
+    ``run_kfac_training`` with the kernels; every kernel call at a shape
+    the ``kernels`` phase held; then greedy decoding of a 64-token prompt
+    (and 16 generated tokens) on the trained model against its forward:
+    with fp32 activations at the reference's 2e-2 (its decode test is
+    fp32), and with the configured bf16 ones no farther from the fp32
+    forward than twice the bf16 forward is (both printed, with whether
+    the bf16 pair meets 2e-2).  Returns the launch counts of the training
+    run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch.param_count import count_params
+    from repro_torch.models.lm import LM
+    from repro_torch.train import loop
+
+    dev = torch.device("cuda")
+    lm, opt = lm_slice_opt(dev)
+    arch = lm.arch
+    torch.cuda.synchronize()
+    # the earlier phases leave the allocator's cache in pieces; this path's
+    # backward takes one 16 GiB block
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()   # what earlier phases left
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    stream = TokenStream(vocab=arch.vocab, batch=LM_SLICE["batch"],
+                         seq_len=LM_SLICE["seq"], seed=0, device=dev)
+    batches = [stream.batch_at(k) for k in range(LM_SLICE["steps"])]
+    sched = opt.scheduler()
+    kinds = [step_kind(sched.work(k)) for k in range(LM_SLICE["steps"])]
+    walls = []
+    t_prev = [0.0]
+
+    def cb(k, state, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - t_prev[0])
+        t_prev[0] = now
+
+    _build.reset_launch_counts()
+    t_prev[0] = time.perf_counter()
+    with calls_by_shape() as by_shape:
+        _, losses = loop.run_kfac_training(
+            lm.loss_fn, opt, params, batches,
+            n_tokens=LM_SLICE["batch"] * LM_SLICE["seq"], seed=0,
+            callback=cb, device=dev)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del batches
+    # decode: the prompt teacher-forced, then greedy tokens, each logit row
+    # against the forward over the whole sequence
+    prompt = stream.batch_at(LM_SLICE["steps"])["tokens"][:1,
+                                                         :LM_SLICE["prompt"]]
+    with torch.no_grad():
+        cache = lm.init_cache(1, LM_SLICE["prompt"] + LM_SLICE["generate"])
+        seq = prompt
+        for t in range(LM_SLICE["prompt"] - 1):
+            lm.decode_step(params, cache, prompt[:, t:t + 1], t)
+        for t in range(LM_SLICE["prompt"] - 1,
+                       LM_SLICE["prompt"] + LM_SLICE["generate"] - 1):
+            lg, cache = lm.decode_step(params, cache, seq[:, t:t + 1], t)
+            seq = torch.cat([seq, lg[:, -1].argmax(-1)[:, None]], dim=1)
+    # the configured bf16 activations: decode and forward each round in
+    # their own order, so both are also held against the fp32 forward of
+    # the same weights; the reference's own decode test (and its 2e-2) is
+    # fp32, as this model with fp32 activations
+    err, ok, ms = _decode_vs_forward(lm, params, seq)
+    lm32 = LM(dataclasses.replace(arch, dtype="float32"), remat=False,
+              device=dev)
+    err32, ok32, ms32 = _decode_vs_forward(lm32, params, seq)
+    with torch.no_grad():
+        batch = {"tokens": seq, "targets": seq}
+        f32 = lm32.forward(params, batch, train=False)[0]
+        f16 = lm.forward(params, batch, train=False)[0].float()
+        cache = lm.init_cache(1, seq.shape[1])
+        d16 = torch.stack([lm.decode_step(params, cache, seq[:, t:t + 1],
+                                          t)[0][:, 0].float()
+                           for t in range(seq.shape[1])], 1)
+    fwd_vs_f32, dec_vs_f32 = _scale_err(f16, f32), _scale_err(d16, f32)
+    # the bf16 decode as close to the fp32 model as twice the bf16
+    # forward's own rounding (floored at fp32's: with fp32 activations
+    # the two forwards are one)
+    near = dec_vs_f32 <= max(2.0 * fwd_vs_f32, 1e-4)
+    del params, cache, f32, f16, d16
+    missing = [k for k in PATH_KERNELS["slice_lm"] if counts[k] == 0]
+    unchecked = [k for k in by_shape if k not in checked]
+    for k in range(LM_SLICE["steps"]):
+        emit({"phase": "slice_lm", "step": k, "kind": kinds[k],
+              "loss": losses[k], "wall_s": walls[k]})
+    by_kind = {}
+    for kind, w in zip(kinds, walls):
+        by_kind.setdefault(kind, []).append(w)
+    PATH_WALLS["slice_lm"] = by_kind
+    full = get_arch(LM_SLICE["arch"])
+    finite = bool(np.all(np.isfinite(losses)))
+    emit({"phase": "slice_lm", "summary": True, "arch": arch.name,
+          "d_model": arch.d_model, "n_heads": arch.n_heads,
+          "n_kv_heads": arch.n_kv_heads, "head_dim": arch.hd,
+          "d_ff": arch.d_ff, "vocab": arch.vocab, "dtype": arch.dtype,
+          "params": n_params, "params_count": count_params(arch),
+          "reduced": {"n_layers": [arch.n_layers, full.n_layers],
+                      "repeats": [[s.repeats for s in arch.segments],
+                                  [s.repeats for s in full.segments]],
+                      "params": [n_params, count_params(full)],
+                      "remat": LM_SLICE["remat"]},
+          "batch": [LM_SLICE["batch"], LM_SLICE["seq"]],
+          "steps": LM_SLICE["steps"], "kinds": kinds, "losses": losses,
+          "finite": finite, "wall_s_by_kind": by_kind, "init_s": init_s,
+          "peak_mem_bytes": peak, "base_mem_bytes": base,
+          "launches": counts, "calls_by_shape": by_shape,
+          "buckets": [f"d={b.spec.d} {b.spec.mode.value} B={b.total}"
+                      for b in opt.factor_buckets],
+          "decode": {"prompt": LM_SLICE["prompt"],
+                     "generated": LM_SLICE["generate"], "tol": DECODE_TOL,
+                     "fp32": {"max_err_of_scale": err32, "allclose": ok32,
+                              "ms_per_token": ms32},
+                     "bf16": {"max_err_of_scale": err, "allclose": ok,
+                              "ms_per_token": ms,
+                              "forward_vs_fp32": fwd_vs_f32,
+                              "decode_vs_fp32": dec_vs_f32,
+                              "within_2x_forward": near}}})
+    if not finite or missing or unchecked or not ok32 or not near:
+        raise AssertionError(f"slice_lm: finite {finite}, kernels never "
+                             f"launched {missing}, calls at unchecked shapes "
+                             f"{unchecked}, fp32 decode allclose {ok32}, bf16 "
+                             f"decode vs fp32 {dec_vs_f32:.3g} against the "
+                             f"forward's {fwd_vs_f32:.3g}")
+    return counts
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -1472,6 +1843,10 @@ def main(argv=None) -> int:
     by_path["slice_seng"] = phase_baseline("slice_seng")
     # B-KFAC through the whole one-device trainer surface, faults injected
     by_path["slice_resilient"] = phase_resilient(checked)
+    # the LM stack: all ten architectures reduced, card against CPU; then
+    # gemma3-4b at full width under B-KFAC, and its decode
+    phase_agree_lm()
+    by_path["slice_lm"] = phase_slice_lm(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -1,0 +1,21 @@
+"""qwen2-72b [dense] — arXiv:2407.10671. 80L d_model=8192 64H (GQA kv=8)
+d_ff=29568 vocab=152064, QKV bias."""
+from repro_torch.configs.base import ArchConfig, LayerSpec, Segment
+
+ARCH = ArchConfig(
+    name="qwen2_72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=29568,
+    vocab=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+    subquadratic=False,
+    segments=(
+        Segment(pattern=(LayerSpec(mixer="gqa", ffn="dense"),), repeats=80),
+    ),
+)

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import ClassVar, Dict, Optional, Tuple
 
 import torch
 
@@ -115,6 +115,8 @@ class KfacState:
     # cfg.async_heavy is off
     inflight: Dict[str, kfactor.InflightState] = dataclasses.field(
         default_factory=dict)
+    # keyed by tap name (one checkpoint key each, as in the reference)
+    TAP_KEYED: ClassVar[Tuple[str, ...]] = ("factors", "momentum")
 
 
 class Kfac:
@@ -513,18 +515,25 @@ class Kfac:
         S_all = precondition(factors, grads, acts, probe_grads, phi)
         updates: Params = {}
         new_mom = dict(state.momentum) if state.momentum is not None else None
+        # each tap's preconditioned step becomes its update in place, and is
+        # dropped from S_all as it goes: at billions of parameters the
+        # optimizer must not hold two more copies of them (the same
+        # operations as out of place, so the same bits)
         for name, t in self.taps.items():
-            S = S_all[name] + cfg.weight_decay * params[t.param_path].to(
-                torch.float32)
+            S = S_all.pop(name)
+            S.add_(cfg.weight_decay
+                   * params[t.param_path].detach().to(torch.float32))
             if new_mom is not None:
                 S = new_mom[name] = cfg.momentum * new_mom[name] + S
-            updates[t.param_path] = -lr * S
+                updates[t.param_path] = -lr * S
+            else:
+                updates[t.param_path] = S.mul_(-lr)
         fb_updates, fb_state = self._fallback.update(
             self._untapped(grads), state.fallback, self._untapped(params))
         updates.update(fb_updates)
         updates = {k: updates[k] for k in grads}     # parameter order
         if cfg.clip > 0:
-            updates = optbase.clip_by_global_norm(updates, cfg.clip)
+            updates = optbase.clip_by_global_norm_(updates, cfg.clip)
 
         new_state = KfacState(
             step=state.step + 1,

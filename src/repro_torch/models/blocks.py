@@ -1,0 +1,590 @@
+"""Per-LayerSpec transformer blocks: init, train apply, decode apply,
+cache init, and K-FAC tap enumeration.
+
+Counterpart of ``src/repro/models/blocks.py``.  A *block* = (norm → mixer
+→ residual) [→ norm → FFN → residual].  Mixers: GQA attention (global /
+sliding-window / non-causal / cross), MLA, Mamba-2 SSD, RG-LRU.  FFNs:
+gated-SiLU dense, MoE, or none.  Every matmul is K-FAC-tapped; tap names
+are local to the block ("attn_q", "ffn_wi", …) and prefixed by the caller
+("segments/seg0/p1/attn_q").  Block parameters are the reference's nested
+dicts ({"mix": {"wq", …}, "ffn": {"wi", …}}) with the reference's keys.
+
+Decode writes each new cache slot into the cache tensors in place and
+returns the same tensors: the reference returns updated copies.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
+from repro_torch.models.sharding_policy import ShardPolicy
+
+Tensor = torch.Tensor
+
+
+def tap_dims(d_in: int, d_out: int, extra: tuple = ()):
+    """(d_in, d_out, extra_stack) for one tapped matmul family."""
+    return (d_in, d_out, extra)
+
+
+def _gelu(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+class TapCtx:
+    """Carries probes in / activations out through a block application."""
+
+    def __init__(self, probes: Dict, n_stat: int, prefix: str = ""):
+        self.probes = probes or {}
+        self.acts: Dict[str, Tensor] = {}
+        self.n_stat = n_stat
+        self.prefix = prefix
+
+    def mm(self, name: str, W: Tensor, x: Tensor) -> Tensor:
+        full = f"{self.prefix}{name}"
+        y, act = layers.tapped_matmul(W, x, self.probes.get(full),
+                                      self.n_stat)
+        self.acts[full] = act
+        return y
+
+
+def _mixer_dims(arch: ArchConfig):
+    return arch.n_heads, arch.n_kv_heads, arch.hd
+
+
+def _zeros(d: int, generator: torch.Generator) -> Tensor:
+    return torch.zeros((d,), dtype=torch.float32, device=generator.device)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention sub-block
+# ---------------------------------------------------------------------------
+
+def init_gqa(g: torch.Generator, arch: ArchConfig, cross: bool = False,
+             dtype=torch.float32):
+    H, Hk, hd = _mixer_dims(arch)
+    d = arch.d_model
+    p = {
+        "wq": layers.dense_init(g, d, H * hd, dtype=dtype),
+        "wkv": layers.dense_init(g, d, 2 * Hk * hd, dtype=dtype),
+        "wo": layers.dense_init(g, H * hd, d, dtype=dtype),
+        "ln": _zeros(d, g),
+    }
+    if arch.qkv_bias:
+        p["bq"] = _zeros(H * hd, g)
+        p["bkv"] = _zeros(2 * Hk * hd, g)
+    if cross:
+        p["x_wq"] = layers.dense_init(g, d, H * hd, dtype=dtype)
+        p["x_wkv"] = layers.dense_init(g, d, 2 * Hk * hd, dtype=dtype)
+        p["x_wo"] = layers.dense_init(g, H * hd, d, dtype=dtype)
+        p["x_ln"] = _zeros(d, g)
+    return p
+
+
+def gqa_taps(arch: ArchConfig, cross: bool = False) -> Dict[str, tuple]:
+    H, Hk, hd = _mixer_dims(arch)
+    d = arch.d_model
+    t = {"attn_q": tap_dims(d, H * hd), "attn_kv": tap_dims(d, 2 * Hk * hd),
+         "attn_o": tap_dims(H * hd, d)}
+    if cross:
+        t.update({"x_attn_q": tap_dims(d, H * hd),
+                  "x_attn_kv": tap_dims(d, 2 * Hk * hd),
+                  "x_attn_o": tap_dims(H * hd, d)})
+    return t
+
+
+def _qkv(p, arch, tc: TapCtx, x, positions):
+    H, Hk, hd = _mixer_dims(arch)
+    B, T, _ = x.shape
+    q = tc.mm("attn_q", p["wq"], x)
+    kv = tc.mm("attn_kv", p["wkv"], x)
+    if arch.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        kv = kv + p["bkv"].to(kv.dtype)
+    q = q.reshape(B, T, H, hd)
+    k, v = torch.chunk(kv.reshape(B, T, 2 * Hk, hd), 2, dim=2)
+    if positions is not None:
+        q = layers.rope(q, positions, arch.rope_theta)
+        k = layers.rope(k, positions, arch.rope_theta)
+    return q, k, v
+
+
+def apply_gqa(spec: LayerSpec, arch: ArchConfig, p, h, tc: TapCtx,
+              positions, sp: ShardPolicy, memory: Optional[Tensor] = None):
+    """Self-attention (+ optional cross-attention when memory given)."""
+    B, T, d = h.shape
+    H, Hk, hd = _mixer_dims(arch)
+    x = layers.rms_norm(h, p["ln"])
+    x = sp.full_seq(x)
+    q, k, v = _qkv(p, arch, tc, x, positions)
+    q, k, v = sp.heads(q), sp.heads(k), sp.heads(v)
+    o = attn_lib.blockwise_attention(
+        q, k, v, causal=spec.causal, window=spec.window,
+        softcap=arch.attn_softcap, q_block=512, kv_block=512)
+    o = tc.mm("attn_o", p["wo"], o.reshape(B, T, H * hd))
+    h = sp.residual(h + o.to(h.dtype))
+    if memory is not None:
+        x = layers.rms_norm(h, p["x_ln"])
+        q = tc.mm("x_attn_q", p["x_wq"], x).reshape(B, T, H, hd)
+        Tm = memory.shape[1]
+        kvm = tc.mm("x_attn_kv", p["x_wkv"], memory)
+        km, vm = torch.chunk(kvm.reshape(B, Tm, 2 * Hk, hd), 2, dim=2)
+        o = attn_lib.blockwise_attention(q, km, vm, causal=False,
+                                         q_block=512, kv_block=512)
+        o = tc.mm("x_attn_o", p["x_wo"], o.reshape(B, T, H * hd))
+        h = sp.residual(h + o.to(h.dtype))
+    return h
+
+
+def gqa_cache_init(arch: ArchConfig, B: int, S: int, dtype, device,
+                   cross_len: int = 0, spec: Optional[LayerSpec] = None,
+                   window_caches: bool = False, kv_rep: int = 1):
+    """KV cache.  ``window_caches``: sliding-window layers keep only a
+    ``window``-slot ring buffer; ``kv_rep``: KV heads replicated ×kv_rep
+    (the reference's "heads" cache layout)."""
+    H, Hk, hd = _mixer_dims(arch)
+    Hc = Hk * kv_rep
+    S_eff = S
+    if window_caches and spec is not None and spec.window > 0:
+        S_eff = min(S, spec.window)
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+    c = {"k": z(B, S_eff, Hc, hd), "v": z(B, S_eff, Hc, hd)}
+    if cross_len:
+        c["xk"] = z(B, cross_len, Hc, hd)
+        c["xv"] = z(B, cross_len, Hc, hd)
+    return c
+
+
+def decode_gqa(spec: LayerSpec, arch: ArchConfig, p, h_t, cache, t: int,
+               sp: ShardPolicy):
+    """One-token step. h_t: (B, 1, d)."""
+    B = h_t.shape[0]
+    H, Hk, hd = _mixer_dims(arch)
+    x = layers.rms_norm(h_t, p["ln"])
+    pos = torch.full((B, 1), t, device=h_t.device)
+    q = x @ p["wq"].to(x.dtype)
+    kv = x @ p["wkv"].to(x.dtype)
+    if arch.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        kv = kv + p["bkv"].to(kv.dtype)
+    q = layers.rope(q.reshape(B, 1, H, hd), pos, arch.rope_theta)
+    k_new, v_new = torch.chunk(kv.reshape(B, 1, 2 * Hk, hd), 2, dim=2)
+    k_new = layers.rope(k_new, pos, arch.rope_theta)
+    S_cache, Hc = cache["k"].shape[1], cache["k"].shape[2]
+    if Hc != Hk:        # "heads" layout: KV heads replicated to Hc
+        rep = Hc // Hk
+        k_new = torch.repeat_interleave(k_new, rep, dim=2)
+        v_new = torch.repeat_interleave(v_new, rep, dim=2)
+    # ring-buffer write: for full caches t < S_cache so this is slot t
+    w = t % S_cache
+    k, v = cache["k"], cache["v"]
+    k[:, w:w + 1] = k_new.to(k.dtype)
+    v[:, w:w + 1] = v_new.to(v.dtype)
+    k, v = sp.kv_cache(k), sp.kv_cache(v)
+    if spec.window > 0 and S_cache <= spec.window:
+        # ring buffer: every written slot is within the window by
+        # construction; mask only unwritten slots (t < S_cache)
+        o = attn_lib.decode_attention(q, k, v, softcap=arch.attn_softcap,
+                                      t=min(t, S_cache - 1))
+    else:
+        o = attn_lib.decode_attention(q, k, v, window=spec.window,
+                                      softcap=arch.attn_softcap, t=t)
+    o = o.reshape(B, 1, H * hd) @ p["wo"].to(h_t.dtype)
+    h_t = h_t + o.to(h_t.dtype)
+    new_cache = dict(cache, k=k, v=v)
+    if "xk" in cache:  # cross-attention over a precomputed memory cache
+        x = layers.rms_norm(h_t, p["x_ln"])
+        q = (x @ p["x_wq"].to(x.dtype)).reshape(B, 1, H, hd)
+        o = attn_lib.decode_attention(q, cache["xk"], cache["xv"], t=None)
+        o = o.reshape(B, 1, H * hd) @ p["x_wo"].to(h_t.dtype)
+        h_t = h_t + o.to(h_t.dtype)
+    return h_t, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA sub-block (deepseek)
+# ---------------------------------------------------------------------------
+
+def _mla_dims(arch: ArchConfig) -> attn_lib.MlaDims:
+    return attn_lib.MlaDims(arch.n_heads, arch.mla_q_lora, arch.mla_kv_lora,
+                            arch.mla_qk_nope, arch.mla_qk_rope,
+                            arch.mla_v_head)
+
+
+def init_mla(g: torch.Generator, arch: ArchConfig, dtype=torch.float32):
+    d = arch.d_model
+    dims = _mla_dims(arch)
+    H = dims.n_heads
+    return {
+        "ln": _zeros(d, g),
+        "wq_a": layers.dense_init(g, d, dims.q_lora, dtype=dtype),
+        "wq_b": layers.dense_init(g, dims.q_lora,
+                                  H * (dims.qk_nope + dims.qk_rope),
+                                  dtype=dtype),
+        "wkv_a": layers.dense_init(g, d, dims.kv_lora + dims.qk_rope,
+                                   dtype=dtype),
+        "wkv_b": layers.dense_init(g, dims.kv_lora,
+                                   H * (dims.qk_nope + dims.v_head),
+                                   dtype=dtype),
+        "wo": layers.dense_init(g, H * dims.v_head, d, dtype=dtype),
+    }
+
+
+def mla_taps(arch: ArchConfig) -> Dict[str, tuple]:
+    d = arch.d_model
+    H = arch.n_heads
+    dn, dr, dv = arch.mla_qk_nope, arch.mla_qk_rope, arch.mla_v_head
+    ql, kl = arch.mla_q_lora, arch.mla_kv_lora
+    return {"wq_a": tap_dims(d, ql), "wq_b": tap_dims(ql, H * (dn + dr)),
+            "wkv_a": tap_dims(d, kl + dr),
+            "wkv_b": tap_dims(kl, H * (dn + dv)),
+            "wo": tap_dims(H * dv, d)}
+
+
+def apply_mla(spec, arch: ArchConfig, p, h, tc: TapCtx, positions,
+              sp: ShardPolicy):
+    x = sp.full_seq(layers.rms_norm(h, p["ln"]))
+    probes = {"mla/" + k[len(tc.prefix):]: v for k, v in tc.probes.items()
+              if k.startswith(tc.prefix)}
+    acts: Dict[str, Tensor] = {}
+    o = attn_lib.mla_train_attention(x, p, _mla_dims(arch), probes, acts,
+                                     "mla", tc.n_stat, positions)
+    # re-prefix the acts recorded by the mla helper
+    for k, v in acts.items():
+        tc.acts[f"{tc.prefix}{k.split('/', 1)[1]}"] = v
+    return sp.residual(h + o.to(h.dtype))
+
+
+def mla_cache_init(arch: ArchConfig, B: int, S: int, dtype, device):
+    return {"c_kv": torch.zeros((B, S, arch.mla_kv_lora), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((B, S, arch.mla_qk_rope), dtype=dtype,
+                                  device=device)}
+
+
+def decode_mla(spec, arch: ArchConfig, p, h_t, cache, t: int,
+               sp: ShardPolicy):
+    x = layers.rms_norm(h_t, p["ln"])
+    o, new_cache = attn_lib.mla_decode_attention(x, p, _mla_dims(arch),
+                                                 cache, t)
+    return h_t + o.to(h_t.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD sub-block
+# ---------------------------------------------------------------------------
+
+def _ssd_dims(arch: ArchConfig):
+    d_inner = arch.ssm_expand * arch.d_model
+    H = d_inner // arch.ssm_head_dim
+    G, N = arch.ssm_groups, arch.ssm_state
+    conv_dim = d_inner + 2 * G * N
+    in_dim = 2 * d_inner + 2 * G * N + H
+    return d_inner, H, G, N, conv_dim, in_dim
+
+
+def init_ssm(g: torch.Generator, arch: ArchConfig, dtype=torch.float32):
+    d = arch.d_model
+    d_inner, H, G, N, conv_dim, in_dim = _ssd_dims(arch)
+    dev = g.device
+    return {
+        "ln": _zeros(d, g),
+        "in_proj": layers.dense_init(g, d, in_dim, dtype=dtype),
+        "conv_w": torch.randn((arch.conv_k, conv_dim), generator=g,
+                              device=dev) * 0.1,
+        "A_log": _zeros(H, g),
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.full((H,), -2.0, dtype=torch.float32, device=dev),
+        "out_norm": _zeros(d_inner, g),
+        "out_proj": layers.dense_init(g, d_inner, d, dtype=dtype),
+    }
+
+
+def ssm_taps(arch: ArchConfig) -> Dict[str, tuple]:
+    d = arch.d_model
+    d_inner, H, G, N, conv_dim, in_dim = _ssd_dims(arch)
+    return {"ssm_in": tap_dims(d, in_dim), "ssm_out": tap_dims(d_inner, d)}
+
+
+def _ssd_split(arch, xz):
+    d_inner, H, G, N, conv_dim, _ = _ssd_dims(arch)
+    z = xz[..., :d_inner]
+    xBC = xz[..., d_inner: d_inner + conv_dim]
+    dt = xz[..., d_inner + conv_dim:]
+    return z, xBC, dt
+
+
+def apply_ssm(spec, arch: ArchConfig, p, h, tc: TapCtx, positions,
+              sp: ShardPolicy):
+    B, T, d = h.shape
+    d_inner, H, G, N, conv_dim, _ = _ssd_dims(arch)
+    P_dim = arch.ssm_head_dim
+    f32 = torch.float32
+    x = sp.full_seq(layers.rms_norm(h, p["ln"]))
+    xz = tc.mm("ssm_in", p["in_proj"], x)
+    z, xBC, dt = _ssd_split(arch, xz)
+    xBC = F.silu(ssm_lib.causal_conv1d(xBC, p["conv_w"]))
+    xs = xBC[..., :d_inner].reshape(B, T, H, P_dim)
+    Bm = xBC[..., d_inner: d_inner + G * N].reshape(B, T, G, N)
+    Cm = xBC[..., d_inner + G * N:].reshape(B, T, G, N)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y = ssm_lib.ssd_chunked(xs.to(f32), dt, A, Bm.to(f32), Cm.to(f32),
+                            chunk=min(arch.ssm_chunk, T))
+    y = y + p["D"][None, None, :, None] * xs.to(f32)
+    y = y.reshape(B, T, d_inner)
+    y = layers.rms_norm(y * F.silu(z.to(f32)), p["out_norm"]).to(h.dtype)
+    o = tc.mm("ssm_out", p["out_proj"], y)
+    return sp.residual(h + o.to(h.dtype))
+
+
+def ssm_cache_init(arch: ArchConfig, B: int, S: int, dtype, device):
+    d_inner, H, G, N, conv_dim, _ = _ssd_dims(arch)
+    return {"conv": torch.zeros((B, arch.conv_k - 1, conv_dim), dtype=dtype,
+                                device=device),
+            "state": torch.zeros((B, H, N, arch.ssm_head_dim),
+                                 dtype=torch.float32, device=device)}
+
+
+def decode_ssm(spec, arch: ArchConfig, p, h_t, cache, t: int,
+               sp: ShardPolicy):
+    B = h_t.shape[0]
+    d_inner, H, G, N, conv_dim, _ = _ssd_dims(arch)
+    P_dim = arch.ssm_head_dim
+    f32 = torch.float32
+    x = layers.rms_norm(h_t, p["ln"])
+    xz = (x @ p["in_proj"].to(x.dtype))[:, 0]
+    z, xBC, dt = _ssd_split(arch, xz)
+    xBC, conv_buf = ssm_lib.causal_conv1d_step(
+        xBC.to(cache["conv"].dtype), cache["conv"], p["conv_w"])
+    xBC = F.silu(xBC)
+    xs = xBC[..., :d_inner].reshape(B, H, P_dim).to(f32)
+    Bm = xBC[..., d_inner: d_inner + G * N].reshape(B, G, N)
+    Cm = xBC[..., d_inner + G * N:].reshape(B, G, N)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, state = ssm_lib.ssd_decode_step(xs, dt, A, Bm.to(f32), Cm.to(f32),
+                                       cache["state"])
+    y = y + p["D"][None, :, None] * xs
+    y = y.reshape(B, d_inner)
+    y = layers.rms_norm(y * F.silu(z.to(f32)), p["out_norm"]).to(h_t.dtype)
+    o = y[:, None, :] @ p["out_proj"].to(h_t.dtype)
+    return h_t + o.to(h_t.dtype), {"conv": conv_buf, "state": state}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU sub-block (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+def init_rglru(g: torch.Generator, arch: ArchConfig, dtype=torch.float32):
+    d, D = arch.d_model, arch.lru_width
+    dev = g.device
+    return {
+        "ln": _zeros(d, g),
+        "wi": layers.dense_init(g, d, 2 * D, dtype=dtype),
+        "conv_w": torch.randn((arch.conv_k, D), generator=g,
+                              device=dev) * 0.1,
+        "wg": layers.dense_init(g, D, 2 * D, dtype=dtype),
+        "lam": torch.full((D,), 0.5, dtype=torch.float32, device=dev),
+        "wo": layers.dense_init(g, D, d, dtype=dtype),
+    }
+
+
+def rglru_taps(arch: ArchConfig) -> Dict[str, tuple]:
+    d, D = arch.d_model, arch.lru_width
+    return {"lru_in": tap_dims(d, 2 * D), "lru_gates": tap_dims(D, 2 * D),
+            "lru_out": tap_dims(D, d)}
+
+
+def apply_rglru(spec, arch: ArchConfig, p, h, tc: TapCtx, positions,
+                sp: ShardPolicy):
+    D = arch.lru_width
+    x0 = sp.full_seq(layers.rms_norm(h, p["ln"]))
+    xy = tc.mm("lru_in", p["wi"], x0)
+    x, y = xy[..., :D], xy[..., D:]
+    x = ssm_lib.causal_conv1d(x, p["conv_w"])
+    gates = tc.mm("lru_gates", p["wg"], x)
+    gx, ga = gates[..., :D], gates[..., D:]
+    hseq = ssm_lib.rglru(x, gx, ga, p["lam"])
+    out = tc.mm("lru_out", p["wo"], hseq * _gelu(y))
+    return sp.residual(h + out.to(h.dtype))
+
+
+def rglru_cache_init(arch: ArchConfig, B: int, S: int, dtype, device):
+    D = arch.lru_width
+    return {"conv": torch.zeros((B, arch.conv_k - 1, D), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((B, D), dtype=torch.float32, device=device)}
+
+
+def decode_rglru(spec, arch: ArchConfig, p, h_t, cache, t: int,
+                 sp: ShardPolicy):
+    D = arch.lru_width
+    x0 = layers.rms_norm(h_t, p["ln"])
+    xy = (x0 @ p["wi"].to(x0.dtype))[:, 0]
+    x, y = xy[..., :D], xy[..., D:]
+    x, conv_buf = ssm_lib.causal_conv1d_step(x.to(cache["conv"].dtype),
+                                             cache["conv"], p["conv_w"])
+    gates = x @ p["wg"].to(x.dtype)
+    gx, ga = gates[..., :D], gates[..., D:]
+    hn, hstate = ssm_lib.rglru_step(x, gx, ga, p["lam"], cache["h"])
+    out = (hn * _gelu(y))[:, None, :] @ p["wo"].to(h_t.dtype)
+    return h_t + out.to(h_t.dtype), {"conv": conv_buf, "h": hstate}
+
+
+# ---------------------------------------------------------------------------
+# FFN sub-blocks
+# ---------------------------------------------------------------------------
+
+def _moe_dims(arch: ArchConfig) -> moe_lib.MoeDims:
+    return moe_lib.MoeDims(d_model=arch.d_model, d_ff=arch.d_ff_expert,
+                           n_experts=arch.n_experts, top_k=arch.top_k,
+                           n_shared=arch.n_shared_experts)
+
+
+def init_ffn(g: torch.Generator, arch: ArchConfig, spec: LayerSpec,
+             dtype=torch.float32):
+    d = arch.d_model
+    if spec.ffn == "dense":
+        f = arch.d_ff
+        return {"ln2": _zeros(d, g),
+                "wi": layers.dense_init(g, d, 2 * f, dtype=dtype),
+                "wo_f": layers.dense_init(g, f, d, dtype=dtype)}
+    if spec.ffn == "moe":
+        p = moe_lib.init_moe_params(g, _moe_dims(arch), dtype)
+        p["ln2"] = _zeros(d, g)
+        return p
+    return {}
+
+
+def ffn_taps(arch: ArchConfig, spec: LayerSpec) -> Dict[str, tuple]:
+    d = arch.d_model
+    if spec.ffn == "dense":
+        return {"ffn_wi": tap_dims(d, 2 * arch.d_ff),
+                "ffn_wo": tap_dims(arch.d_ff, d)}
+    if spec.ffn == "moe":
+        f = arch.d_ff_expert
+        t = {"moe_wi": tap_dims(d, 2 * f, (arch.n_experts,)),
+             "moe_wo": tap_dims(f, d, (arch.n_experts,))}
+        if arch.n_shared_experts:
+            fs = f * arch.n_shared_experts
+            t["shared_wi"] = tap_dims(d, 2 * fs)
+            t["shared_wo"] = tap_dims(fs, d)
+        return t
+    return {}
+
+
+def apply_ffn(spec: LayerSpec, arch: ArchConfig, p, h, tc: TapCtx,
+              sp: ShardPolicy) -> Tuple[Tensor, Tensor]:
+    """Returns (h, aux_loss)."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    if spec.ffn == "none":
+        return h, zero
+    x = sp.full_seq(layers.rms_norm(h, p["ln2"]))
+    if spec.ffn == "dense":
+        u = tc.mm("ffn_wi", p["wi"], x)
+        gate, up = torch.chunk(u, 2, dim=-1)
+        gate, up = sp.ffn_hidden(gate), sp.ffn_hidden(up)
+        y = tc.mm("ffn_wo", p["wo_f"], F.silu(gate) * up)
+        return sp.residual(h + y.to(h.dtype)), zero
+    # MoE
+    probes = {"moe/" + k[len(tc.prefix):]: v for k, v in tc.probes.items()
+              if k.startswith(tc.prefix)}
+    acts: Dict[str, Tensor] = {}
+    y, aux = moe_lib.moe_block(x, p, _moe_dims(arch), probes, acts, "moe",
+                               tc.n_stat)
+    for k, v in acts.items():
+        tc.acts[f"{tc.prefix}{k.split('/', 1)[1]}"] = v
+    return sp.residual(h + y.to(h.dtype)), aux
+
+
+# ---------------------------------------------------------------------------
+# whole-block dispatch
+# ---------------------------------------------------------------------------
+
+_MIXERS = {
+    "gqa": (init_gqa, apply_gqa, decode_gqa, gqa_cache_init, gqa_taps),
+    "mla": (init_mla, apply_mla, decode_mla, mla_cache_init, mla_taps),
+    "ssm": (init_ssm, apply_ssm, decode_ssm, ssm_cache_init, ssm_taps),
+    "rglru": (init_rglru, apply_rglru, decode_rglru, rglru_cache_init,
+              rglru_taps),
+}
+
+
+def init_block(g: torch.Generator, arch: ArchConfig, spec: LayerSpec,
+               cross=False, dtype=torch.float32):
+    init_fn = _MIXERS[spec.mixer][0]
+    mix = (init_fn(g, arch, cross=cross, dtype=dtype)
+           if spec.mixer == "gqa" else init_fn(g, arch, dtype=dtype))
+    return {"mix": mix, "ffn": init_ffn(g, arch, spec, dtype=dtype)}
+
+
+def block_taps(arch: ArchConfig, spec: LayerSpec, cross=False
+               ) -> Dict[str, tuple]:
+    taps_fn = _MIXERS[spec.mixer][4]
+    t = dict(taps_fn(arch, cross=cross) if spec.mixer == "gqa"
+             else taps_fn(arch))
+    t.update(ffn_taps(arch, spec))
+    return t
+
+
+def apply_block(arch: ArchConfig, spec: LayerSpec, p, h, tc: TapCtx,
+                positions, sp: ShardPolicy, memory=None):
+    apply_fn = _MIXERS[spec.mixer][1]
+    if spec.mixer == "gqa":
+        h = apply_fn(spec, arch, p["mix"], h, tc, positions, sp,
+                     memory=memory)
+    else:
+        h = apply_fn(spec, arch, p["mix"], h, tc, positions, sp)
+    return apply_ffn(spec, arch, p["ffn"], h, tc, sp)
+
+
+def block_cache_init(arch: ArchConfig, spec: LayerSpec, B, S, dtype, device,
+                     cross_len=0, window_caches=False, kv_rep=1):
+    fn = _MIXERS[spec.mixer][3]
+    if spec.mixer == "gqa":
+        return fn(arch, B, S, dtype, device, cross_len=cross_len, spec=spec,
+                  window_caches=window_caches, kv_rep=kv_rep)
+    return fn(arch, B, S, dtype, device)
+
+
+def decode_block(arch: ArchConfig, spec: LayerSpec, p, h_t, cache, t: int,
+                 sp: ShardPolicy):
+    h_t, new_cache = _MIXERS[spec.mixer][2](spec, arch, p["mix"], h_t,
+                                            cache, t, sp)
+    p = p["ffn"]
+    if spec.ffn == "dense":
+        x = layers.rms_norm(h_t, p["ln2"])
+        u = x @ p["wi"].to(x.dtype)
+        gate, up = torch.chunk(u, 2, dim=-1)
+        y = (F.silu(gate) * up) @ p["wo_f"].to(x.dtype)
+        h_t = h_t + y.to(h_t.dtype)
+    elif spec.ffn == "moe":
+        dims = _moe_dims(arch)
+        B = h_t.shape[0]
+        x = layers.rms_norm(h_t, p["ln2"]).reshape(B, -1)
+        w, idx, _ = moe_lib.route(x, p["router"], dims)
+        # decode: tiny token count — dense "all experts" dispatch
+        cap = max(8, min(B * dims.top_k, B))
+        buffers, info = moe_lib.dispatch(x, idx, dims, cap)
+        u = torch.matmul(buffers, p["wi"].to(buffers.dtype))
+        g, up2 = torch.chunk(u, 2, dim=-1)
+        out = torch.matmul(F.silu(g) * up2, p["wo"].to(buffers.dtype))
+        y = moe_lib.combine(out, w, info, B)
+        if dims.n_shared:
+            u = x @ p["shared_wi"].to(x.dtype)
+            g, up2 = torch.chunk(u, 2, dim=-1)
+            y = y + ((F.silu(g) * up2)
+                     @ p["shared_wo"].to(x.dtype)).to(torch.float32)
+        h_t = h_t + y.reshape(h_t.shape).to(h_t.dtype)
+    return h_t, new_cache

@@ -1,7 +1,6 @@
 """Building-block layers with K-FAC taps.
 
-Counterpart of ``src/repro/models/layers.py`` (the parts the VGG path
-uses).  A *tap* instruments ``y = x @ W``: the first ``n_stat`` rows of
+Counterpart of ``src/repro/models/layers.py``.  A *tap* instruments ``y = x @ W``: the first ``n_stat`` rows of
 the input are emitted as the forward-factor square root, and a zero
 *probe* with ``requires_grad`` is added to the same rows of the output,
 so ∂L/∂probe is the backward-factor square root.
@@ -53,11 +52,55 @@ def tapped_matmul(W: Tensor, x: Tensor, probe: Optional[Tensor],
     return y, act
 
 
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5
+               ) -> Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               scale: Optional[float] = None, device=None) -> Tensor:
+               scale: Optional[float] = None, device=None,
+               dtype=torch.float32) -> Tensor:
+    """N(0, 1)·scale (default 1/√d_in), drawn in fp32 on ``device`` (the
+    generator's device by default), then cast to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return torch.randn((d_in, d_out), generator=generator,
-                       device=device) * scale
+    return (torch.randn((d_in, d_out), generator=generator,
+                        device=device or generator.device)
+            * scale).to(dtype)
+
+
+def softcap(x: Tensor, cap: float) -> Tensor:
+    """Gemma2-style logit soft-capping."""
+    return cap * torch.tanh(x / cap)
+
+
+def rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
+    """Rotary embeddings in the reference's half-split layout (the first
+    and second halves of the head dim rotate together), angles in fp32.
+    x: (..., T, H, hd), positions: (..., T)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device),
+                      -torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def make_probes(taps: Dict, device=None, dtype=torch.float32

@@ -1,0 +1,346 @@
+"""The generic LM covering all 10 assigned architectures.
+
+Counterpart of ``src/repro/models/lm.py``.  Assembly: embed → [segments:
+(pattern × repeats)] → final norm → tapped LM head (→ optional MTP head).
+Enc-dec archs (whisper) run an encoder stack first and feed it as
+cross-attention memory.  VLM/audio frontends are stubs: precomputed
+embeddings enter as a sequence prefix / encoder input, as in the
+reference.
+
+Parameters are a flat dict keyed by the reference's "/"-joined paths
+("embed", "segments/0/p1/mix/wq", "head/w", …); a segment's block
+parameters carry the segment's repeats as their leading axis, as the
+reference's scanned stacks do.  The reference scans each segment with
+``lax.scan``; here a Python loop runs the repeats on the indexed stacks
+and ``torch.stack``s each tap's activations, so a stacked tap's act has
+the reference's shape (*stack, n_stat, d_in).  ``remat=True`` wraps each
+repeat in ``torch.utils.checkpoint`` (non-reentrant).  ``unroll`` is
+accepted for the reference's signature and has no effect: the port
+always unrolls.
+
+Train path: ``loss_fn(params, probes, batch) -> (loss, acts)`` — the K-FAC
+tap contract (core/kfac.py).  Serve path: ``decode_step`` (one token, KV /
+state caches, written in place) and ``forward`` (prefill-shaped logits).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils import checkpoint as torch_checkpoint
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import ArchConfig, LayerSpec, Segment
+from repro_torch.core.kfac import TapInfo
+from repro_torch.models import blocks, layers
+from repro_torch.models.sharding_policy import NO_SHARD, ShardPolicy
+
+Tensor = torch.Tensor
+
+#: local tap name → block param sub-path ("mix"/"ffn" namespaced)
+_TAP_PARAM = {
+    "attn_q": "mix/wq", "attn_kv": "mix/wkv", "attn_o": "mix/wo",
+    "x_attn_q": "mix/x_wq", "x_attn_kv": "mix/x_wkv",
+    "x_attn_o": "mix/x_wo",
+    "ffn_wi": "ffn/wi", "ffn_wo": "ffn/wo_f",
+    "moe_wi": "ffn/wi", "moe_wo": "ffn/wo",
+    "shared_wi": "ffn/shared_wi", "shared_wo": "ffn/shared_wo",
+    "wq_a": "mix/wq_a", "wq_b": "mix/wq_b", "wkv_a": "mix/wkv_a",
+    "wkv_b": "mix/wkv_b", "wo": "mix/wo",
+    "ssm_in": "mix/in_proj", "ssm_out": "mix/out_proj",
+    "lru_in": "mix/wi", "lru_gates": "mix/wg", "lru_out": "mix/wo",
+}
+
+
+def _ce_loss(logits: Tensor, targets: Tensor,
+             mask: Optional[Tensor] = None) -> Tensor:
+    """Token-mean cross-entropy with fp32 accumulation and no fp32 copy of
+    the logits (vocab can be 262k): the max is taken in the logits' dtype,
+    the exponentials stay in it, and their sum is fp32.  The target's
+    logit is gathered (the reference contracts a one-hot mask; both pick
+    the same value exactly).  The max is ``torch.max``, whose backward
+    scatters into the row's maximum: ``torch.amax``'s counts the maxima
+    of every row in int64, a 16 GiB temporary at gemma3's vocab."""
+    m = torch.max(logits, dim=-1, keepdim=True).values
+    lse = m[..., 0].to(torch.float32) + torch.log(
+        torch.sum(torch.exp(logits - m), dim=-1, dtype=torch.float32))
+    ll = torch.gather(logits, -1, targets[..., None].to(torch.int64)
+                      )[..., 0].to(torch.float32)
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _nest(flat: Dict[str, Tensor]) -> Dict:
+    """{"mix/wq": x, …} → {"mix": {"wq": x}, …}."""
+    out: Dict = {}
+    for k, v in flat.items():
+        node = out
+        *head, last = k.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def _block(p_r: Dict, i: int) -> Dict:
+    """Pattern position i's block parameters ({"mix", "ffn"}; an FFN of
+    kind "none" has no leaves, so it has no flat keys either)."""
+    p = p_r.get(f"p{i}", {})
+    return {"mix": p.get("mix", {}), "ffn": p.get("ffn", {})}
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+class LM:
+    def __init__(self, arch: ArchConfig, sp: ShardPolicy = NO_SHARD,
+                 remat: bool = True, unroll: bool = False, device=None):
+        self.arch = arch
+        self.sp = sp
+        self.remat = remat
+        self.unroll = unroll     # the reference's knob; no effect here
+        self.device = device_lib.resolve(device)
+        self.dtype = (torch.bfloat16 if arch.dtype == "bfloat16"
+                      else torch.float32)
+        self._enc_segments: Tuple[Segment, ...] = ()
+        if arch.is_encdec:
+            enc_spec = LayerSpec(mixer="gqa", ffn="dense",
+                                 causal=arch.enc_causal)
+            self._enc_segments = (Segment((enc_spec,), arch.n_enc_layers),)
+        self.taps = self._build_taps()
+
+    # ------------------------------------------------------------------ taps
+    def _seg_taps(self, segments, base: str) -> Dict[str, TapInfo]:
+        arch = self.arch
+        out = {}
+        cross = arch.is_encdec and base == "segments"
+        for s, seg in enumerate(segments):
+            for i, spec in enumerate(seg.pattern):
+                for local, (d_in, d_out, extra) in blocks.block_taps(
+                        arch, spec, cross=cross).items():
+                    name = f"{base}/seg{s}/p{i}/{local}"
+                    pkey = _TAP_PARAM[local]
+                    out[name] = TapInfo(
+                        param_path=f"{base}/{s}/p{i}/{pkey}",
+                        d_in=d_in, d_out=d_out,
+                        stack=(seg.repeats,) + tuple(extra),
+                        n_stat=arch.n_stat)
+        return out
+
+    def _build_taps(self) -> Dict[str, TapInfo]:
+        arch = self.arch
+        taps = self._seg_taps(arch.segments, "segments")
+        if self._enc_segments:
+            taps.update(self._seg_taps(self._enc_segments, "enc"))
+        taps["head"] = TapInfo(param_path="head/w", d_in=arch.d_model,
+                               d_out=arch.vocab, n_stat=arch.n_stat)
+        if arch.mtp:
+            taps["mtp_proj"] = TapInfo(param_path="mtp/w",
+                                       d_in=arch.d_model,
+                                       d_out=arch.d_model,
+                                       n_stat=arch.n_stat)
+        return taps
+
+    # ------------------------------------------------------------------ init
+    def _init_segments(self, g, segments, base: str, cross: bool):
+        arch = self.arch
+        out = {}
+        for s, seg in enumerate(segments):
+            for i, spec in enumerate(seg.pattern):
+                reps = [_flatten(blocks.init_block(g, arch, spec,
+                                                   cross=cross))
+                        for _ in range(seg.repeats)]
+                for k in reps[0]:
+                    out[f"{base}/{s}/p{i}/{k}"] = torch.stack(
+                        [r[k] for r in reps])
+        return out
+
+    def init(self, generator: torch.Generator) -> Dict[str, Tensor]:
+        """Random fp32 parameters with the reference's shapes and scales,
+        drawn from ``generator`` on its device (the numbers are not the
+        reference's: parity tests convert the reference's instead), as
+        leaf tensors that require grad."""
+        arch = self.arch
+        g = generator
+        dev = g.device
+        params = {"embed": torch.randn((arch.vocab, arch.d_model),
+                                       generator=g, device=dev) * 0.01}
+        params.update(self._init_segments(g, arch.segments, "segments",
+                                          cross=arch.is_encdec))
+        params["final_ln"] = torch.zeros((arch.d_model,), device=dev)
+        params["head/w"] = layers.dense_init(g, arch.d_model, arch.vocab,
+                                             scale=0.01)
+        if self._enc_segments:
+            params.update(self._init_segments(g, self._enc_segments, "enc",
+                                              cross=False))
+            params["enc_ln"] = torch.zeros((arch.d_model,), device=dev)
+        if arch.mtp:
+            params["mtp/w"] = layers.dense_init(g, arch.d_model,
+                                                arch.d_model)
+        return {k: v.requires_grad_() for k, v in params.items()}
+
+    # --------------------------------------------------------------- forward
+    def _run_segments(self, segments, params, base, h, probes, positions,
+                      memory=None, train=True):
+        arch, sp = self.arch, self.sp
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        acts: Dict[str, Tensor] = {}
+        cross = memory is not None
+        for s, seg in enumerate(segments):
+            pattern = seg.pattern
+            pre = f"{base}/{s}/"
+            seg_params = {k[len(pre):]: v for k, v in params.items()
+                          if k.startswith(pre)}
+            names = [n for n in self.taps
+                     if n.startswith(f"{base}/seg{s}/")]
+            probes_seg = {n: probes[n] for n in names if n in probes}
+
+            # the segment is bound as defaults: a checkpointed repeat
+            # recomputes after the loop has moved on
+            def body(hh, aux_c, p_r, probe_r, s=s, pattern=pattern):
+                acts_l: Dict[str, Tensor] = {}
+                for i, spec in enumerate(pattern):
+                    tc = blocks.TapCtx(probe_r, arch.n_stat,
+                                       prefix=f"{base}/seg{s}/p{i}/")
+                    hh, aux_i = blocks.apply_block(
+                        arch, spec, _block(p_r, i), hh, tc, positions, sp,
+                        memory=memory if cross else None)
+                    aux_c = aux_c + aux_i
+                    acts_l.update(tc.acts)
+                return hh, aux_c, acts_l
+
+            acts_list = []
+            for r in range(seg.repeats):
+                p_r = _nest({k: v[r] for k, v in seg_params.items()})
+                probe_r = {k: v[r] for k, v in probes_seg.items()}
+                if train and self.remat:
+                    h, aux, acts_r = torch_checkpoint.checkpoint(
+                        body, h, aux, p_r, probe_r, use_reentrant=False)
+                else:
+                    h, aux, acts_r = body(h, aux, p_r, probe_r)
+                acts_list.append(acts_r)
+            for n in acts_list[0]:
+                acts[n] = torch.stack([a[n] for a in acts_list])
+        return h, aux, acts
+
+    def _embed(self, params, tokens):
+        h = params["embed"][tokens].to(self.dtype)
+        scale = torch.tensor(math.sqrt(self.arch.d_model),
+                             dtype=torch.float32).to(self.dtype)
+        return h * scale.to(h.device)
+
+    def forward(self, params, batch, probes=None, train=True):
+        """Full-sequence forward → (logits, aux, acts, logits_mtp), the
+        last None unless the arch has an MTP head and ``train``."""
+        arch, sp = self.arch, self.sp
+        probes = probes or {}
+        acts: Dict[str, Tensor] = {}
+        memory = None
+        if arch.is_encdec:
+            mem = batch["frames"].to(self.dtype)         # (B, Te, d) stub
+            pos_e = torch.arange(mem.shape[1], device=mem.device
+                                 ).expand(mem.shape[:2])
+            memory, _, acts_e = self._run_segments(
+                self._enc_segments, params, "enc", mem, probes, pos_e,
+                train=train)
+            memory = layers.rms_norm(memory, params["enc_ln"])
+            acts.update(acts_e)
+        tokens = batch["tokens"]
+        h = self._embed(params, tokens)
+        if arch.frontend == "vision":
+            h = torch.cat([batch["embeds"].to(self.dtype), h], dim=1)
+        B, T = h.shape[:2]
+        positions = torch.arange(T, device=h.device).expand(B, T)
+        h = sp.residual(h)
+        h, aux, acts_m = self._run_segments(
+            arch.segments, params, "segments", h, probes, positions,
+            memory=memory, train=train)
+        acts.update(acts_m)
+        h = layers.rms_norm(h, params["final_ln"])
+        tc = blocks.TapCtx(probes, arch.n_stat, prefix="")
+        logits = tc.mm("head", params["head/w"], h)
+        acts.update(tc.acts)
+        if arch.logit_softcap > 0:
+            logits = layers.softcap(logits, arch.logit_softcap)
+        logits = sp.logits(logits)
+        if arch.mtp and train:
+            tcm = blocks.TapCtx(probes, arch.n_stat, prefix="")
+            h_mtp = tcm.mm("mtp_proj", params["mtp/w"], h)
+            acts.update(tcm.acts)
+            logits_mtp = sp.logits(
+                h_mtp @ params["head/w"].to(h_mtp.dtype))
+            return logits, aux, acts, logits_mtp
+        return logits, aux, acts, None
+
+    def loss_fn(self, params, probes, batch):
+        arch = self.arch
+        logits, aux, acts, logits_mtp = self.forward(params, batch, probes,
+                                                     train=True)
+        targets = batch["targets"]
+        if arch.frontend == "vision":       # loss only on the token span
+            logits = logits[:, arch.n_prefix:]
+        loss = _ce_loss(logits[:, :-1], targets[:, 1:])
+        if logits_mtp is not None:          # MTP: predict t+2 (depth-1)
+            if arch.frontend == "vision":
+                logits_mtp = logits_mtp[:, arch.n_prefix:]
+            loss = loss + 0.3 * _ce_loss(logits_mtp[:, :-2], targets[:, 2:])
+        loss = loss + arch.aux_loss_coef * aux
+        return loss, acts
+
+    # ----------------------------------------------------------------- serve
+    def init_cache(self, B: int, S: int, cross_len: int = 0,
+                   window_caches: bool = False, kv_rep: int = 1):
+        """Zero decode caches {segment: {"p{i}": {name: (repeats, …)}}} on
+        the LM's device, in the activation dtype (recurrent states fp32)."""
+        arch = self.arch
+        cache = {}
+        for s, seg in enumerate(arch.segments):
+            seg_cache = {}
+            for i, spec in enumerate(seg.pattern):
+                one = blocks.block_cache_init(
+                    arch, spec, B, S, self.dtype, self.device,
+                    cross_len=cross_len, window_caches=window_caches,
+                    kv_rep=kv_rep)
+                seg_cache[f"p{i}"] = {
+                    k: v.expand((seg.repeats,) + v.shape).clone()
+                    for k, v in one.items()}
+            cache[str(s)] = seg_cache
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, token, t):
+        """One decode step. token: (B, 1) integer; t: host int position.
+        Returns (logits (B, 1, V), cache); the cache tensors are updated in
+        place and returned."""
+        arch, sp = self.arch, self.sp
+        t = int(t)
+        h_t = self._embed(params, token)
+        for s, seg in enumerate(arch.segments):
+            pre = f"segments/{s}/"
+            seg_params = {k[len(pre):]: v for k, v in params.items()
+                          if k.startswith(pre)}
+            seg_cache = cache[str(s)]
+            for r in range(seg.repeats):
+                p_r = _nest({k: v[r] for k, v in seg_params.items()})
+                for i, spec in enumerate(seg.pattern):
+                    c_r = {k: v[r] for k, v in seg_cache[f"p{i}"].items()}
+                    h_t, nc = blocks.decode_block(arch, spec, _block(p_r, i),
+                                                  h_t, c_r, t, sp)
+                    for k, v in nc.items():
+                        if v.data_ptr() != c_r[k].data_ptr():
+                            c_r[k].copy_(v)
+        h_t = layers.rms_norm(h_t, params["final_ln"])
+        logits = h_t @ params["head/w"].to(h_t.dtype)
+        if arch.logit_softcap > 0:
+            logits = layers.softcap(logits, arch.logit_softcap)
+        return logits, cache

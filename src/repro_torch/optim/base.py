@@ -57,6 +57,19 @@ def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float
     return {k: (x * scale).to(x.dtype) for k, x in tree.items()}
 
 
+def clip_by_global_norm_(tree: Dict[str, torch.Tensor], max_norm: float
+                         ) -> Dict[str, torch.Tensor]:
+    """``clip_by_global_norm`` that scales every tensor of ``tree`` in
+    place and returns it: the same bits, without a second copy of an
+    update of billions of parameters.  For a caller that owns the
+    tensors."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    for x in tree.values():
+        x.mul_(scale)
+    return tree
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   updates: Dict[str, torch.Tensor]) -> None:

@@ -22,7 +22,7 @@ them (``optim/adamw.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import ClassVar, Dict, Tuple
 
 import torch
 
@@ -54,6 +54,8 @@ class SengState:
     factors: Dict[str, Tuple[Tensor, Tensor]]   # name → cached (A, G)
     momentum: Dict[str, Tensor]                 # name → (*stack, d_in, d_out)
     fallback: _adamw.AdamWState
+    # keyed by tap name (one checkpoint key each, as in the reference)
+    TAP_KEYED: ClassVar[Tuple[str, ...]] = ("factors", "momentum")
 
 
 def _precondition(A: Tensor, G: Tensor, J: Tensor, lam: float) -> Tensor:

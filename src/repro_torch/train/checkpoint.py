@@ -16,7 +16,9 @@ points at it.
 
 **Leaf keys are the reference's.**  A key is the leaf's path joined by
 ``|``: dict keys (a flat parameter name such as ``conv0_0/w`` splits at
-its ``/`` into ``conv0_0|w``, the reference's nesting), then dataclass
+its ``/`` into ``conv0_0|w``, the reference's nesting, while a tap name
+such as ``segments/seg0/p0/attn_q`` stays one key, as in the reference,
+under the fields a state type lists in its ``TAP_KEYED``), then dataclass
 field names — ``params|fc0|w``, ``opt|step``, ``opt|factors|fc0|A|U``,
 ``opt|fallback|mu|…``.  The port's host-side counters (Python ints) are
 written as int32 0-d arrays, as the reference stores them.  So a
@@ -89,8 +91,16 @@ def _digest(arr: np.ndarray) -> str:
     return f"{crc:08x}"
 
 
-def _path_of(key) -> Tuple[str, ...]:
-    return tuple(str(key).split("/"))
+def _tap_keyed(node) -> Tuple[str, ...]:
+    """The fields of a state dataclass whose mappings are keyed by tap
+    name: the reference keeps a tap name ("segments/seg0/p0/attn_q") as
+    one key, where a parameter path ("segments/0/p0/mix/wq") is a nest of
+    keys.  A state type declares them in its ``TAP_KEYED``."""
+    return getattr(type(node), "TAP_KEYED", ())
+
+
+def _path_of(key, whole: bool = False) -> Tuple[str, ...]:
+    return (str(key),) if whole else tuple(str(key).split("/"))
 
 
 def _is_dataclass(node) -> bool:
@@ -103,7 +113,7 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     leaves)."""
     out: Dict[str, np.ndarray] = {}
 
-    def walk(node, path):
+    def walk(node, path, whole=False):
         key = SEP.join(path)
         if node is None:
             return
@@ -115,10 +125,12 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
             out[key] = np.asarray(node, np.int32)
         elif isinstance(node, Mapping):
             for k in sorted(node, key=str):
-                walk(node[k], path + _path_of(k))
+                walk(node[k], path + _path_of(k, whole))
         elif _is_dataclass(node):
+            keyed = _tap_keyed(node)
             for f in dataclasses.fields(node):
-                walk(getattr(node, f.name), path + (f.name,))
+                walk(getattr(node, f.name), path + (f.name,),
+                     f.name in keyed)
         else:
             raise TypeError(f"checkpoint: cannot save leaf {key!r} of type "
                             f"{type(node).__name__}")
@@ -141,7 +153,7 @@ def _unflatten_into(template, arrays: Dict[str, np.ndarray]):
             raise ValueError(f"{key}: shape {arr.shape} != {tuple(shape)}")
         return arr
 
-    def build(node, path):
+    def build(node, path, whole=False):
         if node is None:
             return None
         if isinstance(node, torch.Tensor):
@@ -164,11 +176,13 @@ def _unflatten_into(template, arrays: Dict[str, np.ndarray]):
         if isinstance(node, int):
             return int(get(path, ()))
         if isinstance(node, Mapping):
-            return type(node)({k: build(v, path + _path_of(k))
+            return type(node)({k: build(v, path + _path_of(k, whole))
                                for k, v in node.items()})
         if _is_dataclass(node):
+            keyed = _tap_keyed(node)
             return dataclasses.replace(node, **{
-                f.name: build(getattr(node, f.name), path + (f.name,))
+                f.name: build(getattr(node, f.name), path + (f.name,),
+                              f.name in keyed)
                 for f in dataclasses.fields(node)})
         raise TypeError(f"checkpoint: cannot restore leaf "
                         f"{SEP.join(path)!r} of type {type(node).__name__}")

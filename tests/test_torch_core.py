@@ -375,6 +375,25 @@ def test_schedules_and_clip_match_reference():
         _close(got[k], want[k])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clip_in_place_equals_pure(dtype):
+    """``clip_by_global_norm_`` scales its input in place to the bits of
+    ``clip_by_global_norm``, which leaves its input as it was."""
+    from repro_torch.optim import base as tbase
+    g = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn((5, 3), generator=g).to(dtype),
+            "b": torch.randn((7,), generator=g).to(dtype)}
+    before = {k: x.clone() for k, x in tree.items()}
+    want = tbase.clip_by_global_norm(tree, 0.5)
+    for k in tree:
+        assert torch.equal(tree[k], before[k]), k
+    got = tbase.clip_by_global_norm_(tree, 0.5)
+    for k in tree:
+        assert got[k] is tree[k] and got[k].dtype == dtype
+        assert torch.equal(got[k], want[k]), k
+        assert not torch.equal(got[k], before[k]), k
+
+
 # ---------------------------------------------------------------------------
 # NS-KFAC: ns_overwrite on the cases of tests/test_ns_inverse.py
 # ---------------------------------------------------------------------------

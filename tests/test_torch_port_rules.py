@@ -113,3 +113,21 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_lm_entry_points_refuse_cpu_fallback(no_card):
+    """The LM stack's entry points run on the card by default and raise
+    without one; the explicit CPU request runs."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.examples import train_lm_kfac
+    from repro_torch.models.lm import LM
+    arch = get_arch("gemma3_4b").reduced()
+    for call in (lambda: LM(arch),
+                 lambda: TokenStream(vocab=16, batch=1, seq_len=4
+                                     ).batch_at(0),
+                 lambda: train_lm_kfac.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    lm = LM(arch, device=torch.device("cpu"))
+    assert lm.device.type == "cpu"

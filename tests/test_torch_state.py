@@ -8,6 +8,7 @@ by either package restored and trained on by the other, resume through
 cases of ``tests/test_api.py`` that need no tenants, serving or launch
 tooling).
 """
+import dataclasses
 import json
 import os
 import warnings
@@ -332,6 +333,42 @@ def test_checkpoint_restores_across_packages(writer, tmp_path):
         want = np.asarray(p["w"], np.float64)
         got_p = tst.params[f"{n}/w"].detach().numpy().astype(np.float64)
         assert np.abs(got_p - want).max() <= 2e-3 * np.abs(want).max(), n
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_sgd_state_restores_across_packages(writer, tmp_path):
+    """An SGD state, whose momentum is keyed by parameter path, keeps the
+    reference's nested keys (``opt|momentum|fc0|w``), and a checkpoint of
+    it written by either package restores bit for bit in the other."""
+    from repro.optim import sgd as jsgd
+    from repro_torch.optim import sgd as tsgd
+    _, _, jparams, _ = _quick_reference()
+    rng = np.random.default_rng(0)
+    jmom = {n: {"w": jnp.asarray(rng.standard_normal(p["w"].shape),
+                                 jnp.float32)} for n, p in jparams.items()}
+    jtree = {"params": jparams, "opt": jsgd.SgdState(
+        step=jnp.asarray(5, jnp.int32), momentum=jmom)}
+    ttree = {"params": _tp(jparams, grad=False), "opt": tsgd.SgdState(
+        step=5, momentum=_tp(jmom, grad=False))}
+    assert set(ck._flatten(ttree)) == set(jck._flatten(jtree))
+    assert "opt|momentum|fc0|w" in ck._flatten(ttree)
+    d = str(tmp_path)
+    if writer == "reference":
+        jck.save(d, 5, jtree)
+    else:
+        ck.save(d, 5, ttree)
+    zero = tsgd.Sgd(lr=None).init(_tp(jparams, grad=False))
+    got, _ = ck.restore(d, {"params": _tp(jparams, grad=False),
+                            "opt": dataclasses.replace(zero, step=0)})
+    assert got["opt"].step == 5
+    for k, v in ttree["opt"].momentum.items():
+        assert torch.equal(got["opt"].momentum[k], v), k
+    jzero = jax.tree_util.tree_map(jnp.zeros_like, jtree)
+    jgot, _ = jck.restore(d, jzero)
+    assert int(jgot["opt"].step) == 5
+    for n, m in jmom.items():
+        np.testing.assert_array_equal(np.asarray(jgot["opt"].momentum[n]["w"]),
+                                      np.asarray(m["w"]))
 
 
 # ---------------------------------------------------------------------------
