@@ -72,9 +72,26 @@ Phases, run in this order (each prints one JSON line):
            factor a Brand one: light on even steps, idle on odd), every
            kernel call at a shape the ``kernels`` phase held; then a 64-token
            prompt and 16 greedy tokens decoded against the forward
+  agree_serve
+           gemma3's reduced config under the multi-tenant TenantService,
+           two tenants, run_load's traffic (2 waves of 2 requests and 4
+           fine-tunes): the card (kernels) against the CPU (plain
+           versions) from the same weights — greedy tokens equal, losses
+           and each parameter's change within 1e-3; then stacked
+           TenantBank updates at N = 1, 2 and 4 tenants, whose kernel
+           launches must be equal (two optimizer configs, three steps)
+  slice_serve
+           path 10: two gemma3-4b tenants at full width, cut from 34 to 10
+           layers, in one TenantService: B-KFAC fine-tuning at
+           serve/load.py's cadence (r 256: every factor a Brand one, the
+           tenant axis joined to each bucket's batch) and continuous-
+           batching decode under each request's tenant, through
+           run_load's traffic with 2 waves; every kernel call at a shape
+           the ``kernels`` phase held; wall time per tick by kind, kernel
+           launches per bank update, p50/p99, steps, memory
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
-phase checked; on paths 4, 5, 8 and 9 every kernel's); then the ``kernels`` line
+phase checked; on paths 4, 5, 8, 9 and 10 every kernel's); then the ``kernels`` line
 (launches summed over the paths) and, last, the ``ok`` line.  Any failure
 raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
 path.
@@ -258,20 +275,26 @@ def phase_kernels():
 
     def record(name, source, replaces, cases, kernel, plain, library, fl_by,
                tol=TOL, bitwise=False, graph=False, exact=None, tc_k=None):
-        """Check every case against the plain version (and, with
+        """Check each case against the plain version (and, with
         ``bitwise``, that a second launch gives the same bits; with
         ``exact``, the float64 result, that the kernel's largest error
         against it is at most F64_RATIO times the plain version's), then
-        time every case (with ``graph``, also the device time of the
-        kernel and of the library call if any, replayed from a CUDA
-        graph); the row's own numbers are the first case's.  A row with
-        ``tc_k`` (the contraction length of a case, or one a product of a
-        chain) runs on the tensor cores: its bound is the TF32 route's,
-        and each case also prints the fp32-FMA bound."""
+        time it (with ``graph``, also the device time of the kernel and
+        of the library call if any, replayed from a CUDA graph); the
+        row's own numbers are the first case's.  A case is its arguments
+        or a function that makes them: those are made when their turn
+        comes and dropped after it, so the largest paths' cases are not
+        all held at once.  A row with ``tc_k`` (the contraction length of
+        a case, or one a product of a chain) runs on the tensor cores:
+        its bound is the TF32 route's, and each case also prints the
+        fp32-FMA bound."""
         worst = 0.0
         worst_abs = 0.0
         f64 = []
-        for args in cases:
+        timed = []
+        keys = set()
+        for case in cases:
+            args = case() if callable(case) else case
             got, want = kernel(*args), plain(*args)
             if bitwise and not torch.equal(got, kernel(*args)):
                 raise AssertionError(f"{name}: two launches differ at shapes "
@@ -286,11 +309,12 @@ def phase_kernels():
             if worst > tol:
                 raise AssertionError(f"{name}: rel err {worst:.3g} > {tol} "
                                      f"at shapes {shapes(args)}")
+            fl, nb = fl_by(*args)
             if exact is not None:
                 # a case of more than GRAPH_BIG_BYTES is held to float64
                 # on its first stack element (each element is its own
                 # product): its float64 copies would not fit beside it
-                one = fl_by(*args)[1] > GRAPH_BIG_BYTES
+                one = nb > GRAPH_BIG_BYTES
                 first = (lambda x: x[:1] if isinstance(x, torch.Tensor)
                          else x) if one else (lambda x: x)
                 ref64 = exact(*map(first, args))
@@ -304,9 +328,7 @@ def phase_kernels():
                         f"{name}: error against float64 {e_k:.3g} > "
                         f"{F64_RATIO} × the plain version's {e_p:.3g} at "
                         f"shapes {shapes(args)}")
-        timed = []
-        for i, args in enumerate(cases):
-            fl, nb = fl_by(*args)
+            del got, want, pairs, wants
             bms, by = bound_ms(fl, nb, tc_k=tc_k(*args) if tc_k else 0)
             t = {"shape": shapes(args),
                  **({"columns": columns(args)} if columns(args) else {}),
@@ -319,14 +341,14 @@ def phase_kernels():
             if tc_k is not None:
                 t["bound_fp32_ms"] = bound_ms(fl, nb)[0]
             if f64:
-                t.update(f64[i])
+                t.update(f64[-1])
             if t["library_ms"] is not None:
                 t["vs_library"] = t["ms"] / t["library_ms"]
+            big = nb > GRAPH_BIG_BYTES
             if graph:
                 # a graph keeps every call's output in its private pool
                 # until it goes: a case that moves gigabytes (slice_lm's)
                 # replays two calls, and its pool is released after
-                big = nb > GRAPH_BIG_BYTES
                 reps = 2 if big else 20
                 t["device_ms"] = graph_ms(lambda: kernel(*args), side, reps)
                 t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
@@ -335,9 +357,12 @@ def phase_kernels():
                         lambda: library(*args), side, reps)
                     t["vs_library_device"] = (t["device_ms"]
                                               / t["library_device_ms"])
-                if big:
-                    torch.cuda.empty_cache()
             timed.append(t)
+            # the calls_by_shape keys of the cases held here
+            keys.add(call_key(name, *args))
+            del args
+            if big:
+                torch.cuda.empty_cache()
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": worst_abs,
                "max_rel_err": worst, "tol_rel": tol, **timed[0],
@@ -345,8 +370,7 @@ def phase_kernels():
         if f64:
             row["max_f64_ratio"] = max(c["f64_ratio"] for c in f64)
         emit({"phase": "kernels", **row})
-        # the calls_by_shape keys of the cases held here
-        row["checked"] = {call_key(name, *args) for args in cases}
+        row["checked"] = keys
         results[name] = row
 
     F = 4  # bytes per fp32
@@ -390,6 +414,11 @@ def phase_kernels():
     lm_brand, lm_precond, (lm_r, lm_n) = lm_kernel_shapes()
     ut_a_cases += [(orth(b, d, lm_r + lm_n)[..., :lm_r], rnd(b, d, lm_n))
                    for b, d in lm_brand]
+    # slice_serve's: the two tenants' Brand buckets widened by the tenant
+    # axis, r = 256 of the (B, d, r + n_stat) state, n_stat = 512
+    sv_brand, sv_precond, (sv_r, sv_n) = serve_kernel_shapes()
+    ut_a_cases += [(orth(b, d, sv_r + sv_n)[..., :sv_r], rnd(b, d, sv_n))
+                   for b, d in sv_brand]
     record("ut_a", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:58", ut_a_cases,
            bp.ut_a_batched, ref.ut_a, lambda U, A: torch.bmm(U.mT, A),
@@ -411,6 +440,10 @@ def phase_kernels():
            bitwise=True, graph=True,
            exact=lambda A, U, C: A.double() - U.double() @ C.double(),
            tc_k=lambda A, U, C: U.shape[2])
+    # the cases of every path held at once would not leave room for the
+    # precond cases below: each list goes once its rows are recorded
+    del brand, ut_a_cases, perp
+    torch.cuda.empty_cache()
 
     # CholeskyQR2 passes: fc0's A⊥ (1, 16384, 256), every other Brand
     # bucket's (B, d, 256), the step-0 RSVD range finder's (2, 256, 240),
@@ -420,7 +453,8 @@ def phase_kernels():
               + [(rnd(b, d, 256),) for b, d in BRAND_BUCKETS[:-1]]
               + [(rnd(2, 256, 240),)]
               + [(rnd(b, d, 240),) for b, d in BRAND_BUCKETS if d <= 4096]
-              + [(rnd(b, d, lm_n),) for b, d in lm_brand])
+              + [(rnd(b, d, lm_n),) for b, d in lm_brand]
+              + [(rnd(b, d, sv_n),) for b, d in sv_brand])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -442,6 +476,9 @@ def phase_kernels():
            lambda A, R: (2 * A.shape[0] * A.shape[1] * A.shape[2] ** 2,
                          F * (2 * A.numel() + R.numel())),
            graph=True)
+    del roots
+    panels = panels[:1]     # fc0's, for cholqr2 below
+    torch.cuda.empty_cache()
 
     # both precond passes (four 3xTF32 products on the tensor cores) at
     # every precond bucket of B-KFAC, fc0 in parameter layout first (J
@@ -453,10 +490,22 @@ def phase_kernels():
         return (rnd(b, p, d), orth(b, p, wg), s_g, 1.0 / lam_g,
                 orth(b, d, wa), s_a, 1.0 / lam_a)
 
-    pc = [pcase(*c) for c in PRECOND_BUCKETS + lm_precond]
+    # each case made at its turn (slice_lm's and slice_serve's are tens of
+    # gigabytes together)
+    pc = PRECOND_BUCKETS + lm_precond + sv_precond
+
+    def panel_case(c):
+        J, Ug, sg = pcase(*c)[:3]
+        return Ug, J, sg
+
+    def apply_case(c):
+        J, Ug, sg, ilg, Ua, sa, ila = pcase(*c)
+        return (J, Ug, ref.precond_panel(Ug, J, sg).contiguous(), Ua, sa,
+                ilg, ila)
+
     record("precond_panel", csrc + "precond_fused.cu",
            "src/repro/kernels/precond_fused.py:122",
-           [(Ug, J, sg) for J, Ug, sg, _, _, _, _ in pc],
+           [lambda c=c: panel_case(c) for c in pc],
            pf.precond_panel_batched, ref.precond_panel, None,
            lambda Ug, J, sg: (2 * J.numel() * Ug.shape[2],
                               F * (Ug.numel() + J.numel() + sg.numel()
@@ -466,9 +515,6 @@ def phase_kernels():
            exact=lambda Ug, J, sg: ((Ug.double().mT @ J.double())
                                     * sg.double()[..., :, None]),
            tc_k=lambda Ug, J, sg: Ug.shape[1])
-    apply_cases = [(J, Ug, ref.precond_panel(Ug, J, sg).contiguous(), Ua, sa,
-                    ilg, ila) for J, Ug, sg, ilg, Ua, sa, ila in pc]
-    del pc
 
     def apply_f64(J, Ug, Cg, Ua, sa, ilg, ila):
         W = Ug.double() @ Cg.double() + ilg.double()[:, None, None] * J
@@ -479,7 +525,8 @@ def phase_kernels():
     # the apply is three products: W = U_g Cg (K = w_g), W U_a (K = d),
     # Tw U_aᵀ (K = w_a)
     record("precond_apply", csrc + "precond_fused.cu",
-           "src/repro/kernels/precond_fused.py:140", apply_cases,
+           "src/repro/kernels/precond_fused.py:140",
+           [lambda c=c: apply_case(c) for c in pc],
            pf.precond_apply_batched,
            lambda J, Ug, Cg, Ua, sa, ilg, ila: ref.precond_apply(
                J, Ug, Cg, Ua, sa, 1.0 / ilg, 1.0 / ila),
@@ -492,7 +539,6 @@ def phase_kernels():
            bitwise=True, graph=True, exact=apply_f64,
            tc_k=lambda J, Ug, Cg, Ua, sa, ilg, ila: (
                Ug.shape[2], J.shape[2], Ua.shape[2]))
-    del apply_cases
 
     # Newton–Schulz GEMM update (3xTF32 on the tensor cores) at every
     # (B, d) of NS-KFAC's path, the largest bucket (d = 2304, B = 2) first,
@@ -609,6 +655,20 @@ def lm_kernel_shapes():
     brand = [(b.total, b.spec.d) for b in opt.factor_buckets]
     spec = opt.factor_buckets[0].spec
     precond = [(b.total, b.spec_a.d, b.spec_g.d, b.spec_a.width,
+                b.spec_g.width) for b in opt.precond_buckets]
+    return brand, tuple(precond), (spec.r, spec.n_stat)
+
+
+def serve_kernel_shapes():
+    """slice_serve's kernel shapes from its optimizer's buckets, each
+    widened by the tenant axis (both tenants step in every fine-tune
+    tick of its traffic): as ``lm_kernel_shapes``."""
+    import torch
+    _, opt = serve_slice_opt(torch.device("cpu"))
+    n = SERVE_SLICE["tenants"]
+    brand = [(n * b.total, b.spec.d) for b in opt.factor_buckets]
+    spec = opt.factor_buckets[0].spec
+    precond = [(n * b.total, b.spec_a.d, b.spec_g.d, b.spec_a.width,
                 b.spec_g.width) for b in opt.precond_buckets]
     return brand, tuple(precond), (spec.r, spec.n_stat)
 
@@ -805,6 +865,9 @@ PATH_KERNELS = {
     # 2048 > r + n_stat): no EA absorb, no heavy op
     "slice_lm": ("ut_a", "a_perp", "syrk_tn", "rinv_apply", "precond_panel",
                  "precond_apply"),
+    # the same at the serve path's r = 256 (every factor d ≥ 2048 > 768)
+    "slice_serve": ("ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                    "precond_panel", "precond_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -1807,6 +1870,340 @@ def phase_slice_lm(checked):
     return counts
 
 
+#: agree_serve: gemma3's reduced config, two tenants, run_load's traffic
+#: cut to 2 waves of 2 requests and 4 fine-tunes, 2 ticks apart
+AGREE_SERVE = dict(waves=2, infer_per_wave=2, ft_per_wave=4,
+                   ticks_between=2, max_len=32)
+#: slice_serve: two gemma3-4b tenants at full width, 34 layers cut to 10
+#: (the first segment's 5 local + 1 global once, the 4-local tail kept),
+#: B-KFAC at serve/load.py's fine-tune cadence, run_load's traffic at its
+#: settings with 2 waves (fine-tune batches 2 × 16, prompts of 2–5 tokens,
+#: 4 new tokens each, 4 lanes of 48 positions)
+SERVE_SLICE = dict(arch="gemma3_4b", repeats=(1, 1), tenants=2, waves=2,
+                   infer_per_wave=4, ft_per_wave=4, ticks_between=4,
+                   ft_batch=2, ft_seq=16, batch_slots=4, max_len=48)
+
+
+def _serve_run(dev, weights):
+    """agree_serve's service on ``dev`` from ``weights`` (CPU tensors)
+    through its traffic → the service."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import load
+    from repro_torch.serve.service import TenantService
+
+    arch = get_arch("gemma3_4b").reduced()
+    lm = LM(arch, remat=False, device=dev)
+    opt = kfac_lib.Kfac(load.finetune_kfac_config(arch), lm.taps,
+                        device=dev)
+    svc = TenantService(lm, opt, {k: v.to(dev) for k, v in weights.items()},
+                        2, max_len=AGREE_SERVE["max_len"], seed=0)
+    load.run_load(svc, arch.vocab, seed=0, **{
+        k: v for k, v in AGREE_SERVE.items() if k != "max_len"})
+    return svc
+
+
+def _bank_launches(cfg, weights):
+    """Kernel launches of each of three stacked bank updates on the card
+    at N = 1, 2 and 4 tenants: gemma3's reduced LM under ``cfg``, one
+    backward's gradients, acts and probe gradients copied to every
+    tenant → {N: [launches of step s]}."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import tenant
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.train import loop
+
+    dev = torch.device("cuda")
+    arch = get_arch("gemma3_4b").reduced()
+    lm = LM(arch, remat=False, device=dev)
+    opt = kfac_lib.Kfac(cfg, lm.taps, device=dev)
+    params = {k: v.to(dev).requires_grad_() for k, v in weights.items()}
+    batch = _lm_batch(arch, dev)
+    _, acts, gp, gprobe = loop.kfac_grads(
+        lm.loss_fn, params, layers.make_probes(lm.taps, device=dev), batch)
+    sched = opt.scheduler()
+    out = {}
+    for n in (1, 2, 4):
+        stack = lambda d: tenant.tree_stack([d] * n)
+        P, G, A, PG = stack(params), stack(gp), stack(acts), stack(gprobe)
+        bank = tenant.TenantBank(opt)
+        st = bank.init(P)
+        out[n] = []
+        for s in range(3):
+            _build.reset_launch_counts()
+            _, st = bank.update(G, st, P, acts=A, probe_grads=PG,
+                                n_tokens=batch["tokens"].numel(),
+                                work=sched.work(s))
+            torch.cuda.synchronize()
+            out[n].append({k: v for k, v in _build.launch_counts().items()
+                           if v})
+    return out
+
+
+def phase_agree_serve():
+    """gemma3's reduced config under ``TenantService`` with two tenants:
+    weights made on the CPU, the same traffic on the card (kernels) and
+    on the CPU (plain versions); the greedy tokens must be equal, the
+    fine-tune losses within the agree phases' 1e-3 (relative) and each
+    parameter's change over the run within 1e-3 of the CPU's change
+    (plus 1e-6 of the parameter's scale: the change of a rarely hit
+    embedding row is a few fp32 roundings of the weight).  Then the kernel
+    launches of stacked bank updates at N = 1, 2 and 4, three steps each,
+    under the service's optimizer (every factor EVD at this size) and
+    under examples/train_lm_kfac.py's (BRAND buckets too): equal at every
+    N."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.examples.train_lm_kfac import kfac_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import load
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    tol = 1e-3
+    arch = get_arch("gemma3_4b").reduced()
+    weights = {k: v.detach() for k, v in LM(arch, device=cpu).init(
+        torch.Generator().manual_seed(0)).items()}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = _serve_run(cuda, weights)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    host = _serve_run(cpu, weights)
+    host_s = time.perf_counter() - t0
+    loss_err = max(abs(card.completed_ft[u].loss - r.loss)
+                   / max(abs(r.loss), 1e-6)
+                   for u, r in host.completed_ft.items())
+    tokens = {u: r.out_tokens for u, r in host.engine.completed.items()}
+    same_tokens = tokens == {u: r.out_tokens
+                             for u, r in card.engine.completed.items()}
+    change = {}
+    for k, w in weights.items():
+        d_cpu = (host.params[k] - w).double()
+        d_card = (card.params[k].cpu() - w).double()
+        change[k] = float((d_card - d_cpu).abs().max()) / (
+            float(d_cpu.abs().max()) + 1e-6 * float(w.abs().max()) / tol)
+    counts = {name: _bank_launches(cfg, weights) for name, cfg in (
+        ("service", load.finetune_kfac_config(arch)),
+        ("train_lm_kfac", kfac_config()))}
+    equal = {name: all(c[n] == c[1] for n in c)
+             for name, c in counts.items()}
+    line = {"phase": "agree_serve", "arch": arch.name, "tenants": 2,
+            "traffic": AGREE_SERVE, "tol": tol, "loss_err": loss_err,
+            "param_change_err": max(change.values()),
+            "param_change_err_by_key": {k: v for k, v in change.items()
+                                        if v > tol / 10},
+            "tokens_equal": same_tokens, "tokens": tokens,
+            "steps_cuda": card.steps, "steps_cpu": host.steps,
+            "losses_cuda": [card.completed_ft[u].loss
+                            for u in sorted(card.completed_ft)],
+            "losses_cpu": [host.completed_ft[u].loss
+                           for u in sorted(host.completed_ft)],
+            "wall_s": {"cuda": card_s, "cpu": host_s},
+            "launches": launches,
+            "bank_launches_by_n": {name: {str(n): v for n, v in c.items()}
+                                   for name, c in counts.items()},
+            "bank_launches_equal": equal}
+    emit(line)
+    bad = []
+    if not loss_err <= tol:
+        bad.append("losses")
+    if not same_tokens or card.steps != host.steps:
+        bad.append("tokens or steps")
+    if not max(change.values()) <= tol:
+        bad.append("params")
+    if not all(equal.values()):
+        bad.append("launches differ with N")
+    if not launches.get("precond_panel"):
+        bad.append("no kernel launched")
+    if bad:
+        raise AssertionError(f"agree_serve: {bad}")
+
+
+def serve_slice_opt(dev):
+    """slice_serve's model (no weights yet) and optimizer."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.load import finetune_kfac_config
+    arch = get_arch(SERVE_SLICE["arch"]).with_repeats(SERVE_SLICE["repeats"])
+    lm = LM(arch, remat=False, device=dev)
+    return lm, kfac_lib.Kfac(finetune_kfac_config(arch), lm.taps,
+                             device=dev)
+
+
+def phase_slice_serve(checked):
+    """Path 10: two gemma3-4b tenants at full width (SERVE_SLICE) in one
+    ``TenantService``, fine-tuned by B-KFAC through its stacked bank and
+    served through its engine, under ``serve/load.py::run_load``'s traffic
+    (the same waves, submitted here so each tick is timed): every kernel
+    call at a shape the ``kernels`` phase held; every request served, each
+    tenant's step advanced by its fine-tunes, finite losses.  Prints each
+    tick (kind, wall time, its work groups), each bank update's kernel
+    launches, and a summary (wall time by tick kind, p50/p99, steps,
+    memory after the build and the peaks).  Returns the launch counts of
+    the traffic's run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.param_count import count_params
+    from repro_torch.serve import load
+    from repro_torch.serve.service import TenantService
+
+    S = SERVE_SLICE
+    dev = torch.device("cuda")
+    lm, opt = serve_slice_opt(dev)
+    arch = lm.arch
+    n = S["tenants"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # a fine-tune tick peaks at ~70 GB of the card's 85 (tools/
+    # serve_memory.py); the caching allocator's fixed segments then
+    # leave ~15 GB in pieces none of the tick's 4 GB blocks fits, and
+    # expandable segments do not
+    set_allocator = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                            None) or torch.cuda.memory._set_allocator_settings
+    set_allocator("expandable_segments:True")
+    base = torch.cuda.memory_allocated()   # what earlier phases left
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    weights = lm.init(torch.Generator(device=dev).manual_seed(0))
+    svc = TenantService(lm, opt, weights, n, ft_batch=S["ft_batch"],
+                        ft_seq=S["ft_seq"], batch_slots=S["batch_slots"],
+                        max_len=S["max_len"], seed=0)
+    del weights
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    st = svc.state
+    held_by = {"params": nbytes(svc.params.values()),
+               "fallback_moments": nbytes(list(st.fallback.mu.values())
+                                          + list(st.fallback.nu.values())),
+               "factor_states": nbytes([x for f in st.factors.values()
+                                        for s in (f.A, f.G)
+                                        for x in (s.U, s.D, s.M, s.aux)])}
+    del st
+    # each bank update: its tenants, work and kernel launches
+    updates = []
+    bank_update = svc.bank.update
+
+    def counted(*a, **kw):
+        before = dict(_build.launch_counts())
+        t_up = time.perf_counter()
+        out = bank_update(*a, **kw)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        updates.append({
+            "tenants": [i for i in range(n) if kw["active"][i]],
+            "work": kw["work"].label,
+            "wall_s": time.perf_counter() - t_up,
+            "launches": {k: v - before.get(k, 0) for k, v in after.items()
+                         if v - before.get(k, 0)}})
+        return out
+    svc.bank.update = counted
+    ticks = []
+
+    def tick():
+        decodes = svc.engine._slots.count(None) < svc.engine.B or \
+            not svc.engine._queue.empty()
+        seen = len(updates)
+        torch.cuda.synchronize()
+        t_tick = time.perf_counter()
+        svc.tick()
+        torch.cuda.synchronize()
+        groups = [u["tenants"] for u in updates[seen:]]
+        kind = "+".join((["finetune"] if groups else [])
+                        + (["decode"] if decodes else [])) or "idle"
+        ticks.append({"tick": len(ticks), "kind": kind,
+                      "wall_s": time.perf_counter() - t_tick,
+                      "groups": groups})
+
+    rng = np.random.default_rng(0)
+    uid = 0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with calls_by_shape() as by_shape:
+        for w in range(S["waves"]):
+            reqs, uid = load.traffic(svc, arch.vocab, w, rng,
+                                     S["infer_per_wave"], S["ft_per_wave"],
+                                     uid)
+            for r in reqs:
+                svc.submit(r)
+            for _ in range(S["ticks_between"]):
+                tick()
+        while svc.pending() and len(ticks) < 200:
+            tick()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    report = svc.latency_report()
+    losses = [{"uid": u, "tenant": r.tenant, "step": r.step, "loss": r.loss}
+              for u, r in sorted(svc.completed_ft.items())]
+    tokens = {u: r.out_tokens for u, r in sorted(svc.engine.completed.items())}
+    for t in ticks:
+        emit({"phase": "slice_serve", **t})
+    for i, u in enumerate(updates):
+        emit({"phase": "slice_serve", "bank_update": i, **u})
+    by_kind = {}
+    for t in ticks:
+        by_kind.setdefault(t["kind"], []).append(t["wall_s"])
+    full = get_arch(S["arch"])
+    n_params = count_params(arch)
+    want_ft = S["waves"] * S["ft_per_wave"]
+    want_infer = S["waves"] * S["infer_per_wave"]
+    finite = bool(np.all(np.isfinite([x["loss"] for x in losses])))
+    in_vocab = all(0 <= tok < arch.vocab for ts in tokens.values()
+                   for tok in ts)
+    emit({"phase": "slice_serve", "summary": True, "arch": arch.name,
+          "d_model": arch.d_model, "n_heads": arch.n_heads,
+          "n_kv_heads": arch.n_kv_heads, "d_ff": arch.d_ff,
+          "vocab": arch.vocab, "dtype": arch.dtype, "tenants": n,
+          "params_per_tenant": n_params,
+          "reduced": {"n_layers": [arch.n_layers, full.n_layers],
+                      "repeats": [[s.repeats for s in arch.segments],
+                                  [s.repeats for s in full.segments]],
+                      "params": [n_params, count_params(full)]},
+          "traffic": {k: v for k, v in S.items()
+                      if k not in ("arch", "repeats", "tenants")},
+          "ticks": len(ticks), "wall_s_by_kind": by_kind,
+          "groups_per_tick": [len(t["groups"]) for t in ticks],
+          "bank_updates": len(updates),
+          "launches_per_bank_update": [u["launches"] for u in updates],
+          "latency": report, "steps": list(svc.steps), "losses": losses,
+          "tokens": tokens, "finite": finite, "build_s": build_s,
+          "held_after_build_bytes": held, "held_by": held_by,
+          "build_peak_bytes": build_peak, "peak_mem_bytes": peak,
+          "base_mem_bytes": base, "allocator": "expandable_segments",
+          "launches": counts, "calls_by_shape": by_shape,
+          "buckets": [f"d={b.spec.d} {b.spec.mode.value} B={b.total}×{n}"
+                      for b in opt.factor_buckets]})
+    missing = [k for k in PATH_KERNELS["slice_serve"] if counts[k] == 0]
+    unchecked = [k for k in by_shape if k not in checked]
+    served = (report["infer"].get("requests"),
+              report["finetune"].get("requests"))
+    per_tenant = [want_ft // n] * n
+    if (not finite or not in_vocab or missing or unchecked
+            or served != (want_infer, want_ft) or svc.steps != per_tenant):
+        raise AssertionError(
+            f"slice_serve: finite {finite}, tokens in vocab {in_vocab}, "
+            f"kernels never launched {missing}, calls at unchecked shapes "
+            f"{unchecked}, served {served} of {(want_infer, want_ft)}, "
+            f"steps {svc.steps} (want {per_tenant})")
+    del svc
+    return counts
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -1847,6 +2244,10 @@ def main(argv=None) -> int:
     # gemma3-4b at full width under B-KFAC, and its decode
     phase_agree_lm()
     by_path["slice_lm"] = phase_slice_lm(checked)
+    # the tenant bank and the serving stack: card against CPU at the
+    # reduced config, then two full-width gemma3-4b tenants
+    phase_agree_serve()
+    by_path["slice_serve"] = phase_slice_serve(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

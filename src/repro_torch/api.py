@@ -14,7 +14,7 @@ Counterpart of ``src/repro/api.py``: every name of the reference's
 
 Names of the reference's ``__all__`` that need modules not ported yet are
 listed in :data:`NOT_YET_PORTED`; ROADMAP names the item that brings
-each (tenants and serving, launch tooling).
+it (the launch steps).
 """
 from __future__ import annotations
 
@@ -30,17 +30,21 @@ from repro_torch.specs import CkptSpec, DistSpec, ObsSpec, ResilienceSpec
 from repro_torch.train.loop import (kfac_grads, make_scheduled_kfac_step,
                                     run_kfac_training)
 
+# multi-tenant bank + serving
+from repro_torch.core.tenant import TenantBank, tree_stack, tree_unstack
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.service import FinetuneRequest, TenantService
+
+# launch tooling
+from repro_torch.launch.steps import default_kfac_config
+
 # observability
 from repro_torch.obs import TelemetryWriter
 
 #: the reference's ``__all__`` names this package does not have yet
 NOT_YET_PORTED = (
-    # multi-tenant bank (core/tenant.py)
-    "TenantBank", "tree_stack", "tree_unstack",
-    # serving (serve/service.py, serve/engine.py)
-    "TenantService", "FinetuneRequest", "Engine", "Request",
-    # launch tooling (launch/steps.py)
-    "build_train_step", "default_kfac_config",
+    # launch tooling (launch/steps.py's step builders)
+    "build_train_step",
 )
 
 __all__ = [
@@ -51,6 +55,11 @@ __all__ = [
     "DistSpec", "ObsSpec", "CkptSpec", "ResilienceSpec",
     # training
     "run_kfac_training", "make_scheduled_kfac_step", "kfac_grads",
+    # multi-tenant + serving
+    "TenantBank", "tree_stack", "tree_unstack",
+    "TenantService", "FinetuneRequest", "Engine", "Request",
+    # launch tooling
+    "default_kfac_config",
     # observability
     "TelemetryWriter",
 ]

@@ -119,6 +119,37 @@ class KfacState:
     TAP_KEYED: ClassVar[Tuple[str, ...]] = ("factors", "momentum")
 
 
+class BucketLayout:
+    """How a bucket's flat batch axis is laid out over the per-tap
+    leaves: one optimizer's (entry-major, ``core/buckets.py``) here;
+    ``core/tenant.py`` widens it with a tenant axis.  ``ranges`` maps the
+    scheduler's slot ranges of a bucket into the batch, ``per_slot`` a
+    step's damping ratio onto its slots, and ``scatter_states`` also gets
+    the states it replaces."""
+
+    gather = staticmethod(buckets.gather)
+    scatter = staticmethod(buckets.scatter)
+    gather_states = staticmethod(buckets.gather_states)
+
+    @staticmethod
+    def scatter_states(entries, batched, old):
+        return buckets.scatter_states(entries, batched)
+
+    @staticmethod
+    def ranges(ranges):
+        return ranges
+
+    @staticmethod
+    def per_slot(value, total: int):
+        return value
+
+    @staticmethod
+    def release(leaves, keys) -> None:
+        """Called once ``leaves[k]`` for each k in ``keys`` has been
+        gathered: a layout whose caller hands its gradients over may drop
+        them."""
+
+
 class Kfac:
     """K-FAC optimizer over a tapped model (holds statics only).
     ``device=None`` means the card; its state lives there."""
@@ -264,7 +295,8 @@ class Kfac:
     def _bucketed_factor_work(self, factors, inflight, acts, probe_grads,
                               n_tokens, rng: Optional[torch.Generator],
                               first: bool, work: schedule.StepWork,
-                              draws=None, landing=None, phi=None):
+                              draws=None, landing=None, phi=None,
+                              layout=BucketLayout):
         """Stats absorbs, Brand updates and the scheduled heavy ranges as
         one batched call per shape-class bucket; async buckets also run
         this step's pipeline phases (panel ring, launch, land) against
@@ -275,8 +307,9 @@ class Kfac:
         launches one takes one draw from ``rng``, in bucket order — the
         same draws a synchronous step takes.  ``landing`` optionally maps
         bucket index (str) → one pre-computed (U, D, aux) per land range.
-        ``phi`` (the step's damping ratio) only feeds telemetry.  Returns
-        (factors, inflight)."""
+        ``phi`` (the step's damping ratio) only feeds telemetry.
+        ``layout`` lays each bucket's batch out of the per-tap leaves (the
+        tenant bank passes its own).  Returns (factors, inflight)."""
         inflight = dict(inflight)
         states, X_all = {}, {}
         for name in sorted(self.taps):
@@ -284,20 +317,23 @@ class Kfac:
                 name, acts, probe_grads, n_tokens)
             states[(name, "A")] = factors[name].A
             states[(name, "G")] = factors[name].G
+        # a caller that hands over its only reference to the old states
+        # (the tenant bank) frees each bucket's as its new one lands
+        del factors
         for bi, bucket in enumerate(self.factor_buckets):
-            heavy = work.heavy[bi]
+            heavy = layout.ranges(work.heavy[bi])
             launch = work.launch[bi] if work.launch else ()
             land = work.land[bi] if work.land else ()
             if not kfactor.has_work(bucket.spec, work.stats, work.light,
                                     bool(heavy or launch or land)):
                 continue
-            st = buckets.gather_states(bucket.entries, states)
-            X = buckets.gather(bucket.entries, X_all)
+            st = layout.gather_states(bucket.entries, states)
+            X = layout.gather(bucket.entries, X_all)
             bdraws = None
             if (heavy or launch) and kfactor.needs_draws(bucket.spec):
                 bdraws = (draws or {}).get(bi)
                 if bdraws is None:
-                    bdraws = kfactor.draw_heavy(bucket.spec, bucket.total,
+                    bdraws = kfactor.draw_heavy(bucket.spec, X.shape[0],
                                                 rng, X.device)
                 bdraws = bdraws.to(X.device)
             with obs_trace.span(f"kfac/factor/b{bi}_"
@@ -311,7 +347,8 @@ class Kfac:
             if buf is not None:
                 inflight[str(bi)] = buf
             self._record_bucket_metrics(bi, bucket, st, work, land, phi)
-            states.update(buckets.scatter_states(bucket.entries, st))
+            states.update(layout.scatter_states(bucket.entries, st,
+                                                states))
         return ({name: TapState(A=states[(name, "A")],
                                 G=states[(name, "G")])
                  for name in self.taps}, inflight)
@@ -407,22 +444,25 @@ class Kfac:
         return out
 
     def _bucketed_precondition(self, factors, grads: Params, acts,
-                               probe_grads, phi) -> Dict[str, Tensor]:
+                               probe_grads, phi, layout=BucketLayout
+                               ) -> Dict[str, Tensor]:
         """Preconditioned steps for every tap, one batched (fused) call per
         (A-spec, G-spec, linear_apply) bucket, in *parameter layout*: the
         inverse factors are symmetric, so Ā⁻¹ gW Γ̄⁻¹ (the two-sided
         application with the factor roles swapped) equals (Γ̄⁻¹ gWᵀ Ā⁻¹)ᵀ
         without a transpose.  Returns {name: S} in the (…, d_in, d_out)
-        layout."""
+        layout.  ``layout`` as in ``_bucketed_factor_work``."""
         out = {}
         for pbi, bucket in enumerate(self.precond_buckets):
             with obs_trace.span(f"kfac/precond/b{pbi}"):
-                out.update(self._precondition_bucket(bucket, factors, grads,
-                                                     acts, probe_grads, phi))
+                out.update(self._precondition_bucket(
+                    bucket, factors, grads, acts, probe_grads,
+                    layout.per_slot(phi, bucket.total), layout))
         return out
 
     def _precondition_bucket(self, bucket, factors, grads: Params, acts,
-                             probe_grads, phi) -> Dict[str, Tensor]:
+                             probe_grads, phi, layout=BucketLayout
+                             ) -> Dict[str, Tensor]:
         """One precondition bucket's steps, {name: S} (see
         ``_bucketed_precondition``)."""
         cont = self.cfg.spectrum_continuation
@@ -433,16 +473,17 @@ class Kfac:
         dense_swap_g = bucket.spec_a.mode is kfactor.Mode.NS
         dense_swap_a = bucket.spec_g.mode is kfactor.Mode.NS
         key = lambda e: (e.name, "")
-        U_g = buckets.gather(ent, {key(e): factors[e.name].G.U for e in ent})
-        D_g = buckets.gather(ent, {key(e): factors[e.name].G.D for e in ent})
-        U_a = buckets.gather(ent, {key(e): factors[e.name].A.U for e in ent})
-        D_a = buckets.gather(ent, {key(e): factors[e.name].A.D for e in ent})
+        gather = layout.gather
+        U_g = gather(ent, {key(e): factors[e.name].G.U for e in ent})
+        D_g = gather(ent, {key(e): factors[e.name].G.D for e in ent})
+        U_a = gather(ent, {key(e): factors[e.name].A.U for e in ent})
+        D_a = gather(ent, {key(e): factors[e.name].A.D for e in ent})
         if bucket.linear_apply:
             # Alg 8 with roles swapped:  S = (Ā⁻¹ A)(Gᵀ Γ̄⁻¹)
-            gfac = buckets.gather(ent, {
+            gfac = gather(ent, {
                 key(e): probe_grads[e.name] for e in ent}
                 ).transpose(-1, -2).to(torch.float32)       # (B, d_out, n)
-            afac = buckets.gather(ent, {
+            afac = gather(ent, {
                 key(e): acts[e.name] for e in ent}
                 ).transpose(-1, -2).to(torch.float32)       # (B, d_in, n)
             S = precond.precondition_linear_with_damping(
@@ -450,14 +491,15 @@ class Kfac:
                 continuation=cont, use_kernel=use_k,
                 dense_g=dense_swap_g, dense_a=dense_swap_a)
         else:
-            J = buckets.gather(ent, {
-                key(e): grads[self.taps[e.name].param_path]
-                for e in ent}).to(torch.float32)
+            paths = [self.taps[e.name].param_path for e in ent]
+            J = gather(ent, {key(e): grads[p] for e, p in zip(ent, paths)}
+                       ).to(torch.float32)
+            layout.release(grads, paths)
             S = precond.precondition_with_damping(
                 J, U_a, D_a, U_g, D_g, phi,
                 continuation=cont, use_kernel=use_k,
                 dense_g=dense_swap_g, dense_a=dense_swap_a)
-        return {name: Se for (name, _), Se in buckets.scatter(ent, S).items()}
+        return {name: Se for (name, _), Se in layout.scatter(ent, S).items()}
 
     # -- the update ---------------------------------------------------------
     def update(self, grads: Params, state: KfacState, params: Params, *,

@@ -127,12 +127,25 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
     return out.to(v.dtype)
 
 
+def _valid_upto(S: int, t, window: int, device) -> Tensor:
+    """Cache slots a query at position ``t`` attends: (S,) for a host int,
+    (B, S) for a (B,) tensor of per-row positions."""
+    pos = torch.arange(S, device=device)
+    if isinstance(t, Tensor):
+        pos, t = pos[None, :], t[:, None]
+    valid = pos <= t
+    if window > 0:
+        valid &= pos > t - window
+    return valid
+
+
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
                      window: int = 0, softcap: float = 0.0,
-                     t: Optional[int] = None) -> Tensor:
+                     t=None) -> Tensor:
     """One-token attention over a cache.  q: (B, 1, H, hd);
     k/v_cache: (B, S, Hk, hd); t = current absolute position (for masking
-    unwritten cache slots and the sliding window)."""
+    unwritten cache slots and the sliding window): a host int, or a (B,)
+    tensor of per-row positions."""
     B, S, Hk, hd = k_cache.shape
     H = q.shape[2]
     G = H // Hk
@@ -141,12 +154,14 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
                      k_cache.float()) / math.sqrt(hd)
     if softcap > 0:
         s = layers.softcap(s, softcap)
-    pos = torch.arange(S, device=q.device)
-    valid = (torch.ones((S,), dtype=torch.bool, device=q.device)
-             if t is None else pos <= t)
-    if window > 0 and t is not None:
-        valid &= pos > t - window
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    if t is None:
+        valid = torch.ones((S,), dtype=torch.bool, device=q.device)
+    else:
+        valid = _valid_upto(S, t, window, q.device)
+    # (S,) → (1, 1, 1, S); per row (B, S) → (B, 1, 1, S)
+    valid = valid.reshape(valid.shape[:-1] + (1, 1, S)) if valid.dim() == 2 \
+        else valid[None, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
                      v_cache.float())
@@ -205,10 +220,11 @@ def _pmm(a: Tensor, b: Tensor) -> Tensor:
     return a.to(dt) @ b.to(dt)
 
 
-def mla_decode_attention(x_t, p, dims: MlaDims, cache, t: int):
+def mla_decode_attention(x_t, p, dims: MlaDims, cache, t):
     """Absorbed-MLA decode: attention runs in the kv_lora latent space, so
-    the cache stores only (c_kv, k_rope).  The new slot ``t`` is written
-    into the cache tensors in place.
+    the cache stores only (c_kv, k_rope).  The new slot ``t`` (a host int,
+    or a (B,) tensor of per-row positions) is written into the cache
+    tensors in place.
 
     cache: dict(c_kv (B,S,kv_lora), k_rope (B,S,dr)). x_t: (B,1,d)."""
     B = x_t.shape[0]
@@ -219,12 +235,19 @@ def mla_decode_attention(x_t, p, dims: MlaDims, cache, t: int):
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     kv = _pmm(x_t, p["wkv_a"])                            # (B,1,L+dr)
     c_new, kr_new = kv[..., :L], kv[..., L:]
-    pos_t = torch.full((B, 1), t, device=x_t.device)
+    per_row = isinstance(t, Tensor)
+    pos_t = (t.reshape(B, 1) if per_row
+             else torch.full((B, 1), t, device=x_t.device))
     q_rope = layers.rope(q_rope[:, None, :, :], pos_t)[:, 0]
     kr_new = layers.rope(kr_new[:, :, None, :], pos_t)[:, :, 0]
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[:, t:t + 1] = c_new.to(c_kv.dtype)
-    k_rope[:, t:t + 1] = kr_new.to(k_rope.dtype)
+    if per_row:
+        rows = torch.arange(B, device=c_kv.device)
+        c_kv[rows, t] = c_new[:, 0].to(c_kv.dtype)
+        k_rope[rows, t] = kr_new[:, 0].to(k_rope.dtype)
+    else:
+        c_kv[:, t:t + 1] = c_new.to(c_kv.dtype)
+        k_rope[:, t:t + 1] = kr_new.to(k_rope.dtype)
     # absorb W_uk into q: wkv_b reshaped (L, H, dn+dv)
     wkv_b = p["wkv_b"].reshape(L, H, dn + dv)
     w_uk = wkv_b[..., :dn]                                # (L,H,dn)
@@ -237,8 +260,9 @@ def mla_decode_attention(x_t, p, dims: MlaDims, cache, t: int):
                         k_rope.float()))
     s = s / math.sqrt(dn + dr)
     S = c_kv.shape[1]
-    valid = torch.arange(S, device=x_t.device) <= t
-    s = torch.where(valid[None, None, :], s, NEG_INF)
+    valid = _valid_upto(S, t, 0, x_t.device)
+    valid = valid[:, None, :] if per_row else valid[None, None, :]
+    s = torch.where(valid, s, NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", pattn.to(c_kv.dtype).float(),
                          c_kv.float())

@@ -165,13 +165,17 @@ def gqa_cache_init(arch: ArchConfig, B: int, S: int, dtype, device,
     return c
 
 
-def decode_gqa(spec: LayerSpec, arch: ArchConfig, p, h_t, cache, t: int,
+def decode_gqa(spec: LayerSpec, arch: ArchConfig, p, h_t, cache, t,
                sp: ShardPolicy):
-    """One-token step. h_t: (B, 1, d)."""
+    """One-token step. h_t: (B, 1, d); t: a host int, or a (B,) integer
+    tensor of per-row positions (each row's rope, cache write, validity
+    mask and window at its own position)."""
     B = h_t.shape[0]
     H, Hk, hd = _mixer_dims(arch)
     x = layers.rms_norm(h_t, p["ln"])
-    pos = torch.full((B, 1), t, device=h_t.device)
+    per_row = isinstance(t, torch.Tensor)
+    pos = (t.reshape(B, 1) if per_row
+           else torch.full((B, 1), t, device=h_t.device))
     q = x @ p["wq"].to(x.dtype)
     kv = x @ p["wkv"].to(x.dtype)
     if arch.qkv_bias:
@@ -188,14 +192,21 @@ def decode_gqa(spec: LayerSpec, arch: ArchConfig, p, h_t, cache, t: int,
     # ring-buffer write: for full caches t < S_cache so this is slot t
     w = t % S_cache
     k, v = cache["k"], cache["v"]
-    k[:, w:w + 1] = k_new.to(k.dtype)
-    v[:, w:w + 1] = v_new.to(v.dtype)
+    if per_row:
+        rows = torch.arange(B, device=k.device)
+        k[rows, w] = k_new[:, 0].to(k.dtype)
+        v[rows, w] = v_new[:, 0].to(v.dtype)
+    else:
+        k[:, w:w + 1] = k_new.to(k.dtype)
+        v[:, w:w + 1] = v_new.to(v.dtype)
     k, v = sp.kv_cache(k), sp.kv_cache(v)
     if spec.window > 0 and S_cache <= spec.window:
         # ring buffer: every written slot is within the window by
         # construction; mask only unwritten slots (t < S_cache)
-        o = attn_lib.decode_attention(q, k, v, softcap=arch.attn_softcap,
-                                      t=min(t, S_cache - 1))
+        o = attn_lib.decode_attention(
+            q, k, v, softcap=arch.attn_softcap,
+            t=(torch.clamp(t, max=S_cache - 1) if per_row
+               else min(t, S_cache - 1)))
     else:
         o = attn_lib.decode_attention(q, k, v, window=spec.window,
                                       softcap=arch.attn_softcap, t=t)
@@ -272,7 +283,7 @@ def mla_cache_init(arch: ArchConfig, B: int, S: int, dtype, device):
                                   device=device)}
 
 
-def decode_mla(spec, arch: ArchConfig, p, h_t, cache, t: int,
+def decode_mla(spec, arch: ArchConfig, p, h_t, cache, t,
                sp: ShardPolicy):
     x = layers.rms_norm(h_t, p["ln"])
     o, new_cache = attn_lib.mla_decode_attention(x, p, _mla_dims(arch),
@@ -356,7 +367,7 @@ def ssm_cache_init(arch: ArchConfig, B: int, S: int, dtype, device):
                                  dtype=torch.float32, device=device)}
 
 
-def decode_ssm(spec, arch: ArchConfig, p, h_t, cache, t: int,
+def decode_ssm(spec, arch: ArchConfig, p, h_t, cache, t,
                sp: ShardPolicy):
     B = h_t.shape[0]
     d_inner, H, G, N, conv_dim, _ = _ssd_dims(arch)
@@ -427,7 +438,7 @@ def rglru_cache_init(arch: ArchConfig, B: int, S: int, dtype, device):
             "h": torch.zeros((B, D), dtype=torch.float32, device=device)}
 
 
-def decode_rglru(spec, arch: ArchConfig, p, h_t, cache, t: int,
+def decode_rglru(spec, arch: ArchConfig, p, h_t, cache, t,
                  sp: ShardPolicy):
     D = arch.lru_width
     x0 = layers.rms_norm(h_t, p["ln"])
@@ -558,7 +569,7 @@ def block_cache_init(arch: ArchConfig, spec: LayerSpec, B, S, dtype, device,
     return fn(arch, B, S, dtype, device)
 
 
-def decode_block(arch: ArchConfig, spec: LayerSpec, p, h_t, cache, t: int,
+def decode_block(arch: ArchConfig, spec: LayerSpec, p, h_t, cache, t,
                  sp: ShardPolicy):
     h_t, new_cache = _MIXERS[spec.mixer][2](spec, arch, p["mix"], h_t,
                                             cache, t, sp)

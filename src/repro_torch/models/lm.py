@@ -319,11 +319,14 @@ class LM:
 
     @torch.no_grad()
     def decode_step(self, params, cache, token, t):
-        """One decode step. token: (B, 1) integer; t: host int position.
+        """One decode step. token: (B, 1) integer; t: a host int position
+        for the whole batch, or a (B,) integer tensor on the LM's device
+        with each row's own position (continuous batching: every row a
+        lane of its own; the recurrent mixers carry no position).
         Returns (logits (B, 1, V), cache); the cache tensors are updated in
         place and returned."""
         arch, sp = self.arch, self.sp
-        t = int(t)
+        t = t.to(token.device) if isinstance(t, Tensor) else int(t)
         h_t = self._embed(params, token)
         for s, seg in enumerate(arch.segments):
             pre = f"segments/{s}/"

@@ -42,20 +42,26 @@ class AdamW:
 
     def update(self, grads: Params, state: AdamWState, params: Params
                ) -> Tuple[Params, AdamWState]:
-        step = state.step + 1
-        a = self.lr(state.step)
-        c1 = 1.0 - self.b1 ** step
-        c2 = 1.0 - self.b2 ** step
         upd, mu, nu = {}, {}, {}
         for k, g in grads.items():
-            g = g.to(torch.float32)
-            m = self.b1 * state.mu[k] + (1 - self.b1) * g
-            v = self.b2 * state.nu[k] + (1 - self.b2) * g * g
-            d = (m / c1) / (torch.sqrt(v / c2) + self.eps)
-            if self.weight_decay:
-                d = d + self.weight_decay * params[k].to(torch.float32)
-            upd[k], mu[k], nu[k] = -a * d, m, v
-        return upd, AdamWState(step=step, mu=mu, nu=nu)
+            upd[k], mu[k], nu[k] = self.leaf(g, state.mu[k], state.nu[k],
+                                             params[k], state.step)
+        return upd, AdamWState(step=state.step + 1, mu=mu, nu=nu)
+
+    def leaf(self, g, mu, nu, p, step: int):
+        """One parameter's step at the state's ``step`` → (update, new
+        first moment, new second moment); the multi-tenant bank calls it
+        for each tenant's slice with that tenant's step."""
+        a = self.lr(step)
+        c1 = 1.0 - self.b1 ** (step + 1)
+        c2 = 1.0 - self.b2 ** (step + 1)
+        g = g.to(torch.float32)
+        m = self.b1 * mu + (1 - self.b1) * g
+        v = self.b2 * nu + (1 - self.b2) * g * g
+        d = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+        if self.weight_decay:
+            d = d + self.weight_decay * p.to(torch.float32)
+        return -a * d, m, v
 
 
 def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,

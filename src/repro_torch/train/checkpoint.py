@@ -7,7 +7,7 @@ Layout, as the reference's::
 
     <dir>/step_000000123/
         manifest.json   {step, schema, time, n_arrays, bytes, checksums,
-                         extra, tenants: None, done: true}
+                         extra, tenants, done: true}
         arrays.npz      flat {key: np.ndarray}
     <dir>/LATEST        atomic pointer file
 
@@ -64,9 +64,10 @@ SEP = "|"
 #: Manifest schema version (the reference's): v1 a state without
 #: ``KfacState.phase``; v2 added ``phase``; v3 added ``KfacState.inflight``
 #: (async in-flight buffers); v4 added ``KFactorState.aux``; v5 added the
-#: per-array crc32 ``checksums``; v6 added the ``tenants`` table (always
-#: ``None`` here: the port has no multi-tenant bank yet).  The schema
-#: explains restore failures; it does not reject compatible checkpoints.
+#: per-array crc32 ``checksums``; v6 added the ``tenants`` table (the
+#: multi-tenant service's {tenant, slot, step} rows, ``serve/service.py``;
+#: ``None`` for a single-tenant trainer).  The schema explains restore
+#: failures; it does not reject compatible checkpoints.
 SCHEMA_VERSION = 6
 
 _SCHEMA_HISTORY = {
