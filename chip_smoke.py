@@ -89,9 +89,37 @@ Phases, run in this order (each prints one JSON line):
            run_load's traffic with 2 waves; every kernel call at a shape
            the ``kernels`` phase held; wall time per tick by kind, kernel
            launches per bank update, p50/p99, steps, memory
+  agree_launch
+           the trainer CLI (``repro_torch.launch.train``) at --reduced
+           --compress on gemma3's reduced config with a vocabulary of 1024
+           (so the rank-8 compression acts on the embedding and head), 1
+           and 4 steps, card against CPU from the same weights and
+           batches, the CPU run's spectrum-continuation shifts replayed on
+           the card (where the card's own part is printed): the losses,
+           the compressed gradients, every parameter's change after one
+           step; one call of each step builder (build_train_step,
+           build_prefill_step, build_decode_step) at the reduced config,
+           card against CPU
+  slice_launch
+           path 11: the trainer CLI at gemma3-4b's full width with its
+           defaults (batch 4 × 64, default_kfac_config: every factor
+           BRAND, use_kernels=False as in the reference's CLI, so no
+           kernel launches) and --compress --telemetry-dir, cut from 34 to
+           22 layers, 6 steps; wall time a step by kind, compression's
+           seconds a step, memory; then one build_train_step step at the
+           same cut, build_prefill_step at 1 × 2048 and build_decode_step
+           held to a prefill of the same tokens
+  launch_reduced
+           the CLI's other branches on the card at --reduced: B-R-KFAC
+           with health guards, checkpoints every 2 steps and the async
+           pipeline (lag 2) on its side stream, 12 steps, then a rerun
+           that resumes from the step-10 snapshot, held to an
+           uninterrupted run; its EA-absorb and CholeskyQR2 calls at
+           shapes the ``kernels`` phase held
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
-phase checked; on paths 4, 5, 8, 9 and 10 every kernel's); then the ``kernels`` line
+phase checked; on paths 4, 5, 8, 9, 10, 11 and launch_reduced every
+kernel's); then the ``kernels`` line
 (launches summed over the paths) and, last, the ``ok`` line.  Any failure
 raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
 path.
@@ -384,10 +412,13 @@ def phase_kernels():
     keep = float(np.float32(0.95))
     coef = float(np.float32(1.0) - np.float32(0.95))
     sym = lambda b, d: (lambda m: (m + m.mT) / 2)(rnd(b, d, d)).contiguous()
+    # launch_reduced's dense buckets, X (B, d, n_stat = 16)
+    launch_dense, launch_panels = launch_kernel_shapes()
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
            [(sym(b, d), rnd(b, d, 256))
             for b, d in ((2, 256),) + tuple(x for x in NS_BUCKETS
-                                            if x != (2, 256))],
+                                            if x != (2, 256))]
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in launch_dense],
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
@@ -454,7 +485,9 @@ def phase_kernels():
               + [(rnd(2, 256, 240),)]
               + [(rnd(b, d, 240),) for b, d in BRAND_BUCKETS if d <= 4096]
               + [(rnd(b, d, lm_n),) for b, d in lm_brand]
-              + [(rnd(b, d, sv_n),) for b, d in sv_brand])
+              + [(rnd(b, d, sv_n),) for b, d in sv_brand]
+              # launch_reduced's RSVD panels (count, d, r + r_o)
+              + [(rnd(c, d, k),) for c, d, k in launch_panels])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -868,6 +901,13 @@ PATH_KERNELS = {
     # the same at the serve path's r = 256 (every factor d ≥ 2048 > 768)
     "slice_serve": ("ut_a", "a_perp", "syrk_tn", "rinv_apply",
                     "precond_panel", "precond_apply"),
+    # the trainer CLI at full width: every factor BRAND and, as in the
+    # reference's CLI, use_kernels=False (Brand and preconditioning in
+    # plain PyTorch): no kernel is launched
+    "slice_launch": (),
+    # the CLI at --reduced under B-R-KFAC: the EA absorb of its dense M
+    # and the RSVD range finder's CholeskyQR2
+    "launch_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -2200,7 +2240,564 @@ def phase_slice_serve(checked):
             f"kernels never launched {missing}, calls at unchecked shapes "
             f"{unchecked}, served {served} of {(want_infer, want_ft)}, "
             f"steps {svc.steps} (want {per_tenant})")
+    # the counting wrapper refers back to the bank: drop it, or the bank's
+    # stacked states outlive the phase in a reference cycle
+    del svc.bank.update
     del svc
+    return counts
+
+
+
+# ---------------------------------------------------------------------------
+# the launch layer: launch/steps.py's builders and the trainer CLI
+# ---------------------------------------------------------------------------
+
+#: agree_launch: the CLI at --reduced --compress, card against CPU, with
+#: gemma3's reduced config at a vocabulary of 1024: its embedding and head
+#: (64 × 1024) reach CompressConfig's min_size of 65536, so the rank-8
+#: compression acts on them (at the reduced vocabulary of 256 it acts on
+#: no leaf); then one call of each builder at the reduced config
+AGREE_LAUNCH = dict(steps=4, vocab=1024)
+#: slice_launch: ``python -m repro_torch.launch.train`` at gemma3-4b's full
+#: width with its defaults (batch 4 × 64, default_kfac_config: r 256,
+#: every factor BRAND, use_kernels=False) and --compress --telemetry-dir,
+#: 6 steps; the depth the card holds with compression's error feedback:
+#: 22 of 34 layers (the first segment at 3 of its 5 repeats, the 4-local
+#: tail kept; tools/launch_memory.py); then the builders at the same cut:
+#: one build_train_step step at the CLI's batch, build_prefill_step at
+#: 1 × 2048, and build_decode_step over the prompt's first tokens held to
+#: a prefill of the same tokens (fp32 activations, DECODE_TOL)
+LAUNCH_SLICE = dict(arch="gemma3_4b", repeats=(3, 1), steps=6, batch=4,
+                    seq=64, prefill=2048, decode=8)
+#: launch_reduced: the CLI's other branches on the card at --reduced:
+#: B-R-KFAC (so the async runner has heavy work: every factor
+#: BRAND_RSVD with its dense M, RSVD every 10 steps, staggered), health
+#: guards, checkpoints every 2 steps, the async pipeline at lag 2; 12
+#: steps, then a rerun to 16 resumes from the newest snapshot (10), held
+#: to an uninterrupted 16-step run
+LAUNCH_REDUCED = dict(argv=("--reduced", "--variant", "brkfac", "--health",
+                            "--ckpt-every", "2", "--async-heavy",
+                            "--heavy-lag", "2"),
+                      steps=12, resumed=16)
+
+
+def launch_reduced_opt():
+    """launch_reduced's optimizer, on the CPU (statics only)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    args = train.parse_args(list(LAUNCH_REDUCED["argv"]))
+    lm = LM(get_arch("gemma3_4b").reduced(), device=torch.device("cpu"))
+    return kfac_lib.Kfac(train.kfac_config_of(args), lm.taps,
+                         device=torch.device("cpu"))
+
+
+def launch_kernel_shapes():
+    """launch_reduced's kernel shapes from its optimizer and schedule: the
+    EA absorb's (B, d, n_stat) of each bucket that holds M, and the RSVD
+    range finder's panels (count, d, r + r_o) — count a whole bucket (the
+    warmup, a forced refresh) or any heavy or launched range of the run's
+    steps."""
+    from repro_torch.core import kfactor
+    opt = launch_reduced_opt()
+    sched = opt.scheduler()
+    counts = {bi: {b.total} for bi, b in enumerate(opt.factor_buckets)}
+    for k in range(LAUNCH_REDUCED["resumed"]):
+        work = sched.work(k)
+        for bi in counts:
+            for lo, hi in work.heavy[bi] + work.launch[bi]:
+                counts[bi].add(hi - lo)
+    dense, panels = [], []
+    for bi, b in enumerate(opt.factor_buckets):
+        s = b.spec
+        if s.needs_m:
+            dense.append((b.total, s.d, s.n_stat))
+        if kfactor.has_heavy_op(s):
+            panels += [(c, s.d, min(s.r + s.r_o, s.d))
+                       for c in sorted(counts[bi])]
+    return dense, panels
+
+
+def _events(directory) -> list:
+    import os
+    with open(os.path.join(directory, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _cli(dev, argv, arch=None, weights=None, batches=None):
+    """``repro_torch.launch.train`` for ``argv`` on ``dev`` → (state,
+    losses), from ``weights`` (CPU tensors) and ``batches`` (CPU batches
+    by step) when given."""
+    from repro_torch.launch import train
+    args = train.parse_args(list(argv) + ["--device", dev.type])
+    params = None
+    if weights is not None:
+        params = {k: v.detach().to(dev, copy=True).requires_grad_()
+                  for k, v in weights.items()}
+    fetch = None
+    if batches is not None:
+        fetch = lambda k: {n: t.to(dev) for n, t in batches[k].items()}
+    return train.run(args, arch=arch, params=params, batches=fetch)
+
+
+def _builders_run(arch, dev, weights):
+    """One call of each builder at ``arch`` on ``dev`` from ``weights``:
+    a build_train_step step on _lm_batch's batch (stats, light and the
+    heavy op: every factor of the reduced config is EVD, so without it
+    the spectrum stays empty and the clipped update is zero), the
+    prefill of its tokens and three decode steps → CPU tensors."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import steps
+    B, T = LM_AGREE_B, LM_AGREE_T
+    fresh = lambda: {k: v.detach().to(dev, copy=True).requires_grad_()
+                     for k, v in weights.items()}
+    batch = _lm_batch(arch, dev)
+    tb = steps.build_train_step(arch, cell=ShapeCell("agree", T, B, "train"),
+                                flags=dict(do_stats=True, do_light=True,
+                                           do_heavy=True), device=dev)
+    params = fresh()
+    params, _, loss = tb.step_fn(params, tb.opt.init(params), batch,
+                                 torch.Generator(device=dev).manual_seed(1))
+    pb = steps.build_prefill_step(arch, device=dev, cell=ShapeCell(
+        "agree", T, B, "prefill"))
+    logits = pb.step_fn(fresh(), {"tokens": batch["tokens"]})
+    db = steps.build_decode_step(arch, device=dev, cell=ShapeCell(
+        "agree", 16, B, "decode"))
+    cache, p0, dec = db.lm.init_cache(B, 16), fresh(), []
+    for t in range(3):
+        lg, cache = db.step_fn(p0, cache, batch["tokens"][:, t:t + 1], t)
+        dec.append(lg)
+    cpu = lambda x: x.detach().cpu()
+    return dict(loss=cpu(loss), params={k: cpu(v) for k, v in
+                                        params.items()},
+                logits=cpu(logits), decoded=cpu(torch.stack(dec)))
+
+
+#: a continuation shift at most this fraction of its row's largest mode is
+#: a rounding-level mode's (fp32's epsilon is 1.2e-7)
+ROUNDING_MODE = 1e-6
+
+
+@contextlib.contextmanager
+def continuation_replay(shifts=None):
+    """Record the spectrum continuation's shift (``core/precond.py``'s min
+    over modes with D > 0, per row) at every call while the block runs,
+    as CPU tensors in the yielded list; with
+    ``shifts`` (another run's record) apply that run's shift of the same
+    call in place of this run's own, which is still recorded.  The
+    continuation is the one step of the update that is not continuous: a
+    rounding-level mode that is positive on one device and not on the
+    other moves λ by the smallest real mode there (ROADMAP §3).  Replaying
+    one run's shifts in the other holds the rest of the two runs'
+    arithmetic to each other."""
+    import torch
+    from repro_torch.core import precond
+    orig = precond.spectrum_continuation
+    rec = []
+
+    def continuation(D, lam):
+        _, own = orig(D, torch.zeros_like(lam))     # λ = 0: own = min D>0
+        i = len(rec)
+        rec.append(own.detach().cpu())
+        if shifts is None:
+            return orig(D, lam)
+        s = shifts[i].to(D.device, D.dtype)
+        return torch.clamp(D - s[..., None], min=0.0), lam + s
+
+    precond.spectrum_continuation = continuation
+    try:
+        yield rec
+    finally:
+        precond.spectrum_continuation = orig
+
+
+def factor_partings(card_state, host_state) -> list:
+    """The K-factors whose own continuation shift parts between two runs'
+    final states: a stacked row whose shift (its smallest D > 0) is
+    rounding-level (≤ ROUNDING_MODE of its largest mode) in one and not in
+    the other, with both shifts of the row's largest mode."""
+    import torch
+    from repro_torch.core import precond
+    out = []
+    for name in host_state.opt.factors:
+        for side in ("A", "G"):
+            ratios = []
+            for st in (card_state, host_state):
+                D = getattr(st.opt.factors[name], side).D.detach().cpu()
+                D = D.reshape(-1, D.shape[-1]).double()
+                _, own = precond.spectrum_continuation(
+                    D, torch.zeros(D.shape[0], dtype=D.dtype))
+                ratios.append(own / D.amax(-1).clamp(min=1e-30))
+            for r, (c, h) in enumerate(zip(*ratios)):
+                if (c <= ROUNDING_MODE) != (h <= ROUNDING_MODE):
+                    out.append({"factor": f"{name}/{side}", "row": r,
+                                "cuda": float(c), "cpu": float(h)})
+    return out
+
+
+def phase_agree_launch():
+    """The CLI at --reduced --compress (AGREE_LAUNCH) and one call of each
+    builder at gemma3's reduced config, card against CPU from the same
+    weights and batches.  The CLI, with the CPU run's continuation shifts
+    replayed on the card (``continuation_replay``; the factors whose own
+    shifts part are printed): over the run, the losses within 1e-4
+    relative and the first step's compressed gradients within 1e-4 (the
+    same inputs); after one step, every parameter's change within
+    agree_lm's 1e-3, but a compressed leaf's that no K-FAC tap owns (the
+    embedding), which is held through its gradients: AdamW divides each
+    entry by its own size, so an entry that compression leaves at rounding
+    level (a token row the batch does not touch) takes a step of either
+    sign, and those rows steer the later steps — the run's later
+    gradients and its parameter changes are printed.  The builders: the
+    step's loss and parameter changes, the prefill logits and three decode
+    steps' within 1e-3 (of each tensor's largest entry)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import compress as compress_lib
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import LM
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    tol, tight = 1e-3, 1e-4
+    A = AGREE_LAUNCH
+    red = get_arch("gemma3_4b").reduced()
+    arch = dataclasses.replace(red, vocab=A["vocab"])
+    lm = LM(arch, device=cpu)
+    weights = {k: v.detach() for k, v in lm.init(
+        torch.Generator().manual_seed(0)).items()}
+    stream = TokenStream(vocab=arch.vocab, batch=4, seq_len=64, seed=0,
+                         device=cpu)
+    batches = [stream.batch_at(k) for k in range(A["steps"])]
+    compress_tree = compress_lib.compress_tree
+
+    def run(dev, steps, shifts=None):
+        """The CLI → (state, losses, compressed leaves by step, its
+        continuation record)."""
+        grads = []
+
+        def recorded(gp, cs, cfg):
+            out, cs = compress_tree(gp, cs, cfg)
+            grads.append({k: v.detach().cpu() for k, v in out.items()
+                          if v.dim() >= 2 and v.numel() >= cfg.min_size})
+            return out, cs
+
+        argv = ["--reduced", "--compress", "--steps", str(steps),
+                "--metrics-every", "0"]
+        compress_lib.compress_tree = recorded
+        try:
+            with continuation_replay(shifts) as rec:
+                state, losses = _cli(dev, argv, arch, weights, batches)
+        finally:
+            compress_lib.compress_tree = compress_tree
+        return state, losses, grads, rec
+
+    def changes(card, host):
+        return {k: _scale_err(card.params[k].detach().cpu() - weights[k],
+                              host.params[k].detach() - weights[k])
+                for k in weights}
+
+    host1, _, _, host1_rec = run(cpu, 1)
+    card1, _, _, _ = run(cuda, 1, host1_rec)
+    first = changes(card1, host1)
+    partings = factor_partings(card1, host1)
+    del card1, host1
+    host, host_losses, host_g, host_rec = run(cpu, A["steps"])
+    _build.reset_launch_counts()
+    card, card_losses, card_g, _ = run(cuda, A["steps"], host_rec)
+    cli_launches = {k: v for k, v in _build.launch_counts().items() if v}
+    compressed = set(host_g[0])
+    assert len(card_g) == len(host_g) == A["steps"]
+    assert all(set(c) == set(h) == compressed
+               for c, h in zip(card_g, host_g))
+    grad_errs = [max(_scale_err(c[n], h[n]) for n in h)
+                 for c, h in zip(card_g, host_g)]
+    untapped = compressed - {t.param_path for t in lm.taps.values()}
+    errs = {"cli_losses": max(abs(a - b) / max(abs(b), 1e-6)
+                              for a, b in zip(card_losses, host_losses,
+                                              strict=True)),
+            "compressed_grads_step0": grad_errs[0],
+            "first_step_changes": max(v for k, v in first.items()
+                                      if k not in untapped)}
+    run_changes = changes(card, host)
+    run_partings = factor_partings(card, host)
+    del card, host
+    red_w = {k: v.detach() for k, v in LM(red, device=cpu).init(
+        torch.Generator().manual_seed(1)).items()}
+    _build.reset_launch_counts()
+    c = _builders_run(red, cuda, red_w)
+    builder_launches = {k: v for k, v in _build.launch_counts().items() if v}
+    h = _builders_run(red, cpu, red_w)
+    errs["train_loss"] = _scale_err(c["loss"], h["loss"])
+    errs["train_params"] = max(_scale_err(c["params"][k] - red_w[k],
+                                          h["params"][k] - red_w[k])
+                               for k in red_w)
+    errs["prefill"] = _scale_err(c["logits"], h["logits"])
+    errs["decode"] = _scale_err(c["decoded"], h["decoded"])
+    tols = {k: (tight if k in ("cli_losses", "compressed_grads_step0")
+                else tol) for k in errs}
+    emit({"phase": "agree_launch", "errors": errs, "tols": tols,
+          "compressed": sorted(compressed),
+          "held_by_gradients": sorted(untapped),
+          "compressed_grad_errors_by_step": grad_errs,
+          "first_step_change_errors": first,
+          "run_change_errors": run_changes,
+          "first_step_factor_partings": partings,
+          "run_factor_partings": run_partings,
+          "losses_cuda": card_losses, "losses_cpu": host_losses,
+          "cli_launches": cli_launches,
+          "builder_launches": builder_launches})
+    bad = [k for k, e in errs.items() if not e <= tols[k]]
+    if bad or compressed != {"embed", "head/w"} or untapped != {"embed"}:
+        raise AssertionError(f"agree_launch: {bad} beyond their tolerance "
+                             f"{tols}: {errs}; compressed {compressed}, "
+                             f"held by gradients {untapped}")
+
+
+def phase_slice_launch(checked):
+    """Path 11: the trainer CLI at gemma3-4b's full width (LAUNCH_SLICE)
+    with --compress, through its parser and ``run``; its kernel launches
+    (none expected: every factor BRAND under use_kernels=False, as the
+    reference's CLI runs plain jnp) and any call at a shape the ``kernels``
+    phase did not hold; wall time a step by kind from its ``step`` events,
+    compression's seconds a step, memory.  Then the builders at the same
+    cut (LAUNCH_SLICE).  Returns the launch counts of the CLI run and the
+    builders."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeCell, get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import compress as compress_lib
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.param_count import count_params
+    from repro_torch.models.lm import LM
+
+    S = LAUNCH_SLICE
+    dev = torch.device("cuda")
+    arch = get_arch(S["arch"]).with_repeats(S["repeats"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    argv = ["--compress", "--steps", str(S["steps"]), "--batch",
+            str(S["batch"]), "--seq", str(S["seq"]), "--telemetry-dir", tmp,
+            "--device", "cuda"]
+    args = train.parse_args(argv)
+    opt = kfac_lib.Kfac(train.kfac_config_of(args),
+                        LM(arch, device=torch.device("meta")).taps,
+                        device=torch.device("meta"))
+    modes = sorted({b.spec.mode.value for b in opt.factor_buckets})
+    # compression's time a step: the CLI's grad_transform looks
+    # compress_tree up in its module at each call
+    compress_tree, compress_s = compress_lib.compress_tree, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = compress_tree(*a, **kw)
+        torch.cuda.synchronize()
+        compress_s.append(time.perf_counter() - t0)
+        return out
+
+    # the path needs ~72 GB of the card's 85: collect what earlier phases
+    # left in reference cycles before reading the base
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()   # what earlier phases left
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    compress_lib.compress_tree = timed
+    t0 = time.perf_counter()
+    try:
+        with calls_by_shape() as by_shape:
+            state, losses = train.run(args, arch=arch)
+    finally:
+        compress_lib.compress_tree = compress_tree
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cli_peak = torch.cuda.max_memory_allocated()
+    events = _events(tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    walls = [(e["phase"], e["dt_s"]) for e in events if e["type"] == "step"]
+    by_kind = {}
+    for kind, w in walls:
+        by_kind.setdefault(kind, []).append(w)
+    PATH_WALLS["slice_launch"] = by_kind
+    for k, (kind, w) in enumerate(walls):
+        emit({"phase": "slice_launch", "step": k, "kind": kind,
+              "loss": losses[k], "wall_s": w, "compress_s": compress_s[k]})
+    params = state.params
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+
+    # the builders at the same cut, on the CLI's trained parameters
+    with calls_by_shape() as builder_shapes:
+        torch.cuda.reset_peak_memory_stats()
+        tb = steps.build_train_step(arch, device=dev, cell=ShapeCell(
+            "card_train", S["seq"], S["batch"], "train"))
+        batch = TokenStream(vocab=arch.vocab, batch=S["batch"],
+                            seq_len=S["seq"], seed=0,
+                            device=dev).batch_at(S["steps"])
+        st = tb.opt.init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, train_loss = tb.step_fn(
+            params, st, batch, torch.Generator(device=dev).manual_seed(1))
+        train_loss = float(train_loss)
+        train_s = time.perf_counter() - t0
+        del st, tb
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        prompt = TokenStream(vocab=arch.vocab, batch=1, seq_len=S["prefill"],
+                             seed=1, device=dev).batch_at(0)["tokens"]
+        pb = steps.build_prefill_step(arch, device=dev, cell=ShapeCell(
+            "card_prefill", S["prefill"], 1, "prefill"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = pb.step_fn(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_ok = (tuple(logits.shape) == (1, S["prefill"], arch.vocab)
+                      and bool(torch.isfinite(logits).all()))
+        # decode over the prompt's first tokens against a prefill of them: fp32
+        # activations, the reference's decode test's dtype (bf16 decode and
+        # forward each round in their own order, as slice_lm shows)
+        n = S["decode"]
+        arch32 = dataclasses.replace(arch, dtype="float32")
+        db = steps.build_decode_step(arch32, device=dev, cell=ShapeCell(
+            "card_decode", n, 1, "decode"))
+        want = steps.build_prefill_step(arch32, device=dev, cell=ShapeCell(
+            "card_decode", n, 1, "prefill")).step_fn(
+                params, {"tokens": prompt[:, :n]})
+        cache, dec = db.lm.init_cache(1, n), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(n):
+                lg, cache = db.step_fn(params, cache, prompt[:, t:t + 1], t)
+                dec.append(lg[:, 0])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n
+        dec = torch.stack(dec, 1)
+        dec_err = _scale_err(dec, want)
+        dec_ok = bool(torch.allclose(dec, want, atol=DECODE_TOL,
+                                     rtol=DECODE_TOL))
+        bf16_err = _scale_err(dec.float(), logits[:, :n].float())
+    builders_peak = torch.cuda.max_memory_allocated()
+    counts = _build.launch_counts()
+    del params, logits, want, dec, cache
+    torch.cuda.empty_cache()
+    full = get_arch(S["arch"])
+    finite = bool(np.all(np.isfinite(losses + [train_loss])))
+    n_params = count_params(arch)
+    emit({"phase": "slice_launch", "summary": True, "arch": arch.name,
+          "d_model": arch.d_model, "n_heads": arch.n_heads,
+          "n_kv_heads": arch.n_kv_heads, "head_dim": arch.hd,
+          "d_ff": arch.d_ff, "vocab": arch.vocab, "dtype": arch.dtype,
+          "params": n_params,
+          "reduced": {"n_layers": [arch.n_layers, full.n_layers],
+                      "repeats": [[s.repeats for s in arch.segments],
+                                  [s.repeats for s in full.segments]],
+                      "params": [n_params, count_params(full)]},
+          "argv": [a if a != tmp else "<tmpdir>" for a in argv],
+          "steps": len(losses),
+          "kinds": [k for k, _ in walls], "losses": losses,
+          "finite": finite, "wall_s_by_kind": by_kind,
+          "compress_s": compress_s, "run_s": run_s,
+          "factor_modes": modes, "use_kernels": opt.cfg.use_kernels,
+          "cli_peak_mem_bytes": cli_peak, "base_mem_bytes": base,
+          "params_held_bytes": held,
+          "builders": {"train": {"cell": [S["batch"], S["seq"]],
+                                 "loss": train_loss, "wall_s": train_s},
+                       "prefill": {"shape": [1, S["prefill"]],
+                                   "wall_s": prefill_s, "ok": prefill_ok},
+                       "decode": {"tokens": n, "tol": DECODE_TOL,
+                                  "fp32_max_err_of_scale": dec_err,
+                                  "fp32_allclose": dec_ok,
+                                  "ms_per_token": decode_ms,
+                                  "vs_bf16_prefill": bf16_err},
+                       "peak_mem_bytes": builders_peak},
+          "launches": counts, "calls_by_shape": by_shape,
+          "builder_calls_by_shape": builder_shapes})
+    missing = [k for k in PATH_KERNELS["slice_launch"] if counts[k] == 0]
+    unchecked = [k for k in {**by_shape, **builder_shapes}
+                 if k not in checked]
+    if (not finite or len(losses) != S["steps"] or missing or unchecked
+            or not prefill_ok or not dec_ok or modes != ["brand"]):
+        raise AssertionError(
+            f"slice_launch: finite {finite}, {len(losses)} steps, kernels "
+            f"never launched {missing}, calls at unchecked shapes "
+            f"{unchecked}, prefill ok {prefill_ok}, fp32 decode allclose "
+            f"{dec_ok} ({dec_err:.3g}), factor modes {modes}")
+    return counts
+
+
+def phase_launch_reduced(checked):
+    """The CLI's other branches on the card (LAUNCH_REDUCED): B-R-KFAC
+    with health guards, checkpoints and the async pipeline on a side
+    stream, 12 steps, then a rerun that resumes from the newest snapshot,
+    held to an uninterrupted run; every kernel call at a shape the
+    ``kernels`` phase held.  Returns the launch counts of the two runs."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+
+    R = LAUNCH_REDUCED
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_reduced_")
+    ck, tel = os.path.join(tmp, "ck"), os.path.join(tmp, "tel")
+    argv = list(R["argv"]) + ["--ckpt-dir", ck, "--telemetry-dir", tel]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with calls_by_shape() as by_shape:
+        _, first = _cli(dev, argv + ["--steps", str(R["steps"])])
+        _, tail = _cli(dev, argv + ["--steps", str(R["resumed"])])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    side = _build.side_launch_counts()
+    events = _events(tel)
+    _, whole = _cli(dev, [a for a in R["argv"]] + ["--steps",
+                                                   str(R["resumed"])])
+    shutil.rmtree(tmp, ignore_errors=True)
+    types = {}
+    for e in events:
+        types[e["type"]] = types.get(e["type"], 0) + 1
+    restores = [e["step"] for e in events if e["type"] == "ckpt_restore"]
+    # the newest snapshot is of the last step a multiple of the cadence
+    k0 = (R["steps"] - 1) // 2 * 2 + 1
+    err = max(abs(a - b) / max(abs(b), 1e-6)
+              for a, b in zip(tail, whole[k0:]))
+    emit({"phase": "launch_reduced", "argv": R["argv"],
+          "losses": first, "resumed_losses": tail, "restored": restores,
+          "uninterrupted_tail": whole[k0:], "resume_err": err,
+          "resume_bitwise": tail == whole[k0:], "event_counts": types,
+          "run_s": run_s, "launches": counts, "side_launches": side,
+          "calls_by_shape": by_shape})
+    missing = [k for k in PATH_KERNELS["launch_reduced"] if counts[k] == 0]
+    unchecked = [k for k in by_shape if k not in checked]
+    finite = bool(np.all(np.isfinite(first + tail)))
+    if (not finite or missing or unchecked or restores != [k0 - 1]
+            or len(tail) != R["resumed"] - k0 or not err <= 1e-6
+            or not types.get("async_land") or types.get("remediation")):
+        raise AssertionError(
+            f"launch_reduced: finite {finite}, kernels never launched "
+            f"{missing}, calls at unchecked shapes {unchecked}, restored "
+            f"{restores}, {len(tail)} resumed steps, resume err {err:.3g}, "
+            f"events {types}")
     return counts
 
 
@@ -2248,6 +2845,12 @@ def main(argv=None) -> int:
     # reduced config, then two full-width gemma3-4b tenants
     phase_agree_serve()
     by_path["slice_serve"] = phase_slice_serve(checked)
+    # the launch layer: the CLI and the builders card against CPU at the
+    # reduced config; the CLI and the builders at gemma3-4b's full width;
+    # the CLI's health, checkpoint, async and resume branches reduced
+    phase_agree_launch()
+    by_path["slice_launch"] = phase_slice_launch(checked)
+    by_path["launch_reduced"] = phase_launch_reduced(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -12,9 +12,8 @@ Counterpart of ``src/repro/api.py``: every name of the reference's
         ckpt=api.CkptSpec(dir="ckpt"),
         resilience=api.ResilienceSpec(health=True))
 
-Names of the reference's ``__all__`` that need modules not ported yet are
-listed in :data:`NOT_YET_PORTED`; ROADMAP names the item that brings
-it (the launch steps).
+Every name of the reference's ``__all__`` is here; :data:`NOT_YET_PORTED`
+is empty.
 """
 from __future__ import annotations
 
@@ -36,16 +35,13 @@ from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.service import FinetuneRequest, TenantService
 
 # launch tooling
-from repro_torch.launch.steps import default_kfac_config
+from repro_torch.launch.steps import build_train_step, default_kfac_config
 
 # observability
 from repro_torch.obs import TelemetryWriter
 
 #: the reference's ``__all__`` names this package does not have yet
-NOT_YET_PORTED = (
-    # launch tooling (launch/steps.py's step builders)
-    "build_train_step",
-)
+NOT_YET_PORTED = ()
 
 __all__ = [
     # optimizer
@@ -59,7 +55,7 @@ __all__ = [
     "TenantBank", "tree_stack", "tree_unstack",
     "TenantService", "FinetuneRequest", "Engine", "Request",
     # launch tooling
-    "default_kfac_config",
+    "build_train_step", "default_kfac_config",
     # observability
     "TelemetryWriter",
 ]

@@ -150,6 +150,17 @@ class BucketLayout:
         them."""
 
 
+class _ConsumedGrads(BucketLayout):
+    """The one-optimizer layout whose caller hands its gradients over
+    (``Kfac.update(consume_grads=True)``): a bucket's tapped gradients
+    leave the caller's dict once gathered."""
+
+    @staticmethod
+    def release(leaves, keys) -> None:
+        for k in keys:
+            leaves.pop(k, None)
+
+
 class Kfac:
     """K-FAC optimizer over a tapped model (holds statics only).
     ``device=None`` means the card; its state lives there."""
@@ -506,7 +517,8 @@ class Kfac:
                acts, probe_grads, n_tokens: int,
                rng: Optional[torch.Generator],
                work: schedule.StepWork, draws=None, landing=None,
-               damping_scale=None) -> Tuple[Params, KfacState]:
+               damping_scale=None, consume_grads: bool = False
+               ) -> Tuple[Params, KfacState]:
         """One optimizer step → (updates, new state).  ``work`` is the
         step's StepWork mask; ``draws`` optionally injects the heavy ops'
         random inputs per bucket (see ``_bucketed_factor_work``);
@@ -519,7 +531,13 @@ class Kfac:
         damping ratio φ — the remediation ladder's stage-1 knob
         (train/health.py); a scale of exactly 1.0 changes no bit.  The
         state passed in is never modified: a caller may keep it and
-        discard the new one."""
+        discard the new one.
+
+        ``consume_grads`` hands ``grads`` over: on the bucketed path each
+        tapped gradient leaves the dict once its bucket is gathered, so
+        the update does not hold the gradients beside their
+        preconditioned steps (gigabytes at a full-width LM); the
+        numbers are the same."""
         cfg = self.cfg
         first = state.n_stats == 0
         phi = cfg.damping_phi(state.step)
@@ -552,9 +570,15 @@ class Kfac:
                                             n_tokens, rng, first, work,
                                             draws=draws)
 
-        precondition = (self._bucketed_precondition if cfg.bucketed
-                        else self._tap_precondition)
-        S_all = precondition(factors, grads, acts, probe_grads, phi)
+        order = list(grads)
+        untapped = self._untapped(grads)
+        if cfg.bucketed:
+            S_all = self._bucketed_precondition(
+                factors, grads, acts, probe_grads, phi,
+                layout=_ConsumedGrads if consume_grads else BucketLayout)
+        else:
+            S_all = self._tap_precondition(factors, grads, acts,
+                                           probe_grads, phi)
         updates: Params = {}
         new_mom = dict(state.momentum) if state.momentum is not None else None
         # each tap's preconditioned step becomes its update in place, and is
@@ -571,9 +595,9 @@ class Kfac:
             else:
                 updates[t.param_path] = S.mul_(-lr)
         fb_updates, fb_state = self._fallback.update(
-            self._untapped(grads), state.fallback, self._untapped(params))
+            untapped, state.fallback, self._untapped(params))
         updates.update(fb_updates)
-        updates = {k: updates[k] for k in grads}     # parameter order
+        updates = {k: updates[k] for k in order}     # parameter order
         if cfg.clip > 0:
             updates = optbase.clip_by_global_norm_(updates, cfg.clip)
 

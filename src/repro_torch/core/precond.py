@@ -66,7 +66,9 @@ def apply_inv_right(J: Tensor, U: Tensor, D: Tensor, lam: Tensor,
         from repro_torch.kernels import ops as kops
         return kops.lowrank_apply(J, U, lowrank_inv_diag(D, lam), lam)
     T = (J @ U) * lowrank_inv_diag(D, lam)[..., None, :]
-    return T @ _mt(U) + J / _scal(lam, J)
+    # T Uᵀ + J/λ with one J-sized temporary (the sum in place: the same
+    # bits as out of place); a bucket of a full-width LM is gigabytes
+    return (T @ _mt(U)).addcdiv_(J, _scal(lam, J))
 
 
 def apply_inv_left(J: Tensor, U: Tensor, D: Tensor, lam: Tensor,

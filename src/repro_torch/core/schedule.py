@@ -297,6 +297,17 @@ class Scheduler:
         """Legacy three-bool view of this schedule (un-staggered)."""
         return legacy_flags(self.cfg, step)
 
+    def describe(self) -> str:
+        """One line: the heavy period, the flags, then each unit as
+        ``[b{bucket} {lo}:{hi} @{phase}]`` (the reference's)."""
+        parts = [f"T_heavy={self.T_heavy} stagger={self.stagger} "
+                 f"async={self.async_heavy} lag={self.lag} "
+                 f"units={len(self.units)}"]
+        for u in self.units:
+            sync = " sync" if u.sync_only else ""
+            parts.append(f"[b{u.bucket} {u.lo}:{u.hi} @{u.phase}{sync}]")
+        return " ".join(parts)
+
 
 def _merge(ranges: Sequence[Tuple[int, int]]) -> Ranges:
     """Sort and merge adjacent/overlapping ranges."""

@@ -63,7 +63,8 @@ def _mixer_dims(arch: ArchConfig):
 
 
 def _zeros(d: int, generator: torch.Generator) -> Tensor:
-    return torch.zeros((d,), dtype=torch.float32, device=generator.device)
+    return torch.zeros((d,), dtype=torch.float32,
+                       device=layers.init_device(generator))
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +308,7 @@ def _ssd_dims(arch: ArchConfig):
 def init_ssm(g: torch.Generator, arch: ArchConfig, dtype=torch.float32):
     d = arch.d_model
     d_inner, H, G, N, conv_dim, in_dim = _ssd_dims(arch)
-    dev = g.device
+    dev = layers.init_device(g)
     return {
         "ln": _zeros(d, g),
         "in_proj": layers.dense_init(g, d, in_dim, dtype=dtype),
@@ -399,7 +400,7 @@ def decode_ssm(spec, arch: ArchConfig, p, h_t, cache, t,
 
 def init_rglru(g: torch.Generator, arch: ArchConfig, dtype=torch.float32):
     d, D = arch.d_model, arch.lru_width
-    dev = g.device
+    dev = layers.init_device(g)
     return {
         "ln": _zeros(d, g),
         "wi": layers.dense_init(g, d, 2 * D, dtype=dtype),

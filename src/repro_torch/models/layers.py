@@ -68,14 +68,22 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5
     return (out * scale + bias).to(x.dtype)
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+def init_device(generator: Optional[torch.Generator]) -> torch.device:
+    """The device an init draws on: its generator's, or the meta device
+    for a shapes-only init (``generator=None``, which ``torch.randn``
+    takes as the default generator and meta never consumes)."""
+    return generator.device if generator is not None else torch.device(
+        "meta")
+
+
+def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
                scale: Optional[float] = None, device=None,
                dtype=torch.float32) -> Tensor:
     """N(0, 1)·scale (default 1/√d_in), drawn in fp32 on ``device`` (the
     generator's device by default), then cast to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return (torch.randn((d_in, d_out), generator=generator,
-                        device=device or generator.device)
+                        device=device or init_device(generator))
             * scale).to(dtype)
 
 

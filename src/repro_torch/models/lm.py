@@ -165,14 +165,17 @@ class LM:
                         [r[k] for r in reps])
         return out
 
-    def init(self, generator: torch.Generator) -> Dict[str, Tensor]:
+    def init(self, generator: Optional[torch.Generator]
+             ) -> Dict[str, Tensor]:
         """Random fp32 parameters with the reference's shapes and scales,
         drawn from ``generator`` on its device (the numbers are not the
         reference's: parity tests convert the reference's instead), as
-        leaf tensors that require grad."""
+        leaf tensors that require grad.  ``generator=None`` gives them on
+        the meta device — shapes and dtypes only, nothing drawn or
+        allocated (the reference's ``jax.eval_shape(lm.init, key)``)."""
         arch = self.arch
         g = generator
-        dev = g.device
+        dev = layers.init_device(g)
         params = {"embed": torch.randn((arch.vocab, arch.d_model),
                                        generator=g, device=dev) * 0.01}
         params.update(self._init_segments(g, arch.segments, "segments",

@@ -154,7 +154,7 @@ def init_moe_params(generator: torch.Generator, dims: MoeDims,
     """The reference's shapes and scales, drawn from ``generator`` on its
     device (the numbers are not the reference's)."""
     E, d, f = dims.n_experts, dims.d_model, dims.d_ff
-    dev = generator.device
+    dev = layers.init_device(generator)
     p = {
         "router": layers.dense_init(generator, d, E),
         "wi": (torch.randn((E, d, 2 * f), generator=generator, device=dev)

@@ -108,22 +108,19 @@ def _is_dataclass(node) -> bool:
     return dataclasses.is_dataclass(node) and not isinstance(node, type)
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
-    """{key: host copy} of every leaf of ``tree`` — a nest of dicts and
-    dataclasses over tensors, generators and Python ints (``None`` has no
-    leaves)."""
-    out: Dict[str, np.ndarray] = {}
+def leaves(tree) -> Dict[str, Any]:
+    """{key: leaf} of ``tree`` — a nest of dicts and dataclasses over
+    tensors, generators and Python ints (``None`` has no leaves) — keyed
+    as a checkpoint keys them; the leaves are not copied (meta tensors
+    too: the step builders' abstract trees)."""
+    out: Dict[str, Any] = {}
 
     def walk(node, path, whole=False):
         key = SEP.join(path)
         if node is None:
             return
-        if isinstance(node, torch.Tensor):
-            out[key] = node.detach().to("cpu", copy=True).numpy()
-        elif isinstance(node, torch.Generator):
-            out[key] = node.get_state().numpy().copy()
-        elif isinstance(node, int):
-            out[key] = np.asarray(node, np.int32)
+        if isinstance(node, (torch.Tensor, torch.Generator, int)):
+            out[key] = node
         elif isinstance(node, Mapping):
             for k in sorted(node, key=str):
                 walk(node[k], path + _path_of(k, whole))
@@ -137,6 +134,19 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
                             f"{type(node).__name__}")
 
     walk(tree, ())
+    return out
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    """{key: host copy} of every leaf of ``tree`` (see :func:`leaves`)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, node in leaves(tree).items():
+        if isinstance(node, torch.Tensor):
+            out[key] = node.detach().to("cpu", copy=True).numpy()
+        elif isinstance(node, torch.Generator):
+            out[key] = node.get_state().numpy().copy()
+        else:
+            out[key] = np.asarray(node, np.int32)
     return out
 
 

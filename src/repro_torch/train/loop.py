@@ -96,6 +96,7 @@ def make_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac, n_tokens: int,
 def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
                              n_tokens: int, probe_dtype=torch.float32,
                              meter: Optional[obs_metrics.Meter] = None,
+                             grad_transform: Optional[Callable] = None,
                              obs: Optional[specs_lib.ObsSpec] = None):
     """Returns step(state, batch, work, draws=None, landing=None) →
     (state, loss), with ``work`` the step's StepWork mask and ``landing``
@@ -107,18 +108,30 @@ def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
     the step becomes step(state, batch, work, draws=None, landing=None,
     mbuf=None) → (state, loss, mbuf): the optimizer runs under the
     meter's collector, the metric buffer is merged and flushed, and the
-    parameters and loss are bit for bit the meter-less step's."""
+    parameters and loss are bit for bit the meter-less step's.
+
+    ``grad_transform`` — ``(grads, carry) -> (grads, carry)`` — rewrites
+    the parameter gradients before the optimizer sees them (the DP
+    gradient-compression path: ``distributed/compress.py::compress_tree``
+    with its ``CompressState`` carry); the step then takes and returns
+    that carry as a trailing argument and output (``cstate=``, after
+    ``mbuf`` when a meter is on)."""
     if obs is not None and meter is None:
         meter = obs.make_meter(opt)
 
     def step(state: TrainState, batch, work, draws=None, landing=None,
-             mbuf=None):
+             mbuf=None, cstate=None):
         dev = next(iter(state.params.values())).device
         probes = layers.make_probes(opt.taps, device=dev, dtype=probe_dtype)
         loss, acts, gp, gprobe = kfac_grads(loss_fn, state.params, probes,
                                             batch)
+        if grad_transform is not None:
+            gp, cstate = grad_transform(gp, cstate)
+        # the step owns gp: the update may drop each gradient once its
+        # bucket is gathered
         kw = dict(acts=acts, probe_grads=gprobe, n_tokens=n_tokens,
-                  rng=state.rng, work=work, draws=draws, landing=landing)
+                  rng=state.rng, work=work, draws=draws, landing=landing,
+                  consume_grads=True)
         if meter is None:
             updates, opt_state = opt.update(gp, state.opt, state.params,
                                             **kw)
@@ -129,8 +142,12 @@ def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
             mbuf = meter.maybe_flush(meter.merge(mbuf, col),
                                      opt_state.step)
         optbase.apply_updates(state.params, updates)
-        out = dataclasses.replace(state, opt=opt_state)
-        return (out, loss) if meter is None else (out, loss, mbuf)
+        outs = (dataclasses.replace(state, opt=opt_state), loss)
+        if meter is not None:
+            outs += (mbuf,)
+        if grad_transform is not None:
+            outs += (cstate,)
+        return outs
 
     return step
 

@@ -439,7 +439,7 @@ def test_mid_lag_restore_with_overlap_runner(tmp_path):
 def test_api_all_plus_not_yet_ported_is_the_references():
     assert set(api.__all__) | set(api.NOT_YET_PORTED) == set(japi.__all__)
     assert not set(api.__all__) & set(api.NOT_YET_PORTED)
-    assert api.NOT_YET_PORTED == ("build_train_step",)
+    assert api.NOT_YET_PORTED == ()
     for name in api.__all__:
         assert getattr(api, name) is not None, name
 
