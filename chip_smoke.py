@@ -116,9 +116,34 @@ Phases, run in this order (each prints one JSON line):
            that resumes from the step-10 snapshot, held to an
            uninterrupted run; its EA-absorb and CholeskyQR2 calls at
            shapes the ``kernels`` phase held
+  agree_dist
+           the distributed curvature engine: (a) the small VGG under
+           B-R-KFAC with the engine on a one-member ``nccl`` mesh in this
+           process against the same run without it; then four ranks of
+           this card (processes of this script, ``gloo``): (b) the CPU
+           tests' tap set on (4,) and a (2, 2) curv × rows mesh —
+           synchronous, async at lag 0 and 2 — each against the same
+           case in one process at 1e-3, the rank-8 compressed gather
+           within its reference bound of the raw one, the small VGG at
+           1e-3; (c) the CLI at --reduced --mesh 2x2 --mesh-axes
+           data,curv against --mesh none in this process at 1e-4
+  slice_dist
+           path 12, on the same four ranks: slice_brkfac's full-width
+           VGG16_bn, weights, batches and 31 steps through
+           run_kfac_training(dist=…), slots on curv, dense-M rows on
+           rows; wall time and gather seconds a step per rank, held M
+           bytes against m_bytes(), launches and calls by shape (each at
+           a shape the ``kernels`` phase held); then the same steps
+           replayed, each step's update and new state (M, U·D·Uᵀ, aux,
+           momentum) held at 1e-3 to the one-process optimizer's from
+           the same gathered state; the free-running losses held to
+           slice_brkfac's at 1e-3 over steps 0-3, and later to 10 times
+           the drift of a witness: slice_brkfac again in this process
+           from weights one ulp apart (rounding alone parts runs at this
+           width)
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
-phase checked; on paths 4, 5, 8, 9, 10, 11 and launch_reduced every
+phase checked; on paths 4, 5, 8, 9, 10, 11, 12 and launch_reduced every
 kernel's); then the ``kernels`` line
 (launches summed over the paths) and, last, the ``ok`` line.  Any failure
 raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
@@ -128,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -414,11 +440,15 @@ def phase_kernels():
     sym = lambda b, d: (lambda m: (m + m.mT) / 2)(rnd(b, d, d)).contiguous()
     # launch_reduced's dense buckets, X (B, d, n_stat = 16)
     launch_dense, launch_panels = launch_kernel_shapes()
+    # slice_dist's, per rank: ⌈B/2⌉ slots of each bucket on the curvature
+    # axis (the row-sharded buckets absorb outside any kernel)
+    dist_dense, dist_brand, dist_panels = dist_kernel_shapes()
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
            [(sym(b, d), rnd(b, d, 256))
             for b, d in ((2, 256),) + tuple(x for x in NS_BUCKETS
                                             if x != (2, 256))]
-           + [(sym(b, d), rnd(b, d, n)) for b, d, n in launch_dense],
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in launch_dense]
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in dist_dense],
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
@@ -450,6 +480,9 @@ def phase_kernels():
     sv_brand, sv_precond, (sv_r, sv_n) = serve_kernel_shapes()
     ut_a_cases += [(orth(b, d, sv_r + sv_n)[..., :sv_r], rnd(b, d, sv_n))
                    for b, d in sv_brand]
+    # slice_dist's: each rank's ⌈B/2⌉ slots of a Brand bucket
+    ut_a_cases += [(orth(b, d, w)[..., :r], rnd(b, d, n))
+                   for b, d, w, r, n in dist_brand]
     record("ut_a", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:58", ut_a_cases,
            bp.ut_a_batched, ref.ut_a, lambda U, A: torch.bmm(U.mT, A),
@@ -487,7 +520,12 @@ def phase_kernels():
               + [(rnd(b, d, lm_n),) for b, d in lm_brand]
               + [(rnd(b, d, sv_n),) for b, d in sv_brand]
               # launch_reduced's RSVD panels (count, d, r + r_o)
-              + [(rnd(c, d, k),) for c, d, k in launch_panels])
+              + [(rnd(c, d, k),) for c, d, k in launch_panels]
+              # slice_dist's per rank: the A⊥ panels of its ⌈B/2⌉ slots,
+              # and its RSVD panels (a heavy range's chunk on each row
+              # member)
+              + [(rnd(b, d, n),) for b, d, _, _, n in dist_brand]
+              + [(rnd(c, d, k),) for c, d, k in dist_panels])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -908,11 +946,19 @@ PATH_KERNELS = {
     # the CLI at --reduced under B-R-KFAC: the EA absorb of its dense M
     # and the RSVD range finder's CholeskyQR2
     "launch_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
+    # B-R-KFAC on four ranks (slots on curv, M rows on rows): the EA
+    # absorb of the one bucket whose d (27) the row axis does not divide
+    "slice_dist": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                   "precond_panel", "precond_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
 #: comparisons of later paths
 PATH_WALLS = {}
+
+#: each path's per-step losses (``phase_path``): slice_dist is held to
+#: slice_brkfac's
+PATH_LOSSES = {}
 
 
 def lowrank_key(b, p, d, w, cols) -> str:
@@ -1089,6 +1135,7 @@ def phase_path(phase: str, optimizer: str, linear_taps=(), steps: int = 11,
     for kind, w in zip(kinds, walls):
         by_kind.setdefault(kind, []).append(w)
     PATH_WALLS[phase] = by_kind
+    PATH_LOSSES[phase] = losses
     emit({"phase": phase, "summary": True, "optimizer": optimizer,
           "linear_apply_taps": list(linear_taps), "params": n_params,
           "steps": steps, "kinds": kinds,
@@ -2801,9 +2848,606 @@ def phase_launch_reduced(checked):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the distributed curvature engine: agree_dist and slice_dist (path 12)
+# ---------------------------------------------------------------------------
+
+#: path 12: the paper's full-width VGG16_bn under B-R-KFAC on four ranks of
+#: the one card, factor slots on ``curv`` and dense-M rows on ``rows``;
+#: 31 steps, as slice_brkfac (the RSVD overwrite at 0 and 25)
+DIST = dict(world=4, shape=(2, 2), axes=("curv", "rows"), steps=31,
+            timeout=900)
+
+#: slice_dist's limits: each replayed step's update and new state (M,
+#: U·diag(D)·Uᵀ, momentum relative to the largest entry; aux absolute),
+#: and the free-running losses over the first DIST_HELD steps, against
+#: one process's; past those the sharded run's loss drift from
+#: slice_brkfac's may be at most DIST_CHAOS times the witness's (the same
+#: run from weights one ulp apart), or DIST_TOL's
+DIST_TOL = 1e-3
+DIST_HELD = 4
+DIST_CHAOS = 10.0
+
+#: agree_dist's tap set: the CPU tests' mixed taps (tests/test_torch_dist.py)
+DIST_TAPS = (("fc", "fc/w", 48, 32, ()), ("fc2", "fc2/w", 48, 32, ()),
+             ("scan", "scan/w", 48, 48, (3,)), ("moe", "moe/w", 48, 32,
+                                                (2, 2)))
+
+#: agree_dist's schedules on the taps (the CPU tests' configs): staggered
+#: synchronous, the same async at lag 0, lag 2 with step-varying
+#: operands, and unstaggered
+DIST_CFGS = {
+    "sync": dict(momentum=0.9, T_updt=1, T_brand=1, T_inv=3, T_rsvd=3,
+                 T_corct=3, stagger=True, stagger_splits=4),
+    "lag0": dict(momentum=0.9, T_updt=1, T_brand=1, T_inv=3, T_rsvd=3,
+                 T_corct=3, stagger=True, stagger_splits=4,
+                 async_heavy=True, heavy_lag=0),
+    "lag2": dict(T_updt=1, T_brand=1, T_inv=3, T_rsvd=3, T_corct=3,
+                 stagger=True, stagger_splits=2, async_heavy=True,
+                 heavy_lag=2),
+    "plain": dict(momentum=0.9, T_updt=1, T_brand=1, T_inv=3, T_rsvd=3,
+                  T_corct=3)}
+
+#: (name, variant, mesh, schedule, steps, compress_rank); "1d" is (4,)
+#: [curv], "2d" DIST's (2, 2) with M rows on ``rows``.  The compressed
+#: gather runs at rank 8, the rank of its reference test
+#: (tests/test_mesh2d.py:444), whose bound it is held to: at rank 2 these
+#: taps' updates move by 0.56 of their norm (CPU, tests/test_torch_dist.py
+#: setup), past the bound of 0.5
+DIST_AGREE = (("sync_1d", "bkfac", "1d", "sync", 4, None),
+              ("sync_2d", "brkfac", "2d", "sync", 4, None),
+              ("lag0_1d", "kfac", "1d", "lag0", 4, None),
+              ("lag0_2d", "brkfac", "2d", "lag0", 4, None),
+              ("lag2_2d", "brkfac", "2d", "lag2", 6, None),
+              ("raw_2d", "bkfac", "2d", "plain", 3, None),
+              ("compress_2d", "bkfac", "2d", "plain", 3, 8))
+
+#: agree_dist's CLI: the reduced config under B-R-KFAC, 4 steps
+DIST_CLI = ("--reduced", "--variant", "brkfac", "--steps", "4")
+
+
+def dist_slice_opt(dev):
+    """slice_dist's model, optimizer and stream: slice_brkfac's."""
+    from repro_torch.examples.train_vgg_kfac import build
+    return build("paper", "brkfac", batch=128, device=dev, use_kernels=True)
+
+
+def dist_kernel_shapes():
+    """slice_dist's kernel shapes, from its optimizer's buckets and the
+    engine's plans: each rank steps ⌈B/2⌉ slots of a bucket.  The EA
+    absorb (B_l, d, n_stat) of a bucket whose M the row axis does not
+    divide (the others absorb outside any kernel); the Brand panel
+    (B_l, d, w, r, n_stat) of each Brand bucket; the RSVD range finder's
+    panels (c, d, r + r_o): c = B_l / 2 when the row members split the
+    range, else B_l."""
+    import numpy as np
+    import types
+    import torch
+    from repro_torch.core import kfactor
+    from repro_torch.distributed import curvature
+    _, opt, _ = dist_slice_opt(torch.device("cpu"))
+    mesh = types.SimpleNamespace(axis_names=DIST["axes"],
+                                 devices=np.zeros(DIST["shape"]))
+    eng = curvature.CurvatureEngine(mesh, "curv", opt.factor_buckets,
+                                    row_axis="rows")
+    dense, brand, panels = [], [], []
+    for b, plan, rb in zip(opt.factor_buckets, eng.plans, eng.row_blocks):
+        s, bl = b.spec, plan.per_device
+        if s.needs_m and rb is None:
+            dense.append((bl, s.d, s.n_stat))
+        if s.mode in kfactor._HAS_BRAND:
+            brand.append((bl, s.d, s.width, s.r, s.n_stat))
+        if kfactor.needs_draws(s) and s.mode is not kfactor.Mode.BRAND_CORR:
+            split = bl >= eng.n_rows and bl % eng.n_rows == 0
+            c = bl // eng.n_rows if (rb is not None and split) else bl
+            panels.append((c, s.d, min(s.r + s.r_o, s.d)))
+    return dense, brand, panels
+
+
+def _taps_opt(variant, sched, dev):
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.optim import base as optbase
+    taps = {n: kfac_lib.TapInfo(p, di, do, stack=st, n_stat=16)
+            for n, p, di, do, st in DIST_TAPS}
+    cfg = kfac_lib.KfacConfig(
+        policy=policy_lib.PolicyConfig(variant=variant, r=8,
+                                       max_dense_dim=8192),
+        lr=optbase.constant(0.05), use_kernels=True, **DIST_CFGS[sched])
+    return kfac_lib.Kfac(cfg, taps, device=dev)
+
+
+def _taps_run(variant, sched, steps, dev, dist=None):
+    """``Kfac.update`` on the taps, operands made with numpy (seed 0;
+    step-varying under lag 2), draws from a card generator seeded 1 →
+    the updates of every step."""
+    import numpy as np
+    import torch
+    opt = _taps_opt(variant, sched, dev)
+    if dist is not None:
+        dist.attach(opt)
+    plan = opt.scheduler(align=4)
+    rs = np.random.default_rng(0)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rs.standard_normal(shape) * scale).astype(
+            np.float32), device=dev)
+
+    def operands():
+        return ({f"{n}/w": t(*st, di, do) for n, _, di, do, st in DIST_TAPS},
+                {n: t(*st, 16, di) for n, _, di, _, st in DIST_TAPS},
+                {n: t(*st, 16, do, scale=1e-3)
+                 for n, _, _, do, st in DIST_TAPS})
+    params = {f"{n}/w": t(*st, di, do, scale=0.05)
+              for n, _, di, do, st in DIST_TAPS}
+    fixed = operands()
+    st = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = []
+    for k in range(steps):
+        grads, acts, pgs = operands() if sched == "lag2" else fixed
+        upd, st = opt.update(dict(grads), st, params, acts=acts,
+                             probe_grads=pgs, n_tokens=16, rng=gen,
+                             work=plan.work(k))
+        out.append({n: u.float().cpu() for n, u in upd.items()})
+    return out
+
+
+def _upd_err(a, b) -> float:
+    """Largest error over the updates, relative to each tensor's largest
+    entry."""
+    return max(float((x[n] - y[n]).abs().max())
+               / max(float(y[n].abs().max()), 1e-30)
+               for x, y in zip(a, b) for n in y)
+
+
+def _agree_vgg(dev, dist=None):
+    """The small VGG of the agree phases under B-R-KFAC, 6 steps, numpy
+    draws (seed 5) → losses."""
+    from repro_torch.train import loop
+    model, opt, batches = agree_setup("brkfac", dev)
+    _, losses = loop.run_kfac_training(
+        model.loss, opt, model.params(), batches, n_tokens=16, seed=0,
+        device=dev, draws=numpy_draws(opt, seed=5), dist=dist)
+    return losses
+
+
+def dist_rank_agree(meshes, dev):
+    """agree_dist (b), on this rank: each tap case sharded against the
+    same case in one process on this card (1e-3), the compressed gather
+    against the raw one at its reference bound, the small VGG's losses."""
+    import numpy as np
+    from repro_torch import specs
+    out = {}
+    raw = None
+    for name, variant, mesh, sched, steps, q in DIST_AGREE:
+        spec = specs.DistSpec(
+            mesh=meshes[mesh], curvature_axis="curv",
+            row_axis="rows" if mesh == "2d" else None,
+            curvature_compress=q)
+        got = _taps_run(variant, sched, steps, dev, spec)
+        if q is None:
+            want = _taps_run(variant, sched, steps, dev)
+            out[name] = {"max_rel_err": _upd_err(got, want),
+                         "tol_rel": 1e-3}
+            if name == "raw_2d":
+                raw = got
+        else:
+            ratio = max(float(np.linalg.norm((x[n] - y[n]).numpy()))
+                        / float(np.linalg.norm(y[n].numpy()))
+                        for x, y in zip(got, raw) for n in y)
+            out[name] = {"rank": q, "max_norm_ratio": ratio, "bound": 0.5}
+    spec = specs.DistSpec(mesh=meshes["2d"], curvature_axis="curv",
+                          row_axis="rows")
+    a, b = _agree_vgg(dev, spec), _agree_vgg(dev)
+    out["vgg_2d"] = {"losses": a, "losses_one": b,
+                     "max_rel_err": _max_rel(a, b), "tol_rel": 1e-3}
+    return out
+
+
+def dist_rank_slice(mesh, dev):
+    """slice_dist on this rank: slice_brkfac's model, weights, batches and
+    draws through ``run_kfac_training(dist=…)`` → per-step losses, kinds
+    and walls, the gathers' seconds a step, held and accounted M bytes,
+    launches and calls by shape."""
+    import torch
+    from repro_torch import specs
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.train import loop
+    model, opt, stream = dist_slice_opt(dev)
+    steps = DIST["steps"]
+    batches = [stream.batch_at(i) for i in range(steps)]
+    sched = opt.scheduler(align=4)
+    kinds = [step_kind(sched.work(k)) for k in range(steps)]
+    spec = specs.DistSpec(mesh=mesh, curvature_axis="curv", row_axis="rows")
+    gather_s = [0.0]
+    gather = collectives.all_gather
+
+    def timed_gather(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return gather(*a, **kw)
+        finally:
+            gather_s[0] += time.perf_counter() - t0
+    walls, gathers = [], []
+    t_prev = [0.0]
+
+    def cb(k, state, loss):
+        torch.cuda.current_stream().synchronize()
+        now = time.perf_counter()
+        walls.append(now - t_prev[0])
+        gathers.append(gather_s[0])
+        gather_s[0] = 0.0
+        t_prev[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.all_gather = timed_gather
+    _build.reset_launch_counts()
+    t_prev[0] = time.perf_counter()
+    try:
+        with calls_by_shape() as by_shape:
+            state, losses = loop.run_kfac_training(
+                model.loss, opt, model.params(), batches, n_tokens=128,
+                seed=0, callback=cb, device=dev, dist=spec)
+        torch.cuda.synchronize()
+    finally:
+        collectives.all_gather = gather
+    counts = _build.launch_counts()
+    eng = opt.curvature
+    return {"losses": losses, "kinds": kinds, "wall_s": walls,
+            "gather_s": gathers, "launches": counts,
+            "calls_by_shape": dict(by_shape),
+            "held_m_bytes": sum(t.numel() * t.element_size()
+                                for t in state.opt.shards.values()),
+            "m_bytes": list(eng.m_bytes()),
+            "collective_bytes": eng.collective_bytes(),
+            "engine": eng.describe(),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _state_err(got, want) -> dict:
+    """Largest errors of the one-device KfacState ``got`` against
+    ``want``: each factor's dense M and U·diag(D)·Uᵀ (the dense inverse U
+    where D is all zero) and the momentum, each relative to the tensor's
+    largest entry; aux (truncated-mass fractions, residuals) absolute;
+    the step counters' mismatches."""
+    import torch
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def udu(st):
+        return (st.U * st.D.unsqueeze(-2)) @ st.U.transpose(-1, -2)
+
+    out = {"M": 0.0, "UDU": 0.0, "aux": 0.0, "momentum": 0.0,
+           "counters": int(got.step != want.step)
+           + int(got.phase != want.phase) + int(got.n_stats != want.n_stats)}
+    for name, ts in want.factors.items():
+        for side in "AG":
+            w, g = getattr(ts, side), getattr(got.factors[name], side)
+            if w.M.shape[-1] > 1:
+                out["M"] = max(out["M"], rel(g.M, w.M))
+            dense_inv = not bool(w.D.abs().max() > 0)
+            out["UDU"] = max(out["UDU"], rel(g.U, w.U) if dense_inv
+                             else rel(udu(g), udu(w)))
+            out["aux"] = max(out["aux"],
+                             float((g.aux - w.aux).abs().max()))
+    for name, m in (want.momentum or {}).items():
+        out["momentum"] = max(out["momentum"], rel(got.momentum[name], m))
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank_replay(mesh, dev):
+    """slice_dist's numerics, step by step: the same model, weights,
+    batches and schedule under the engine, and at every step rank 0 also
+    runs the one-process optimizer (no engine) from the same parameters,
+    gradients and the engine's state gathered to the one-device layout,
+    with the same draws (numpy, seed 5) → each step's largest update
+    error relative to each tensor's largest entry, and the errors of the
+    engine's new state (gathered) against the state the one-process step
+    returns (``_state_err``), on rank 0; and the sharded run's losses.
+    Teacher-forced: the run goes on from the sharded update and state, so
+    every step's whole transition — update and new state, the row-block
+    EA absorb's M included — is held to one process's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import specs
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import tenant
+    from repro_torch.models import layers
+    from repro_torch.optim import base as optbase
+    from repro_torch.train import loop
+    model, opt, stream = dist_slice_opt(dev)
+    one = kfac_lib.Kfac(opt.cfg, opt.taps, device=dev)
+    eng = specs.DistSpec(mesh=mesh, curvature_axis="curv",
+                         row_axis="rows").attach(opt)
+    sched = opt.scheduler()
+    draws = numpy_draws(opt, seed=5)
+    params = model.params()
+    state = opt.init(params)
+    rank0 = dist.get_rank() == 0
+    whole = eng.gather_state(opt, state)
+    errs, state_errs, losses = [], [], []
+    for k in range(DIST["steps"]):
+        work = sched.work(k)
+        probes = layers.make_probes(opt.taps, device=dev)
+        loss, acts, gp, gprobe = loop.kfac_grads(
+            model.loss, params, probes, stream.batch_at(k))
+        kw = dict(acts=acts, probe_grads=gprobe, n_tokens=128, rng=None,
+                  work=work, draws=draws(k))
+        before = tenant.tree_map(
+            lambda x: x.clone() if torch.is_tensor(x) else x,
+            whole) if rank0 else None
+        upd, state = opt.update(dict(gp), state, params, **kw)
+        whole = eng.gather_state(opt, state)
+        if rank0:
+            want, want_state = one.update(dict(gp), before, params, **kw)
+            errs.append(max(float((upd[n] - w).abs().max())
+                            / max(float(w.abs().max()), 1e-30)
+                            for n, w in want.items()))
+            state_errs.append(_state_err(whole, want_state))
+            del want, want_state
+        del before
+        optbase.apply_updates(params, upd)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    return {"update_rel_err": errs, "state_err": state_errs,
+            "losses": losses}
+
+
+def phase_rounding_witness():
+    """slice_dist's witness of how far rounding alone parts a run at this
+    width: slice_brkfac's one-process run (model, batches, seed, 31
+    steps) again from initial weights each moved by one ulp → its
+    per-step losses.  Its launches count toward no path."""
+    import math
+    import torch
+    from repro_torch.train import loop
+    dev = torch.device("cuda")
+    model, opt, stream = dist_slice_opt(dev)
+    params = {k: torch.nextafter(p, torch.full_like(p, math.inf))
+              for k, p in model.params().items()}
+    batches = [stream.batch_at(i) for i in range(DIST["steps"])]
+    t0 = time.perf_counter()
+    _, losses = loop.run_kfac_training(model.loss, opt, params, batches,
+                                       n_tokens=128, seed=0, device=dev)
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0
+
+
+def dist_rank_main(rank: int, world: int, rdv: str, out: str) -> int:
+    """One rank of agree_dist (b, c) and slice_dist: joins the world
+    through a file rendezvous (gloo: the ranks share the card), finds the
+    kernels the parent built, and writes its results as JSON."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        from repro_torch.kernels import _build
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch import train
+        dev = mesh_lib.init_process_group(
+            None, init_method=f"file://{rdv}", rank=rank, world_size=world)
+        _build.load()
+        res.update(backend=dist.get_backend(), device=str(dev),
+                   init_s=time.perf_counter() - t0)
+        meshes = {"1d": mesh_lib.make_mesh((world,), ("curv",)),
+                  "2d": mesh_lib.make_mesh(DIST["shape"], DIST["axes"])}
+        t1 = time.perf_counter()
+        res["agree"] = dist_rank_agree(meshes, dev)
+        res["agree_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            state, losses = train.run(train.parse_args(
+                list(DIST_CLI) + ["--mesh", "2x2", "--mesh-axes",
+                                  "data,curv"]))
+        res["cli"] = {"losses": losses, "log": buf.getvalue(),
+                      "held_m_bytes": sum(t.numel() * t.element_size() for
+                                          t in state.opt.shards.values())}
+        del state
+        res["cli_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res["slice"] = dist_rank_slice(meshes["2d"], dev)
+        res["slice_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res["replay"] = dist_rank_replay(meshes["2d"], dev)
+        res["replay_s"] = time.perf_counter() - t1
+        dist.barrier()
+        rc = 0
+    except Exception:
+        res["error"] = traceback.format_exc()
+        rc = 1
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return rc
+
+
+def phase_agree_dist_single():
+    """agree_dist (a): the small VGG under B-R-KFAC with the engine on a
+    one-member ``nccl`` mesh in this process, against the same run with
+    no engine."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import specs
+    from repro_torch.launch import mesh as mesh_lib
+    dev = torch.device("cuda")
+    mesh = mesh_lib.make_mesh((1,), ("curv",))
+    spec = specs.DistSpec(mesh=mesh, curvature_axis="curv")
+    a, b = _agree_vgg(dev, spec), _agree_vgg(dev)
+    err = _max_rel(a, b)
+    emit({"phase": "agree_dist", "case": "one_member", "backend":
+          dist.get_backend(), "losses": a, "losses_no_engine": b,
+          "max_rel_err": err, "tol_rel": 1e-3})
+    if not err < 1e-3:
+        raise AssertionError(f"agree_dist one member: {a} vs {b}")
+
+
+def phase_dist(checked):
+    """agree_dist (b, c) and slice_dist on ``DIST["world"]`` ranks of the
+    one card (processes of this script, joined with a timeout); this
+    process meanwhile runs the CLI without a mesh, the oracle of (c).
+    Returns slice_dist's launch counts, summed over the ranks."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    world = DIST["world"]
+    witness, witness_s = phase_rounding_witness()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    rdv = os.path.join(tmp, "rendezvous")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+         str(r), str(world), rdv, os.path.join(tmp, f"rank{r}.json")],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, cli_one = train.run(train.parse_args(list(DIST_CLI)))
+        deadline = time.perf_counter() + DIST["timeout"]
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t0
+    res = []
+    for r in range(world):
+        logs[r].seek(0)
+        tail = logs[r].read()[-2000:]
+        logs[r].close()
+        path = os.path.join(tmp, f"rank{r}.json")
+        got = json.load(open(path)) if os.path.exists(path) else {}
+        if procs[r].returncode != 0 or "error" in got:
+            raise AssertionError(f"slice_dist rank {r} failed (rc "
+                                 f"{procs[r].returncode}): "
+                                 f"{got.get('error', '')[-3000:]}\n{tail}")
+        res.append(got)
+    # (b): every rank's cases
+    for name in res[0]["agree"]:
+        rows = [g["agree"][name] for g in res]
+        line = {"phase": "agree_dist", "case": name, "ranks": rows}
+        emit(line)
+        for row in rows:
+            ok = (row["max_norm_ratio"] <= row["bound"] if "bound" in row
+                  else row["max_rel_err"] < row["tol_rel"])
+            if not ok:
+                raise AssertionError(f"agree_dist {name}: {rows}")
+    # (c): the CLI on the 2 × 2 mesh against --mesh none
+    cli_err = max(_max_rel(g["cli"]["losses"], cli_one) for g in res)
+    log0 = res[0]["cli"]["log"]
+    emit({"phase": "agree_dist", "case": "cli", "losses_one": cli_one,
+          "losses": [g["cli"]["losses"] for g in res],
+          "max_rel_err": cli_err, "tol_rel": 1e-4,
+          "engine_log": [ln for ln in log0.splitlines()
+                         if "curvature sharded" in ln or "dense-M" in ln]})
+    if not (cli_err < 1e-4 and "curvature sharded on 'curv'" in log0
+            and all(not g["cli"]["log"] for g in res[1:])):
+        raise AssertionError(f"agree_dist cli: {cli_err}, log {log0}")
+    # slice_dist: each step's update and new state against the
+    # one-process optimizer's from the same state (the replay, at
+    # DIST_TOL), every path kernel launched, every call at a checked
+    # shape, M as accounted.  The free-running losses are held to
+    # slice_brkfac's at DIST_TOL over the first DIST_HELD steps only: at
+    # this width rounding alone parts two runs by more than that later,
+    # as the witness shows (slice_brkfac from weights one ulp apart), and
+    # the sharded run must part by no more than DIST_CHAOS times the
+    # witness does
+    sl = [g["slice"] for g in res]
+    replay = res[0]["replay"]
+    err = max(replay["update_rel_err"])
+    want = PATH_LOSSES["slice_brkfac"]
+    drift = [abs(a - b) / abs(b) for a, b in zip(sl[0]["losses"], want)]
+    w_drift = [abs(a - b) / abs(b) for a, b in zip(witness, want)]
+    serr = {f: max(e[f] for e in replay["state_err"])
+            for f in replay["state_err"][0]}
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [k for k in PATH_KERNELS["slice_dist"] if counts[k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    held = [s["held_m_bytes"] for s in sl]
+    kinds = sl[0]["kinds"]
+    for k in range(DIST["steps"]):
+        emit({"phase": "slice_dist", "step": k, "kind": kinds[k],
+              "loss": sl[0]["losses"][k],
+              "loss_slice_brkfac": want[k], "drift": drift[k],
+              "drift_witness": w_drift[k],
+              "update_rel_err": replay["update_rel_err"][k],
+              "state_err": replay["state_err"][k],
+              "wall_s": [round(s["wall_s"][k], 6) for s in sl],
+              "gather_s": [round(s["gather_s"][k], 6) for s in sl]})
+    by_kind = {}
+    for s in sl:
+        for kind, w, g in zip(kinds, s["wall_s"], s["gather_s"]):
+            by_kind.setdefault(kind, {"wall_s": [], "gather_s": []})
+            by_kind[kind]["wall_s"].append(w)
+            by_kind[kind]["gather_s"].append(g)
+    emit({"phase": "slice_dist", "summary": True, "world": world,
+          "mesh": dict(zip(DIST["axes"], DIST["shape"])),
+          "backend": res[0]["backend"], "engine": sl[0]["engine"],
+          "steps": DIST["steps"], "kinds": kinds,
+          "max_update_rel_err": err, "max_state_err": serr,
+          "tol": DIST_TOL,
+          "loss_drift_held_steps": DIST_HELD,
+          "max_loss_drift_held": max(drift[:DIST_HELD]),
+          "max_loss_drift_vs_slice_brkfac": max(drift),
+          "witness": {"losses": witness, "seconds": witness_s,
+                      "max_loss_drift": max(w_drift),
+                      "chaos_factor": DIST_CHAOS},
+          "wall_s_by_kind": by_kind,
+          "held_m_bytes": held, "m_bytes": sl[0]["m_bytes"],
+          "collective_bytes": sl[0]["collective_bytes"],
+          "peak_mem_bytes": [s["peak_mem_bytes"] for s in sl],
+          "launches": counts, "launches_by_rank": [s["launches"]
+                                                   for s in sl],
+          "calls_by_shape": [s["calls_by_shape"] for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "agree": [g["agree_s"] for g in res],
+                      "cli": [g["cli_s"] for g in res],
+                      "slice": [g["slice_s"] for g in res],
+                      "replay": [g["replay_s"] for g in res]},
+          "note": "four ranks share one card's SMs and memory: these "
+                  "times are what the path costs on one H100, not what "
+                  "four cards would take"})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    state_ok = (serr["counters"] == 0
+                and all(serr[f] < DIST_TOL for f in serr if f != "counters"))
+    drift_ok = (max(drift[:DIST_HELD]) < DIST_TOL
+                and max(drift) <= DIST_CHAOS * max(max(w_drift), DIST_TOL))
+    if (not finite or not err < DIST_TOL or not state_ok or not drift_ok
+            or missing or unchecked
+            or len(replay["update_rel_err"]) != DIST["steps"]
+            or len(replay["state_err"]) != DIST["steps"]
+            or any(h != sl[0]["m_bytes"][1] for h in held)):
+        raise AssertionError(
+            f"slice_dist: finite {finite}, update rel err {err}, state "
+            f"err {serr}, loss drift {drift} (witness {w_drift}), never "
+            f"launched {missing}, calls at unchecked shapes {unchecked}, "
+            f"held M {held} vs {sl[0]['m_bytes']}")
+    return counts
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dist-rank", nargs=4, default=None,
+                    metavar=("RANK", "WORLD", "RENDEZVOUS", "OUT"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2811,6 +3455,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dist_rank is not None:
+        rank, world, rdv, out = args.dist_rank
+        return dist_rank_main(int(rank), int(world), rdv, out)
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
@@ -2851,6 +3498,11 @@ def main(argv=None) -> int:
     phase_agree_launch()
     by_path["slice_launch"] = phase_slice_launch(checked)
     by_path["launch_reduced"] = phase_launch_reduced(checked)
+    # the distributed curvature engine: one member on nccl, then four
+    # ranks of this card on gloo (the taps, the small VGG, the CLI on a
+    # 2 × 2 mesh), and B-R-KFAC at full width on a (2, 2) curv × rows mesh
+    phase_agree_dist_single()
+    by_path["slice_dist"] = phase_dist(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -5,8 +5,9 @@ O(#shape-classes) batched launches instead of O(#layers) small ones.
 Counterpart of ``src/repro/core/buckets.py``, replicated part:
 factor buckets are keyed on the full ``KFactorSpec``, precond buckets on
 (A-spec, G-spec, linear_apply); bucket and entry order is deterministic
-(sorted tap name, then side).  The shard-aware layout helpers of the
-reference belong to the distributed slice.
+(sorted tap name, then side).  The shard-aware layout helpers at the
+end are the reference's index bookkeeping for the distributed curvature
+engine (``distributed/curvature.py``).
 """
 from __future__ import annotations
 
@@ -145,3 +146,53 @@ def scatter_states(entries: Sequence[Entry], batched: KFactorState
                 lambda leaf, e=e: _unflatten(
                     leaf[e.offset:e.offset + e.count], e))
             for e in entries}
+
+
+# ---------------------------------------------------------------------------
+# shard-aware layout: round-robin slot → device assignment (KAISA-style)
+# ---------------------------------------------------------------------------
+#
+# The distributed curvature engine partitions a bucket's flat batch axis
+# across the mesh's curvature axis.  Slot s lives on device s % n at local
+# row s // n, so consecutive slots (usually one stacked tap) spread across
+# devices and every device gets an equal ceil(total/n) share of every
+# bucket.  Pure index bookkeeping, as in the reference.
+
+def padded_total(total: int, n: int) -> int:
+    """Bucket batch padded to a multiple of the device count."""
+    return -(-total // n) * n
+
+
+def shard_perm(total: int, n: int):
+    """Index vector placing slots device-major: position d*m + k holds
+    slot (k*n + d) % total; the pad tail wraps onto real slots, so
+    padding computes on well-formed (discarded) operands."""
+    m = padded_total(total, n) // n
+    return [(k * n + d) % total for d in range(n) for k in range(m)]
+
+
+def shard_unperm(total: int, n: int):
+    """Inverse map: position of slot s in the device-major layout."""
+    m = padded_total(total, n) // n
+    return [(s % n) * m + s // n for s in range(total)]
+
+
+def slot_device(slot: int, n: int) -> int:
+    """Owning device of a bucket slot under the round-robin assignment."""
+    return slot % n
+
+
+def localize_ranges(ranges, total: int, n: int):
+    """Global heavy slot ranges → the per-device local row ranges (equal
+    on every device).  Each range must start at a multiple of ``n`` and
+    end at a multiple of ``n`` or at the bucket end (the scheduler's
+    ``align=n`` contract); rows past ``total`` fall on wrapped pad slots
+    whose results are discarded."""
+    local = []
+    for lo, hi in ranges:
+        if lo % n != 0 or (hi % n != 0 and hi != total):
+            raise ValueError(
+                f"heavy range ({lo}, {hi}) not aligned to the curvature "
+                f"mesh size {n}; build the Scheduler with align={n}")
+        local.append((lo // n, -(-hi // n)))
+    return tuple(local)

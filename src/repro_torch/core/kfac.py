@@ -20,8 +20,10 @@ per-tap comparison path (``bucketed=False``) run the same per-bucket
 program.  Taps with ``linear_apply`` take the Alg-8 application from
 their gradient factors.  ``async_heavy`` runs the two-phase launch/land
 pipeline of the reference on the bucketed path (the per-bucket in-flight
-buffers are ``KfacState.inflight``).  The distributed curvature engine is
-a later slice.
+buffers are ``KfacState.inflight``).  A distributed curvature engine
+(``distributed/curvature.py``, attached as ``curvature``) takes over the
+bucketed factor work and keeps each member's dense M in
+``KfacState.shards``.
 
 Telemetry, as in the reference: the update records the work and damping
 metrics and, per bucket, the heavy-slot counts and refresh diagnostics
@@ -115,6 +117,10 @@ class KfacState:
     # cfg.async_heavy is off
     inflight: Dict[str, kfactor.InflightState] = dataclasses.field(
         default_factory=dict)
+    # bucket idx (str) → this mesh member's block of the bucket's dense M
+    # (a curvature engine's layout, distributed/curvature.py); {} on one
+    # device, so a checkpoint has no such leaves
+    shards: Dict[str, Tensor] = dataclasses.field(default_factory=dict)
     # keyed by tap name (one checkpoint key each, as in the reference)
     TAP_KEYED: ClassVar[Tuple[str, ...]] = ("factors", "momentum")
 
@@ -163,12 +169,20 @@ class _ConsumedGrads(BucketLayout):
 
 class Kfac:
     """K-FAC optimizer over a tapped model (holds statics only).
-    ``device=None`` means the card; its state lives there."""
+    ``device=None`` means the card; its state lives there.
+
+    ``curvature`` (optional) is a distributed curvature engine
+    (``repro_torch.distributed.curvature.CurvatureEngine``) that shards
+    each factor bucket's batch axis across a mesh axis; when attached,
+    the bucketed factor work is delegated to it and :meth:`init` returns
+    the state in its layout.  Duck-typed, so core never imports the
+    distributed package."""
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
-                 device=None):
+                 device=None, curvature=None):
         self.device = device_lib.resolve(device)
         self.cfg = cfg
+        self.curvature = curvature
         self.taps = dict(taps)
         self.specs = {
             name: dict(A=policy.make_factor_spec(cfg.policy, t.d_in,
@@ -201,6 +215,12 @@ class Kfac:
         self._cycle = self.scheduler().cycle
 
     def scheduler(self, **kw) -> schedule.Scheduler:
+        """A work scheduler over this optimizer's factor buckets; with a
+        curvature engine attached, heavy chunks align to its ``align``
+        (slot-axis size × row-axis size) unless ``align`` is given."""
+        if "align" not in kw and self.curvature is not None:
+            kw["align"] = getattr(self.curvature, "align",
+                                  self.curvature.n_devices)
         return schedule.Scheduler(self.cfg, self.factor_buckets, **kw)
 
     def uniform_work(self, do_stats: bool, do_light: bool, do_heavy: bool
@@ -246,8 +266,11 @@ class Kfac:
                         self.factor_buckets[bi].total, n_replay,
                         device=device)
                     for bi, n_replay in self._async_buckets.items()}
-        return KfacState(step=0, n_stats=0, phase=0, factors=factors,
-                         momentum=mom, fallback=fb, inflight=inflight)
+        state = KfacState(step=0, n_stats=0, phase=0, factors=factors,
+                          momentum=mom, fallback=fb, inflight=inflight)
+        if self.curvature is not None:
+            state = self.curvature.localize_state(self, state)
+        return state
 
     def _untapped(self, tree: Params) -> Params:
         paths = {t.param_path for t in self.taps.values()}
@@ -307,7 +330,7 @@ class Kfac:
                               n_tokens, rng: Optional[torch.Generator],
                               first: bool, work: schedule.StepWork,
                               draws=None, landing=None, phi=None,
-                              layout=BucketLayout):
+                              layout=BucketLayout, bucket_step=None):
         """Stats absorbs, Brand updates and the scheduled heavy ranges as
         one batched call per shape-class bucket; async buckets also run
         this step's pipeline phases (panel ring, launch, land) against
@@ -320,7 +343,20 @@ class Kfac:
         bucket index (str) → one pre-computed (U, D, aux) per land range.
         ``phi`` (the step's damping ratio) only feeds telemetry.
         ``layout`` lays each bucket's batch out of the per-tap leaves (the
-        tenant bank passes its own).  Returns (factors, inflight)."""
+        tenant bank and the curvature engine pass their own).
+        ``bucket_step(bi, bucket, st, X, draws, buf, landed) -> (st,
+        buf)`` replaces the inner per-bucket program (the curvature engine
+        substitutes its sharded one); the loop around it exists only here,
+        so the sharded path cannot diverge from the replicated one
+        structurally.  Returns (factors, inflight)."""
+        if bucket_step is None:
+            def bucket_step(bi, bucket, st, X, bdraws, buf, landed):
+                launch = work.launch[bi] if work.launch else ()
+                land = work.land[bi] if work.land else ()
+                return kfactor.bucket_factor_step_async(
+                    bucket.spec, st, X, first, work.stats, work.light,
+                    layout.ranges(work.heavy[bi]), launch, land, buf,
+                    self.cfg.use_kernels, draws=bdraws, landed=landed)
         inflight = dict(inflight)
         states, X_all = {}, {}
         for name in sorted(self.taps):
@@ -349,12 +385,9 @@ class Kfac:
                 bdraws = bdraws.to(X.device)
             with obs_trace.span(f"kfac/factor/b{bi}_"
                                 f"{bucket.spec.mode.value}"):
-                st, buf = kfactor.bucket_factor_step_async(
-                    bucket.spec, st, X, first, work.stats, work.light,
-                    heavy, launch, land, inflight.get(str(bi)),
-                    self.cfg.use_kernels, draws=bdraws,
-                    landed=None if landing is None
-                    else landing.get(str(bi)))
+                st, buf = bucket_step(
+                    bi, bucket, st, X, bdraws, inflight.get(str(bi)),
+                    None if landing is None else landing.get(str(bi)))
             if buf is not None:
                 inflight[str(bi)] = buf
             self._record_bucket_metrics(bi, bucket, st, work, land, phi)
@@ -391,19 +424,27 @@ class Kfac:
                                torch.max(st.aux[..., kfactor.AUX_TRUNC]))
         if spec.needs_m and phi is not None:
             obs_metrics.record(f"bucket{bi}/inv_err",
-                               self._inv_error_proxy(spec, st, phi))
+                               self._inv_error_proxy(spec, st, phi, bi))
 
-    def _inv_error_proxy(self, spec, st, phi) -> Tensor:
+    def _inv_error_proxy(self, spec, st, phi, bi=None) -> Tensor:
         """Worst-slot ‖((M + λI) X − I)[rows]‖_F / √k over k ≤ 8 strided
         rows (deterministic: rows 0, s, 2s, … with s = d // k), X the held
         inverse representation and λ the damping the preconditioner
         derives (NS: the λ̂ in aux; low-rank: φ·max D plus the
         continuation shift).  Only computed on heavy-firing steps of an
-        instrumented run."""
+        instrumented run; a curvature engine computes it on its layout."""
+        if self.curvature is not None:
+            return self.curvature.inv_error_proxy(self, bi, spec, st, phi)
         d = spec.d
         k = min(8, d)
         idx = torch.arange(k, device=st.M.device) * max(1, d // k)
-        Mrows = st.M[..., idx, :]                            # (B, k, d)
+        sq = self._residual_sq(spec, st.M[..., idx, :], idx, st, phi)
+        return torch.max(torch.sqrt(sq / k))
+
+    def _residual_sq(self, spec, Mrows, idx, st, phi) -> Tensor:
+        """Per slot ‖((M + λI) X − I)[idx]‖_F² from the rows ``Mrows`` =
+        M[..., idx, :] (see ``_inv_error_proxy``)."""
+        d = spec.d
         ek = torch.eye(d, dtype=Mrows.dtype, device=Mrows.device)[idx]
         if spec.mode is kfactor.Mode.NS:
             lam = st.aux[..., kfactor.AUX_LAM]
@@ -414,7 +455,7 @@ class Kfac:
             Y = precond.apply_inv_right(
                 Mrows + lam[..., None, None] * ek, st.U, D, lam)
         R = Y - ek
-        return torch.max(torch.sqrt(torch.sum(R * R, dim=(-2, -1)) / k))
+        return torch.sum(R * R, dim=(-2, -1))
 
     # -- preconditioning ------------------------------------------------------
     def _precondition(self, name, st: TapState, grad_w: Tensor, phi,
@@ -558,7 +599,13 @@ class Kfac:
 
         factors = dict(state.factors)
         inflight = dict(state.inflight)
-        if work.any and cfg.bucketed:
+        shards = state.shards
+        if work.any and self.curvature is not None and cfg.bucketed:
+            factors, inflight, shards = self.curvature.factor_work(
+                self, factors, inflight, shards, acts, probe_grads,
+                n_tokens, rng, first, work, draws=draws, landing=landing,
+                phi=phi)
+        elif work.any and cfg.bucketed:
             factors, inflight = self._bucketed_factor_work(
                 factors, inflight, acts, probe_grads, n_tokens, rng, first,
                 work, draws=draws, landing=landing, phi=phi)
@@ -606,5 +653,5 @@ class Kfac:
             n_stats=state.n_stats + int(work.stats),
             phase=(state.phase + 1) % self._cycle,
             factors=factors, momentum=new_mom, fallback=fb_state,
-            inflight=inflight)
+            inflight=inflight, shards=shards)
         return updates, new_state

@@ -140,6 +140,28 @@ def ea_update_m_kernel(M: Tensor, X: Tensor, rho: float, first: bool
     return kops.ea_syrk(M, X, rho, first)
 
 
+def ea_update_m_rows(M_rows: Tensor, X: Tensor, r0: int, rb: int,
+                     rho: float, first: bool) -> Tensor:
+    """Row block [r0, r0+rb) of the EA absorb, exactly: every element of
+    X Xᵀ is an independent full-length dot product, so the row slice of
+    the absorb equals the absorb of the row slice (reference
+    ``core/kfactor.py:149``).  This is what lets the 2D curvature engine
+    keep the dense M row-sharded through stats steps.
+
+    M_rows: (*stack, rb, d) local row block; X: (*stack, d, n), whole on
+    every row member.  The coefficients are ``kernels/ref.py::ea_syrk``'s;
+    the product is one batched matmul outside any kernel, as the
+    reference computes it outside Pallas."""
+    X_rows = X[..., r0:r0 + rb, :]
+    rho_t = torch.as_tensor(rho, dtype=M_rows.dtype, device=M_rows.device)
+    firstf = torch.as_tensor(float(first), dtype=M_rows.dtype,
+                             device=M_rows.device)
+    keep = rho_t * (1.0 - firstf)
+    coef = 1.0 - keep
+    upd = (X_rows @ X.transpose(-1, -2)).to(M_rows.dtype)
+    return keep * M_rows + coef * upd
+
+
 def brand_step(spec: KFactorSpec, st: KFactorState, X: Tensor, first: bool,
                use_kernel: bool = False) -> KFactorState:
     """B-update (Alg 4): on the first-ever stats batch initialise from the

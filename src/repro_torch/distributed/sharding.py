@@ -1,0 +1,368 @@
+"""Parameter / optimizer-state / batch sharding rules, and a rank's local
+slice of a global tensor under them.
+
+Counterpart of ``src/repro/distributed/sharding.py``: the same
+path-pattern rules on the (pod, data, model) mesh —
+
+  * embeddings & LM head : vocab on "model"
+  * attention q/kv/o     : head (fused out) dim on "model"
+  * FFN wi / wo          : hidden dim on "model"
+  * MoE expert stacks    : expert dim on "model" (EP)
+  * K-FAC low-rank U     : factor rows (d) on "model"
+  * small vectors (norms, biases, D/A_log/…) : replicated
+  * batch                : ("pod", "data")
+
+A spec is the port's own :class:`P` (a tuple with one axis name, tuple of
+names or None per dimension) and a :class:`NamedSharding` pairs a mesh
+with one; no ``jax.sharding`` is involved.  The rules are pure functions
+of paths, shapes and axis sizes, so anything with ``axis_names`` and
+``devices.shape`` serves as the mesh.  Trees are the port's own: nests of
+dicts and dataclasses, with a leaf's path its keys and field names joined
+by "/" (a flat parameter name such as ``segments/0/p0/mix/wq`` is the
+reference's nested path already).
+
+:func:`local_slice` takes a rank's block of a global tensor under a
+sharding (contiguous blocks in the axes' coordinate order, as
+``jax.device_put`` lays a ``NamedSharding`` out); :func:`localize`,
+:func:`globalize` and :func:`global_template` apply it over a tree whose
+shardings may also hold a layout object of its own (the curvature
+engine's round-robin M layout, ``distributed/curvature.py``) — the
+checkpoint restore and the elastic runner use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Mapping, Tuple
+
+import torch
+
+from repro_torch.distributed import collectives as coll
+
+
+def _canon(entry):
+    """A one-name tuple is that name, an empty one None (as
+    ``jax.sharding.PartitionSpec`` canonicalizes)."""
+    if isinstance(entry, tuple) and len(entry) <= 1:
+        return entry[0] if entry else None
+    return entry
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dimension (an axis name,
+    a tuple of names, or None); missing trailing entries replicate."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_canon(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    mesh: Any
+    spec: P
+
+
+def _sizes(mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _is_dc(node) -> bool:
+    return dataclasses.is_dataclass(node) and not isinstance(node, type)
+
+
+def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over a nest of dicts and dataclasses (None stays
+    None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if _is_dc(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _map_with_path(fn, getattr(tree, f.name),
+                                   path + (f.name,))
+            for f in dataclasses.fields(tree)})
+    return fn("/".join(path), tree)
+
+
+def _ndim(leaf) -> int:
+    return leaf.ndim if isinstance(leaf, torch.Tensor) else 0
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+
+
+#: (regex, trailing-dims builder); first match wins.  Builders describe the
+#: trailing two dims (d_in, d_out); leading scan-stack dims get None.
+_RULES = [
+    # fan-in on model (output projections)
+    (re.compile(r"mix/(wo|x_wo|out_proj)$"), lambda tp: (tp, None)),
+    # fan-out on model (input/qkv/gate projections)
+    (re.compile(r"mix/(wq|wkv|x_wq|x_wkv|wq_a|wq_b|wkv_a|wkv_b|in_proj|"
+                r"wi|wg)$"), lambda tp: (None, tp)),
+    (re.compile(r"ffn/wo_f$"), lambda tp: (tp, None)),
+    (re.compile(r"ffn/shared_wi$"), lambda tp: (None, tp)),
+    (re.compile(r"ffn/shared_wo$"), lambda tp: (tp, None)),
+    (re.compile(r"ffn/router$"), lambda tp: (None, None)),
+    # embeddings / head: vocab on model
+    (re.compile(r"^embed$"), lambda tp: (tp, None)),
+    (re.compile(r"^head/w$"), lambda tp: (None, tp)),
+    (re.compile(r"^mtp/w$"), lambda tp: (None, tp)),
+]
+
+_FFN_WI_WO = re.compile(r"ffn/(wi|wo)$")
+
+
+def param_spec(path: str, ndim: int, mesh) -> P:
+    tp = "model" if "model" in mesh.axis_names else None
+    m = _FFN_WI_WO.search(path)
+    if m:
+        if ndim >= 4:
+            # MoE experts (…, E, d_in, d_out): expert dim on model (EP)
+            return P(*((None,) * (ndim - 3) + (tp, None, None)))
+        dims = (None, tp) if m.group(1) == "wi" else (tp, None)
+        return P(*((None,) * (ndim - 2) + dims))
+    for rx, fn in _RULES:
+        if rx.search(path):
+            dims = fn(tp)
+            n_lead = ndim - len(dims)
+            if n_lead < 0:      # rank-1 target (bias-like): replicate
+                return P()
+            return P(*((None,) * n_lead + tuple(dims)))
+    return P()                   # norms, biases, scalars: replicated
+
+
+def _axis_size(entry, sizes) -> int:
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(sizes.get(a, 1) for a in names)
+
+
+def fit_spec(spec: P, shape, mesh) -> P:
+    """Drop spec axes that do not divide the corresponding dim (the
+    offending axis is replicated instead)."""
+    sizes = _sizes(mesh)
+    fitted = []
+    for i, entry in enumerate(tuple(spec)):
+        if i >= len(shape) or shape[i] % _axis_size(entry, sizes) != 0:
+            fitted.append(None)
+        else:
+            fitted.append(entry)
+    return P(*fitted)
+
+
+def params_sharding(params, mesh):
+    """NamedSharding tree for a parameter tree."""
+    def one(path, leaf):
+        spec = param_spec(path, _ndim(leaf), mesh)
+        return NamedSharding(mesh, fit_spec(spec, _shape(leaf), mesh))
+    return _map_with_path(one, params)
+
+
+def params_sharding_fsdp(params, mesh):
+    """FSDP/ZeRO-3 plan: every ≥2D leaf fully sharded over ALL mesh axes
+    on its largest divisible dim."""
+    axes = tuple(mesh.axis_names)
+    n = int(mesh.devices.size)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        if len(shape) >= 2:
+            order = sorted(range(len(shape)), key=lambda i: -shape[i])
+            for i in order:
+                if shape[i] % n == 0 and shape[i] >= n:
+                    spec = [None] * len(shape)
+                    spec[i] = axes
+                    return NamedSharding(mesh, P(*spec))
+        return NamedSharding(mesh, P())
+
+    return _map_with_path(one, params)
+
+
+def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
+                        row_axis=None):
+    """K-FAC optimizer state: factor U/M rows on "model", D replicated;
+    AdamW fallback mirrors the param sharding; scalars replicated.
+    ``curvature_axis`` places stacked taps' dense M on that axis along
+    the leading stack dim; ``row_axis`` shards every dense M's rows —
+    live and in-flight snapshot alike.  Non-divisible stacks / factor
+    sides fall back to replication (fit_spec)."""
+    tp = "model" if "model" in mesh.axis_names else None
+
+    def one(path, leaf):
+        ndim, shape = _ndim(leaf), _shape(leaf)
+        if path.startswith("inflight"):
+            field = path.rsplit("/", 1)[-1]
+            if field == "M" and curvature_axis is not None and \
+                    ndim >= 3 and shape[-1] > 1:
+                spec = P(*((curvature_axis, row_axis)
+                           + (None,) * (ndim - 2)))
+                return NamedSharding(mesh, fit_spec(spec, shape, mesh))
+            return NamedSharding(mesh, P())
+        if "/factors/" in "/" + path + "/" or path.startswith("factors"):
+            field = path.rsplit("/", 1)[-1]
+            if field in ("U", "M") and ndim >= 2 and shape[-1] > 1:
+                lead = (None,) * (ndim - 2)
+                rows = tp
+                if field == "M":
+                    if curvature_axis is not None and ndim >= 3:
+                        lead = (curvature_axis,) + (None,) * (ndim - 3)
+                    if row_axis is not None:
+                        rows = row_axis
+                spec = P(*(lead + (rows, None)))
+                return NamedSharding(mesh, fit_spec(spec, shape, mesh))
+            return NamedSharding(mesh, P())
+        if path.startswith("fallback") or path.startswith("momentum"):
+            sub = re.sub(r"^(fallback/(mu|nu)|momentum)/", "", path)
+            spec = param_spec(sub, ndim, mesh)
+            return NamedSharding(mesh, fit_spec(spec, shape, mesh))
+        return NamedSharding(mesh, P())
+
+    return _map_with_path(one, opt_state)
+
+
+def batch_sharding(batch, mesh):
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+
+    def one(path, leaf):
+        return NamedSharding(mesh, P(*((dp,) + (None,) * (_ndim(leaf) - 1))))
+    return _map_with_path(one, batch)
+
+
+#: cache leaves with a sequence axis at position 2 (stacked: (reps, B, S, …))
+_SEQ_CACHE_LEAVES = {"k", "v", "xk", "xv", "c_kv", "k_rope"}
+
+
+def cache_sharding(cache, mesh, shard_seq: bool = False,
+                   layout: str = "seq", small_seq_threshold: int = 0):
+    """KV/state caches: batch on the data axes + seq on the model axis;
+    ``layout="heads"`` puts KV heads on the model axis; long context
+    (``shard_seq``) shards the sequence axis of KV-like leaves and
+    replicates recurrent states."""
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    tp = "model" if "model" in mesh.axis_names else None
+
+    def one(path, leaf):
+        ndim, shape = _ndim(leaf), _shape(leaf)
+        name = path.rsplit("/", 1)[-1]
+        if name in _SEQ_CACHE_LEAVES and ndim >= 3:
+            if shard_seq:
+                spec = (None, None, dp + ((tp,) if tp else ()))
+            elif shape[2] <= small_seq_threshold:
+                spec = (None, dp, None)
+            elif layout == "heads" and ndim >= 5:
+                spec = (None, dp, None, tp)
+            else:
+                spec = (None, dp, tp)
+            sh = P(*(spec + (None,) * (ndim - len(spec))))
+            return NamedSharding(mesh, fit_spec(sh, shape, mesh))
+        if shard_seq:               # B == 1: states replicate
+            return NamedSharding(mesh, P())
+        if ndim >= 2:               # (reps, B, ...): batch on data axes
+            return NamedSharding(mesh, P(*((None, dp)
+                                           + (None,) * (ndim - 2))))
+        return NamedSharding(mesh, P())
+
+    return _map_with_path(one, cache)
+
+
+def replicated(tree, mesh):
+    return _map_with_path(lambda path, leaf: NamedSharding(mesh, P()), tree)
+
+
+# ---------------------------------------------------------------------------
+# a rank's local slice of a global tensor
+# ---------------------------------------------------------------------------
+
+def _blocks(sharding: NamedSharding, ndim: int):
+    """[(dim, n_blocks, block index)] of this rank under ``sharding``."""
+    mesh, out = sharding.mesh, []
+    sizes = _sizes(mesh)
+    for i, entry in enumerate(tuple(sharding.spec)[:ndim]):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        n, idx = 1, 0
+        for a in names:                 # row-major over the named axes
+            idx = idx * sizes[a] + mesh.coord(a)
+            n *= sizes[a]
+        if n > 1:
+            out.append((i, n, idx))
+    return out
+
+
+def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the global ``x`` under ``sharding`` (a copy:
+    the global tensor may be freed)."""
+    for dim, n, idx in _blocks(sharding, x.ndim):
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _gather_blocks(x: torch.Tensor, sharding: NamedSharding
+                   ) -> torch.Tensor:
+    """Inverse of :func:`local_slice`: the global tensor, on every rank
+    (collective over the sharded axes)."""
+    for i, entry in reversed(list(enumerate(tuple(sharding.spec)[:x.ndim]))):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        for a in reversed(names):
+            x = coll.all_gather(x, sharding.mesh, a, dim=i)
+    return x
+
+
+def _walk(tree, shardings, leaf_fn, obj_fn):
+    if shardings is None or tree is None:
+        return tree
+    if hasattr(shardings, "localize"):            # a layout object
+        return obj_fn(shardings, tree)
+    if isinstance(shardings, NamedSharding):
+        if isinstance(tree, torch.Tensor):
+            return leaf_fn(tree, shardings)
+        return tree
+    if isinstance(tree, Mapping):
+        return type(tree)({k: _walk(v, shardings.get(k), leaf_fn, obj_fn)
+                           for k, v in tree.items()})
+    if _is_dc(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _walk(getattr(tree, f.name),
+                          getattr(shardings, f.name, None), leaf_fn, obj_fn)
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def localize(tree, shardings):
+    """This rank's slice of every leaf of a global ``tree`` under the
+    matching ``shardings`` tree (None: kept whole)."""
+    return _walk(tree, shardings, local_slice,
+                 lambda sh, sub: sh.localize(sub))
+
+
+def globalize(tree, shardings):
+    """The global tree from every rank's local ``tree`` (collective)."""
+    return _walk(tree, shardings, _gather_blocks,
+                 lambda sh, sub: sh.globalize(sub))
+
+
+def global_template(tree, shardings):
+    """A tree of the global shapes of a local ``tree`` (uninitialized
+    tensors: a restore fills them)."""
+    def leaf(x, sh):
+        shape = list(x.shape)
+        for dim, n, _ in _blocks(sh, x.ndim):
+            shape[dim] *= n
+        if shape == list(x.shape):
+            return x
+        return torch.empty(shape, dtype=x.dtype, device=x.device
+                           ).requires_grad_(x.requires_grad)
+    return _walk(tree, shardings, leaf,
+                 lambda sh, sub: sh.global_template(sub))

@@ -19,6 +19,7 @@ pipeline launches kernels from a worker thread too.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -80,6 +81,16 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    # one builder at a time across processes (the ranks of a mesh): the
+    # others wait on the lock and find the library built
+    with open(out.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     log = out.parent / "build.log"
     procs = []
@@ -108,7 +119,6 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed; see {log}")
     os.replace(tmp, out)
-    return out
 
 
 def load() -> ctypes.CDLL:

@@ -1,14 +1,24 @@
 """Step builders for training, prefill and decode — shared by the trainer
 CLI and the serving stack.
 
-Counterpart of ``src/repro/launch/steps.py`` at one device.  The
-reference's abstract values (``jax.eval_shape``) are tensors on the meta
-device here: ``abstract_params`` and ``abstract_opt`` are the port's own
-containers (a flat parameter dict, a ``KfacState``) over meta tensors,
-``batch_specs`` and a decode step's ``arg_specs`` meta tensors of the
-reference's shapes and dtypes; nothing is drawn or allocated for them.
-``in_shardings``/``out_shardings`` are None: a mesh raises (ROADMAP §1
-item 4 brings meshes).
+Counterpart of ``src/repro/launch/steps.py``.  The reference's abstract
+values (``jax.eval_shape``) are tensors on the meta device here:
+``abstract_params`` and ``abstract_opt`` are the port's own containers (a
+flat parameter dict, a ``KfacState``) over meta tensors, ``batch_specs``
+and a decode step's ``arg_specs`` meta tensors of the reference's shapes
+and dtypes; nothing is drawn or allocated for them.  With a mesh
+(anything with ``axis_names`` and ``devices.shape`` for the abstract
+trees; a ``launch/mesh.py`` mesh to run) ``in_shardings`` and
+``out_shardings`` are ``distributed/sharding.py`` shardings of those
+trees, the reference's rules.
+
+**Running on a mesh.**  Every rank runs the whole batch's forward and
+backward; a curvature axis (``dist``/``curvature_axis``) shards the
+factor work through the distributed curvature engine, so the numbers are
+those of one device.  A model axis larger than 1, or ``plan="fsdp"``,
+needs tensor- or data-parallel execution of the model, which the port
+does not have: such a step raises ``NotImplementedError`` when it runs
+(ROADMAP §1 item 6); its shardings are still built.
 
 A built step runs eagerly on ``device`` (the card unless the caller asks
 for another).  ``default_kfac_config`` keeps the reference's
@@ -29,6 +39,7 @@ from repro_torch import specs as specs_lib
 from repro_torch.configs.base import ArchConfig, SHAPES, ShapeCell
 from repro_torch.core import kfac as kfac_lib
 from repro_torch.core import policy as policy_lib
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models.lm import LM
 from repro_torch.models.sharding_policy import NO_SHARD, ShardPolicy
@@ -38,19 +49,36 @@ from repro_torch.train import loop as loop_lib
 META = torch.device("meta")
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
+def _axis_sizes(mesh) -> Tuple[Tuple[str, int], ...]:
+    return tuple((a, int(s)) for a, s in zip(mesh.axis_names,
+                                             mesh.devices.shape))
+
+
+def refuse_model_parallel(mesh, plan: str, what: str) -> None:
+    """The run-time refusal of a step the port cannot execute."""
+    if mesh is None:
+        return
+    sizes = dict(_axis_sizes(mesh))
+    if plan == "fsdp" or sizes.get("model", 1) > 1:
         raise NotImplementedError(
-            f"{what}: meshes are not ported yet (ROADMAP §1 item 4, "
-            f"'Distributed'); the port builds one-device steps — pass "
-            f"mesh=None")
+            f"{what}: a model axis larger than 1 or plan='fsdp' needs "
+            f"data- or tensor-parallel execution of the model, which is "
+            f"not ported (ROADMAP §1 item 6, 'Data- and tensor-parallel "
+            f"execution'); run on a mesh of data and curvature axes")
 
 
 def shard_policy_for(mesh=None, shard_kv_seq: bool = False,
                      seq_shard_residual: bool = True) -> ShardPolicy:
-    """``NO_SHARD`` at ``mesh=None``; a mesh raises."""
-    _no_mesh(mesh, "shard_policy_for")
-    return NO_SHARD
+    """The reference's policy for ``mesh``: data axes = every axis but
+    "model", tensor axis = "model" when present; ``NO_SHARD`` without a
+    mesh."""
+    if mesh is None:
+        return NO_SHARD
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    tp = "model" if "model" in mesh.axis_names else None
+    return ShardPolicy(dp=dp, tp=tp, seq_shard_residual=seq_shard_residual,
+                       shard_kv_seq=shard_kv_seq,
+                       axis_sizes=_axis_sizes(mesh))
 
 
 def default_kfac_config(arch: ArchConfig, variant: str = "bkfac",
@@ -126,9 +154,11 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
                      device=None) -> BuiltTrain:
     """``work`` (a schedule.StepWork) supersedes ``flags`` when given.
     ``dist`` is the spec-level spelling of the ``mesh``/``curvature_axis``
-    pair and may not be mixed with it; an inactive spec attaches as a
-    no-op, a mesh raises.  ``plan`` is the reference's model-sharding
-    plan, inert without a mesh.  ``async_heavy``/``heavy_lag`` give the
+    pair and may not be mixed with it; its curvature axis attaches the
+    distributed curvature engine (``opt.init`` then gives each rank its
+    layout).  ``plan`` is the reference's model-sharding plan ("tp" or
+    "fsdp"), which picks the shardings; see the module docstring for
+    which meshes run.  ``async_heavy``/``heavy_lag`` give the
     optimizer the double-buffered heavy pipeline (its state then carries
     the in-flight buffers).
 
@@ -145,7 +175,12 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
         dist = specs_lib.DistSpec(mesh=mesh, curvature_axis=curvature_axis)
     cell = cell or SHAPES["train_4k"]
     flags = flags or dict(do_stats=True, do_light=True, do_heavy=False)
-    sp = shard_policy_for(mesh)
+    if plan == "fsdp" and mesh is not None:
+        sp = ShardPolicy(dp=tuple(mesh.axis_names), tp=None,
+                         seq_shard_residual=False,
+                         axis_sizes=_axis_sizes(mesh))
+    else:
+        sp = shard_policy_for(mesh)
     dev = device_lib.resolve(device)
     lm = LM(arch, sp, remat=remat, unroll=unroll, device=dev)
     kcfg = default_kfac_config(arch, variant)
@@ -158,6 +193,7 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
     step_work = work if work is not None else opt.uniform_work(**flags)
 
     def train_step(params, opt_state, batch, rng):
+        refuse_model_parallel(mesh, plan, "build_train_step")
         draws = None
         if isinstance(rng, Mapping):
             draws, rng = rng, None
@@ -173,10 +209,28 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
 
     a_params = abstract_params(arch, sp)
     a_opt = kfac_lib.Kfac(kcfg, lm.taps, device=META).init(a_params)
+    batch_specs = train_batch_specs(arch, cell)
+    in_sh = out_sh = None
+    if mesh is not None:
+        if plan == "fsdp":
+            p_sh = shd.params_sharding_fsdp(a_params, mesh)
+            o_sh = shd.params_sharding_fsdp(a_opt, mesh)
+            dp_all = tuple(mesh.axis_names)
+            b_sh = {k: shd.NamedSharding(mesh, shd.P(
+                        *((dp_all,) + (None,) * (v.ndim - 1))))
+                    for k, v in batch_specs.items()}
+        else:
+            p_sh = shd.params_sharding(a_params, mesh)
+            o_sh = shd.kfac_state_sharding(a_opt, mesh,
+                                           curvature_axis=curvature_axis)
+            b_sh = shd.batch_sharding(batch_specs, mesh)
+        r_sh = shd.NamedSharding(mesh, shd.P())
+        in_sh = (p_sh, o_sh, b_sh, r_sh)
+        out_sh = (p_sh, o_sh, shd.NamedSharding(mesh, shd.P()))
     return BuiltTrain(lm=lm, opt=opt, step_fn=train_step,
                       abstract_params=a_params, abstract_opt=a_opt,
-                      in_shardings=None, out_shardings=None,
-                      batch_specs=train_batch_specs(arch, cell))
+                      in_shardings=in_sh, out_shardings=out_sh,
+                      batch_specs=batch_specs)
 
 
 @dataclasses.dataclass
@@ -202,19 +256,35 @@ def build_prefill_step(arch: ArchConfig, mesh=None,
 
     @torch.no_grad()
     def prefill(params, batch):
+        refuse_model_parallel(mesh, "tp", "build_prefill_step")
         logits, _, _, _ = lm.forward(params, batch, train=False)
         return logits
 
-    return BuiltServe(lm=lm, step_fn=prefill,
-                      abstract_params=abstract_params(arch, sp),
-                      arg_specs=(batch_specs,), in_shardings=None,
-                      out_shardings=None)
+    a_params = abstract_params(arch, sp)
+    in_sh = out_sh = None
+    if mesh is not None:
+        p_sh = shd.params_sharding(a_params, mesh)
+        b_sh = shd.batch_sharding(batch_specs, mesh)
+        dp = tuple(a for a in mesh.axis_names if a != "model")
+        in_sh = (p_sh, b_sh)
+        logits_shape = (cell.global_batch, 1, arch.vocab)
+        out_sh = shd.NamedSharding(mesh, shd.fit_spec(
+            shd.P(dp, None, "model"), logits_shape, mesh))
+    return BuiltServe(lm=lm, step_fn=prefill, abstract_params=a_params,
+                      arg_specs=(batch_specs,), in_shardings=in_sh,
+                      out_shardings=out_sh)
 
 
 def kv_rep_for(arch: ArchConfig, mesh) -> int:
-    """Smallest KV-head replication over the mesh's model axis: 1 at
-    ``mesh=None``; a mesh raises."""
-    _no_mesh(mesh, "kv_rep_for")
+    """Smallest KV-head replication r with (Hk·r) divisible by the model
+    axis and r dividing the GQA group (so H/(Hk·r) stays integral)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    tp = dict(_axis_sizes(mesh))["model"]
+    Hk, G = arch.n_kv_heads, arch.n_heads // arch.n_kv_heads
+    for r in range(1, G + 1):
+        if G % r == 0 and (Hk * r) % tp == 0:
+            return r
     return 1
 
 
@@ -234,13 +304,23 @@ def build_decode_step(arch: ArchConfig, mesh=None,
     kv_rep = 1
     if cache_layout == "heads" and not shard_seq:
         kv_rep = kv_rep_for(arch, mesh)
+        if kv_rep == 1 and mesh is not None:
+            tp = dict(_axis_sizes(mesh)).get("model", 1)
+            if arch.n_kv_heads % tp != 0:
+                # heads unrealizable → shard head_dim
+                cache_layout = "hd" if arch.hd % tp == 0 else "seq"
+    small_thr = 0
     sp = shard_policy_for(mesh, shard_kv_seq=shard_seq)
+    if sp.active:
+        sp = dataclasses.replace(sp, kv_cache_layout=cache_layout,
+                                 kv_small_seq_threshold=small_thr)
     lm = LM(arch, sp, remat=False, unroll=unroll,
             device=device_lib.resolve(device))
     cross_len = S if arch.is_encdec else 0
     S_self = max(S // arch.dec_ratio, 64) if arch.is_encdec else S
 
     def decode(params, cache, token, t):
+        refuse_model_parallel(mesh, "tp", "build_decode_step")
         return lm.decode_step(params, cache, token, t)
 
     meta_lm = LM(arch, sp, remat=False, device=META)
@@ -249,7 +329,19 @@ def build_decode_step(arch: ArchConfig, mesh=None,
                                         kv_rep=kv_rep)
     token_spec = _spec((B, 1), torch.int32)
     t_spec = _spec((), torch.int32)
-    return BuiltServe(lm=lm, step_fn=decode,
-                      abstract_params=meta_lm.init(None),
+    a_params = meta_lm.init(None)
+    in_sh = out_sh = None
+    if mesh is not None:
+        p_sh = shd.params_sharding(a_params, mesh)
+        c_sh = shd.cache_sharding(abstract_cache, mesh,
+                                  shard_seq=shard_seq, layout=cache_layout,
+                                  small_seq_threshold=small_thr)
+        dp = tuple(a for a in mesh.axis_names if a != "model")
+        tok_sh = shd.NamedSharding(mesh, shd.P() if shard_seq
+                                   else shd.P(dp, None))
+        in_sh = (p_sh, c_sh, tok_sh, shd.NamedSharding(mesh, shd.P()))
+        out_logits = shd.P() if shard_seq else shd.P(dp, None, None)
+        out_sh = (shd.NamedSharding(mesh, out_logits), c_sh)
+    return BuiltServe(lm=lm, step_fn=decode, abstract_params=a_params,
                       arg_specs=(abstract_cache, token_spec, t_spec),
-                      in_shardings=None, out_shardings=None)
+                      in_shardings=in_sh, out_shardings=out_sh)

@@ -1,8 +1,11 @@
-"""Production trainer entry point, on one device.
+"""Production trainer entry point.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_4b \\
         --steps 100 [--variant bkfac] [--ckpt-dir /path] [--compress] \\
         [--reduced] [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --reduced --mesh 2x2 \\
+        --mesh-axes data,curv [--curvature-compress 4]
 
 Counterpart of ``src/repro/launch/train.py``: the model zoo, the K-FAC
 optimizer (``launch/steps.py::default_kfac_config``; ``--reduced`` trains
@@ -12,9 +15,19 @@ detector, telemetry, the profiler, the async heavy pipeline, the health
 guards with the remediation ladder, and optional PowerSGD gradient
 compression (``distributed/compress.py``).  Every flag is the
 reference's, with its default, plus ``--device`` (default: the card; a
-host without one raises).  ``--mesh`` takes only ``none``: meshes and the
-distributed curvature engine are ROADMAP §1 item 4, so ``--curvature`` and
-``--curvature-compress`` are inert, as the reference's are without a mesh.
+host without one raises).
+
+``--mesh AxB[xC]`` (with ``--mesh-axes``; ``16x16`` and ``2x16x16`` are
+the production meshes) builds a ``launch/mesh.py`` mesh over the ranks of
+``torch.distributed.run`` (one process is one member; at one rank the
+CLI sets up its own one-member world), and ``--curvature auto`` picks the
+curvature engine's axes as the reference does: a ``curv`` axis larger
+than 1 takes the factor slots and the next data axis larger than 1 the
+dense-M rows, else the first data axis takes the slots.  Every rank
+trains on the same batches; rank 0 alone writes the log, the telemetry
+and the checkpoints (the gathered, one-device format).  A mesh with a
+``model`` axis larger than 1 raises ``NotImplementedError``: tensor
+parallelism is not ported (ROADMAP §1 item 6).
 
 Steps run eagerly (the reference jits one program per work mask).
 :func:`run` is the CLI without the parsing: tests and ``chip_smoke.py``
@@ -30,6 +43,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch import device as device_lib
 from repro_torch import specs as specs_lib
@@ -38,6 +52,7 @@ from repro_torch.core import kfac as kfac_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.distributed import compress as compress_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.lm import LM
 from repro_torch.obs import events as obs_events
@@ -60,10 +75,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--mesh", default="none",
-                    help="none (meshes are not ported: ROADMAP §1 item 4)")
+                    help="none | 16x16 | 2x16x16 | AxB (custom)")
     ap.add_argument("--mesh-axes", default="",
-                    help="axis names for a custom --mesh AxB (inert "
-                         "without a mesh)")
+                    help="comma-separated axis names for a custom --mesh "
+                         "AxB, e.g. 'data,curv' for the 2D data × "
+                         "curvature mesh (default: data,model)")
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-scale config of the same family")
     ap.add_argument("--ckpt-dir", default="")
@@ -73,7 +89,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "feedback + warm-started power iteration)")
     ap.add_argument("--curvature-compress", type=int, default=0,
                     help="rank-q compression of the curvature engine's "
-                         "gathers (inert without a mesh)")
+                         "(U, λ) cross-axis gathers (0 = raw gathers); "
+                         "lossy")
     ap.add_argument("--stagger", dest="stagger", action="store_true",
                     default=True,
                     help="phase heavy factor work across the T_inv window "
@@ -92,7 +109,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--curvature", default="auto",
                     choices=("auto", "none"),
                     help="auto: shard factor work across the mesh's first "
-                         "data axis (inert without a mesh)")
+                         "data axis (distributed curvature engine)")
     ap.add_argument("--health", action="store_true",
                     help="health guards + staged remediation ladder (skip "
                          "/ damping escalation / forced refresh / "
@@ -139,6 +156,74 @@ def main(argv=None):
     return run(parse_args(argv))
 
 
+def mesh_of(args):
+    """``--mesh``/``--mesh-axes`` → a mesh, or None (``none``).  Under
+    ``torch.distributed.run`` the world comes from its environment."""
+    if args.mesh in ("none", ""):
+        return None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        mesh_lib.init_process_group(args.device)
+    if args.mesh == "16x16":
+        return mesh_lib.make_production_mesh(device=args.device)
+    if args.mesh == "2x16x16":
+        return mesh_lib.make_production_mesh(multi_pod=True,
+                                             device=args.device)
+    dims = tuple(int(x) for x in args.mesh.split("x"))
+    if args.mesh_axes:
+        names = tuple(a.strip() for a in args.mesh_axes.split(","))
+        if len(names) != len(dims):
+            raise SystemExit(f"--mesh-axes {names} does not match "
+                             f"--mesh {args.mesh}")
+    else:
+        names = ("data", "model")[: len(dims)]
+    return mesh_lib.make_mesh(dims, names, device=args.device)
+
+
+def curvature_axes(args, mesh):
+    """(curvature axis, row axis) that ``--curvature`` picks on ``mesh``
+    (the reference's choice)."""
+    curv_axis = row_axis = None
+    if args.curvature == "auto" and mesh is not None:
+        dp = [a for a in mesh.axis_names if a != "model"]
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        if "curv" in sizes and sizes["curv"] > 1:
+            # slots over the dedicated curv axis, dense-M rows (and the
+            # heavy FLOPs on them) over the remaining data axis
+            curv_axis = "curv"
+            rows = [a for a in dp if a != "curv" and sizes[a] > 1]
+            row_axis = rows[0] if rows else None
+        elif dp and sizes[dp[0]] > 1:
+            curv_axis = dp[0]
+    return curv_axis, row_axis
+
+
+class _Saver:
+    """The CLI's checkpoint writes: on a mesh every rank gathers the
+    state to the one-device format and rank 0 writes it."""
+
+    def __init__(self, directory: str, opt, engine, rank0: bool):
+        self.opt, self.engine = opt, engine
+        self.ck = (ckpt.AsyncCheckpointer(directory, keep=3)
+                   if rank0 else None)
+
+    def submit(self, step: int, state) -> None:
+        if self.engine is not None:
+            state = dataclasses.replace(
+                state, opt=self.engine.gather_state(self.opt, state.opt))
+        if self.ck is not None:
+            self.ck.submit(step, state)
+
+    def wait(self) -> None:
+        if self.ck is not None:
+            self.ck.wait()
+        if self.engine is not None:     # the files exist for every rank
+            torch.distributed.barrier(group=self.engine.mesh.group())
+
+    def close(self) -> None:
+        if self.ck is not None:
+            self.ck.close()
+
+
 def run(args, arch: Optional[ArchConfig] = None,
         params: Optional[Dict[str, Tensor]] = None,
         batches: Optional[Callable[[int], Dict[str, Tensor]]] = None,
@@ -148,16 +233,15 @@ def run(args, arch: Optional[ArchConfig] = None,
     ``params`` the initial parameters (leaf tensors on the device that
     require grad); ``batches(k)`` the TokenStream's batch of step ``k``;
     ``draws(step)`` the heavy ops' random inputs by schedule step."""
-    if args.mesh not in ("none", ""):
-        raise SystemExit(f"--mesh {args.mesh}: meshes are not ported yet "
-                         f"(ROADMAP §1 item 4, 'Distributed'); the port "
-                         f"trains on one device: --mesh none")
-    dev = device_lib.resolve(args.device)
+    mesh = mesh_of(args)
+    dev = mesh.device if mesh is not None else device_lib.resolve(
+        args.device)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     jsonl = (os.path.join(args.telemetry_dir, "events.jsonl")
-             if args.telemetry_dir else None)
+             if args.telemetry_dir and rank0 else None)
     if jsonl is not None:
         os.makedirs(args.telemetry_dir, exist_ok=True)
-    writer = obs_events.TelemetryWriter(path=jsonl, console=True)
+    writer = obs_events.TelemetryWriter(path=jsonl, console=rank0)
     writer.emit("run_start", config={
         "arch": args.arch, "variant": args.variant, "steps": args.steps,
         "batch": args.batch, "seq": args.seq, "mesh": args.mesh,
@@ -169,14 +253,26 @@ def run(args, arch: Optional[ArchConfig] = None,
         arch = get_arch(args.arch)
         if args.reduced:
             arch = arch.reduced()
-    lm = LM(arch, steps_lib.shard_policy_for(None), remat=not args.reduced,
+    steps_lib.refuse_model_parallel(mesh, "tp", f"--mesh {args.mesh}")
+    lm = LM(arch, steps_lib.shard_policy_for(mesh), remat=not args.reduced,
             device=dev)
     kcfg = kfac_config_of(args)
     opt = kfac_lib.Kfac(kcfg, lm.taps, device=dev)
-    # no mesh: the curvature axis stays None and the spec attaches as a
-    # no-op, as the reference's does at --mesh none
-    specs_lib.DistSpec(
+    curv_axis, row_axis = curvature_axes(args, mesh)
+    eng = specs_lib.DistSpec(
+        mesh=mesh, curvature_axis=curv_axis, row_axis=row_axis,
         curvature_compress=args.curvature_compress or None).attach(opt)
+    if eng is not None:
+        rep, per_dev = eng.job_counts()
+        writer.log(f"curvature sharded on '{curv_axis}': "
+                   f"{rep} factor slots replicated -> {per_dev}/device "
+                   f"({eng.describe()})")
+        m_rep, m_dev = eng.m_bytes()
+        cb = eng.collective_bytes()
+        writer.log(f"dense-M memory: {m_rep / 1e6:.2f} MB replicated -> "
+                   f"{m_dev / 1e6:.2f} MB/device; (U, lambda) gather "
+                   f"bytes/round: {cb['uncompressed'] / 1e6:.3f} MB raw, "
+                   f"{cb['on_wire'] / 1e6:.3f} MB on wire")
     sched = opt.scheduler()
     if args.stagger or args.async_heavy:
         writer.emit("sched",
@@ -213,7 +309,7 @@ def run(args, arch: Optional[ArchConfig] = None,
             grad_transform = cstate = None
 
     meter = None
-    if jsonl is not None:
+    if args.telemetry_dir:      # every rank: the metrics reduce over the mesh
         meter = specs_lib.ObsSpec(
             writer=writer, metrics_every=args.metrics_every).make_meter(opt)
     policy = None
@@ -229,15 +325,20 @@ def run(args, arch: Optional[ArchConfig] = None,
             lm.loss_fn, opt, n_tokens, meter=meter,
             grad_transform=grad_transform)
 
-    checkpointer = (ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3)
+    checkpointer = (_Saver(args.ckpt_dir, opt, eng, rank0)
                     if args.ckpt_dir else None)
+    shardings = (None if eng is None else loop_lib.TrainState(
+        params=None, opt=eng.state_sharding(opt), rng=None))
     start = ckpt.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if start is not None:
-        state, _ = ckpt.restore(args.ckpt_dir, state)
+        state, _ = ckpt.restore(args.ckpt_dir, state, shardings=shardings)
         writer.emit("ckpt_restore", step=start, path=args.ckpt_dir)
     k0 = 0 if start is None else start + 1
 
-    det = strag_lib.StragglerDetector(writer=writer)
+    mesh_txt = ("×".join(f"{a}={s}" for a, s in
+                         zip(mesh.axis_names, mesh.devices.shape))
+                if mesh is not None else "")
+    det = strag_lib.StragglerDetector(writer=writer, mesh_desc=mesh_txt)
     profiler = obs_trace.StepProfiler(args.profile_dir or None,
                                       first=k0 + 1,
                                       steps=args.profile_steps)
@@ -251,7 +352,8 @@ def run(args, arch: Optional[ArchConfig] = None,
         state = run_steps(args, sched, det, batches, step_fn, box,
                           checkpointer, k0, losses, runner=runner,
                           writer=writer, meter=meter, profiler=profiler,
-                          policy=policy, opt=opt, cstate=cstate, draws=draws)
+                          policy=policy, opt=opt, cstate=cstate, draws=draws,
+                          shardings=shardings)
     finally:
         profiler.close()
         if runner is not None:
@@ -267,11 +369,13 @@ def run(args, arch: Optional[ArchConfig] = None,
 
 def run_steps(args, sched, det, batches, step_fn, box, checkpointer, k0,
               losses, runner=None, writer=None, meter=None, profiler=None,
-              policy=None, opt=None, cstate=None, draws=None):
+              policy=None, opt=None, cstate=None, draws=None,
+              shardings=None):
     """Steps ``k0 .. args.steps - 1`` (the reference's ``run_steps``) →
     the final state; ``losses`` gets each step's loss.  ``box`` is a
     one-element list holding the initial TrainState, which the loop takes
-    out, so that no caller keeps it (and its optimizer state) alive."""
+    out, so that no caller keeps it (and its optimizer state) alive.
+    ``shardings`` lay a rollback's restore out for the mesh."""
     state = box.pop()
     mbuf = meter.init() if meter is not None else None
     last_k = k0
@@ -328,8 +432,8 @@ def run_steps(args, sched, det, batches, step_fn, box, checkpointer, k0,
                     runner.drop_pending(reason="dropped")
                 if checkpointer is not None:
                     checkpointer.wait()
-                state, man = ckpt.restore_latest_healthy(args.ckpt_dir,
-                                                         state)
+                state, man = ckpt.restore_latest_healthy(
+                    args.ckpt_dir, state, shardings=shardings)
                 k_off = int(state.opt.phase) - (k + 1)
                 policy.notify_rollback(kk, man["step"], args.ckpt_dir)
                 if writer is not None:

@@ -2,11 +2,12 @@
 
 Counterpart of ``src/repro/models/sharding_policy.py``: the same policy
 fields and activation roles, so the models call the reference's methods
-at the reference's places.  On one device every role is the identity;
-real placement (``torch.distributed`` meshes, sequence-parallel residuals,
-sharded KV caches) arrives with the distributed item of the port, and the
-fields are kept only so that a policy of the reference's shape can be
-written down now.
+at the reference's places.  Every role is the identity: on a mesh of
+data and curvature axes each rank runs the whole batch's forward and
+backward (only the factor work shards, ``distributed/curvature.py``), so
+the activations are those of one device.  A model axis larger than 1
+would need tensor-parallel execution, which the port does not have
+(ROADMAP §1 item 6): every role then raises.
 """
 from __future__ import annotations
 
@@ -32,11 +33,19 @@ class ShardPolicy:
     def active(self) -> bool:
         return bool(self.dp) or self.tp is not None
 
+    @property
+    def model_parallel(self) -> bool:
+        """True iff the policy shards over a model axis larger than 1."""
+        return self.tp is not None and dict(self.axis_sizes).get(
+            self.tp, 1) > 1
+
     def _c(self, x: Tensor) -> Tensor:
-        if self.active:
+        if self.model_parallel:
             raise NotImplementedError(
-                "sharded activations need the distributed engine, which "
-                "is not ported yet; use NO_SHARD on one device")
+                "a model axis larger than 1 needs tensor-parallel "
+                "execution, which is not ported (ROADMAP §1 item 6, "
+                "'Data- and tensor-parallel execution'); use a mesh of "
+                "data and curvature axes")
         return x
 
     # --- activation roles (the identity on one device) ---------------------

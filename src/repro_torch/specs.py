@@ -14,9 +14,8 @@ The old flat kwargs keep working through
 process** and is folded into the equivalent spec.  Passing a spec AND one
 of the legacy kwargs it subsumes is an error (two sources of truth).
 
-The distributed curvature engine is not ported yet (ROADMAP, module
-item "Distributed"): an active :class:`DistSpec` raises rather than
-training replicated.
+An active :class:`DistSpec` builds the distributed curvature engine
+(``distributed/curvature.py``) lazily in :meth:`DistSpec.attach`.
 """
 from __future__ import annotations
 
@@ -48,15 +47,15 @@ class DistSpec:
     def active(self) -> bool:
         return self.mesh is not None and self.curvature_axis is not None
 
-    def attach(self, opt) -> None:
-        """A no-op returning None when no mesh/axis is configured; an
-        active spec raises: the port has no curvature engine yet."""
+    def attach(self, opt) -> Optional[Any]:
+        """Build + attach the curvature engine for ``opt`` (a Kfac) → the
+        engine; a no-op returning None when no mesh/axis is configured."""
         if not self.active:
             return None
-        raise NotImplementedError(
-            "DistSpec: the distributed curvature engine is not ported yet "
-            "(ROADMAP, module item 'Distributed'); repro_torch trains on "
-            "one device — pass DistSpec() or no dist= at all")
+        from repro_torch.distributed import curvature as curvature_lib
+        return curvature_lib.CurvatureEngine.for_kfac(
+            opt, self.mesh, self.curvature_axis, row_axis=self.row_axis,
+            compress_rank=self.curvature_compress)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,6 +38,14 @@ untapped parameters; and two leaves stay each package's own:
     keys (``keys``; see ``core/kfactor.py``), so an async state restores
     within the port only.
 
+**Meshes.**  A checkpoint is always in the one-device format: a state
+laid out by the distributed curvature engine is gathered back to its
+global, slot-ordered tensors before it is saved (the training loop and
+the elastic runner do that through ``distributed/sharding.py``), and
+:func:`restore` with ``shardings=`` reads the global tensors and keeps
+each rank's own slice of them — so a file written on one mesh restores
+on another, on one device, or in the reference.
+
 **Snapshots are taken on the calling thread.**  The training loop updates
 the parameters in place (``optim/base.py::apply_updates``), so
 :func:`save` and :meth:`AsyncCheckpointer.submit` copy every leaf to host
@@ -270,13 +278,17 @@ class CheckpointCorruptionError(RuntimeError):
     manifest's; ``restore_latest_healthy`` walks past these."""
 
 
-def restore(directory: str, template, step: Optional[int] = None
-            ) -> Tuple[Any, dict]:
+def restore(directory: str, template, step: Optional[int] = None,
+            shardings=None) -> Tuple[Any, dict]:
     """Load a checkpoint into the template's structure → (tree,
     manifest).  Tensors land on the device (and in the dtype) of the
-    template's leaves.  A checkpoint missing a leaf the template has
-    fails with a :class:`SchemaMismatchError` naming both schema
-    versions; damaged bytes with a :class:`CheckpointCorruptionError`."""
+    template's leaves.  ``shardings`` (a tree matching the template's, of
+    ``distributed/sharding.py`` shardings or layout objects) re-lays the
+    global tensors onto a mesh: the template is then this rank's local
+    state, and each rank keeps its own slice.  A checkpoint missing a
+    leaf the template has fails with a :class:`SchemaMismatchError`
+    naming both schema versions; damaged bytes with a
+    :class:`CheckpointCorruptionError`."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -314,6 +326,9 @@ def restore(directory: str, template, step: Optional[int] = None
                 f"check — expected crc32 {expect}, found {found}.  The "
                 f"snapshot is corrupt; delete {path} or use "
                 f"restore_latest_healthy() to fall back.")
+    if shardings is not None:
+        from repro_torch.distributed import sharding as shd
+        template = shd.global_template(template, shardings)
     try:
         tree = _unflatten_into(template, arrays)
     except KeyError as e:
@@ -330,6 +345,8 @@ def restore(directory: str, template, step: Optional[int] = None
             f"when async_heavy is off; turning async on mid-run needs a "
             f"fresh (or migrated) checkpoint because the in-flight "
             f"buffers join the pytree.") from e
+    if shardings is not None:
+        tree = shd.localize(tree, shardings)
     return tree, manifest
 
 
@@ -348,17 +365,19 @@ def available_steps(directory: str) -> List[int]:
     return sorted(out)
 
 
-def restore_latest_healthy(directory: str, template) -> Tuple[Any, dict]:
+def restore_latest_healthy(directory: str, template,
+                           shardings=None) -> Tuple[Any, dict]:
     """Restore the newest snapshot that passes verification, walking the
     ring past corrupted, truncated or mismatched ones (the rollback stage
     of the remediation ladder).  The returned manifest carries
     ``skipped_corrupt``: one ``{step, error}`` record for every newer
     snapshot walked past.  Raises ``FileNotFoundError`` if no healthy
-    snapshot exists."""
+    snapshot exists.  ``shardings`` as in :func:`restore`."""
     skipped: List[dict] = []
     for step in reversed(available_steps(directory)):
         try:
-            tree, manifest = restore(directory, template, step=step)
+            tree, manifest = restore(directory, template, step=step,
+                                     shardings=shardings)
         except (CheckpointCorruptionError, SchemaMismatchError,
                 OSError, KeyError, ValueError) as e:
             skipped.append({"step": step,

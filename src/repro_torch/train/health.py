@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.core import kfactor
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import layers
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim import base as optbase
@@ -108,33 +109,44 @@ def _count_nonfinite(tensors: Sequence[Tensor]) -> float:
                      for t in ts))
 
 
-def _factor_groups(opt, factors):
+def _factor_groups(opt, factors, shards=None):
     """Per factor bucket: (its tensors the guard checks, its NS
-    residuals or None)."""
+    residuals or None).  Under a curvature engine a bucket's dense M is
+    this member's block in ``shards``."""
     out = []
-    for bucket in opt.factor_buckets:
+    for bi, bucket in enumerate(opt.factor_buckets):
         ts, res = [], []
         for e in bucket.entries:
             st = getattr(factors[e.name], e.side)
             ts += [st.U, st.D] + ([st.M] if bucket.spec.needs_m else [])
             if bucket.spec.mode is kfactor.Mode.NS:
                 res.append(torch.max(st.aux[..., kfactor.AUX_RES]))
+        if shards and str(bi) in shards:
+            ts.append(shards[str(bi)])
         out.append((ts, torch.stack(res).max() if res else None))
     return out
 
 
-def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors
-          ) -> Dict[str, float]:
+def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors,
+          shards=None) -> Dict[str, float]:
     """Device reductions for ``groups`` and the factor buckets, moved to
     the host in one transfer with the loss; exact counts where a
     reduction is not finite → {"loss", "<group>_nonfinite",
     "<group>_abs_max", "bucket{bi}/factor_nonfinite",
-    "bucket{bi}/ns_res"}."""
+    "bucket{bi}/ns_res"}.  Under a curvature engine the factor sums are
+    summed over the mesh (each member checks its own M block), so every
+    member reaches the same verdict."""
     dev = loss.device
-    fgroups = _factor_groups(opt, factors)
+    fgroups = _factor_groups(opt, factors, shards)
     parts = [loss.detach().to(torch.float32).reshape(1)]
     parts += [_sum_and_max(ts, dev) for ts in groups.values()]
-    parts += [_sum_and_max(ts, dev) for ts, _ in fgroups]
+    fparts = [_sum_and_max(ts, dev) for ts, _ in fgroups]
+    engine = getattr(opt, "curvature", None)
+    if engine is not None and shards and fparts:
+        sums = coll.all_reduce(torch.stack([p[0] for p in fparts]),
+                                   engine.mesh)
+        fparts = [torch.stack([s, p[1]]) for s, p in zip(sums, fparts)]
+    parts += fparts
     parts += [r.to(torch.float32).reshape(1) for _, r in fgroups
               if r is not None]
     vals = torch.cat(parts).cpu().tolist()              # the one transfer
@@ -150,8 +162,11 @@ def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors
     for bi, (ts, _) in enumerate(fgroups):
         s, m = vals[i:i + 2]
         i += 2
-        out[f"bucket{bi}/factor_nonfinite"] = (0.0 if finite(s, m)
-                                               else _count_nonfinite(ts))
+        bad = 0.0 if finite(s, m) else _count_nonfinite(ts)
+        if engine is not None and shards and not finite(s, m):
+            bad = float(coll.all_reduce(
+                torch.tensor([bad], device=dev), engine.mesh)[0])
+        out[f"bucket{bi}/factor_nonfinite"] = bad
     for bi, (_, r) in enumerate(fgroups):
         if r is not None:
             out[f"bucket{bi}/ns_res"] = vals[i]
@@ -159,12 +174,12 @@ def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors
     return out
 
 
-def factor_report(opt, factors) -> Dict[str, float]:
+def factor_report(opt, factors, shards=None) -> Dict[str, float]:
     """Per-bucket factor-state checks off the live (post-step) states:
     nonfinite counts over (U, D[, M]) and, for NS buckets, the worst
     residual from the ``aux`` diagnostics → host floats."""
     dev = next(iter(factors.values())).A.U.device
-    rep = _read(opt, torch.zeros((), device=dev), {}, factors)
+    rep = _read(opt, torch.zeros((), device=dev), {}, factors, shards)
     del rep["loss"]
     return rep
 
@@ -176,7 +191,7 @@ def health_report(hcfg: HealthConfig, opt, loss: Tensor, grads, updates,
     the step is safe to apply."""
     rep = _read(opt, loss, {"grad": list(grads.values()),
                             "update": list(updates.values())},
-                opt_state.factors)
+                opt_state.factors, opt_state.shards)
     loss_v = rep.pop("loss")
     factor_bad = sum(v for k, v in rep.items()
                      if k.endswith("factor_nonfinite"))

@@ -15,11 +15,11 @@ and hands the result to the land step ``lag`` steps later, which then
 only swaps tensors and replays the interim Brand panels.  Without a
 runner the land step computes the same function in line.
 
-:func:`run_kfac_training` takes the reference's whole one-device option
-surface: ``state=`` (resume), the four ``repro_torch.specs`` objects
-(``obs`` telemetry and metrics, ``ckpt`` checkpoints, ``resilience``
-health guards, remediation ladder and chaos; ``dist`` raises while the
-distributed engine is not ported) and the legacy flat kwargs.
+:func:`run_kfac_training` takes the reference's whole option surface:
+``state=`` (resume), the four ``repro_torch.specs`` objects (``obs``
+telemetry and metrics, ``ckpt`` checkpoints, ``resilience`` health
+guards, remediation ladder and chaos, ``dist`` the distributed curvature
+engine on a mesh) and the legacy flat kwargs.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed
 
 from repro_torch import device as device_lib
 from repro_torch import specs as specs_lib
@@ -218,8 +219,9 @@ class AsyncInverseRunner:
                 ) -> Optional["AsyncInverseRunner"]:
         """A runner for ``opt`` — on the card with a side stream of the
         lowest priority — or None when the optimizer does not pipeline
-        (a synchronous config)."""
-        if not opt._async_buckets:
+        (a synchronous config, or a curvature engine attached: the engine
+        lands inside its own program)."""
+        if not opt._async_buckets or opt.curvature is not None:
             return None
         stream = None
         if opt.device.type == "cuda":
@@ -430,8 +432,14 @@ def run_kfac_training(loss_fn, opt: kfac_lib.Kfac,
     ``ckpt.keep``); rollbacks restore from there, walking past corrupted
     snapshots, and copy the restored parameters into the live tensors.
 
-    ``dist`` (:class:`~repro_torch.specs.DistSpec`) — an active spec
-    raises ``NotImplementedError``: the curvature engine is not ported.
+    ``dist`` (:class:`~repro_torch.specs.DistSpec`) — mesh +
+    curvature_axis attach the distributed curvature engine, so factor
+    work shards across that mesh axis (row_axis adds the 2D path,
+    curvature_compress the compressed gathers).  Every member runs this
+    loop on the same batches; only rank 0 writes telemetry and
+    checkpoint files, and a checkpoint holds the gathered global state
+    (the one-device format).  A passed ``state`` in the one-device
+    layout is laid out for the engine first.
     The legacy flat kwargs (``writer=``, ``ckpt_dir=``, …) warn once and
     fold into their specs.  Returns (final TrainState, losses as floats);
     ``callback(k, state, loss)`` sees the loss as a device tensor."""
@@ -440,8 +448,15 @@ def run_kfac_training(loss_fn, opt: kfac_lib.Kfac,
     dist, obs, ckpt, resilience = specs_lib.consolidate_training_kwargs(
         legacy, dist=dist, obs=obs, ckpt=ckpt, resilience=resilience,
         caller="run_kfac_training")
-    dist.attach(opt)
+    engine = dist.attach(opt)
     dev = device_lib.resolve(device)
+    rank0 = engine is None or torch.distributed.get_rank() == 0
+    if not rank0 and obs.writer is not None:
+        # the other members keep the writer's calls (the metrics meter
+        # reduces over the mesh) but write nothing
+        from repro_torch.obs import events as obs_events
+        obs = dataclasses.replace(obs, writer=obs_events.TelemetryWriter(
+            console=False))
     writer = obs.writer
     health, policy, chaos = (resilience.health, resilience.policy,
                              resilience.chaos)
@@ -455,6 +470,12 @@ def run_kfac_training(loss_fn, opt: kfac_lib.Kfac,
                            rng=torch.Generator(device=dev).manual_seed(seed))
     else:
         k_off = int(state.opt.phase)
+        if engine is not None and not state.opt.shards:
+            state = dataclasses.replace(
+                state, opt=engine.localize_state(opt, state.opt))
+    shardings = (None if engine is None else
+                 TrainState(params=None, opt=engine.state_sharding(opt),
+                            rng=None))
     runner = (overlap if isinstance(overlap, AsyncInverseRunner)
               else AsyncInverseRunner.for_opt(opt, writer=writer)
               if overlap else None)
@@ -525,7 +546,7 @@ def run_kfac_training(loss_fn, opt: kfac_lib.Kfac,
                     if runner is not None:
                         runner.drop_pending(reason="dropped")
                     restored, man = ckpt_lib.restore_latest_healthy(
-                        ckpt.dir, state)
+                        ckpt.dir, state, shardings=shardings)
                     state = dataclasses.replace(restored, params=(
                         _adopt_params(state.params, restored.params)))
                     k_off = int(state.opt.phase) - (k + 1)
@@ -540,12 +561,18 @@ def run_kfac_training(loss_fn, opt: kfac_lib.Kfac,
                     faulty = False          # restored state is healthy
             if (ckpt.dir is not None and ckpt.every > 0 and not faulty
                     and kk % ckpt.every == 0):
-                path = ckpt_lib.save(ckpt.dir, kk, state)
-                ckpt_lib.prune(ckpt.dir, keep=ckpt.keep)
-                if writer is not None:
-                    writer.emit("ckpt_save", step=kk, path=path)
-                if chaos is not None:
-                    chaos.corrupt_ckpt(k, ckpt.dir)
+                tree = (state if engine is None else dataclasses.replace(
+                    state, opt=engine.gather_state(opt, state.opt)))
+                if rank0:
+                    path = ckpt_lib.save(ckpt.dir, kk, tree)
+                    ckpt_lib.prune(ckpt.dir, keep=ckpt.keep)
+                    if writer is not None:
+                        writer.emit("ckpt_save", step=kk, path=path)
+                    if chaos is not None:
+                        chaos.corrupt_ckpt(k, ckpt.dir)
+                del tree
+                if engine is not None:      # the file exists for everyone
+                    torch.distributed.barrier(group=engine.mesh.group())
             if callback is not None:
                 callback(k, state, loss)
         if meter is not None:

@@ -184,14 +184,23 @@ def test_one_device_policy_and_refusals():
     with pytest.raises(ValueError, match="not both"):
         tsteps.build_train_step(arch, dist=tspecs.DistSpec(
             curvature_axis="curv"), curvature_axis="curv", device=CPU)
-    mesh = object()
-    for call in (lambda: tsteps.shard_policy_for(mesh),
-                 lambda: tsteps.kv_rep_for(arch, mesh),
-                 lambda: tsteps.build_train_step(arch, mesh=mesh,
-                                                 device=CPU),
-                 lambda: tsteps.build_decode_step(arch, mesh=mesh,
-                                                  device=CPU)):
-        with pytest.raises(NotImplementedError, match="item 4"):
+    # a mesh with a model axis larger than 1: the policy and the
+    # shardings are the reference's, but a step refuses to run (the port
+    # has no tensor parallelism: ROADMAP §1 item 6)
+    mesh = argparse.Namespace(axis_names=("data", "model"),
+                              devices=np.zeros((2, 2)))
+    jarch = jget("gemma3_4b").reduced()
+    assert tsteps.kv_rep_for(arch, mesh) == jsteps.kv_rep_for(jarch, mesh)
+    assert (tsteps.shard_policy_for(mesh).__dict__
+            == jsteps.shard_policy_for(mesh).__dict__)
+    built = tsteps.build_train_step(arch, mesh=mesh, device=CPU)
+    dec = tsteps.build_decode_step(arch, mesh=mesh, device=CPU)
+    assert built.in_shardings is not None and dec.in_shardings is not None
+    for call in (lambda: built.step_fn(None, None, None, None),
+                 lambda: dec.step_fn(None, None, None, 0),
+                 lambda: tsteps.build_prefill_step(
+                     arch, mesh=mesh, device=CPU).step_fn(None, None)):
+        with pytest.raises(NotImplementedError, match="item 6"):
             call()
 
 
@@ -342,12 +351,13 @@ def _capture_parser(call):
 
 def test_cli_flags_and_defaults_equal_reference():
     """Every flag of the reference with its default, plus ``--device``;
-    a mesh exits naming the ROADMAP item that brings it."""
+    a mesh larger than the world raises the reference's ValueError
+    (``jax.make_mesh``'s: too few devices)."""
     ref = _capture_parser(jtrain.main)
     port = _capture_parser(ttrain.parse_args)
     assert port["options"] == ref["options"] | {"--device"}
     assert port["ns"] == dict(ref["ns"], device=None)
-    with pytest.raises(SystemExit, match="item 4"):
+    with pytest.raises(ValueError, match="must be >= the product"):
         ttrain.run(ttrain.parse_args(["--mesh", "2x4", "--device", "cpu"]))
 
 

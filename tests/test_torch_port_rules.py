@@ -131,3 +131,36 @@ def test_lm_entry_points_refuse_cpu_fallback(no_card):
             call()
     lm = LM(arch, device=torch.device("cpu"))
     assert lm.device.type == "cpu"
+
+
+def test_mesh_entry_points_refuse_cpu_fallback(no_card):
+    """``make_mesh`` (at world size 1 it sets up its own one-member
+    world), the CLI with ``--mesh`` and the elastic runner run on the card
+    by default and raise without one, before any process group exists;
+    the explicit CPU request runs (in a process of its own: it leaves a
+    process group behind)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.train import elastic
+    runner = elastic.ElasticRunner(
+        ckpt_dir="unused", make_state=lambda m: {}, make_step=lambda m: None,
+        meshes=(((1,), ("data",)),))
+    for call in (lambda: mesh_lib.make_mesh((1,), ("curv",)),
+                 lambda: mesh_lib.init_process_group(),
+                 lambda: train.main(["--reduced", "--steps", "1", "--mesh",
+                                     "1x1", "--mesh-axes", "data,curv"]),
+                 lambda: runner.run(1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "from repro_torch.launch import mesh as mesh_lib, train\n"
+        "m = mesh_lib.make_mesh((1,), ('curv',), device='cpu')\n"
+        "assert m.device.type == 'cpu' and dist.get_backend() == 'gloo'\n"
+        "_, losses = train.main(['--reduced', '--steps', '1', '--mesh', "
+        "'1x1', '--mesh-axes', 'data,curv', '--device', 'cpu'])\n"
+        "assert len(losses) == 1\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]

@@ -11,6 +11,7 @@ tooling).
 import dataclasses
 import json
 import os
+import types
 import warnings
 
 import numpy as np
@@ -479,8 +480,9 @@ def test_legacy_kwarg_warns_once_per_process():
     (dict(ckpt=specs.CkptSpec(dir="x"), ckpt_dir="y"), ValueError,
      "conflicts"),
     (dict(no_such_option=1), TypeError, "unexpected keyword"),
-    (dict(dist=specs.DistSpec(mesh=object(), curvature_axis="curv")),
-     NotImplementedError, "not ported"),
+    (dict(dist=specs.DistSpec(mesh=types.SimpleNamespace(
+        axis_names=("data",), devices=np.zeros(2)), curvature_axis="curv")),
+     ValueError, "no axis 'curv'"),
 ])
 def test_bad_training_options_raise(kw, err, match):
     with pytest.raises(err, match=match):

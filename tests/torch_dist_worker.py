@@ -1,0 +1,653 @@
+"""The rank program of the port's multi-process CPU tests
+(``test_torch_dist.py``, ``test_torch_mesh.py``), and :func:`spawn`, which
+runs it.
+
+One ``gloo`` world of ``WORLD`` processes per test file: the parent
+writes the cases to a pickle, each rank joins through a file rendezvous
+under the test's temporary directory (never a fixed port: several test
+workers run side by side), runs every case of its suite in the same
+order (mesh creation and collectives are collective), and pickles its
+results; the parent compares them with the reference.  Each rank pins
+torch to one thread; the process group and the parent both time out, so
+a hung rank fails its tests in about two minutes.
+
+This file imports neither ``jax`` nor the JAX package: it is the port
+alone, as on the card.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import io
+import os
+import pickle
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+WORLD = 4
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+
+
+# ---------------------------------------------------------------------------
+# the parent's side
+# ---------------------------------------------------------------------------
+
+def spawn(suite: str, cases, tmp_dir: str, world: int = WORLD,
+          timeout: float = 150.0):
+    """Run ``suite`` over ``cases`` on ``world`` ranks → one result dict
+    per rank (``{case name: result}``; a case that raised holds its
+    traceback under ``"error"``)."""
+    return start(suite, cases, tmp_dir, world, timeout)()
+
+
+def start(suite: str, cases, tmp_dir: str, world: int = WORLD,
+          timeout: float = 150.0):
+    """:func:`spawn` in the background → a function that joins the ranks
+    and returns their results (the parent computes its oracles
+    meanwhile)."""
+    os.makedirs(tmp_dir, exist_ok=True)
+    job = os.path.join(tmp_dir, f"{suite}_cases.pkl")
+    with open(job, "wb") as f:
+        pickle.dump(cases, f)
+    rdv = os.path.join(tmp_dir, f"{suite}_rendezvous")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC, HERE, os.environ.get("PYTHONPATH", "")]),
+        OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    logs = [open(os.path.join(tmp_dir, f"{suite}_{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), suite, job, str(r),
+         str(world), rdv, tmp_dir], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.time() + timeout
+
+    def join():
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tails = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            tails.append(f"--- rank {r} (rc {procs[r].returncode}) ---\n"
+                         + f.read()[-3000:])
+            f.close()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"{suite}: a rank failed or hung\n"
+                                 + "\n".join(tails))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp_dir, f"{suite}_{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    return join
+
+
+def ok(results, name):
+    """Every rank's result of case ``name``, after checking none
+    raised."""
+    got = [res[name] for res in results]
+    for r, g in enumerate(got):
+        if isinstance(g, dict) and "error" in g:
+            raise AssertionError(f"{name} on rank {r}:\n{g['error']}")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# the ranks' side
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def _t(a):
+    import torch
+    return torch.as_tensor(np.asarray(a))
+
+
+def _kfac_opt(case, device):
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.optim import base as tbase
+    cfg = dict(case["cfg"])
+    pol = tpolicy.PolicyConfig(**cfg.pop("policy"))
+    for k in ("lr", "damping_phi", "fallback_lr"):
+        if k in cfg:
+            cfg[k] = tbase.constant(cfg[k])
+    taps = {n: tkfac.TapInfo(**t) for n, t in case["taps"].items()}
+    return tkfac.Kfac(tkfac.KfacConfig(policy=pol, **cfg), taps,
+                      device=device)
+
+
+class Ctx:
+    """This rank's meshes (built once, in the same order on every rank)."""
+
+    def __init__(self):
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as mesh_lib
+        self.cpu = torch.device("cpu")
+        self.rank = dist.get_rank()
+        self.m1d = mesh_lib.make_mesh((WORLD,), ("curv",), device=self.cpu)
+        self.m2d = mesh_lib.make_mesh((2, 2), ("data", "curv"),
+                                      device=self.cpu)
+
+    def dist_spec(self, kind, compress=None):
+        from repro_torch import specs
+        if kind == "1d":
+            return specs.DistSpec(mesh=self.m1d, curvature_axis="curv",
+                                  curvature_compress=compress)
+        if kind == "2d":
+            return specs.DistSpec(mesh=self.m2d, curvature_axis="curv",
+                                  row_axis="data",
+                                  curvature_compress=compress)
+        assert kind == "rep"
+        return specs.DistSpec()
+
+
+# -- the engine suite --------------------------------------------------------
+
+def _engine_case(ctx, case):
+    """``Kfac.update`` under the engine for the case's steps, with the
+    reference's operands and draws injected."""
+    opt = _kfac_opt(case, ctx.cpu)
+    eng = ctx.dist_spec(case["mesh"], case.get("compress")).attach(opt)
+    sched = opt.scheduler(align=4)
+    params = {k: _t(v) for k, v in case["params"].items()}
+    st = opt.init(params)
+    out = {"updates": []}
+    for step in case["steps"]:
+        draws = {int(bi): _t(d) for bi, d in step["draws"].items()}
+        upd, st = opt.update(
+            {k: _t(v) for k, v in step["grads"].items()}, st, params,
+            acts={k: _t(v) for k, v in step["acts"].items()},
+            probe_grads={k: _t(v) for k, v in step["pgs"].items()},
+            n_tokens=case["n_tokens"], rng=None,
+            work=sched.work(len(out["updates"])), draws=draws)
+        out["updates"].append({k: _np(v) for k, v in upd.items()})
+    if eng is None:
+        return out
+    out["held"] = sum(t.numel() * t.element_size()
+                      for t in st.shards.values())
+    out["m_bytes"] = eng.m_bytes()
+    out["placeholders"] = sum(
+        getattr(ts, s).M.numel() for ts in st.factors.values()
+        for s in "AG" if getattr(ts, s).M.shape[-2] == 0)
+    g = eng.gather_state(opt, st)
+    out["factors"] = {n: {s: tuple(_np(getattr(getattr(ts, s), f))
+                                   for f in ("M", "U", "D"))
+                          for s in "AG"} for n, ts in g.factors.items()}
+    out["inflight"] = {k: (_np(b.M), _np(b.panels), _np(b.live))
+                       for k, b in g.inflight.items()}
+    return out
+
+
+def suite_engine(ctx, cases):
+    return {c["name"]: _engine_case(ctx, c) for c in cases}
+
+
+# -- the mesh suite ------------------------------------------------------------
+
+D_IN, D_H, D_OUT, N_BS, N_STAT = 12, 32, 4, 16, 16
+
+
+def mlp():
+    """The reference's test_obs MLP, in the port, from numpy draws."""
+    import torch
+    from repro_torch.core import kfac as tkfac
+    rs = np.random.default_rng(1)
+    params = {"fc0/w": _t((rs.standard_normal((D_IN, D_H))
+                           / np.sqrt(D_IN)).astype(np.float32)),
+              "fc1/w": _t((rs.standard_normal((D_H, D_OUT))
+                           / np.sqrt(D_H)).astype(np.float32))}
+    for p in params.values():
+        p.requires_grad_()
+    taps = {"fc0": tkfac.TapInfo("fc0/w", D_IN, D_H, n_stat=N_STAT),
+            "fc1": tkfac.TapInfo("fc1/w", D_H, D_OUT, n_stat=N_STAT)}
+    return params, taps
+
+
+def mlp_loss(params, probes, batch):
+    import torch
+    from repro_torch.models import layers as tlayers
+    x, y = batch
+    acts = {}
+    h, acts["fc0"] = tlayers.tapped_matmul(params["fc0/w"], x,
+                                           probes.get("fc0"), N_STAT)
+    h = torch.relu(h)
+    h, acts["fc1"] = tlayers.tapped_matmul(params["fc1/w"], h,
+                                           probes.get("fc1"), N_STAT)
+    return torch.mean((h - y) ** 2), acts
+
+
+def mlp_batches(n):
+    rs = np.random.default_rng(3)
+    W = rs.standard_normal((D_IN, D_OUT)) / np.sqrt(D_IN)
+    out = []
+    for _ in range(n):
+        x = rs.standard_normal((N_BS, D_IN))
+        out.append((_t(x.astype(np.float32)),
+                    _t(np.tanh(x @ W).astype(np.float32))))
+    return out
+
+
+def mlp_cfg(variant, **kw):
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.optim import base as tbase
+    kwargs = dict(policy=tpolicy.PolicyConfig(variant=variant, r=8,
+                                              max_dense_dim=512),
+                  lr=tbase.constant(0.05),
+                  damping_phi=tbase.constant(0.1), weight_decay=1e-4,
+                  clip=10.0, T_updt=1, T_inv=4, T_brand=1, T_rsvd=4,
+                  T_corct=4, fallback_lr=tbase.constant(1e-2))
+    kwargs.update(kw)
+    return tkfac.KfacConfig(**kwargs)
+
+
+def mlp_train(variant, dist=None, steps=9, writer=None, metrics_every=0,
+              health=False, **kw):
+    """``run_kfac_training`` on the MLP → (final params, losses)."""
+    from repro_torch import specs
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.train import loop as tloop
+    import torch
+    params, taps = mlp()
+    opt = tkfac.Kfac(mlp_cfg(variant, **kw), taps,
+                     device=torch.device("cpu"))
+    state, losses = tloop.run_kfac_training(
+        mlp_loss, opt, params, mlp_batches(steps), n_tokens=N_BS, seed=0,
+        dist=dist, obs=specs.ObsSpec(writer=writer,
+                                     metrics_every=metrics_every),
+        resilience=specs.ResilienceSpec(health=health),
+        device=torch.device("cpu"))
+    return {k: _np(v) for k, v in state.params.items()}, losses
+
+
+def _obs_health(ctx, case):
+    """Metrics on ≡ off and health on ≡ off under the 1D engine."""
+    from repro_torch.obs import events as ev
+    d = ctx.dist_spec("1d")
+    path = os.path.join(case["dir"], f"events_{case['variant']}.jsonl")
+    off = mlp_train(case["variant"], d)
+    w = ev.TelemetryWriter(path, console=False) if ctx.rank == 0 else None
+    # every rank takes the metrics path (its reductions are collective);
+    # rank 0's writer is the only one that writes
+    if w is None:
+        w = ev.TelemetryWriter(console=False)
+    on = mlp_train(case["variant"], d, writer=w, metrics_every=3)
+    w.close()
+    health = mlp_train(case["variant"], d, health=True)
+    return {"off": off, "metrics": on, "health": health,
+            "events": path if ctx.rank == 0 else None}
+
+
+def _drive(opt, loss_fn, batches, params=None, state=None, shardings=None,
+           seed=5):
+    """The reference's ``_drive`` (test_mesh2d.py): a schedule-resuming
+    driver with the alignment pinned, so every mesh runs the same
+    masks."""
+    import torch
+    from repro_torch.train import loop as tloop
+    sched = opt.scheduler(align=4)
+    k_off = 0
+    if state is None:
+        state = tloop.TrainState(
+            params=params, opt=opt.init(params),
+            rng=torch.Generator().manual_seed(seed))
+    else:
+        k_off = int(state.opt.phase)
+    step = tloop.make_scheduled_kfac_step(loss_fn, opt, N_STAT)
+    losses = []
+    for i, batch in enumerate(batches):
+        state, loss = step(state, batch, sched.work(k_off + i))
+        losses.append(float(loss))
+    return state, losses
+
+
+def ckpt_model():
+    """test_mesh2d.py's one-tap model, from numpy draws."""
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.models import layers as tlayers
+    taps = {"fc": tkfac.TapInfo("fc/w", 48, 32, n_stat=N_STAT)}
+    rs = np.random.default_rng(0)
+    w0 = (rs.standard_normal((48, 32)) * 0.1).astype(np.float32)
+
+    def fresh():
+        return {"fc/w": _t(w0.copy()).requires_grad_()}
+
+    def loss_fn(p, probes, batch):
+        import torch
+        x, y = batch
+        h, act = tlayers.tapped_matmul(p["fc/w"], x, probes.get("fc"),
+                                       N_STAT)
+        return torch.mean((h - y) ** 2), {"fc": act}
+
+    batches = [(_t(rs.standard_normal((16, 48)).astype(np.float32)),
+                _t(rs.standard_normal((16, 32)).astype(np.float32)))
+               for _ in range(8)]
+    return taps, fresh, loss_fn, batches
+
+
+def ckpt_opt(taps, async_heavy=False):
+    import torch
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.optim import base as tbase
+    cfg = tkfac.KfacConfig(
+        policy=tpolicy.PolicyConfig(variant="kfac", r=4,
+                                    max_dense_dim=8192),
+        lr=tbase.constant(0.05), T_updt=1, T_inv=4, stagger=True,
+        stagger_splits=2, async_heavy=async_heavy,
+        heavy_lag=2 if async_heavy else 0)
+    return tkfac.Kfac(cfg, taps, device=torch.device("cpu"))
+
+
+def _save(opt, eng, state, directory, step):
+    """Gather (collective), rank 0 writes, everyone waits for the file."""
+    import torch.distributed as dist
+    from repro_torch.train import checkpoint as ck
+    tree = dataclasses.replace(state, opt=eng.gather_state(opt, state.opt))
+    if dist.get_rank() == 0:
+        ck.save(directory, step, tree)
+    dist.barrier()
+    return tree
+
+
+def _ckpt(ctx, case):
+    """Save on (2, 2) [data, curv] with rows on data; restore on (2, 1) and
+    on one device; mid-lag: save right after a launch, restore on one
+    device (test_mesh2d.py's two restore tests, on four ranks)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import loop as tloop
+    taps, fresh, loss_fn, batches = ckpt_model()
+    m21 = mesh_lib.make_mesh((2, 1), ("data", "curv"), device=ctx.cpu)
+    d2 = ctx.dist_spec("2d")
+    out = {}
+    for async_heavy in (False, True):
+        tag = "async" if async_heavy else "sync"
+        directory = os.path.join(case["dir"], tag)
+        opt_a = ckpt_opt(taps, async_heavy)
+        d2.attach(opt_a)
+        _, ref = _drive(opt_a, loss_fn, batches, params=fresh())
+        opt_b = ckpt_opt(taps, async_heavy)
+        eng_b = d2.attach(opt_b)
+        sched = opt_b.scheduler(align=4)
+        cut = 3
+        if async_heavy:
+            cut = 1 + next(k for k in range(6)
+                           if any(r for r in sched.work(k).launch))
+        mid, head = _drive(opt_b, loss_fn, batches[:cut], params=fresh())
+        saved = _save(opt_b, eng_b, mid, directory, cut)
+        res = {"ref": ref, "head": head, "saved_step": cut,
+               "dir": directory,
+               "inflight_live": [bool(b.live.any())
+                                 for b in saved.opt.inflight.values()],
+               "gathered": {k: _np(v) for k, v in
+                            ck.leaves(saved.opt).items()
+                            if hasattr(v, "detach")}}
+        # (2, 1): ranks 0 and 1 carry on, 2 and 3 sit it out
+        from repro_torch import specs
+        opt_c = ckpt_opt(taps, async_heavy)
+        eng_c = specs.DistSpec(mesh=m21, curvature_axis="curv",
+                               row_axis="data").attach(opt_c)
+        if m21.member:
+            tmpl = tloop.TrainState(params=fresh(), opt=opt_c.init(fresh()),
+                                    rng=mid.rng)
+            sh = tloop.TrainState(params=None,
+                                  opt=eng_c.state_sharding(opt_c), rng=None)
+            restored, man = ck.restore(directory, tmpl, shardings=sh)
+            res["schema"] = man["schema"]
+            _, tail = _drive(opt_c, loss_fn, batches[cut:], state=restored)
+            res["tail_21"] = tail
+        # one device: rank 0 alone, no engine
+        if ctx.rank == 0:
+            opt_d = ckpt_opt(taps, async_heavy)
+            tmpl = tloop.TrainState(params=fresh(), opt=opt_d.init(fresh()),
+                                    rng=mid.rng)
+            restored, _ = ck.restore(directory, tmpl)
+            _, tail = _drive(opt_d, loss_fn, batches[cut:], state=restored)
+            res["tail_1"] = tail
+        dist.barrier()
+        out[tag] = res
+    return out
+
+
+def tcut(vocab: int = 256):
+    """A depth cut of reduced gemma3, in the port: its first (local) layer,
+    scanned twice (stacked taps of 2), which keeps the reference's jitted
+    step short to compile."""
+    from repro_torch.configs.base import Segment, get_arch
+    red = get_arch("gemma3_4b").reduced()
+    return dataclasses.replace(red, vocab=vocab, n_layers=2, segments=(
+        Segment((red.segments[0].pattern[0],), repeats=2),))
+
+
+def _cli(ctx, case):
+    """The CLI on the 2 × 2 [data, curv] mesh (rank 0's console captured)
+    and a model axis larger than 1 refused."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as ttrain
+    buf = io.StringIO()
+    args = ttrain.parse_args(case["argv"])
+    with contextlib.redirect_stdout(buf):
+        _, losses = ttrain.run(args, arch=tcut())
+    refused = None
+    try:
+        ttrain.run(ttrain.parse_args(case["model_argv"]), arch=tcut())
+    except NotImplementedError as e:
+        refused = str(e)
+    dist.barrier()
+    return {"losses": losses, "console": buf.getvalue(),
+            "refused": refused}
+
+
+def _builder(ctx, case):
+    """``build_train_step`` on the 2 × 2 [data, curv] mesh: one step from
+    the reference's parameters and batch."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import steps as tsteps
+    tb = tsteps.build_train_step(
+        tcut(), cell=ShapeCell("t", case["T"], case["B"], "train"),
+        flags=case["flags"], dist=ctx.dist_spec("2d"), device=ctx.cpu)
+    params = {k: v.requires_grad_() for k, v in convert.params_from_jax(
+        case["init"], device=ctx.cpu).items()}
+    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    st0 = tb.opt.init(params)
+    out, st, loss = tb.step_fn(params, st0, batch,
+                               torch.Generator().manual_seed(1))
+    return {"loss": float(loss), "after": {k: _np(v) for k, v in
+                                           out.items()},
+            "engine": tb.opt.curvature.describe(),
+            "in_sh": tb.in_shardings is not None}
+
+
+def _elastic(ctx, case):
+    """The elastic runner's cases on four ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.obs import events as ev
+    from repro_torch.train import chaos as tchaos
+    from repro_torch.train import elastic
+    from repro_torch.train import loop as tloop
+    out = {}
+    root = case["dir"]
+
+    class W:
+        def __init__(self):
+            self.events = []
+
+        def emit(self, etype, **fields):
+            self.events.append((etype, fields))
+
+    # restart resumes from the checkpoint (test_fault_tolerance.py:216)
+    def make_state(mesh):
+        return {"x": torch.zeros(4), "step": torch.zeros((), dtype=torch.int64)}
+
+    def make_step(mesh):
+        return lambda st, k: {"x": st["x"] + (k + 1),
+                              "step": torch.tensor(k)}
+    inj = elastic.FailureInjector(fail_at=[7])
+    runner = elastic.ElasticRunner(
+        ckpt_dir=os.path.join(root, "resume"), make_state=make_state,
+        make_step=make_step, ckpt_every=2,
+        meshes=(((1,), ("data",)), ((1,), ("data",))), injector=inj,
+        device=ctx.cpu)
+    state, info = runner.run(10)
+    out["resume"] = {"x": None if state is None else _np(state["x"]),
+                     "info": info, "failed": inj.failed}
+
+    # double failure walks the ladder (test_fault_tolerance.py:229)
+    calls = []
+
+    def make_step2(mesh):
+        calls.append(tuple(mesh.devices.shape))
+        return lambda st, k: {"x": st["x"] + 1}
+    runner = elastic.ElasticRunner(
+        ckpt_dir=os.path.join(root, "double"),
+        make_state=lambda m: {"x": torch.zeros(())}, make_step=make_step2,
+        ckpt_every=1, meshes=(((1, 1), ("data", "model")), ((1,), ("data",)),
+                              ((1,), ("data",))),
+        injector=elastic.FailureInjector(fail_at=[2, 5]), device=ctx.cpu)
+    _, info = runner.run(8)
+    out["double"] = {"info": info, "calls": calls}
+
+    # repartition + remediation events (test_chaos.py:519), and the 2D
+    # ladder's axis field (test_mesh2d.py:577), on the world's own ladder
+    w = W()
+    ladder = elastic.device_ladder(axes=("data", "curv"), shape=(2, 2))
+    runner = elastic.ElasticRunner(
+        ckpt_dir=os.path.join(root, "axis"),
+        make_state=lambda m: {"x": torch.zeros(4)},
+        make_step=lambda m: (lambda st, k: {"x": st["x"] + 1}),
+        meshes=ladder, injector=elastic.FailureInjector(fail_at=[2]),
+        writer=w, device=ctx.cpu)
+    state, info = runner.run(5)
+    out["axis"] = {"events": w.events, "info": info, "ladder": ladder,
+                   "x": None if state is None else _np(state["x"])}
+
+    # host loss mid-cycle on the K-FAC MLP, resumed on the shrunk rung
+    # (test_chaos.py:576 in 1D, :626 in 2D with compressed gathers)
+    drills = (("host_1d", elastic.device_ladder(axes=("curv",)),
+               dict(curvature_axis="curv")),
+              ("host_2d", elastic.device_ladder(axes=("data", "curv"),
+                                                shape=(2, 2)),
+               dict(curvature_axis="curv", row_axis="data",
+                    curvature_compress=6)))
+    for (tag, ladder, dkw), fault in [(d, f) for d in drills
+                                      for f in (None, 7)]:
+        if fault is None:
+            tag = tag + "_ref"
+        batches = mlp_batches(12)
+        log = {}
+        from repro_torch import specs
+
+        def make_state(mesh, dkw=dkw):
+            params, taps = mlp()
+            opt = tkfac_opt(taps)
+            specs.DistSpec(mesh=mesh, **dkw).attach(opt)
+            holder["opt"] = opt
+            return tloop.TrainState(params=params, opt=opt.init(params),
+                                    rng=torch.Generator().manual_seed(0))
+
+        def shardings(template, mesh):
+            opt = holder["opt"]
+            return tloop.TrainState(params=None,
+                                    opt=opt.curvature.state_sharding(opt),
+                                    rng=None)
+
+        def make_step(mesh):
+            opt = holder["opt"]
+            sched = opt.scheduler()
+            step = tloop.make_scheduled_kfac_step(mlp_loss, opt, N_BS)
+            monkey = holder["chaos"]
+
+            def step_fn(state, k):
+                if not monkey.injected:     # the host is lost once
+                    monkey.check(k)
+                work = sched.work(k)
+                state, loss = step(state, batches[k], work)
+                log[k] = (float(loss), work.label,
+                          tuple(mesh.devices.shape))
+                return state
+            return step_fn
+
+        holder = {"chaos": tchaos.ChaosMonkey(
+            () if fault is None else (tchaos.Fault(fault, "host_loss"),))}
+        w = W()
+        runner = elastic.ElasticRunner(
+            ckpt_dir=os.path.join(root, tag), make_state=make_state,
+            make_step=make_step, state_shardings=shardings, ckpt_every=2,
+            meshes=ladder, writer=w, device=ctx.cpu)
+        state, info = runner.run(12)
+        out[tag] = {"log": log, "info": info, "events": w.events,
+                    "params": None if state is None else
+                    {k: _np(v) for k, v in state.params.items()}}
+    return out
+
+
+def tkfac_opt(taps):
+    """The host-loss drills' optimizer: rkfac, staggered in one chunk."""
+    import torch
+    from repro_torch.core import kfac as tkfac
+    return tkfac.Kfac(mlp_cfg("rkfac", stagger=True, stagger_splits=1),
+                      taps, device=torch.device("cpu"))
+
+
+def suite_mesh(ctx, cases):
+    kinds = {"obs_health": _obs_health, "ckpt": _ckpt, "cli": _cli,
+             "builder": _builder, "elastic": _elastic}
+    out = {}
+    for case in cases:
+        out[case["name"]] = kinds[case["kind"]](ctx, case)
+    return out
+
+
+SUITES = {"engine": suite_engine, "mesh": suite_mesh}
+
+
+def main(argv):
+    suite, job, rank, world, rdv, out_dir = argv
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            rank=int(rank), world_size=int(world),
+                            timeout=datetime.timedelta(seconds=90))
+    with open(job, "rb") as f:
+        cases = pickle.load(f)
+    ctx = Ctx()
+    res = {}
+    for case in cases:
+        try:
+            res.update(SUITES[suite](ctx, [case]))
+        except Exception:
+            res[case["name"]] = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"{suite}_{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
