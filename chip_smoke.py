@@ -443,12 +443,15 @@ def phase_kernels():
     # slice_dist's, per rank: ⌈B/2⌉ slots of each bucket on the curvature
     # axis (the row-sharded buckets absorb outside any kernel)
     dist_dense, dist_brand, dist_panels = dist_kernel_shapes()
+    # dp_reduced's, per rank: ⌈B/4⌉ slots of each bucket on the data axis
+    dp_dense, dp_panels = dp_kernel_shapes()
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
            [(sym(b, d), rnd(b, d, 256))
             for b, d in ((2, 256),) + tuple(x for x in NS_BUCKETS
                                             if x != (2, 256))]
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in launch_dense]
-           + [(sym(b, d), rnd(b, d, n)) for b, d, n in dist_dense],
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in dist_dense]
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in dp_dense],
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
@@ -525,7 +528,9 @@ def phase_kernels():
               # and its RSVD panels (a heavy range's chunk on each row
               # member)
               + [(rnd(b, d, n),) for b, d, _, _, n in dist_brand]
-              + [(rnd(c, d, k),) for c, d, k in dist_panels])
+              + [(rnd(c, d, k),) for c, d, k in dist_panels]
+              # dp_reduced's per rank (its local rows of each range)
+              + [(rnd(c, d, k),) for c, d, k in dp_panels])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -950,6 +955,11 @@ PATH_KERNELS = {
     # absorb of the one bucket whose d (27) the row axis does not divide
     "slice_dist": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
                    "precond_panel", "precond_apply"),
+    # the CLI data-parallel at full width: every factor BRAND under
+    # use_kernels=False, as slice_launch
+    "slice_dp": (),
+    # the CLI data-parallel at --reduced under B-R-KFAC, on every rank
+    "dp_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -2527,9 +2537,12 @@ def phase_agree_launch():
         continuation record)."""
         grads = []
 
-        def recorded(gp, cs, cfg):
-            out, cs = compress_tree(gp, cs, cfg)
-            grads.append({k: v.detach().cpu() for k, v in out.items()
+        def recorded(gp, cs, cfg, sp=None):
+            out, cs = compress_tree(gp, cs, cfg, sp=sp)
+            # copies: the update consumes the step's gradients (an
+            # untapped leaf's AdamW update is made in its storage)
+            grads.append({k: v.detach().to("cpu", copy=True)
+                          for k, v in out.items()
                           if v.dim() >= 2 and v.numel() >= cfg.min_size})
             return out, cs
 
@@ -3169,6 +3182,7 @@ def dist_rank_replay(mesh, dev):
     params = model.params()
     state = opt.init(params)
     rank0 = dist.get_rank() == 0
+    tapped = {t.param_path for t in opt.taps.values()}
     whole = eng.gather_state(opt, state)
     errs, state_errs, losses = [], [], []
     for k in range(DIST["steps"]):
@@ -3442,10 +3456,646 @@ def phase_dist(checked):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# data-parallel execution of the LM: slice_dp (path 13) and dp_reduced
+# ---------------------------------------------------------------------------
+
+#: path 13: the trainer CLI at gemma3-4b's full width on ``--mesh 2x1``
+#: (data 2, model 1): two ranks of the one card on gloo, each on its 2 of
+#: the batch's 4 rows, with the CLI's defaults (batch 4 × 64,
+#: default_kfac_config: every factor BRAND, use_kernels=False) and
+#: --compress (PowerSGD's panels summed across the ranks; the raw
+#: gradient all-reduce would stage several GB a step through host memory
+#: over gloo); cut to 4 of 34 layers, gemma3's pattern with its global
+#: layer and three of its five local ones (``layers``: positions in the
+#: first segment's pattern), where two ranks fit beside this process:
+#: a rank holds the whole model, its optimizer state and its own error
+#: feedback, 22.4 GB after its build and a 39.9 GB peak at 6 layers
+#: (tools/launch_memory.py --ranks 2), which fit alone but not beside
+#: this script's earlier phases, and at 10 layers two ranks run the card
+#: out of memory; then the prefill (2 × 2048) and fp32 decode builders on
+#: the data mesh, each rank's logits held to its rows of one process's
+DP_SLICE = dict(arch="gemma3_4b", layers=(0, 1, 2, 5), steps=6, batch=4,
+                seq=64, prefill=2048, decode=8, world=2, timeout=900)
+#: dp_reduced: B-R-KFAC at --reduced on ``--mesh 4x1`` without --compress
+#: (the raw gradient all-reduce), 12 steps (the RSVD overwrites of the
+#: staggered T_inv = 10 window), four ranks; then the same steps replayed,
+#: each step's update and new state held to the one-process optimizer's
+#: from the same gathered state and the same parameters, whose gradients
+#: and taps rank 0 computes on the whole batch, with the data-parallel
+#: step's continuation shifts replayed (as agree_launch replays the CPU's)
+DP_REDUCED = dict(argv=("--reduced", "--variant", "brkfac"), steps=12,
+                  world=4, timeout=600)
+#: slice_dp's and dp_reduced's limits against one process: the free-running
+#: losses over the first DP_HELD steps of slice_dp and every step of
+#: dp_reduced, dp_reduced's replayed updates and states
+DP_TOL = 1e-3
+DP_HELD = 4
+
+
+def dp_reduced_opt(dev, mesh=None):
+    """dp_reduced's model (gemma3 reduced, data-parallel over ``mesh``)
+    and optimizer (the engine on the data axis, as --curvature auto picks
+    on ``--mesh 4x1``)."""
+    from repro_torch import specs
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.launch import steps, train
+    from repro_torch.models.lm import LM
+    args = train.parse_args(list(DP_REDUCED["argv"]))
+    lm = LM(get_arch("gemma3_4b").reduced(), steps.shard_policy_for(mesh),
+            remat=False, device=dev)
+    opt = kfac_lib.Kfac(train.kfac_config_of(args), lm.taps, device=dev)
+    if mesh is not None:
+        specs.DistSpec(mesh=mesh, curvature_axis="data").attach(opt)
+    return lm, opt
+
+
+def dp_kernel_shapes():
+    """dp_reduced's kernel shapes on each rank: the engine gives a rank
+    ⌈B/4⌉ slots of every bucket, so the EA absorb's (⌈B/4⌉, d, n_stat)
+    of each bucket that holds M, and the RSVD range finder's panels
+    (count, d, r + r_o) — the rank's whole share (the first step) or its
+    local rows of each heavy range of the run's steps."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.core import buckets, kfactor
+    from repro_torch.distributed import curvature
+    world = DP_REDUCED["world"]
+    _, opt = dp_reduced_opt(torch.device("cpu"))
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.zeros((world, 1)))
+    eng = curvature.CurvatureEngine(mesh, "data", opt.factor_buckets)
+    sched = opt.scheduler(align=world)
+    dense, panels = [], []
+    for bi, (b, plan) in enumerate(zip(opt.factor_buckets, eng.plans)):
+        s, bl = b.spec, plan.per_device
+        if s.needs_m:
+            dense.append((bl, s.d, s.n_stat))
+        if kfactor.has_heavy_op(s):
+            counts = {bl}
+            for k in range(DP_REDUCED["steps"]):
+                for lo, hi in buckets.localize_ranges(
+                        sched.work(k).heavy[bi], b.total, world):
+                    counts.add(hi - lo)
+            panels += [(c, s.d, min(s.r + s.r_o, s.d))
+                       for c in sorted(counts)]
+    return dense, panels
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Bytes and seconds of every all-reduce and all-gather while the
+    block runs ({kind: [bytes, seconds, calls]}, from this process's
+    calls; a call over a tuple of axes counts as its per-axis calls)."""
+    import torch
+    from repro_torch.distributed import collectives as coll
+    tally = {"all_reduce": [0, 0.0, 0], "all_gather": [0, 0.0, 0]}
+    saved = {k: getattr(coll, k) for k in tally}
+
+    def wrap(kind):
+        fn = saved[kind]
+
+        def counted(x, mesh, axis=None, *a, **kw):
+            if isinstance(axis, tuple):
+                return fn(x, mesh, axis, *a, **kw)
+            t0 = time.perf_counter()
+            out = fn(x, mesh, axis, *a, **kw)
+            if x.is_cuda:
+                torch.cuda.current_stream().synchronize()
+            row = tally[kind]
+            row[0] += x.numel() * x.element_size()
+            row[1] += time.perf_counter() - t0
+            row[2] += 1
+            return out
+        return counted
+    for k in tally:
+        setattr(coll, k, wrap(k))
+    try:
+        yield tally
+    finally:
+        for k, fn in saved.items():
+            setattr(coll, k, fn)
+
+
+def _dp_slice_arch():
+    """gemma3-4b at full width, cut to DP_SLICE's positions of its first
+    segment's pattern, once."""
+    import dataclasses
+    from repro_torch.configs.base import Segment, get_arch
+    full = get_arch(DP_SLICE["arch"])
+    pattern = tuple(full.segments[0].pattern[i] for i in DP_SLICE["layers"])
+    return dataclasses.replace(full, n_layers=len(pattern),
+                               segments=(Segment(pattern, repeats=1),))
+
+
+def _dp_slice_argv(extra=()):
+    S = DP_SLICE
+    return ["--compress", "--steps", str(S["steps"]), "--batch",
+            str(S["batch"]), "--seq", str(S["seq"]), "--device", "cuda",
+            "--metrics-every", "0", *extra]
+
+
+def dp_rank_slice(rank: int, dev) -> dict:
+    """slice_dp on this rank: the CLI on ``--mesh 2x1`` (per step: wall
+    time, the all-reduce and all-gather bytes and seconds), launches,
+    calls by shape, peak memory; then the prefill and decode builders on
+    the data mesh, this rank's logits against its rows of the same
+    builders' one-process logits."""
+    import dataclasses
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, train
+    S = DP_SLICE
+    arch = _dp_slice_arch()
+    tel = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    args = train.parse_args(_dp_slice_argv(
+        ["--mesh", f"{S['world']}x1"]
+        + (["--telemetry-dir", tel] if rank == 0 else [])))
+    stream = TokenStream(vocab=arch.vocab, batch=S["batch"],
+                         seq_len=S["seq"], seed=0, device=dev).batch_at
+    marks, tallies = [], []
+
+    def batches(k):
+        # a step boundary: the device's work so far is the previous step's
+        torch.cuda.current_stream().synchronize()
+        marks.append(time.perf_counter())
+        tallies.append({kk: list(v) for kk, v in tally.items()})
+        return stream(k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with calls_by_shape() as by_shape, counted_collectives() as tally:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            state, losses = train.run(args, arch=arch, batches=batches)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        tallies.append({kk: list(v) for kk, v in tally.items()})
+    peak = torch.cuda.max_memory_allocated()
+    counts = _build.launch_counts()
+    kinds = ([e["phase"] for e in _events(tel) if e["type"] == "step"]
+             if rank == 0 else None)
+    per_step = []
+    for k in range(len(losses)):
+        row = {"wall_s": marks[k + 1] - marks[k]}
+        for kind in ("all_reduce", "all_gather"):
+            a, b = tallies[k][kind], tallies[k + 1][kind]
+            row[kind] = {"bytes": b[0] - a[0], "s": b[1] - a[1],
+                         "calls": b[2] - a[2]}
+        per_step.append(row)
+    params = {k: v.detach() for k, v in state.params.items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the builders on the data mesh, against the same builders in one
+    # process on the whole batch (this rank's rows)
+    mesh = mesh_lib.make_mesh((S["world"], 1), ("data", "model"))
+    B, n = S["world"], S["decode"]
+    prompt = TokenStream(vocab=arch.vocab, batch=B, seq_len=S["prefill"],
+                         seed=1, device=dev).batch_at(0)["tokens"]
+    rows = slice(rank, rank + 1)
+    out = {}
+    for name, mesh_of in (("dp", mesh), ("one", None)):
+        pb = steps.build_prefill_step(arch, mesh=mesh_of, device=dev,
+                                      cell=ShapeCell("dp_prefill",
+                                                     S["prefill"], B,
+                                                     "prefill"))
+        batch = {"tokens": prompt}
+        if mesh_of is not None:
+            batch = shd.localize(batch, pb.in_shardings[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = pb.step_fn(params, batch)
+        torch.cuda.synchronize()
+        out[name] = {"prefill_s": time.perf_counter() - t0,
+                     "prefill": lg if mesh_of is not None else lg[rows]}
+        del lg
+        torch.cuda.empty_cache()
+        arch32 = dataclasses.replace(arch, dtype="float32")
+        db = steps.build_decode_step(arch32, mesh=mesh_of, device=dev,
+                                     cell=ShapeCell("dp_decode", n, B,
+                                                    "decode"))
+        cache, tok = db.lm.init_cache(B, n), prompt
+        if mesh_of is not None:
+            cache = shd.localize(cache, db.in_shardings[1])
+            tok = shd.localize(prompt, db.in_shardings[2])
+        dec = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(n):
+                lg, cache = db.step_fn(params, cache, tok[:, t:t + 1], t)
+                dec.append(lg[:, 0])
+        torch.cuda.synchronize()
+        out[name]["decode_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        dec = torch.stack(dec, 1)
+        out[name]["decode"] = dec if mesh_of is not None else dec[rows]
+        del cache, dec
+    prefill_err = _scale_err(out["dp"]["prefill"].float(),
+                             out["one"]["prefill"].float())
+    decode_err = _scale_err(out["dp"]["decode"], out["one"]["decode"])
+    finite = bool(torch.isfinite(out["dp"]["prefill"]).all()
+                  and torch.isfinite(out["dp"]["decode"]).all())
+    return {"losses": losses, "kinds": kinds, "steps": per_step,
+            "log": buf.getvalue() if rank == 0 else "",
+            "peak_mem_bytes": peak, "launches": counts,
+            "calls_by_shape": dict(by_shape),
+            "builders": {"prefill": [B, S["prefill"]], "decode": [B, n],
+                         "prefill_err_of_scale": prefill_err,
+                         "decode_fp32_err_of_scale": decode_err,
+                         "finite": finite,
+                         "prefill_s": {k: out[k]["prefill_s"]
+                                       for k in out},
+                         "decode_ms_per_token": {k: out[k]["decode_ms"]
+                                                 for k in out}}}
+
+
+def dp_rank_reduced(rank: int, dev) -> dict:
+    """dp_reduced on this rank: the CLI on ``--mesh 4x1`` (launches, calls
+    by shape, per-step collectives), then the replay: every step's
+    data-parallel update (of a tapped leaf; the gradient of one the AdamW
+    fallback steps) and new state (gathered) against, on rank 0, the
+    one-process optimizer's from the same state, with the gradients and
+    taps of the whole batch from the same parameters."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import tenant
+    from repro_torch.data.synthetic import TokenStream, rank_rows
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import base as optbase
+    from repro_torch.train import loop
+    R = DP_REDUCED
+    world = R["world"]
+    args = train.parse_args(list(R["argv"]) + [
+        "--steps", str(R["steps"]), "--mesh", f"{world}x1", "--device",
+        "cuda"])
+    _build.reset_launch_counts()
+    with calls_by_shape() as by_shape, counted_collectives() as tally:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, losses = train.run(args)
+        torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    cli_tally = {k: list(v) for k, v in tally.items()}
+
+    mesh = mesh_lib.make_mesh((world, 1), ("data", "model"))
+    lm, opt = dp_reduced_opt(dev, mesh)
+    one = kfac_lib.Kfac(opt.cfg, opt.taps, device=dev)
+    lm1 = LM(lm.arch, remat=False, device=dev)
+    eng = opt.curvature
+    sp = lm.sp
+    sched = opt.scheduler()
+    draws = numpy_draws(opt, seed=5)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    state = opt.init(params)
+    stream = TokenStream(vocab=lm.arch.vocab, batch=args.batch,
+                         seq_len=args.seq, seed=0, device=dev)
+    n_tokens = args.batch * args.seq
+    rank0 = dist.get_rank() == 0
+    tapped = {t.param_path for t in opt.taps.values()}
+    whole = eng.gather_state(opt, state)
+    errs, state_errs, loss_errs, rows, parted, worst = ([], [], [], [], [],
+                                                        [])
+    for k in range(R["steps"]):
+        work = sched.work(k)
+        batch = stream.batch_at(k)
+        local = rank_rows(batch, sp.dp_index, sp.dp_size)
+        rows.append(int(local["tokens"].shape[0]))
+        loss, acts, gp, gprobe = loop.kfac_grads(
+            lm.loss_fn, params, layers.make_probes(opt.taps, device=dev),
+            local, sp)
+        kw = dict(n_tokens=n_tokens, rng=None, work=work, draws=draws(k))
+        before = tenant.tree_map(
+            lambda x: x.clone() if torch.is_tensor(x) else x,
+            whole) if rank0 else None
+        with continuation_replay() as shifts:
+            upd, state = opt.update(dict(gp), state, params, acts=acts,
+                                    probe_grads=gprobe, **kw)
+        whole = eng.gather_state(opt, state)
+        if rank0:
+            loss1, acts1, gp1, gprobe1 = loop.kfac_grads(
+                lm1.loss_fn, params,
+                layers.make_probes(opt.taps, device=dev), batch)
+            # the spectrum continuation's shifts of the data-parallel step
+            # replayed (ROADMAP §3: a rounding-level mode of a
+            # rank-deficient G factor parts it between any two runs);
+            # where the one-process step's own shifts part is counted
+            with continuation_replay(shifts) as own:
+                want, want_state = one.update(gp1, before, params,
+                                              acts=acts1,
+                                              probe_grads=gprobe1, **kw)
+            parted.append(sum(int(((a - b).abs() > 1e-3 * b.abs()).sum())
+                              for a, b in zip(shifts, own)))
+            # the tapped leaves by their updates; the AdamW fallback's
+            # (norm scales, the embedding) by the gradients entering it:
+            # AdamW divides each entry by its own size, so a
+            # rounding-level gradient entry takes a step anywhere between
+            # 0 and the learning rate (ROADMAP §3)
+            rel = lambda a, b: (float((a - b).abs().max())
+                                / max(float(b.abs().max()), 1e-30))
+            by_name = {n: (rel(upd[n], w) if n in tapped
+                           else rel(gp[n], gp1[n]))
+                       for n, w in want.items()}
+            errs.append(max(by_name.values()))
+            worst.append(sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+            state_errs.append(_state_err(whole, want_state))
+            loss_errs.append(abs(float(loss) - float(loss1))
+                             / abs(float(loss1)))
+            del want, want_state
+        del before
+        optbase.apply_updates(params, upd)
+    torch.cuda.synchronize()
+    return {"losses": losses, "log": buf.getvalue() if rank == 0 else "",
+            "launches": counts, "calls_by_shape": dict(by_shape),
+            "collectives": cli_tally, "rows": rows,
+            "replay": {"update_rel_err": errs, "state_err": state_errs,
+                       "loss_rel_err": loss_errs,
+                       "continuation_rows_parted": parted,
+                       "worst_updates": worst}}
+
+
+def dp_rank_main(job: str, rank: int, world: int, rdv: str, out: str) -> int:
+    """One rank of slice_dp or dp_reduced: joins the world through a file
+    rendezvous (gloo: the ranks share the card), finds the kernels the
+    parent built, runs ``job`` and writes its results as JSON."""
+    import traceback
+    import torch.distributed as dist
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        from repro_torch.kernels import _build
+        from repro_torch.launch import mesh as mesh_lib
+        dev = mesh_lib.init_process_group(
+            None, init_method=f"file://{rdv}", rank=rank, world_size=world)
+        _build.load()
+        res.update(backend=dist.get_backend(), device=str(dev),
+                   init_s=time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        run = {"slice": dp_rank_slice, "reduced": dp_rank_reduced}[job]
+        res[job] = run(rank, dev)
+        res["run_s"] = time.perf_counter() - t1
+        dist.barrier()
+        rc = 0
+    except Exception:
+        res["error"] = traceback.format_exc()
+        rc = 1
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return rc
+
+
+def spawn_ranks(job: str, world: int, timeout: float, meanwhile=None):
+    """``world`` processes of this script running ``job`` (``--dp-rank``)
+    on the one card, joined with a timeout; ``meanwhile()`` runs in this
+    process while they do → (its result, the ranks' results, seconds)."""
+    import os
+    import tempfile
+    import torch
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{job}_")
+    rdv = os.path.join(tmp, "rendezvous")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    # the ranks allocate as this process does since slice_serve
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", job,
+         str(r), str(world), rdv, os.path.join(tmp, f"rank{r}.json")],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+        for r in range(world)]
+    mine = None
+    try:
+        if meanwhile is not None:
+            mine = meanwhile()
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    res, failed = [], []
+    for r in range(world):
+        logs[r].seek(0)
+        tail = logs[r].read()[-2000:]
+        logs[r].close()
+        path = os.path.join(tmp, f"rank{r}.json")
+        got = json.load(open(path)) if os.path.exists(path) else {}
+        if procs[r].returncode != 0 or "error" in got:
+            # every rank's: the first to fail makes the others' collectives
+            # fail after it
+            failed.append(f"{job} rank {r} failed (rc "
+                          f"{procs[r].returncode}): "
+                          f"{got.get('error', '')[-2000:]}\n{tail}")
+        res.append(got)
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return mine, res, seconds
+
+
+def _rel_drift(a, b) -> list:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b, strict=True)]
+
+
+def phase_dp_slice(checked):
+    """Path 13 (DP_SLICE): the one-process CLI at the cut first (its
+    losses and step times), then the same run on ``--mesh 2x1``: two
+    ranks of this card, each on its rows, held to it over the first
+    DP_HELD steps at DP_TOL; each rank's step time by kind, its
+    all-reduce and all-gather bytes and seconds, peak memory, launches;
+    the builders' logits on the data mesh against one process's.  Returns
+    the launch counts summed over the ranks."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.param_count import count_params
+    S = DP_SLICE
+    arch = _dp_slice_arch()
+    tel = tempfile.mkdtemp(prefix="chip_smoke_dp_one_")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, one = train.run(train.parse_args(_dp_slice_argv(
+            ["--telemetry-dir", tel])), arch=arch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() - base
+    one_walls = [(e["phase"], e["dt_s"]) for e in _events(tel)
+                 if e["type"] == "step"]
+    shutil.rmtree(tel, ignore_errors=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_free = torch.cuda.mem_get_info()[0]     # what the two ranks get
+    _, res, spawn_s = spawn_ranks("slice", S["world"], S["timeout"])
+    sl = [g["slice"] for g in res]
+    kinds = sl[0]["kinds"]
+    drift = [_rel_drift(s["losses"], one) for s in sl]
+    for k in range(S["steps"]):
+        emit({"phase": "slice_dp", "step": k, "kind": kinds[k],
+              "loss": [s["losses"][k] for s in sl], "loss_one": one[k],
+              "drift": [d[k] for d in drift],
+              "wall_s": [s["steps"][k]["wall_s"] for s in sl],
+              "wall_s_one": one_walls[k][1],
+              "all_reduce": [s["steps"][k]["all_reduce"] for s in sl],
+              "all_gather": [s["steps"][k]["all_gather"] for s in sl]})
+    by_kind = {}
+    for s in sl:
+        for kind, st in zip(kinds, s["steps"]):
+            by_kind.setdefault(kind, []).append(st["wall_s"])
+    PATH_WALLS["slice_dp"] = by_kind
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [k for k in PATH_KERNELS["slice_dp"] if counts[k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    bl = [s["builders"] for s in sl]
+    log = [ln for ln in sl[0]["log"].splitlines()
+           if "data parallel" in ln or "curvature sharded" in ln]
+    emit({"phase": "slice_dp", "summary": True, "arch": arch.name,
+          "world": S["world"], "mesh": {"data": S["world"], "model": 1},
+          "backend": res[0]["backend"], "params": count_params(arch),
+          "reduced": {"n_layers": arch.n_layers,
+                      "pattern_positions": list(DP_SLICE["layers"]),
+                      "windows": [p.window for p in
+                                  arch.segments[0].pattern]},
+          "argv": _dp_slice_argv(["--mesh", f"{S['world']}x1"]),
+          "kinds": kinds, "losses_one": one,
+          "max_drift_held": max(max(d[:DP_HELD]) for d in drift),
+          "max_drift": max(max(d) for d in drift), "tol": DP_TOL,
+          "held_steps": DP_HELD, "wall_s_by_kind": by_kind,
+          "wall_s_one": one_walls, "one_run_s": one_s,
+          "one_peak_mem_bytes": one_peak,
+          "card_free_bytes_at_spawn": card_free,
+          "peak_mem_bytes": [s["peak_mem_bytes"] for s in sl],
+          "builders": bl, "engine_log": log,
+          "launches": counts, "calls_by_shape": [s["calls_by_shape"]
+                                                 for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "run": [g["run_s"] for g in res]},
+          "note": "two ranks share one card's SMs and memory, and their "
+                  "collectives go through host memory (gloo)"})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    held_ok = all(max(d[:DP_HELD]) < DP_TOL for d in drift)
+    build_ok = all(b["finite"] and b["prefill_err_of_scale"] <= DECODE_TOL
+                   and b["decode_fp32_err_of_scale"] <= DP_TOL for b in bl)
+    if (not finite or not held_ok or not build_ok or missing or unchecked
+            or len(kinds) != S["steps"]
+            or not any("data parallel over data: 2 ranks" in ln
+                       for ln in log)):
+        raise AssertionError(
+            f"slice_dp: finite {finite}, loss drift {drift}, builders "
+            f"{bl}, never launched {missing}, calls at unchecked shapes "
+            f"{unchecked}, log {log}")
+    return counts
+
+
+def phase_dp_reduced(checked):
+    """dp_reduced (DP_REDUCED) on four ranks of this card; this process
+    meanwhile runs the one-process CLI, the oracle of the free-running
+    losses.  Every rank must launch each kernel of the path, at shapes
+    the ``kernels`` phase held.  Returns the launch counts of the ranks'
+    CLI runs, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    R = DP_REDUCED
+
+    def one_process():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train.run(train.parse_args(list(R["argv"]) + [
+                "--steps", str(R["steps"]), "--device", "cuda"]))[1]
+    one, res, spawn_s = spawn_ranks("reduced", R["world"], R["timeout"],
+                                    meanwhile=one_process)
+    torch.cuda.synchronize()
+    sl = [g["reduced"] for g in res]
+    drift = [_rel_drift(s["losses"], one) for s in sl]
+    replay = sl[0]["replay"]
+    err = max(replay["update_rel_err"])
+    serr = {f: max(e[f] for e in replay["state_err"])
+            for f in replay["state_err"][0]}
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [(r, k) for r, s in enumerate(sl)
+               for k in PATH_KERNELS["dp_reduced"] if s["launches"][k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    for k in range(R["steps"]):
+        emit({"phase": "dp_reduced", "step": k,
+              "loss": [s["losses"][k] for s in sl], "loss_one": one[k],
+              "drift": [d[k] for d in drift],
+              "update_rel_err": replay["update_rel_err"][k],
+              "state_err": replay["state_err"][k],
+              "loss_rel_err": replay["loss_rel_err"][k],
+              "continuation_rows_parted":
+                  replay["continuation_rows_parted"][k],
+              "worst_updates": replay["worst_updates"][k]})
+    emit({"phase": "dp_reduced", "summary": True, "argv": R["argv"],
+          "world": R["world"], "mesh": {"data": R["world"], "model": 1},
+          "backend": res[0]["backend"], "steps": R["steps"],
+          "max_drift": max(max(d) for d in drift),
+          "max_update_rel_err": err, "max_state_err": serr,
+          "tol": DP_TOL, "rows_per_rank": sl[0]["rows"],
+          "collectives": [s["collectives"] for s in sl],
+          "engine_log": [ln for ln in sl[0]["log"].splitlines()
+                         if "data parallel" in ln
+                         or "curvature sharded" in ln],
+          "launches": counts, "launches_by_rank": [s["launches"]
+                                                   for s in sl],
+          "calls_by_shape": [s["calls_by_shape"] for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "run": [g["run_s"] for g in res]}})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    state_ok = (serr["counters"] == 0
+                and all(serr[f] < DP_TOL for f in serr if f != "counters"))
+    if (not finite or max(max(d) for d in drift) >= DP_TOL
+            or not err < DP_TOL or not state_ok
+            or max(replay["loss_rel_err"]) >= DP_TOL
+            or len(replay["update_rel_err"]) != R["steps"]
+            or sl[0]["rows"] != [1] * R["steps"]
+            or missing or unchecked):
+        raise AssertionError(
+            f"dp_reduced: finite {finite}, loss drift {drift}, update rel "
+            f"err {err}, state err {serr}, replay loss err "
+            f"{replay['loss_rel_err']}, never launched (rank, kernel) "
+            f"{missing}, calls at unchecked shapes {unchecked}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dist-rank", nargs=4, default=None,
                     metavar=("RANK", "WORLD", "RENDEZVOUS", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", nargs=5, default=None,
+                    metavar=("JOB", "RANK", "WORLD", "RENDEZVOUS", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -3458,6 +4108,9 @@ def main(argv=None) -> int:
     if args.dist_rank is not None:
         rank, world, rdv, out = args.dist_rank
         return dist_rank_main(int(rank), int(world), rdv, out)
+    if args.dp_rank is not None:
+        job, rank, world, rdv, out = args.dp_rank
+        return dp_rank_main(job, int(rank), int(world), rdv, out)
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
@@ -3503,6 +4156,11 @@ def main(argv=None) -> int:
     # 2 × 2 mesh), and B-R-KFAC at full width on a (2, 2) curv × rows mesh
     phase_agree_dist_single()
     by_path["slice_dist"] = phase_dist(checked)
+    # data-parallel execution of the LM: gemma3-4b at full width on two
+    # ranks (--mesh 2x1, --compress), then B-R-KFAC reduced on four ranks
+    # with the raw gradient all-reduce
+    by_path["slice_dp"] = phase_dp_slice(checked)
+    by_path["dp_reduced"] = phase_dp_reduced(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -110,9 +110,10 @@ class ArchConfig:
 
     def with_repeats(self, repeats: Tuple[int, ...]) -> "ArchConfig":
         """The same config at full width, cut in depth: segment i
-        repeated ``repeats[i]`` times."""
+        repeated ``repeats[i]`` times (a segment at 0 is left out)."""
         segs = tuple(dataclasses.replace(seg, repeats=r)
-                     for seg, r in zip(self.segments, repeats, strict=True))
+                     for seg, r in zip(self.segments, repeats, strict=True)
+                     if r > 0)
         return dataclasses.replace(
             self, segments=segs,
             n_layers=sum(len(s.pattern) * s.repeats for s in segs))

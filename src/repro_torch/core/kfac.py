@@ -149,6 +149,9 @@ class BucketLayout:
     def per_slot(value, total: int):
         return value
 
+    #: the caller hands its gradients over: they may be overwritten
+    consumes = False
+
     @staticmethod
     def release(leaves, keys) -> None:
         """Called once ``leaves[k]`` for each k in ``keys`` has been
@@ -159,7 +162,10 @@ class BucketLayout:
 class _ConsumedGrads(BucketLayout):
     """The one-optimizer layout whose caller hands its gradients over
     (``Kfac.update(consume_grads=True)``): a bucket's tapped gradients
-    leave the caller's dict once gathered."""
+    leave the caller's dict once gathered (and a bucket's preconditioned
+    step may be made in their storage)."""
+
+    consumes = True
 
     @staticmethod
     def release(leaves, keys) -> None:
@@ -550,7 +556,8 @@ class Kfac:
             S = precond.precondition_with_damping(
                 J, U_a, D_a, U_g, D_g, phi,
                 continuation=cont, use_kernel=use_k,
-                dense_g=dense_swap_g, dense_a=dense_swap_a)
+                dense_g=dense_swap_g, dense_a=dense_swap_a,
+                consume=layout.consumes)
         return {name: Se for (name, _), Se in layout.scatter(ent, S).items()}
 
     # -- the update ---------------------------------------------------------
@@ -574,11 +581,14 @@ class Kfac:
         state passed in is never modified: a caller may keep it and
         discard the new one.
 
-        ``consume_grads`` hands ``grads`` over: on the bucketed path each
-        tapped gradient leaves the dict once its bucket is gathered, so
-        the update does not hold the gradients beside their
-        preconditioned steps (gigabytes at a full-width LM); the
-        numbers are the same."""
+        ``consume_grads`` hands ``grads`` over, and the AdamW fallback's
+        moments of ``state`` with them: on the bucketed path each tapped
+        gradient leaves the dict once its bucket is gathered, so the
+        update does not hold the gradients beside their preconditioned
+        steps (gigabytes at a full-width LM), and an untapped parameter's
+        update is made in its gradient's storage, its new moments in the
+        old ones' (``AdamW.update(consume=True)``), so ``state`` is not to
+        be used again; the numbers are the same."""
         cfg = self.cfg
         first = state.n_stats == 0
         phi = cfg.damping_phi(state.step)
@@ -642,7 +652,8 @@ class Kfac:
             else:
                 updates[t.param_path] = S.mul_(-lr)
         fb_updates, fb_state = self._fallback.update(
-            untapped, state.fallback, self._untapped(params))
+            untapped, state.fallback, self._untapped(params),
+            consume=consume_grads)
         updates.update(fb_updates)
         updates = {k: updates[k] for k in order}     # parameter order
         if cfg.clip > 0:

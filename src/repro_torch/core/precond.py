@@ -57,7 +57,7 @@ def _lam_safe(lam) -> Tensor:
 
 
 def apply_inv_right(J: Tensor, U: Tensor, D: Tensor, lam: Tensor,
-                    use_kernel: bool = False) -> Tensor:
+                    use_kernel: bool = False, out: Tensor = None) -> Tensor:
     """J @ (U diag(D) Uᵀ + λI)⁻¹ — right application (A-side).
     J: (..., p, d), U: (..., d, w).  With ``use_kernel`` it goes to
     ``ops.lowrank_apply`` (the CUDA kernel on the card)."""
@@ -67,8 +67,9 @@ def apply_inv_right(J: Tensor, U: Tensor, D: Tensor, lam: Tensor,
         return kops.lowrank_apply(J, U, lowrank_inv_diag(D, lam), lam)
     T = (J @ U) * lowrank_inv_diag(D, lam)[..., None, :]
     # T Uᵀ + J/λ with one J-sized temporary (the sum in place: the same
-    # bits as out of place); a bucket of a full-width LM is gigabytes
-    return (T @ _mt(U)).addcdiv_(J, _scal(lam, J))
+    # bits as out of place), or none in ``out`` (storage of J's size that
+    # is not J); a bucket of a full-width LM is gigabytes
+    return torch.matmul(T, _mt(U), out=out).addcdiv_(J, _scal(lam, J))
 
 
 def apply_inv_left(J: Tensor, U: Tensor, D: Tensor, lam: Tensor,
@@ -80,14 +81,19 @@ def apply_inv_left(J: Tensor, U: Tensor, D: Tensor, lam: Tensor,
 def kfac_precondition(J: Tensor, U_g: Tensor, D_g: Tensor, lam_g: Tensor,
                       U_a: Tensor, D_a: Tensor, lam_a: Tensor,
                       use_kernel: bool = False, dense_g: bool = False,
-                      dense_a: bool = False) -> Tensor:
+                      dense_a: bool = False, consume: bool = False
+                      ) -> Tensor:
     """Full quadratic application (Alg 1): S = Γ̄⁻¹ J Ā⁻¹, J (…, d_out,
     d_in).  With ``use_kernel`` the two-sided application goes to
     ``ops.precond_fused`` (the CUDA kernel pair on the card).
 
     ``dense_g``/``dense_a`` mark NS-mode sides: U there is the dense
     damped inverse, applied by a plain GEMM (its D and λ are ignored);
-    the other side, if low-rank, goes through ``apply_inv_*``."""
+    the other side, if low-rank, goes through ``apply_inv_*``.
+
+    ``consume``: J is the caller's to overwrite; the plain two-sided
+    application then makes its result in J's storage once J Ā⁻¹ is made
+    (the same numbers, one J-sized temporary fewer)."""
     if dense_g or dense_a:
         M = J @ U_a if dense_a else apply_inv_right(J, U_a, D_a, lam_a,
                                                     use_kernel)
@@ -100,6 +106,9 @@ def kfac_precondition(J: Tensor, U_g: Tensor, D_g: Tensor, lam_g: Tensor,
                                   lam_g, U_a, lowrank_inv_diag(D_a, lam_a),
                                   lam_a)
     M = apply_inv_right(J, U_a, D_a, lam_a)      # J Ā⁻¹
+    if consume and J.is_contiguous():            # Γ̄⁻¹ (·) into J's storage
+        out = J.view(_mt(M).shape)
+        return _mt(apply_inv_right(_mt(M), U_g, D_g, lam_g, out=out))
     return apply_inv_left(M, U_g, D_g, lam_g)    # Γ̄⁻¹ (·)
 
 
@@ -144,14 +153,17 @@ def precondition_with_damping(J: Tensor, U_g: Tensor, D_g: Tensor,
                               continuation: bool = True,
                               use_kernel: bool = False,
                               dense_g: bool = False,
-                              dense_a: bool = False) -> Tensor:
+                              dense_a: bool = False,
+                              consume: bool = False) -> Tensor:
     """Damping + spectrum continuation + full quadratic application for a
     whole (possibly stacked) tap in one call — the optimizer's entry
-    point.  J: (*stack, d_out, d_in)."""
+    point.  J: (*stack, d_out, d_in); ``consume`` as in
+    :func:`kfac_precondition`."""
     D_g, lam_g, D_a, lam_a = _damped_sides(D_g, D_a, phi, continuation,
                                            dense_g, dense_a)
     return kfac_precondition(J, U_g, D_g, lam_g, U_a, D_a, lam_a, use_kernel,
-                             dense_g=dense_g, dense_a=dense_a)
+                             dense_g=dense_g, dense_a=dense_a,
+                             consume=consume)
 
 
 def precondition_linear_with_damping(G: Tensor, A: Tensor, U_g: Tensor,

@@ -13,18 +13,38 @@ Both draw from their own ``torch.Generator`` streams, so their numbers are
 not the reference's; the parity tests feed both packages the reference's
 draws (``TokenStream.batch_at``'s optional arguments) or batches instead.
 Each batch is a pure function of (seed, step), made on the target device.
+
+On a data mesh a rank trains on its block of the global batch: every
+rank draws the global batch (the same seed, so the same batch) and
+:func:`rank_rows` keeps its block of the rows — of the tokens, and of
+the encoder-decoder ``frames`` and the vision ``embeds`` of
+``launch/steps.py::train_batch_specs``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch import device as device_lib
 
 Tensor = torch.Tensor
+
+
+def rank_rows(batch, index: int, count: int):
+    """Rows block ``index`` of ``count`` (in batch order) of a tensor, or
+    of every tensor of a mapping, along the leading (batch) dimension."""
+    if isinstance(batch, Mapping):
+        return {k: rank_rows(v, index, count) for k, v in batch.items()}
+    if count == 1:
+        return batch
+    B = batch.shape[0]
+    if B % count:
+        raise ValueError(f"a batch of {B} rows does not split over "
+                         f"{count} data ranks")
+    return batch[index * (B // count):(index + 1) * (B // count)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,10 +12,21 @@ backend: ``gloo`` on the CPU; ``nccl`` on cards when every rank has a
 card of its own; ``gloo`` when ranks share a card (NCCL refuses two
 ranks on one GPU).  Either way the ranks' arithmetic stays on their
 device; only the transport differs.
+
+An ``axis`` may also name several axes, ``("pod", "data")``: the data
+axes over which the batch is sharded.  Their members are ordered
+row-major (the first axis outermost), as ``jax.sharding`` lays a batch
+dimension out over a tuple of axes; a gather over them gathers over the
+last axis first, a reduction reduces over each in turn.
+:func:`all_reduce_autograd` is the sum whose backward is the same sum of
+the gradients (``torch.distributed.nn.functional.all_reduce``'s
+semantics, over these groups): where a reduced quantity feeds every
+rank's share of the loss, each rank's parameters get the gradient of the
+whole.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -30,12 +41,20 @@ def backend_for(device: torch.device, world_size: int) -> str:
     return "nccl"
 
 
-def all_gather(x: torch.Tensor, mesh, axis: Optional[str],
+Axes = Union[None, str, Tuple[str, ...]]
+
+
+def all_gather(x: torch.Tensor, mesh, axis: Axes,
                dim: int = 0) -> torch.Tensor:
     """Every member's ``x`` concatenated along ``dim`` in the axis's
     coordinate order (``jax.lax.all_gather(x, axis, axis=dim,
-    tiled=True)``).  An axis of size 1 (or None) returns ``x``."""
-    if axis is None or mesh.shape[axis] == 1:
+    tiled=True)``; over a tuple of axes, row-major).  An axis of size 1
+    (or None) returns ``x``."""
+    if not isinstance(axis, str):
+        for a in reversed(axis or ()):
+            x = all_gather(x, mesh, a, dim)
+        return x
+    if mesh.shape[axis] == 1:
         return x
     if x.dtype == torch.bool:           # not every backend moves bools
         return all_gather(x.to(torch.uint8), mesh, axis, dim).bool()
@@ -45,11 +64,67 @@ def all_gather(x: torch.Tensor, mesh, axis: Optional[str],
     return torch.cat(parts, dim=dim)
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: Optional[str] = None,
+def all_reduce(x: torch.Tensor, mesh, axis: Axes = None,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``x`` reduced over ``axis`` (the whole mesh with ``axis=None``), in
-    place and returned."""
+    """``x`` reduced over ``axis`` (a name or a tuple of names; the whole
+    mesh with ``axis=None``), in place and returned."""
+    if isinstance(axis, tuple):
+        for a in axis:
+            all_reduce(x, mesh, a, op)
+        return x
     if mesh.size == 1 or (axis is not None and mesh.shape[axis] == 1):
         return x
     dist.all_reduce(x, op=op, group=mesh.group(axis))
     return x
+
+
+def all_reduce_coalesced(xs, mesh, axis: Axes = None,
+                         bucket_bytes: int = 1 << 26) -> None:
+    """Sum every tensor of ``xs`` over ``axis``, in place, packed into
+    flat buffers of at most ``bucket_bytes`` (one collective a buffer
+    instead of one a tensor; a larger tensor goes alone), in list order,
+    so the ranks' buffers line up."""
+    groups = {}
+    for x in xs:
+        groups.setdefault((x.dtype, x.device), []).append(x)
+    for group in groups.values():
+        bucket, size = [], 0
+        for x in group + [None]:
+            nbytes = 0 if x is None else x.numel() * x.element_size()
+            if bucket and (x is None or size + nbytes > bucket_bytes):
+                _reduce_bucket(bucket, mesh, axis)
+                bucket, size = [], 0
+            if x is not None:
+                bucket.append(x)
+                size += nbytes
+
+
+def _reduce_bucket(bucket, mesh, axis) -> None:
+    if len(bucket) == 1 and bucket[0].is_contiguous():
+        all_reduce(bucket[0], mesh, axis)
+        return
+    flat = all_reduce(torch.cat([x.reshape(-1) for x in bucket]), mesh, axis)
+    off = 0
+    for x in bucket:
+        x.copy_(flat[off:off + x.numel()].view_as(x))
+        off += x.numel()
+
+
+class _SumWithGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_reduce_autograd(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (out of place) whose backward sums
+    the members' gradients over the same axes: every member's ``x`` gets
+    the gradient of the sum of all members' losses."""
+    return _SumWithGrad.apply(x, mesh, axis)

@@ -7,7 +7,8 @@ Q' = Gᵀ P (n, q) instead of G — a (m+n)·q / (m·n) volume reduction — and
 the residual is fed back into the next step's gradient (error feedback
 keeps SGD convergent).  ``compress_tree`` applies this to every ≥2D leaf
 above a size threshold; small leaves pass through.  On one device nothing
-is reduced: this module only reshapes what would enter the collective.
+is reduced; across the ranks of a data mesh the products are summed as
+below.
 
 As the reference: every leading axis folds into rows (``_as_matrix``: a
 stacked LM weight (repeats, d, d') is one (repeats·d, d') matrix);
@@ -15,6 +16,21 @@ orthonormalisation is Householder QR (``torch.linalg.qr``, the
 reference's ``jnp.linalg.qr``; see ``compress`` for why not CholeskyQR2);
 and the returned error is ``g − P Qᵀ`` where the docstring above would
 have ``(g + err) − P Qᵀ`` — the reference's code, mirrored.
+
+**Across ranks** (a data-parallel policy ``sp``, whose ranks each hold
+their share g_r of the global mean gradient g = Σ_r g_r, and their own
+error-feedback term e_r): a round folds M_r = g_r + e_r, and every
+product with M is a sum over the ranks of the products with M_r —
+P = Σ_r M_r Q, then Mᵀ P̂ = Σ_r M_rᵀ P̂ — each all-reduced over the data
+axes before the next step uses it (the QR factorisations run on the
+reduced, identical panels on every rank).  The seeded basis Q is the same
+on every rank, so each step is linear in M given the shared panels, and
+the ranks end with the P̂ Qᵀ of M = Σ_r M_r: the reference's compression
+of g + e, up to the order of the summation.  Each rank keeps
+e_r ← g_r − P̂ Qᵀ / N, whose sum over the ranks is the reference's
+``g − P Qᵀ`` (its quirk, below, mirrored), so by induction Σ_r e_r is
+the reference's error at every step.  Leaves the compressor leaves whole
+are summed raw.
 
 The seeded bases (the reference's ``jax.random.normal(PRNGKey(m ·
 1315423911 + n), (n, q))``) come from a CPU ``torch.Generator`` seeded
@@ -62,11 +78,23 @@ def seeded_basis(m: int, n: int, q: int, device=None) -> Tensor:
 
 
 def _round(g: Tensor, err: Tensor, q_prev: Optional[Tensor], cfg,
-           basis: Optional[Tensor] = None):
+           basis: Optional[Tensor] = None, sp=None, consume: bool = False):
     """One compression round → (P, Q, new_err, approx); ``approx`` is
     ``decompress(P, Q, g.shape)`` bit for bit (made once, after the
-    folded matrix is freed)."""
-    G2, shape = _as_matrix(g.to(torch.float32) + err.to(torch.float32))
+    folded matrix is freed).  With a data-parallel ``sp``, ``g`` and
+    ``err`` are this rank's and every product with the folded matrix is
+    summed over the data axes (module docstring).  ``consume``: ``err``
+    (fp32) is the round's to overwrite — the folded matrix and then the
+    new error are made in its storage, the same numbers with two fewer
+    temporaries of the leaf's size."""
+    dp = sp is not None and sp.data_parallel
+    red = sp.dp_sum if dp else (lambda x: x)
+    g32 = g.to(torch.float32)
+    if consume and err.dtype == torch.float32 and err.is_contiguous():
+        G2, shape = _as_matrix(err.add_(g32))         # g + err, in place
+    else:
+        consume = False
+        G2, shape = _as_matrix(g32 + err.to(torch.float32))
     m, n = G2.shape
     q = min(cfg.rank, m, n)
     if q_prev is None or tuple(q_prev.shape) != (n, q):
@@ -80,15 +108,20 @@ def _round(g: Tensor, err: Tensor, q_prev: Optional[Tensor], cfg,
     # where a spectral factorisation such as CholeskyQR2 maps them to an
     # exactly-null subspace and wastes the rank; these (m, ≤ 8) panels
     # are far too thin for a batched kernel launch anyway.
-    P = G2 @ q_prev                                   # (m, q)
+    P = red(G2 @ q_prev)                              # (m, q)
     for _ in range(cfg.n_power_iter):
         P, _ = torch.linalg.qr(P)
-        P = G2 @ (G2.T @ P)
+        P = red(G2 @ red(G2.T @ P))
     P, _ = torch.linalg.qr(P)                         # orthonormal basis
-    Q = G2.T @ P                                      # (n, q)
+    Q = red(G2.T @ P)                                 # (n, q)
     del G2
     approx = decompress(P, Q, shape)
-    new_err = g.to(torch.float32) - approx
+    # the new error g − P Qᵀ (this rank's share of it: P Qᵀ / N)
+    out = err if consume else None
+    if dp:
+        new_err = torch.sub(g32, approx, alpha=1.0 / sp.dp_size, out=out)
+    else:
+        new_err = torch.sub(g32, approx, out=out)
     return P, Q, new_err, approx
 
 
@@ -178,8 +211,8 @@ def init_state(params: Mapping[str, Tensor], cfg: CompressConfig,
 
 
 def compress_tree(grads: Dict[str, Tensor], state: CompressState,
-                  cfg: CompressConfig) -> Tuple[Dict[str, Tensor],
-                                                CompressState]:
+                  cfg: CompressConfig, sp=None
+                  ) -> Tuple[Dict[str, Tensor], CompressState]:
     """Error-feedback low-rank compression leaf by leaf, threading each
     leaf's warm-start Q through ``state`` → (approx_grads, new_state).
 
@@ -188,16 +221,26 @@ def compress_tree(grads: Dict[str, Tensor], state: CompressState,
     done, so the raw gradient and the old error of a leaf are freed before
     the next leaf's round (at billions of parameters the step cannot hold
     two more copies of them).  Keep the returned values; the ones passed
-    in are left empty.  The numbers are the reference's."""
+    in are left empty.  The numbers are the reference's.
+
+    With a data-parallel ``sp`` the gradients are this rank's shares and
+    the approximations come back summed over the data axes (the leaves
+    left whole summed raw): the reduced gradient of the module
+    docstring."""
     approx: Dict[str, Tensor] = {}
     err: Dict[str, Tensor] = {}
     q: Dict[str, Tensor] = {}
+    whole = []
     for k in list(grads):
         g, e, qp = grads.pop(k), state.err.pop(k), state.q.pop(k)
         if not _compressible(g, cfg):
+            whole.append(g)
             approx[k], err[k], q[k] = g, torch.zeros_like(e), qp
             continue
-        _, Q, new_err, a = _round(g, e, qp if qp.numel() else None, cfg)
+        _, Q, new_err, a = _round(g, e, qp if qp.numel() else None, cfg,
+                                  sp=sp, consume=True)
         approx[k], err[k], q[k] = a.to(g.dtype), new_err, Q
         del g, e
+    if sp is not None:
+        sp.dp_sum_all(whole)
     return approx, CompressState(err=err, q=q)

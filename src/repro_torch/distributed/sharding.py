@@ -302,6 +302,9 @@ def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This rank's block of the global ``x`` under ``sharding`` (a copy:
     the global tensor may be freed)."""
     for dim, n, idx in _blocks(sharding, x.ndim):
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of a {tuple(x.shape)} "
+                             f"tensor does not split into {n} blocks")
         size = x.shape[dim] // n
         x = x.narrow(dim, idx * size, size)
     return x.clone(memory_format=torch.contiguous_format)

@@ -12,13 +12,24 @@ trees; a ``launch/mesh.py`` mesh to run) ``in_shardings`` and
 ``out_shardings`` are ``distributed/sharding.py`` shardings of those
 trees, the reference's rules.
 
-**Running on a mesh.**  Every rank runs the whole batch's forward and
-backward; a curvature axis (``dist``/``curvature_axis``) shards the
-factor work through the distributed curvature engine, so the numbers are
-those of one device.  A model axis larger than 1, or ``plan="fsdp"``,
-needs tensor- or data-parallel execution of the model, which the port
-does not have: such a step raises ``NotImplementedError`` when it runs
-(ROADMAP §1 item 6); its shardings are still built.
+**Running on a mesh.**  A mesh whose model axis is 1 runs data-parallel,
+as the reference's GSPMD program does: the batch is split over every
+axis but "model" (``shard_policy_for``, ``batch_sharding``), the
+parameters are replicated, and a built step takes this rank's block of
+the global batch (``distributed/sharding.py::local_slice`` under
+``in_shardings``; a decode step's cache and tokens likewise under
+``cache_sharding``) and returns this rank's rows of the logits, per
+``out_shardings``.  The numbers are the reference's one-device step on
+the global batch: the loss, the taps' statistics rows and the gradients
+are summed over the data axes (``train/loop.py::kfac_grads``), so each
+rank runs 1/N of the model work.  A curvature axis (``dist``/
+``curvature_axis``) shards the factor work through the distributed
+curvature engine, whose inputs are then the global batch's taps.  A model
+axis larger than 1, ``plan="fsdp"`` (sharded parameters) and the
+long-context decode with a sequence-sharded cache need tensor-parallel
+execution, which the port does not have: such a step raises
+``NotImplementedError`` when it runs (ROADMAP §1 item 5); its shardings
+are still built.
 
 A built step runs eagerly on ``device`` (the card unless the caller asks
 for another).  ``default_kfac_config`` keeps the reference's
@@ -54,17 +65,21 @@ def _axis_sizes(mesh) -> Tuple[Tuple[str, int], ...]:
                                              mesh.devices.shape))
 
 
-def refuse_model_parallel(mesh, plan: str, what: str) -> None:
-    """The run-time refusal of a step the port cannot execute."""
+def refuse_model_parallel(mesh, plan: str, what: str,
+                          shard_kv_seq: bool = False) -> None:
+    """The run-time refusal of a step the port cannot execute: a model
+    axis larger than 1, ``plan="fsdp"``, or a decode cache sharded over
+    its sequence."""
     if mesh is None:
         return
     sizes = dict(_axis_sizes(mesh))
-    if plan == "fsdp" or sizes.get("model", 1) > 1:
+    if plan == "fsdp" or sizes.get("model", 1) > 1 or shard_kv_seq:
         raise NotImplementedError(
-            f"{what}: a model axis larger than 1 or plan='fsdp' needs "
-            f"data- or tensor-parallel execution of the model, which is "
-            f"not ported (ROADMAP §1 item 6, 'Data- and tensor-parallel "
-            f"execution'); run on a mesh of data and curvature axes")
+            f"{what}: a model axis larger than 1, plan='fsdp' or a "
+            f"sequence-sharded decode cache needs tensor-parallel "
+            f"execution of the model, which is not ported (ROADMAP §1 "
+            f"item 5, 'Tensor-parallel execution'); run on a mesh of data "
+            f"and curvature axes (the batch is split over them)")
 
 
 def shard_policy_for(mesh=None, shard_kv_seq: bool = False,
@@ -78,7 +93,7 @@ def shard_policy_for(mesh=None, shard_kv_seq: bool = False,
     tp = "model" if "model" in mesh.axis_names else None
     return ShardPolicy(dp=dp, tp=tp, seq_shard_residual=seq_shard_residual,
                        shard_kv_seq=shard_kv_seq,
-                       axis_sizes=_axis_sizes(mesh))
+                       axis_sizes=_axis_sizes(mesh), mesh=mesh)
 
 
 def default_kfac_config(arch: ArchConfig, variant: str = "bkfac",
@@ -164,7 +179,8 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
 
     ``step_fn(params, opt_state, batch, rng) -> (params, opt_state,
     loss)`` in the port's in-place convention: ``params`` is updated in
-    place and returned.  ``rng`` is a ``torch.Generator``, or a mapping of
+    place and returned.  On a data mesh ``batch`` is this rank's block
+    and the loss the global batch's.  ``rng`` is a ``torch.Generator``, or a mapping of
     per-bucket heavy-op draws as ``Kfac.update(draws=)`` takes them."""
     if dist is not None:
         if mesh is not None or curvature_axis is not None:
@@ -199,7 +215,7 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
             draws, rng = rng, None
         probes = layers.make_probes(opt.taps, device=dev)
         loss, acts, gp, gprobe = loop_lib.kfac_grads(
-            lm.loss_fn, params, probes, batch)
+            lm.loss_fn, params, probes, batch, sp)
         updates, opt_state = opt.update(
             gp, opt_state, params, acts=acts, probe_grads=gprobe,
             n_tokens=n_tokens, rng=rng, work=step_work, draws=draws,
@@ -246,7 +262,8 @@ class BuiltServe:
 def build_prefill_step(arch: ArchConfig, mesh=None,
                        cell: Optional[ShapeCell] = None,
                        unroll: bool = False, device=None) -> BuiltServe:
-    """``step_fn(params, batch) -> logits`` (B, T, vocab), no gradients."""
+    """``step_fn(params, batch) -> logits`` (B, T, vocab), no gradients;
+    on a data mesh ``batch`` and the logits are this rank's rows."""
     cell = cell or SHAPES["prefill_32k"]
     sp = shard_policy_for(mesh)
     lm = LM(arch, sp, remat=False, unroll=unroll,
@@ -294,7 +311,9 @@ def build_decode_step(arch: ArchConfig, mesh=None,
                       window_caches: bool = False,
                       device=None) -> BuiltServe:
     """``step_fn(params, cache, token, t) -> (logits, cache)``;
-    ``arg_specs`` = (cache, token, t) as meta tensors.  At one device
+    ``arg_specs`` = (cache, token, t) as meta tensors (global shapes; on
+    a data mesh the step takes this rank's blocks of the cache, the
+    tokens and a (B,) ``t``, and returns its rows).  At one device
     ``cache_layout`` changes no shape (the reference's layouts place the
     cache over a mesh); ``window_caches`` keeps a sliding-window layer's
     ring at its window."""
@@ -320,7 +339,8 @@ def build_decode_step(arch: ArchConfig, mesh=None,
     S_self = max(S // arch.dec_ratio, 64) if arch.is_encdec else S
 
     def decode(params, cache, token, t):
-        refuse_model_parallel(mesh, "tp", "build_decode_step")
+        refuse_model_parallel(mesh, "tp", "build_decode_step",
+                              shard_kv_seq=shard_seq)
         return lm.decode_step(params, cache, token, t)
 
     meta_lm = LM(arch, sp, remat=False, device=META)

@@ -23,11 +23,17 @@ the production meshes) builds a ``launch/mesh.py`` mesh over the ranks of
 CLI sets up its own one-member world), and ``--curvature auto`` picks the
 curvature engine's axes as the reference does: a ``curv`` axis larger
 than 1 takes the factor slots and the next data axis larger than 1 the
-dense-M rows, else the first data axis takes the slots.  Every rank
-trains on the same batches; rank 0 alone writes the log, the telemetry
-and the checkpoints (the gathered, one-device format).  A mesh with a
-``model`` axis larger than 1 raises ``NotImplementedError``: tensor
-parallelism is not ported (ROADMAP §1 item 6).
+dense-M rows, else the first data axis takes the slots.  The batch is
+split over every axis but ``model`` (data parallelism, the reference's
+``batch_sharding``): each rank trains on its block of the global
+``TokenStream`` batch, and the loss, the taps' statistics rows and the
+gradients (or, with ``--compress``, PowerSGD's panels) are summed over
+those axes, so every rank takes the reference's one-device step on the
+global batch.  Rank 0 alone writes the log, the telemetry and the
+checkpoints (the gathered, one-device format); the health guards and the
+telemetry read the global loss.  A mesh with a ``model`` axis larger
+than 1 raises ``NotImplementedError``: tensor parallelism is not ported
+(ROADMAP §1 item 5).
 
 Steps run eagerly (the reference jits one program per work mask).
 :func:`run` is the CLI without the parsing: tests and ``chip_smoke.py``
@@ -50,7 +56,7 @@ from repro_torch import specs as specs_lib
 from repro_torch.configs.base import ARCH_NAMES, ArchConfig, get_arch
 from repro_torch.core import kfac as kfac_lib
 from repro_torch.core import policy as policy_lib
-from repro_torch.data.synthetic import TokenStream
+from repro_torch.data.synthetic import TokenStream, rank_rows
 from repro_torch.distributed import compress as compress_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
@@ -231,7 +237,8 @@ def run(args, arch: Optional[ArchConfig] = None,
     """Train as the CLI does for ``args`` → (final TrainState, losses).
     ``arch`` replaces ``--arch``/``--reduced``'s config (a depth cut);
     ``params`` the initial parameters (leaf tensors on the device that
-    require grad); ``batches(k)`` the TokenStream's batch of step ``k``;
+    require grad); ``batches(k)`` the TokenStream's global batch of step
+    ``k`` (on a data mesh each rank keeps its rows of it);
     ``draws(step)`` the heavy ops' random inputs by schedule step."""
     mesh = mesh_of(args)
     dev = mesh.device if mesh is not None else device_lib.resolve(
@@ -254,8 +261,8 @@ def run(args, arch: Optional[ArchConfig] = None,
         if args.reduced:
             arch = arch.reduced()
     steps_lib.refuse_model_parallel(mesh, "tp", f"--mesh {args.mesh}")
-    lm = LM(arch, steps_lib.shard_policy_for(mesh), remat=not args.reduced,
-            device=dev)
+    sp = steps_lib.shard_policy_for(mesh)
+    lm = LM(arch, sp, remat=not args.reduced, device=dev)
     kcfg = kfac_config_of(args)
     opt = kfac_lib.Kfac(kcfg, lm.taps, device=dev)
     curv_axis, row_axis = curvature_axes(args, mesh)
@@ -273,6 +280,16 @@ def run(args, arch: Optional[ArchConfig] = None,
                    f"{m_dev / 1e6:.2f} MB/device; (U, lambda) gather "
                    f"bytes/round: {cb['uncompressed'] / 1e6:.3f} MB raw, "
                    f"{cb['on_wire'] / 1e6:.3f} MB on wire")
+    if sp.data_parallel:
+        if args.batch % sp.dp_size:
+            raise SystemExit(f"--batch {args.batch} does not split over "
+                             f"the {sp.dp_size} ranks of the data axes "
+                             f"{sp.dp}")
+        tap_mb = loop_lib.gathered_tap_bytes(lm.taps,
+                                             lm.dtype.itemsize) / 1e6
+        writer.log(f"data parallel over {'×'.join(sp.dp)}: "
+                   f"{sp.dp_size} ranks of {args.batch // sp.dp_size} "
+                   f"rows; taps summed over them: {tap_mb:.2f} MB a step")
     sched = opt.scheduler()
     if args.stagger or args.async_heavy:
         writer.emit("sched",
@@ -287,6 +304,9 @@ def run(args, arch: Optional[ArchConfig] = None,
     if batches is None:
         batches = TokenStream(vocab=arch.vocab, batch=args.batch,
                               seq_len=args.seq, seed=0, device=dev).batch_at
+    if sp.data_parallel:
+        batches = (lambda k, _whole=batches:
+                   rank_rows(_whole(k), sp.dp_index, sp.dp_size))
     if params is None:
         params = lm.init(torch.Generator(device=dev).manual_seed(0))
     state = loop_lib.TrainState(
@@ -302,7 +322,7 @@ def run(args, arch: Optional[ArchConfig] = None,
         ccfg = compress_lib.CompressConfig(rank=8)
         cstate = compress_lib.init_state(params, ccfg)
         grad_transform = lambda gp, cs: compress_lib.compress_tree(
-            gp, cs, ccfg)
+            gp, cs, ccfg, sp=sp)
         if args.health:
             writer.log("--compress ignored with --health: the resilient "
                        "step has no gradient-transform hook")
@@ -316,14 +336,14 @@ def run(args, arch: Optional[ArchConfig] = None,
     if args.health:
         policy = health_lib.RemediationPolicy(writer=writer)
         step_fn = health_lib.make_resilient_kfac_step(
-            lm.loss_fn, opt, n_tokens, meter=meter)
+            lm.loss_fn, opt, n_tokens, meter=meter, sp=sp)
         writer.log("health guards on: staged remediation ladder armed"
                    + ("" if args.ckpt_dir
                       else " (no --ckpt-dir: rollback stage disabled)"))
     else:
         step_fn = loop_lib.make_scheduled_kfac_step(
             lm.loss_fn, opt, n_tokens, meter=meter,
-            grad_transform=grad_transform)
+            grad_transform=grad_transform, sp=sp)
 
     checkpointer = (_Saver(args.ckpt_dir, opt, eng, rank0)
                     if args.ckpt_dir else None)

@@ -182,7 +182,7 @@ class MlaDims(NamedTuple):
 
 
 def mla_train_attention(x, p, dims: MlaDims, probes, acts, tag, n_stat,
-                        positions):
+                        positions, sp=None):
     """Training-path MLA: materialize per-head K/V from the latent.
 
     Params p: wq_a (d, q_lora), wq_b (q_lora, H*(nope+rope)),
@@ -193,7 +193,7 @@ def mla_train_attention(x, p, dims: MlaDims, probes, acts, tag, n_stat,
 
     def mm(name, W, inp):
         y, act = layers.tapped_matmul(W, inp, probes.get(f"{tag}/{name}"),
-                                      n_stat)
+                                      n_stat, sp)
         acts[f"{tag}/{name}"] = act
         return y
 

@@ -42,18 +42,22 @@ def _gelu(x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 class TapCtx:
-    """Carries probes in / activations out through a block application."""
+    """Carries probes in / activations out through a block application;
+    ``sp`` is the model's policy, whose data axes place the taps' rows
+    (``layers.tapped_matmul``)."""
 
-    def __init__(self, probes: Dict, n_stat: int, prefix: str = ""):
+    def __init__(self, probes: Dict, n_stat: int, prefix: str = "",
+                 sp: Optional[ShardPolicy] = None):
         self.probes = probes or {}
         self.acts: Dict[str, Tensor] = {}
         self.n_stat = n_stat
         self.prefix = prefix
+        self.sp = sp
 
     def mm(self, name: str, W: Tensor, x: Tensor) -> Tensor:
         full = f"{self.prefix}{name}"
         y, act = layers.tapped_matmul(W, x, self.probes.get(full),
-                                      self.n_stat)
+                                      self.n_stat, self.sp)
         self.acts[full] = act
         return y
 
@@ -270,7 +274,7 @@ def apply_mla(spec, arch: ArchConfig, p, h, tc: TapCtx, positions,
               if k.startswith(tc.prefix)}
     acts: Dict[str, Tensor] = {}
     o = attn_lib.mla_train_attention(x, p, _mla_dims(arch), probes, acts,
-                                     "mla", tc.n_stat, positions)
+                                     "mla", tc.n_stat, positions, tc.sp)
     # re-prefix the acts recorded by the mla helper
     for k, v in acts.items():
         tc.acts[f"{tc.prefix}{k.split('/', 1)[1]}"] = v
@@ -514,7 +518,7 @@ def apply_ffn(spec: LayerSpec, arch: ArchConfig, p, h, tc: TapCtx,
               if k.startswith(tc.prefix)}
     acts: Dict[str, Tensor] = {}
     y, aux = moe_lib.moe_block(x, p, _moe_dims(arch), probes, acts, "moe",
-                               tc.n_stat)
+                               tc.n_stat, tc.sp)
     for k, v in acts.items():
         tc.acts[f"{tc.prefix}{k.split('/', 1)[1]}"] = v
     return sp.residual(h + y.to(h.dtype)), aux

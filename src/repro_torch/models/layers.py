@@ -16,40 +16,62 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+def _stat_rows(xr: Tensor, yr: Tensor, probe: Optional[Tensor], off: int,
+              n_stat: int) -> Tuple[Tensor, Tensor]:
+    """A rank's part of a tap: ``xr`` (L, d_in) and ``yr`` (L, d_out) are
+    rows ``off .. off + L - 1`` of the global statistics order → (act,
+    yr): act (n_stat, d_in) holds those of them below ``n_stat`` at their
+    global places and zeros elsewhere (summing the ranks' acts gives the
+    global slice, zero-padded); the probe's matching rows are added to
+    ``yr``, so ∂L/∂probe is nonzero only on this rank's rows.  At
+    ``off = 0`` with every row this is the one-device tap."""
+    k = max(0, min(xr.shape[0], n_stat - off))
+    lead = min(off, n_stat)
+    act = F.pad(xr[:k], (0, 0, lead, n_stat - lead - k))
+    if probe is not None and k > 0:
+        yr = torch.cat([yr[:k] + probe[off:off + k].to(yr.dtype), yr[k:]],
+                       dim=0)
+    elif probe is not None:     # no row of this rank: the probe's grad is 0
+        yr = yr + probe[:0].sum().to(yr.dtype)
+    return yr, act
+
+
 def tapped_matmul(W: Tensor, x: Tensor, probe: Optional[Tensor],
-                  n_stat: int) -> Tuple[Tensor, Tensor]:
+                  n_stat: int, sp=None) -> Tuple[Tensor, Tensor]:
     """y = x @ W with K-FAC instrumentation → (y, act).
 
     Flat inputs (…, d_in): act is the first n_stat rows (zero-padded when
     fewer).  Sequence inputs (B, T, d_in): the stats rows are the first
-    ceil(n_stat/B) tokens of every sequence, as in the reference."""
+    ceil(n_stat/B) tokens of every sequence, as in the reference.
+
+    With a data-parallel policy ``sp`` (``models/sharding_policy.py``) x
+    holds this rank's rows of the global batch, and the rows are those of
+    the global batch: B in ceil(n_stat/B) is the global batch, this
+    rank's rows are block ``sp.dp_index`` of the global slice in batch
+    order (on the flat path, of the global flat order, so they may all sit
+    on rank 0), and the truncation to n_stat and the padding apply to the
+    global rows.  The act and the probe's gradient then hold this rank's
+    rows at their global places and zeros elsewhere: summed over the data
+    axes they are the reference's."""
     y = x @ W.to(x.dtype)
     d_in = x.shape[-1]
     d_out = y.shape[-1]
+    n_dp, idx = (1, 0) if sp is None else (sp.dp_size, sp.dp_index)
     if x.dim() == 3:
         B, T = x.shape[0], x.shape[1]
-        n_per = min(T, max(1, -(-n_stat // B)))
+        n_per = min(T, max(1, -(-n_stat // (B * n_dp))))
         rows = B * n_per
-        act = x[:, :n_per, :].reshape(rows, d_in)
-        act = act[:n_stat] if rows >= n_stat else F.pad(
-            act, (0, 0, 0, n_stat - rows))
+        yr, act = _stat_rows(x[:, :n_per, :].reshape(rows, d_in),
+                            y[:, :n_per, :].reshape(rows, d_out), probe,
+                            idx * rows, n_stat)
         if probe is not None:
-            pr = probe.to(y.dtype)
-            pr = F.pad(pr, (0, 0, 0, rows - n_stat)) if rows > n_stat \
-                else pr[:rows]
-            y = torch.cat([y[:, :n_per, :] + pr.reshape(B, n_per, d_out),
-                           y[:, n_per:, :]], dim=1)
+            y = torch.cat([yr.reshape(B, n_per, d_out), y[:, n_per:, :]],
+                          dim=1)
         return y, act
     xf = x.reshape(-1, d_in)
-    n = min(n_stat, xf.shape[0])
-    act = xf[:n]
-    if n < n_stat:
-        act = F.pad(act, (0, 0, 0, n_stat - n))
-    if probe is not None:
-        yf = y.reshape(-1, d_out)
-        yf = torch.cat([yf[:n] + probe[:n].to(y.dtype), yf[n:]], dim=0)
-        y = yf.reshape(y.shape)
-    return y, act
+    yf, act = _stat_rows(xf, y.reshape(-1, d_out), probe,
+                        idx * xf.shape[0], n_stat)
+    return yf.reshape(y.shape), act
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:

@@ -19,7 +19,11 @@ accepted for the reference's signature and has no effect: the port
 always unrolls.
 
 Train path: ``loss_fn(params, probes, batch) -> (loss, acts)`` — the K-FAC
-tap contract (core/kfac.py).  Serve path: ``decode_step`` (one token, KV /
+tap contract (core/kfac.py).  Under a data-parallel policy the batch is
+this rank's block of the global batch and the loss is this rank's share
+of the global loss (summed over the data axes it is the reference's), the
+acts this rank's placements of the global statistics rows
+(``layers.tapped_matmul``).  Serve path: ``decode_step`` (one token, KV /
 state caches, written in place) and ``forward`` (prefill-shaped logits).
 """
 from __future__ import annotations
@@ -214,7 +218,7 @@ class LM:
                 acts_l: Dict[str, Tensor] = {}
                 for i, spec in enumerate(pattern):
                     tc = blocks.TapCtx(probe_r, arch.n_stat,
-                                       prefix=f"{base}/seg{s}/p{i}/")
+                                       prefix=f"{base}/seg{s}/p{i}/", sp=sp)
                     hh, aux_i = blocks.apply_block(
                         arch, spec, _block(p_r, i), hh, tc, positions, sp,
                         memory=memory if cross else None)
@@ -270,14 +274,14 @@ class LM:
             memory=memory, train=train)
         acts.update(acts_m)
         h = layers.rms_norm(h, params["final_ln"])
-        tc = blocks.TapCtx(probes, arch.n_stat, prefix="")
+        tc = blocks.TapCtx(probes, arch.n_stat, prefix="", sp=sp)
         logits = tc.mm("head", params["head/w"], h)
         acts.update(tc.acts)
         if arch.logit_softcap > 0:
             logits = layers.softcap(logits, arch.logit_softcap)
         logits = sp.logits(logits)
         if arch.mtp and train:
-            tcm = blocks.TapCtx(probes, arch.n_stat, prefix="")
+            tcm = blocks.TapCtx(probes, arch.n_stat, prefix="", sp=sp)
             h_mtp = tcm.mm("mtp_proj", params["mtp/w"], h)
             acts.update(tcm.acts)
             logits_mtp = sp.logits(
@@ -298,6 +302,11 @@ class LM:
                 logits_mtp = logits_mtp[:, arch.n_prefix:]
             loss = loss + 0.3 * _ce_loss(logits_mtp[:, :-2], targets[:, 2:])
         loss = loss + arch.aux_loss_coef * aux
+        if self.sp.data_parallel:
+            # this rank's share of the global mean: its rows' token mean
+            # over the data ranks (the rows split evenly), and a 1/N share
+            # of the load-balance loss, which is global already
+            loss = loss / self.sp.dp_size
         return loss, acts
 
     # ----------------------------------------------------------------- serve

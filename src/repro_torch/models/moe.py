@@ -16,6 +16,20 @@ K-FAC taps: each expert matmul is tapped with an (E,)-stacked tap whose
 activations are the first n_stat rows of each expert's buffer (the
 reference's per-expert ``tapped_matmul`` on the flat (C, d) buffer, here
 batched over the experts).
+
+**Data parallelism** (a policy ``sp`` with ``sp.data_parallel``): the
+reference routes the global batch's N tokens, so the capacity comes from
+the global N, and a token's slot in its expert from the stable sort over
+all tokens, which orders them by rank.  Rank r's tokens of expert e thus
+take the slots after those of ranks < r: one all-gather of the ranks'
+(E,) counts gives each rank its offsets, and a token past the capacity
+drops exactly as in the reference.  A rank's buffer holds only its kept
+tokens, in slot order from 0 (its capacity is its largest kept count),
+so each rank runs the experts on its own tokens; the expert taps place
+the rank's rows at their global slots (``layers.tapped_matmul``'s rule). The
+Switch loss ``E·Σ me·fe`` is a product of two global means: both sums are
+summed over the data axes before it (``me``'s differentiably), so every
+rank's router gets its share of the global gradient.
 """
 from __future__ import annotations
 
@@ -46,25 +60,37 @@ def capacity(N: int, dims: MoeDims) -> int:
     return max(8, min(c, N))
 
 
-def route(x: Tensor, w_router: Tensor, dims: MoeDims
+def route(x: Tensor, w_router: Tensor, dims: MoeDims, sp=None
           ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Router: returns (weights (N,k), expert_idx (N,k), aux_loss)."""
+    """Router: returns (weights (N,k), expert_idx (N,k), aux_loss).  With
+    a data-parallel ``sp`` the load-balance loss is the global batch's."""
     logits = x.to(torch.float32) @ w_router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                    # (N, E)
     w, idx = torch.topk(probs, dims.top_k, dim=-1)
     w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
     # load-balance auxiliary loss (Switch-style)
     E = dims.n_experts
-    me = torch.mean(probs, dim=0)                            # (E,)
-    fe = torch.mean(F.one_hot(idx[:, 0], E).to(torch.float32), dim=0)
+    onehot = F.one_hot(idx[:, 0], E).to(torch.float32)
+    if sp is not None and sp.data_parallel:
+        n = x.shape[0] * sp.dp_size
+        me = sp.dp_sum_grad(torch.sum(probs, dim=0)) / n
+        fe = sp.dp_sum(torch.sum(onehot, dim=0)) / n
+    else:
+        me = torch.mean(probs, dim=0)                        # (E,)
+        fe = torch.mean(onehot, dim=0)
     aux = E * torch.sum(me * fe)
     return w.to(torch.float32), idx, aux
 
 
-def dispatch(x: Tensor, idx: Tensor, dims: MoeDims, capacity: int):
+def dispatch(x: Tensor, idx: Tensor, dims: MoeDims, capacity: int,
+             sp=None):
     """Scatter tokens into per-expert buffers.
 
-    x: (N, d); idx: (N, k). Returns (buffers (E, C, d), scatter_info)."""
+    x: (N, d); idx: (N, k). Returns (buffers (E, C, d), scatter_info).
+    With a data-parallel ``sp``, ``capacity`` is the global one and the
+    buffers hold this rank's kept tokens (see the module docstring); the
+    info then ends with each expert's first global slot on this rank
+    (E,), else with None."""
     N, d = x.shape
     k = idx.shape[1]
     E, C = dims.n_experts, capacity
@@ -74,20 +100,28 @@ def dispatch(x: Tensor, idx: Tensor, dims: MoeDims, capacity: int):
     counts = torch.bincount(flat_e, minlength=E)
     starts = torch.cumsum(counts, dim=0) - counts            # (E,)
     pos_in_e = torch.arange(N * k, device=x.device) - starts[sorted_e]
-    keep = pos_in_e < C
+    offs = None
+    if sp is not None and sp.data_parallel:
+        every = sp.dp_gather(counts[None])                   # (ranks, E)
+        offs = torch.sum(every[:sp.dp_index], dim=0)         # (E,)
+        keep = pos_in_e + offs[sorted_e] < C
+        kept = torch.clamp(torch.minimum(counts, C - offs), min=0)
+        C = max(1, int(kept.max()))
+    else:
+        keep = pos_in_e < C
     buf_idx = torch.where(keep, sorted_e * C + pos_in_e,
                           torch.full_like(pos_in_e, E * C))
     token_of = order // k                                    # (N*k,)
     buffers = torch.zeros((E * C + 1, d), dtype=x.dtype,
                           device=x.device).index_put((buf_idx,), x[token_of])
     buffers = buffers[: E * C].reshape(E, C, d)
-    return buffers, (order, token_of, buf_idx, keep)
+    return buffers, (order, token_of, buf_idx, keep, offs)
 
 
 def combine(expert_out: Tensor, weights: Tensor, scatter_info, N: int
             ) -> Tensor:
     """Gather expert outputs back to token order with router weights."""
-    order, token_of, buf_idx, keep = scatter_info
+    order, token_of, buf_idx, keep = scatter_info[:4]
     E, C, d = expert_out.shape
     flat = torch.cat([expert_out.reshape(E * C, d),
                       expert_out.new_zeros((1, d))], dim=0)
@@ -99,52 +133,66 @@ def combine(expert_out: Tensor, weights: Tensor, scatter_info, N: int
                                                            contrib)
 
 
-def _expert_matmul(W: Tensor, buf: Tensor, probe, n_stat: int):
+def _expert_matmul(W: Tensor, buf: Tensor, probe, n_stat: int, offs=None):
     """Per-expert ``tapped_matmul`` on flat (C, d) buffers, batched over
     E: y = buf @ W; act the first n_stat rows (zero-padded); the probe
-    added to the same rows of y."""
+    added to the same rows of y.  ``offs`` (E,), under data parallelism:
+    each expert's local slot 0 is its global slot ``offs[e]``, and act
+    holds this rank's rows at their global slots, zeros elsewhere."""
     y = torch.matmul(buf, W.to(buf.dtype))                   # (E, C, f)
     E, C, d_in = buf.shape
-    n = min(n_stat, C)
-    act = buf[:, :n]
-    if n < n_stat:
-        act = F.pad(act, (0, 0, 0, n_stat - n))
+    if offs is None:
+        offs = torch.zeros((E,), dtype=torch.int64, device=buf.device)
+    zero = torch.zeros((), dtype=buf.dtype, device=buf.device)
+    src = torch.arange(n_stat, device=buf.device)[None, :] - offs[:, None]
+    mine = (src >= 0) & (src < C)                            # (E, n_stat)
+    act = torch.where(mine[..., None], torch.gather(
+        buf, 1, src.clamp(0, C - 1)[..., None].expand(E, n_stat, d_in)),
+        zero)
     if probe is not None:
-        y = torch.cat([y[:, :n] + probe[:, :n].to(y.dtype), y[:, n:]], dim=1)
+        dst = offs[:, None] + torch.arange(C, device=buf.device)
+        pr = torch.gather(probe, 1, dst.clamp(max=n_stat - 1)[
+            ..., None].expand(E, C, probe.shape[-1]))
+        y = y + torch.where((dst < n_stat)[..., None], pr.to(y.dtype),
+                            zero.to(y.dtype))
     return y, act
 
 
 def expert_ffn(buffers: Tensor, p: Dict, probes, acts, tag: str,
-               n_stat: int) -> Tensor:
+               n_stat: int, offs=None) -> Tensor:
     """Gated-SiLU FFN over experts, with (E,)-stacked taps.
 
-    buffers: (E, C, d). Params p: wi (E, d, 2*d_ff), wo (E, d_ff, d)."""
+    buffers: (E, C, d). Params p: wi (E, d, 2*d_ff), wo (E, d_ff, d).
+    ``offs``: ``dispatch``'s global slot offsets under data parallelism."""
     h, acts[f"{tag}/moe_wi"] = _expert_matmul(
-        p["wi"], buffers, probes.get(f"{tag}/moe_wi"), n_stat)
+        p["wi"], buffers, probes.get(f"{tag}/moe_wi"), n_stat, offs)
     gate, up = torch.chunk(h, 2, dim=-1)
     h = F.silu(gate) * up
     y, acts[f"{tag}/moe_wo"] = _expert_matmul(
-        p["wo"], h, probes.get(f"{tag}/moe_wo"), n_stat)
+        p["wo"], h, probes.get(f"{tag}/moe_wo"), n_stat, offs)
     return y
 
 
 def moe_block(x: Tensor, p: Dict, dims: MoeDims, probes, acts, tag: str,
-              n_stat: int) -> Tuple[Tensor, Tensor]:
-    """Full MoE FFN. x: (B, T, d) → (y, aux_loss)."""
+              n_stat: int, sp=None) -> Tuple[Tensor, Tensor]:
+    """Full MoE FFN. x: (B, T, d) → (y, aux_loss); with a data-parallel
+    ``sp``, x is this rank's rows and the capacity, the slots, the taps'
+    rows and the aux loss are the global batch's."""
     B, T, d = x.shape
     N = B * T
     xf = x.reshape(N, d)
-    w, idx, aux = route(xf, p["router"], dims)
-    buffers, info = dispatch(xf, idx, dims, capacity(N, dims))
-    expert_out = expert_ffn(buffers, p, probes, acts, tag, n_stat)
+    w, idx, aux = route(xf, p["router"], dims, sp)
+    n_all = N * (sp.dp_size if sp is not None else 1)
+    buffers, info = dispatch(xf, idx, dims, capacity(n_all, dims), sp)
+    expert_out = expert_ffn(buffers, p, probes, acts, tag, n_stat, info[4])
     y = combine(expert_out, w, info, N)
     if dims.n_shared > 0:
         h, acts[f"{tag}/shared_wi"] = layers.tapped_matmul(
-            p["shared_wi"], xf, probes.get(f"{tag}/shared_wi"), n_stat)
+            p["shared_wi"], xf, probes.get(f"{tag}/shared_wi"), n_stat, sp)
         gate, up = torch.chunk(h, 2, dim=-1)
         h = F.silu(gate) * up
         sy, acts[f"{tag}/shared_wo"] = layers.tapped_matmul(
-            p["shared_wo"], h, probes.get(f"{tag}/shared_wo"), n_stat)
+            p["shared_wo"], h, probes.get(f"{tag}/shared_wo"), n_stat, sp)
         y = y + sy.to(torch.float32)
     return y.reshape(B, T, d).to(x.dtype), aux
 

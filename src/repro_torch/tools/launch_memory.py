@@ -3,7 +3,8 @@ full width with ``--compress``, at several depth cuts: which is the
 deepest that fits one card.
 
     PYTHONPATH=src python -m repro_torch.tools.launch_memory \\
-        [--layers 3,1 4,1] [--steps 2] [--expandable] [--stages]
+        [--layers 3,1 4,1] [--steps 2] [--expandable] [--stages] \\
+        [--ranks 2]
 
 Each ``--layers`` gives the repeats of gemma3-4b's two segments (3,1: 22
 of its 34 layers).  Each cut runs the CLI's defaults (batch 4 × 64,
@@ -14,7 +15,11 @@ optimizer state, error feedback), the peak, and an out-of-memory failure
 with the peak it reached (not raised).  ``--expandable`` turns on the
 allocator's expandable segments first, as ``chip_smoke.py`` runs with
 them; ``--stages`` adds the peak of each stage of each step (forward and
-backward, compression, the optimizer update).  It needs one CUDA card.
+backward, compression, the optimizer update).  ``--ranks N`` runs each
+cut data-parallel on ``--mesh Nx1``: N processes of this tool on the one
+card (gloo), each on its rows of the batch, each printing its own line
+(``rank``) — the card holds the N ranks' peaks together.  It needs one
+CUDA card.
 """
 from __future__ import annotations
 
@@ -22,9 +27,14 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import subprocess
+import sys
+import tempfile
+import time
 
 import torch
+import torch.distributed
 
 from repro_torch.configs.base import get_arch
 from repro_torch.core import kfac as kfac_lib
@@ -56,10 +66,10 @@ def stage_peaks():
         def wrapped(*a, _fn=fn, _name=name, **kw):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            out = _fn(*a, **kw)
-            torch.cuda.synchronize()
-            peaks[_name].append(torch.cuda.max_memory_allocated())
-            return out
+            try:
+                return _fn(*a, **kw)
+            finally:    # out of memory too: the peak it reached
+                peaks[_name].append(torch.cuda.max_memory_allocated())
         setattr(owner, attr, wrapped)
         saved.append((owner, attr, fn))
     try:
@@ -69,12 +79,15 @@ def stage_peaks():
             setattr(owner, attr, fn)
 
 
-def measure(repeats, steps: int, stages: bool = False) -> dict:
+def measure(repeats, steps: int, stages: bool = False,
+            ranks: int = 1) -> dict:
     """One CLI run at gemma3-4b cut to ``repeats`` → its JSON line (with
-    ``stages``, each stage's peak a step, the whole step's unread)."""
+    ``stages``, each stage's peak a step, the whole step's unread); with
+    ``ranks`` > 1 this process is one rank of ``--mesh {ranks}x1``."""
     arch = get_arch("gemma3_4b").with_repeats(repeats)
-    args = train_lib.parse_args(["--compress", "--steps", str(steps),
-                                 "--metrics-every", "0"])
+    args = train_lib.parse_args(
+        ["--compress", "--steps", str(steps), "--metrics-every", "0"]
+        + (["--mesh", f"{ranks}x1"] if ranks > 1 else []))
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -95,18 +108,21 @@ def measure(repeats, steps: int, stages: bool = False) -> dict:
     err = None
     losses = []
     by_stage = {}
+    pk = None
     try:
         with (stage_peaks() if stages else contextlib.nullcontext()) as pk:
             _, losses = train_lib.run(args, arch=arch, batches=batches)
             torch.cuda.synchronize()
-        by_stage = {k: [(v - base) / GB for v in vs]
-                    for k, vs in (pk or {}).items()}
     except torch.OutOfMemoryError as e:
         err = str(e).splitlines()[0]
+    by_stage = {k: [(v - base) / GB for v in vs]
+                for k, vs in (pk or {}).items()}
     peak = torch.cuda.max_memory_allocated() - base
     gc.collect()
     torch.cuda.empty_cache()
     return {"case": "cli_compress", "repeats": list(repeats),
+            "ranks": ranks,
+            "rank": (torch.distributed.get_rank() if ranks > 1 else 0),
             "n_layers": arch.n_layers, "params": count_params(arch),
             "batch": [args.batch, args.seq], "steps": steps,
             "held_gb": held[0] / GB if held else None,
@@ -114,6 +130,25 @@ def measure(repeats, steps: int, stages: bool = False) -> dict:
             "peak_gb": peak / GB,
             **({"stage_peaks_gb": by_stage} if stages else {}),
             "losses": losses, "oom": err}
+
+
+def spawn(argv, ranks: int) -> int:
+    """This tool's ``argv`` on ``ranks`` processes of one gloo world
+    (file rendezvous in a fresh temporary directory); each prints its own
+    lines."""
+    rdv = os.path.join(tempfile.mkdtemp(prefix="launch_memory_"), "rdv")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.tools.launch_memory", *argv,
+         "--rank", str(r), rdv]) for r in range(ranks)]
+    # a rank that ran out of memory exits at once; the others would wait
+    # in their next collective, so they are stopped
+    while any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        time.sleep(1.0)
+    return max(p.returncode for p in procs)
 
 
 def main(argv=None):
@@ -125,7 +160,23 @@ def main(argv=None):
                     help="also the peak of each stage of a step: the "
                          "forward and backward, the compression, the "
                          "optimizer update")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="data-parallel ranks on the card (--mesh Nx1)")
+    ap.add_argument("--rank", nargs=2, default=None,
+                    metavar=("RANK", "RENDEZVOUS"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ranks > 1 and args.rank is None:
+        argv = list(sys.argv[1:] if argv is None else argv)
+        rc = spawn(argv, args.ranks)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
+        return rc
+    if args.rank is not None:
+        from repro_torch.launch import mesh as mesh_lib
+        mesh_lib.init_process_group(
+            None, init_method=f"file://{args.rank[1]}",
+            rank=int(args.rank[0]), world_size=args.ranks)
     if args.expandable:
         set_allocator = (getattr(torch._C,
                                  "_accelerator_setAllocatorSettings", None)
@@ -133,12 +184,19 @@ def main(argv=None):
         set_allocator("expandable_segments:True")
     for layers in args.layers:
         reps = tuple(int(r) for r in layers.split(","))
-        print(json.dumps(measure(reps, args.steps, args.stages)),
-              flush=True)
+        line = measure(reps, args.steps, args.stages, args.ranks)
+        print(json.dumps(line), flush=True)
+        if args.rank is not None and line["oom"]:
+            os._exit(1)
+    if args.rank is not None:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+        return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -221,8 +221,11 @@ def _record_health(report: Dict[str, float]) -> None:
 
 def make_resilient_kfac_step(loss_fn, opt, n_tokens: int,
                              health: Optional[HealthConfig] = None,
-                             probe_dtype=torch.float32, meter=None):
-    """``make_scheduled_kfac_step`` with the guard around it.  Returns
+                             probe_dtype=torch.float32, meter=None,
+                             sp=None):
+    """``make_scheduled_kfac_step`` with the guard around it (``sp`` as
+    there: under data parallelism the guard reads the global loss and
+    gradients, reduced over the data axes).  Returns
     ``step(state, batch, work, draws=None, landing=None, mbuf=None,
     damping_scale=None) -> (state, loss, report[, mbuf])``.
 
@@ -239,7 +242,7 @@ def make_resilient_kfac_step(loss_fn, opt, n_tokens: int,
         dev = next(iter(state.params.values())).device
         probes = layers.make_probes(opt.taps, device=dev, dtype=probe_dtype)
         loss, acts, gp, gprobe = loop_lib.kfac_grads(
-            loss_fn, state.params, probes, batch)
+            loss_fn, state.params, probes, batch, sp)
 
         def body():
             updates, opt_state = opt.update(

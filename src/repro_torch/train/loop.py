@@ -24,6 +24,7 @@ engine on a mesh) and the legacy flat kwargs.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -58,17 +59,42 @@ class TrainState:
     rng: torch.Generator
 
 
-def kfac_grads(loss_fn, params, probes, batch):
+def kfac_grads(loss_fn, params, probes, batch, sp=None,
+               reduce_grads: bool = True):
     """(loss, acts, grads w.r.t. params, grads w.r.t. probes) from one
-    backward pass.  ``acts`` come back detached."""
+    backward pass.  ``acts`` come back detached.
+
+    With a data-parallel policy ``sp`` (``models/sharding_policy.py``)
+    ``batch`` is this rank's block of the global batch and ``loss_fn``
+    returns this rank's share of the global loss (``LM.loss_fn``): the
+    loss, the acts and the probe gradients (each rank's rows at their
+    global places, ``layers.tapped_matmul``) are summed over the data
+    axes, so every rank gets the global batch's loss and statistics rows;
+    so are the parameter gradients unless ``reduce_grads`` is False (a
+    gradient transform that reduces them itself, such as
+    ``compress.compress_tree(sp=)``, then gets each rank's share)."""
     loss, acts = loss_fn(params, probes, batch)
     pk, qk = list(params), list(probes)
     grads = torch.autograd.grad(loss, [params[k] for k in pk]
                                 + [probes[k] for k in qk])
     gp = dict(zip(pk, grads[:len(pk)]))
     gprobe = dict(zip(qk, grads[len(pk):]))
-    return (loss.detach(), {k: v.detach() for k, v in acts.items()}, gp,
-            gprobe)
+    loss = loss.detach()
+    acts = {k: v.detach() for k, v in acts.items()}
+    if sp is not None and sp.data_parallel:
+        loss = loss.clone()
+        sp.dp_sum_all([loss] + list(acts.values()) + list(gprobe.values())
+                      + (list(gp.values()) if reduce_grads else []))
+    return loss, acts, gp, gprobe
+
+
+def gathered_tap_bytes(taps, act_bytes: int = 4) -> int:
+    """Bytes a data-parallel step sums over the data axes for the taps
+    (``kfac_grads``): each stacked slot's acts, (n_stat, d_in) in the
+    activations' dtype (``act_bytes`` an entry), and probe gradients,
+    (n_stat, d_out) fp32."""
+    return sum(math.prod(t.stack) * t.n_stat
+               * (act_bytes * t.d_in + 4 * t.d_out) for t in taps.values())
 
 
 def make_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac, n_tokens: int,
@@ -98,7 +124,8 @@ def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
                              n_tokens: int, probe_dtype=torch.float32,
                              meter: Optional[obs_metrics.Meter] = None,
                              grad_transform: Optional[Callable] = None,
-                             obs: Optional[specs_lib.ObsSpec] = None):
+                             obs: Optional[specs_lib.ObsSpec] = None,
+                             sp=None):
     """Returns step(state, batch, work, draws=None, landing=None) →
     (state, loss), with ``work`` the step's StepWork mask and ``landing``
     the pre-computed heavy results of its land ranges (see
@@ -116,7 +143,12 @@ def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
     gradient-compression path: ``distributed/compress.py::compress_tree``
     with its ``CompressState`` carry); the step then takes and returns
     that carry as a trailing argument and output (``cstate=``, after
-    ``mbuf`` when a meter is on)."""
+    ``mbuf`` when a meter is on).
+
+    ``sp``: the model's policy; under data parallelism the step runs
+    :func:`kfac_grads` with it (the batch is this rank's block), and a
+    ``grad_transform`` gets each rank's share of the gradients and must
+    return the reduced ones, as ``compress_tree(sp=)`` does."""
     if obs is not None and meter is None:
         meter = obs.make_meter(opt)
 
@@ -124,8 +156,9 @@ def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
              mbuf=None, cstate=None):
         dev = next(iter(state.params.values())).device
         probes = layers.make_probes(opt.taps, device=dev, dtype=probe_dtype)
-        loss, acts, gp, gprobe = kfac_grads(loss_fn, state.params, probes,
-                                            batch)
+        loss, acts, gp, gprobe = kfac_grads(
+            loss_fn, state.params, probes, batch, sp,
+            reduce_grads=grad_transform is None)
         if grad_transform is not None:
             gp, cstate = grad_transform(gp, cstate)
         # the step owns gp: the update may drop each gradient once its

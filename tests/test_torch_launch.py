@@ -185,14 +185,17 @@ def test_one_device_policy_and_refusals():
         tsteps.build_train_step(arch, dist=tspecs.DistSpec(
             curvature_axis="curv"), curvature_axis="curv", device=CPU)
     # a mesh with a model axis larger than 1: the policy and the
-    # shardings are the reference's, but a step refuses to run (the port
-    # has no tensor parallelism: ROADMAP §1 item 6)
+    # shardings are the reference's (the port's policy also holds the
+    # mesh its data-parallel collectives run over), but a step refuses to
+    # run (the port has no tensor parallelism: ROADMAP §1 item 5)
     mesh = argparse.Namespace(axis_names=("data", "model"),
                               devices=np.zeros((2, 2)))
     jarch = jget("gemma3_4b").reduced()
     assert tsteps.kv_rep_for(arch, mesh) == jsteps.kv_rep_for(jarch, mesh)
-    assert (tsteps.shard_policy_for(mesh).__dict__
-            == jsteps.shard_policy_for(mesh).__dict__)
+    tpol = tsteps.shard_policy_for(mesh).__dict__
+    jpol = jsteps.shard_policy_for(mesh).__dict__
+    assert {k: tpol[k] for k in jpol} == jpol
+    assert set(tpol) - set(jpol) == {"mesh"} and tpol["mesh"] is mesh
     built = tsteps.build_train_step(arch, mesh=mesh, device=CPU)
     dec = tsteps.build_decode_step(arch, mesh=mesh, device=CPU)
     assert built.in_shardings is not None and dec.in_shardings is not None
@@ -200,7 +203,7 @@ def test_one_device_policy_and_refusals():
                  lambda: dec.step_fn(None, None, None, 0),
                  lambda: tsteps.build_prefill_step(
                      arch, mesh=mesh, device=CPU).step_fn(None, None)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             call()
 
 
@@ -497,8 +500,8 @@ def test_cli_compress_trajectory_equals_reference(ref_cli, tmp_path,
     step on, in both packages."""
     grads, compress_tree = [], tcomp.compress_tree
 
-    def recorded(gp, cs, cfg):
-        out, cs = compress_tree(gp, cs, cfg)
+    def recorded(gp, cs, cfg, sp=None):
+        out, cs = compress_tree(gp, cs, cfg, sp=sp)
         grads.append({k: v.detach().clone() for k, v in out.items()
                       if v.dim() >= 2 and v.numel() >= cfg.min_size})
         return out, cs

@@ -231,8 +231,12 @@ def test_policy_and_kv_rep_equal_reference(mesh):
     m = MESHES[mesh]
     for kw in (dict(), dict(shard_kv_seq=True),
                dict(seq_shard_residual=False)):
-        assert dataclasses.asdict(tsteps.shard_policy_for(m, **kw)) == \
-            dict(jsteps.shard_policy_for(m, **kw).__dict__)
+        # the reference's fields; the port's policy also holds the mesh its
+        # data-parallel collectives run over
+        tpol = tsteps.shard_policy_for(m, **kw)
+        jpol = dict(jsteps.shard_policy_for(m, **kw).__dict__)
+        assert {f: getattr(tpol, f) for f in jpol} == jpol
+        assert tpol.mesh is m
     for n in ARCH_NAMES:
         assert tsteps.kv_rep_for(tget(n), m) == jsteps.kv_rep_for(jget(n), m)
 
@@ -336,7 +340,7 @@ def test_ladders_equal_reference():
 # four ranks
 # ---------------------------------------------------------------------------
 
-B, T = 2, 32
+B, T = 4, 16        # the batch splits over the mesh's four data ranks
 HEAVY = dict(do_stats=True, do_light=True, do_heavy=True)
 CLI = ["--reduced", "--variant", "brkfac", "--steps", "6", "--device", "cpu"]
 
@@ -418,7 +422,7 @@ def test_cli_on_a_2x2_mesh_equals_no_mesh(world):
     runs = _one(world, "cli")
     for got in runs:
         np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
-        assert "item 6" in got["refused"]
+        assert "item 5" in got["refused"]
     log = runs[0]["console"]
     assert "curvature sharded on 'curv'" in log
     assert "rows=data n_rows=2" in log and "dense-M memory" in log

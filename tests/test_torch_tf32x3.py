@@ -41,6 +41,8 @@ What the emulation shows:
   X = Zᵀ), each split as its plan says, stay within the same 4× at every
   launch of the paths, in both layouts.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -59,11 +61,23 @@ RATIO = 4.0
 def one_thread():
     """The emulation is many small products: on one intra-op thread they
     cost the same alone and do not crawl when parallel test workers share
-    the cores (each worker's thread pool spans all of them)."""
+    the cores (each worker's thread pool spans all of them).  numpy's
+    BLAS, which makes the operands (QR, float64 products), is held to one
+    thread too: its pool spans every core as well, and beside other
+    workers its threads took most of these files' time."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with _blas_threads(1):
+        yield
     torch.set_num_threads(n)
+
+
+def _blas_threads(n):
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:          # pragma: no cover - numpy's pool as is
+        return contextlib.nullcontext()
+    return threadpool_limits(n)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The rank program of the port's multi-process CPU tests
-(``test_torch_dist.py``, ``test_torch_mesh.py``), and :func:`spawn`, which
-runs it.
+(``test_torch_dist.py``, ``test_torch_mesh.py``, ``test_torch_dp.py``),
+and :func:`spawn`, which runs it.
 
 One ``gloo`` world of ``WORLD`` processes per test file: the parent
 writes the cases to a pickle, each rank joins through a file rendezvous
@@ -96,6 +96,30 @@ def start(suite: str, cases, tmp_dir: str, world: int = WORLD,
                 out.append(pickle.load(f))
         return out
     return join
+
+
+def later(tmp_dir: str, suite: str, timeout: float = 150.0):
+    """A case that makes the ranks wait for the parent's later cases (its
+    oracles first need time the ranks can spend on the others) → (the
+    case, a function that hands them the cases)."""
+    path = os.path.join(tmp_dir, f"{suite}_later.pkl")
+
+    def send(cases):
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(cases, f)
+        os.replace(path + ".tmp", path)
+    return {"name": "later", "kind": "later", "path": path,
+            "timeout": timeout}, send
+
+
+def _wait_for(path: str, timeout: float):
+    deadline = time.time() + timeout
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"no later cases at {path}")
+        time.sleep(0.1)
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def ok(results, name):
@@ -462,17 +486,21 @@ def _cli(ctx, case):
 
 def _builder(ctx, case):
     """``build_train_step`` on the 2 × 2 [data, curv] mesh: one step from
-    the reference's parameters and batch."""
+    the reference's parameters and this rank's block of its batch (split
+    over data and curv)."""
     import torch
     from repro_torch import convert
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as tsteps
     tb = tsteps.build_train_step(
         tcut(), cell=ShapeCell("t", case["T"], case["B"], "train"),
         flags=case["flags"], dist=ctx.dist_spec("2d"), device=ctx.cpu)
     params = {k: v.requires_grad_() for k, v in convert.params_from_jax(
         case["init"], device=ctx.cpu).items()}
-    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    batch = shd.localize({k: torch.as_tensor(v)
+                          for k, v in case["batch"].items()},
+                         tb.in_shardings[2])
     st0 = tb.opt.init(params)
     out, st, loss = tb.step_fn(params, st0, batch,
                                torch.Generator().manual_seed(1))
@@ -623,7 +651,237 @@ def suite_mesh(ctx, cases):
     return out
 
 
-SUITES = {"engine": suite_engine, "mesh": suite_mesh}
+# -- the data-parallel suite -------------------------------------------------
+
+#: the data meshes of the suite: (shape, axes)
+DP_MESHES = {"4x1": ((4, 1), ("data", "model")),
+             "2x2x1": ((2, 2, 1), ("pod", "data", "model")),
+             "2x1": ((2, 1), ("data", "model"))}
+
+
+def dp_arch(spec):
+    """The suite's architectures by name: ``cut`` (``tcut``: reduced
+    gemma3's first local and its global layer, scanned twice), else a
+    config's reduced one; ``vocab`` replaces the vocabulary."""
+    from repro_torch.configs.base import Segment, get_arch
+    name, vocab = spec
+    if name == "cut":
+        red = get_arch("gemma3_4b").reduced()
+        p = red.segments[0].pattern
+        arch = dataclasses.replace(red, n_layers=4, segments=(
+            Segment((p[0], p[5]), repeats=2),))
+    else:
+        arch = get_arch(name).reduced()
+    return dataclasses.replace(arch, vocab=vocab) if vocab else arch
+
+
+def dp_kfac_config(variant):
+    """The CLI's ``--reduced`` optimizer (r 32, dense up to 1024)."""
+    from repro_torch.launch import train as ttrain
+    return ttrain.reduced_kfac_config(variant)
+
+
+class RowsSeen:
+    """Records the batch rows of every forward of ``lm``."""
+
+    def __init__(self, lm):
+        self.rows = []
+        forward = lm.forward
+
+        def seen(params, batch, *a, **kw):
+            self.rows.append(int(batch["tokens"].shape[0]))
+            return forward(params, batch, *a, **kw)
+        lm.forward = seen
+
+
+def _dp_mesh(ctx, name):
+    from repro_torch.launch import mesh as mesh_lib
+    shape, axes = DP_MESHES[name]
+    return mesh_lib.make_mesh(shape, axes, device=ctx.cpu)
+
+
+def _dp_step(ctx, case):
+    """``make_scheduled_kfac_step`` (the CLI's step) under the data mesh
+    and the engine, from the reference's parameters, with its batches
+    (global; each rank keeps its rows) and heavy-op draws."""
+    import torch
+    from repro_torch import convert, specs
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.data.synthetic import rank_rows
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.lm import LM
+    from repro_torch.train import loop as tloop
+    mesh = _dp_mesh(ctx, case["mesh"])
+    sp = tsteps.shard_policy_for(mesh)
+    lm = LM(dp_arch(case["arch"]), sp, remat=case.get("remat", False),
+            device=ctx.cpu)
+    seen = RowsSeen(lm)
+    opt = tkfac.Kfac(dp_kfac_config(case["variant"]), lm.taps,
+                     device=ctx.cpu)
+    curv, rows = case["dist"]
+    specs.DistSpec(mesh=mesh, curvature_axis=curv,
+                   row_axis=rows).attach(opt)
+    step = tloop.make_scheduled_kfac_step(lm.loss_fn, opt, case["n_tokens"],
+                                          sp=sp)
+    params = {k: v.requires_grad_() for k, v in convert.params_from_jax(
+        case["init"], device=ctx.cpu).items()}
+    state = tloop.TrainState(params=params, opt=opt.init(params),
+                             rng=torch.Generator().manual_seed(1))
+    work = opt.uniform_work(True, True, True)
+    losses = []
+    for k, batch in enumerate(case["batches"]):
+        local = rank_rows({n: _t(v) for n, v in batch.items()},
+                          sp.dp_index, sp.dp_size)
+        draws = {int(b): _t(d) for b, d in case["draws"][k].items()}
+        state, loss = step(state, local, work, draws=draws)
+        losses.append(float(loss))
+    return {"losses": losses, "rows": seen.rows,
+            "after": {k: _np(v) for k, v in state.params.items()}}
+
+
+def _dp_taps(ctx, case):
+    """``kfac_grads`` under the data mesh: the loss, the summed acts and
+    probe gradients, the parameter gradients, and the rows each forward
+    saw."""
+    import torch
+    from repro_torch.data.synthetic import rank_rows
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.train import loop as tloop
+    sp = tsteps.shard_policy_for(_dp_mesh(ctx, case["mesh"]))
+    lm = LM(dp_arch(case["arch"]), sp, remat=False, device=ctx.cpu)
+    seen = RowsSeen(lm)
+    params = lm.init(torch.Generator().manual_seed(0))
+    local = rank_rows({n: _t(v) for n, v in case["batch"].items()},
+                      sp.dp_index, sp.dp_size)
+    loss, acts, gp, gprobe = tloop.kfac_grads(
+        lm.loss_fn, params, layers.make_probes(lm.taps, device=ctx.cpu),
+        local, sp)
+    return {"loss": float(loss), "rows": seen.rows,
+            "acts": {k: _np(v) for k, v in acts.items()},
+            "probe_grads": {k: _np(v) for k, v in gprobe.items()},
+            "grads": {k: _np(v) for k, v in gp.items()}}
+
+
+def _dp_archs(ctx, case):
+    """Every architecture's ``build_train_step`` (stats, light, heavy;
+    remat) on the (2, 1) mesh, one step from the port's seeded parameters: the
+    mesh's two ranks each take their block of the global batch under the
+    step's batch sharding; the ranks outside the mesh wait."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as tsteps
+    mesh = _dp_mesh(ctx, "2x1")
+    out = {}
+    if not mesh.member:
+        return out
+    B, T = case["B"], case["T"]
+    for name, batch in case["batches"].items():
+        arch = dp_arch((name, 0))
+        tb = tsteps.build_train_step(
+            arch, mesh=mesh, cell=ShapeCell("t", T, B, "train"),
+            flags=dict(do_stats=True, do_light=True, do_heavy=True),
+            device=ctx.cpu)
+        seen = RowsSeen(tb.lm)
+        params = tb.lm.init(torch.Generator().manual_seed(0))
+        local = shd.localize({k: _t(v) for k, v in batch.items()},
+                             tb.in_shardings[2])
+        p, _, loss = tb.step_fn(params, tb.opt.init(params), local,
+                                torch.Generator().manual_seed(1))
+        out[name] = {"loss": float(loss), "rows": seen.rows,
+                     "after": {k: _np(v) for k, v in p.items()}}
+    return out
+
+
+def _dp_serve(ctx, case):
+    """The prefill and decode builders on the data mesh: this rank's
+    logits rows from its blocks of the batch, the cache and the tokens."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as tsteps
+    mesh = _dp_mesh(ctx, case["mesh"])
+    arch = dp_arch(case["arch"])
+    B, T = case["B"], case["T"]
+    tokens = _t(case["tokens"])
+    pb = tsteps.build_prefill_step(arch, mesh=mesh, cell=ShapeCell(
+        "p", T, B, "prefill"), device=ctx.cpu)
+    params = pb.lm.init(torch.Generator().manual_seed(0))
+    local = shd.localize({"tokens": tokens}, pb.in_shardings[1])
+    out = {"prefill": _np(pb.step_fn(params, local))}
+    db = tsteps.build_decode_step(arch, mesh=mesh, cell=ShapeCell(
+        "d", 16, B, "decode"), device=ctx.cpu)
+    cache = shd.localize(db.lm.init_cache(B, 16), db.in_shardings[1])
+    tok = shd.localize(tokens, db.in_shardings[2])
+    out["decode"] = []
+    for t in range(3):
+        lg, cache = db.step_fn(params, cache, tok[:, t:t + 1], t)
+        out["decode"].append(_np(lg))
+    return out
+
+
+def _dp_compress(ctx, case):
+    """``compress_tree(sp=)`` over the data mesh: each rank's share of the
+    global gradients, rounds with error feedback from the given bases →
+    the reduced approximations and this rank's errors, each round."""
+    from repro_torch.distributed import compress as tcomp
+    from repro_torch.launch import steps as tsteps
+    sp = tsteps.shard_policy_for(_dp_mesh(ctx, case["mesh"]))
+    cfg = tcomp.CompressConfig(**case["cfg"])
+    r = sp.dp_index
+    shares = case["shares"]
+    state = tcomp.init_state({k: _t(v) for k, v in shares[0][r].items()},
+                             cfg, bases={k: _t(v) for k, v in
+                                         case["bases"].items()})
+    out = []
+    for round_ in shares:
+        grads = {k: _t(v).clone() for k, v in round_[r].items()}
+        approx, state = tcomp.compress_tree(grads, state, cfg, sp=sp)
+        out.append({"approx": {k: _np(v) for k, v in approx.items()},
+                    "err": {k: _np(v) for k, v in state.err.items()}})
+    return out
+
+
+def compressed_grads(compress_lib):
+    """Patches ``compress_lib.compress_tree`` to record the compressed
+    leaves it returns → (the list they go to, the original)."""
+    got, compress_tree = [], compress_lib.compress_tree
+
+    def recorded(gp, cs, cfg, sp=None):
+        out, cs = compress_tree(gp, cs, cfg, sp=sp)
+        got.append({k: v.detach().clone() for k, v in out.items()
+                    if v.dim() >= 2 and v.numel() >= cfg.min_size})
+        return out, cs
+    compress_lib.compress_tree = recorded
+    return got, compress_tree
+
+
+def _dp_cli(ctx, case):
+    """The CLI on the case's data mesh (``--mesh`` with ``--mesh-axes``):
+    its losses, final parameters and compressed gradients."""
+    from repro_torch.distributed import compress as tcomp
+    from repro_torch.launch import train as ttrain
+    grads, compress_tree = compressed_grads(tcomp)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            state, losses = ttrain.run(ttrain.parse_args(case["argv"]),
+                                       arch=dp_arch(case["arch"]))
+    finally:
+        tcomp.compress_tree = compress_tree
+    return {"losses": losses, "log": buf.getvalue(),
+            "grads": [{k: _np(v) for k, v in g.items()} for g in grads],
+            "after": {k: _np(v) for k, v in state.params.items()}}
+
+
+def suite_dp(ctx, cases):
+    kinds = {"step": _dp_step, "taps": _dp_taps, "archs": _dp_archs,
+             "serve": _dp_serve, "compress": _dp_compress, "cli": _dp_cli}
+    return {case["name"]: kinds[case["kind"]](ctx, case) for case in cases}
+
+
+SUITES = {"engine": suite_engine, "mesh": suite_mesh, "dp": suite_dp}
 
 
 def main(argv):
@@ -635,10 +893,14 @@ def main(argv):
                             rank=int(rank), world_size=int(world),
                             timeout=datetime.timedelta(seconds=90))
     with open(job, "rb") as f:
-        cases = pickle.load(f)
+        pending = pickle.load(f)
     ctx = Ctx()
     res = {}
-    for case in cases:
+    while pending:
+        case = pending.pop(0)
+        if case.get("kind") == "later":      # the parent's later cases
+            pending[:0] = _wait_for(case["path"], case["timeout"])
+            continue
         try:
             res.update(SUITES[suite](ctx, [case]))
         except Exception:
