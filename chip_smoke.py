@@ -445,13 +445,18 @@ def phase_kernels():
     dist_dense, dist_brand, dist_panels = dist_kernel_shapes()
     # dp_reduced's, per rank: ⌈B/4⌉ slots of each bucket on the data axis
     dp_dense, dp_panels = dp_kernel_shapes()
+    # tp_reduced's, per rank: ⌈B/2⌉ slots on the data axis of (2, 2)
+    tp_dense, tp_panels = dp_kernel_shapes(TP_REDUCED["data"],
+                                           TP_REDUCED["steps"])
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
            [(sym(b, d), rnd(b, d, 256))
             for b, d in ((2, 256),) + tuple(x for x in NS_BUCKETS
                                             if x != (2, 256))]
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in launch_dense]
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in dist_dense]
-           + [(sym(b, d), rnd(b, d, n)) for b, d, n in dp_dense],
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in dp_dense]
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in tp_dense
+              if (b, d, n) not in dp_dense],
            lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
            lambda M, X: ref.ea_syrk(M, X, 0.95, False),
            lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
@@ -530,7 +535,10 @@ def phase_kernels():
               + [(rnd(b, d, n),) for b, d, _, _, n in dist_brand]
               + [(rnd(c, d, k),) for c, d, k in dist_panels]
               # dp_reduced's per rank (its local rows of each range)
-              + [(rnd(c, d, k),) for c, d, k in dp_panels])
+              + [(rnd(c, d, k),) for c, d, k in dp_panels]
+              # tp_reduced's per rank, as dp_reduced's on two members
+              + [(rnd(c, d, k),) for c, d, k in tp_panels
+                 if (c, d, k) not in dp_panels])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -960,6 +968,10 @@ PATH_KERNELS = {
     "slice_dp": (),
     # the CLI data-parallel at --reduced under B-R-KFAC, on every rank
     "dp_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
+    # the CLI tensor-parallel at full width: BRAND under use_kernels=False
+    "slice_tp": (),
+    # the CLI tensor-parallel at --reduced under B-R-KFAC, on every rank
+    "tp_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -2449,7 +2461,9 @@ def continuation_replay(shifts=None):
     rounding-level mode that is positive on one device and not on the
     other moves λ by the smallest real mode there (ROADMAP §3).  Replaying
     one run's shifts in the other holds the rest of the two runs'
-    arithmetic to each other."""
+    arithmetic to each other.  Calls past the end of ``shifts`` take
+    their own shift (a record of a run's first step replays that step
+    only)."""
     import torch
     from repro_torch.core import precond
     orig = precond.spectrum_continuation
@@ -2459,7 +2473,7 @@ def continuation_replay(shifts=None):
         _, own = orig(D, torch.zeros_like(lam))     # λ = 0: own = min D>0
         i = len(rec)
         rec.append(own.detach().cpu())
-        if shifts is None:
+        if shifts is None or i >= len(shifts):
             return orig(D, lam)
         s = shifts[i].to(D.device, D.dtype)
         return torch.clamp(D - s[..., None], min=0.0), lam + s
@@ -3511,18 +3525,22 @@ def dp_reduced_opt(dev, mesh=None):
     return lm, opt
 
 
-def dp_kernel_shapes():
+def dp_kernel_shapes(world=None, steps=None):
     """dp_reduced's kernel shapes on each rank: the engine gives a rank
     ⌈B/4⌉ slots of every bucket, so the EA absorb's (⌈B/4⌉, d, n_stat)
     of each bucket that holds M, and the RSVD range finder's panels
     (count, d, r + r_o) — the rank's whole share (the first step) or its
-    local rows of each heavy range of the run's steps."""
+    local rows of each heavy range of the run's steps.  ``world`` (the
+    engine's data members) and ``steps`` give another path's: tp_reduced
+    runs the engine on the two data members of its 2 × 2 mesh, each
+    model rank the slots of its data coordinate."""
     import types
     import numpy as np
     import torch
     from repro_torch.core import buckets, kfactor
     from repro_torch.distributed import curvature
-    world = DP_REDUCED["world"]
+    world = world or DP_REDUCED["world"]
+    steps = steps or DP_REDUCED["steps"]
     _, opt = dp_reduced_opt(torch.device("cpu"))
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  devices=np.zeros((world, 1)))
@@ -3535,7 +3553,7 @@ def dp_kernel_shapes():
             dense.append((bl, s.d, s.n_stat))
         if kfactor.has_heavy_op(s):
             counts = {bl}
-            for k in range(DP_REDUCED["steps"]):
+            for k in range(steps):
                 for lo, hi in buckets.localize_ranges(
                         sched.work(k).heavy[bi], b.total, world):
                     counts.add(hi - lo)
@@ -3551,7 +3569,8 @@ def counted_collectives():
     calls; a call over a tuple of axes counts as its per-axis calls)."""
     import torch
     from repro_torch.distributed import collectives as coll
-    tally = {"all_reduce": [0, 0.0, 0], "all_gather": [0, 0.0, 0]}
+    tally = {"all_reduce": [0, 0.0, 0], "all_gather": [0, 0.0, 0],
+             "all_gather_coalesced": [0, 0.0, 0]}
     saved = {k: getattr(coll, k) for k in tally}
 
     def wrap(kind):
@@ -3562,10 +3581,11 @@ def counted_collectives():
                 return fn(x, mesh, axis, *a, **kw)
             t0 = time.perf_counter()
             out = fn(x, mesh, axis, *a, **kw)
-            if x.is_cuda:
+            xs = x if isinstance(x, list) else [x]
+            if any(t.is_cuda for t in xs):
                 torch.cuda.current_stream().synchronize()
             row = tally[kind]
-            row[0] += x.numel() * x.element_size()
+            row[0] += sum(t.numel() * t.element_size() for t in xs)
             row[1] += time.perf_counter() - t0
             row[2] += 1
             return out
@@ -3845,7 +3865,8 @@ def dp_rank_main(job: str, rank: int, world: int, rdv: str, out: str) -> int:
         res.update(backend=dist.get_backend(), device=str(dev),
                    init_s=time.perf_counter() - t0)
         t1 = time.perf_counter()
-        run = {"slice": dp_rank_slice, "reduced": dp_rank_reduced}[job]
+        run = {"slice": dp_rank_slice, "reduced": dp_rank_reduced,
+               "tp_slice": tp_rank_slice, "tp_reduced": tp_rank_reduced}[job]
         res[job] = run(rank, dev)
         res["run_s"] = time.perf_counter() - t1
         dist.barrier()
@@ -3858,7 +3879,8 @@ def dp_rank_main(job: str, rank: int, world: int, rdv: str, out: str) -> int:
     return rc
 
 
-def spawn_ranks(job: str, world: int, timeout: float, meanwhile=None):
+def spawn_ranks(job: str, world: int, timeout: float, meanwhile=None,
+                env_extra=None):
     """``world`` processes of this script running ``job`` (``--dp-rank``)
     on the one card, joined with a timeout; ``meanwhile()`` runs in this
     process while they do → (its result, the ranks' results, seconds)."""
@@ -3873,7 +3895,8 @@ def spawn_ranks(job: str, world: int, timeout: float, meanwhile=None):
             for r in range(world)]
     t0 = time.perf_counter()
     # the ranks allocate as this process does since slice_serve
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               **(env_extra or {}))
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", job,
          str(r), str(world), rdv, os.path.join(tmp, f"rank{r}.json")],
@@ -4089,6 +4112,642 @@ def phase_dp_reduced(checked):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel execution of the LM: slice_tp (path 14) and tp_reduced
+# ---------------------------------------------------------------------------
+
+#: slice_tp: the trainer CLI at gemma3-4b's full width on ``--mesh 1x2``
+#: (data 1, model 2: two ranks of this card over gloo, each holding its
+#: block of every sharded leaf) with ``--compress``, the CLI's defaults
+#: (batch 4 x 64, B-KFAC, every factor BRAND), cut to ``repeats`` of its
+#: two segments (1, 0: 6 of 34 layers, gemma3's five local layers and
+#: its global one).  16 layers are the deepest that two ranks fit alone
+#: (35.10 GB peak a rank; 18 run the card out of memory:
+#: tools/launch_memory.py --mesh 1x2), and every step gathers each
+#: sharded gradient and sums the probe gradients over gloo (~1 GB/s of
+#: data moved on one card): at 10 layers 3.41 GB gathered and 1.40 GB
+#: summed a rank, 10.5–13.6 s an idle step, which took the script to
+#: 934 s of its 1200, so the cut is chosen with the time limit in view.  Step 0 is
+#: first run in fp32 (``--steps 1``) beside one process's, its update and
+#: new factors held (with bf16 activations the step-0 updates part by
+#: percents between the two runs' reductions).  Then the
+#: builders at that cut: a 2 x 2048 prefill (vocabulary blocks gathered),
+#: fp32 decode of ``decode`` tokens over a ``cache``-slot cache (past the
+#: shard boundary) in each of the "seq", "heads" and "hd" layouts, and
+#: the long-context decode (B = 1, ``window_caches``) at ``long`` slots,
+#: ``long_tokens`` tokens from just below the middle shard boundary; each
+#: against the same builders in one process on rank 0.
+TP_SLICE = dict(arch="gemma3_4b", repeats=(1, 0), steps=6, batch=4, seq=64,
+                prefill=2048, decode=10, cache=16, long=524288,
+                long_tokens=4, world=2, timeout=900)
+#: tp_reduced: B-R-KFAC at --reduced on ``--mesh 2x2`` (data 2, model 2)
+#: without --compress, 12 steps (the RSVD overwrites of the staggered
+#: window), the engine on "data"; then the same steps replayed, each
+#: step's update and new state held to the one-process optimizer's from
+#: the same gathered state, parameters and batch (rank 0), with the
+#: tensor-parallel step's continuation shifts replayed
+TP_REDUCED = dict(argv=("--reduced", "--variant", "brkfac"), steps=12,
+                  world=4, data=2, timeout=600)
+#: slice_tp's step 0 (fp32) is held per tapped leaf of these blocks, and
+#: by the new factors of their taps
+TP_HELD_PREFIX = "segments/0/p0/"
+TP_HELD_TAPS = "segments/seg0/p0/"
+
+
+def _tp_slice_arch():
+    from repro_torch.configs.base import get_arch
+    return get_arch(TP_SLICE["arch"]).with_repeats(TP_SLICE["repeats"])
+
+
+def _tp_slice_argv(extra=()):
+    S = TP_SLICE
+    return ["--compress", "--steps", str(S["steps"]), "--batch",
+            str(S["batch"]), "--seq", str(S["seq"]), "--device", "cuda",
+            "--metrics-every", "0", *extra]
+
+
+@contextlib.contextmanager
+def first_updates(keep, at_first=lambda: None):
+    """The first ``apply_updates`` call's updates of the leaves ``keep``
+    accepts, copied to the host (the yielded dict; ``at_first()``'s value
+    under "_")."""
+    from repro_torch.optim import base as optbase
+    orig, got = optbase.apply_updates, {}
+
+    def recorded(params, updates):
+        if not got:
+            got.update({k: v.detach().float().cpu()
+                        for k, v in updates.items() if keep(k)})
+            got["_"] = at_first()
+        return orig(params, updates)
+    optbase.apply_updates = recorded
+    try:
+        yield got
+    finally:
+        optbase.apply_updates = orig
+
+
+def _factor_ops(factors, prefix: str) -> dict:
+    """Each factor of the taps under ``prefix`` as its operator U·diag(D)·Uᵀ
+    applied to a fixed random (d, 16) panel (seeded by d, on the factor's
+    device), on the host: the new state compared without forming the
+    d × d matrices."""
+    import torch
+    out = {}
+    for name, ts in factors.items():
+        if not name.startswith(prefix):
+            continue
+        for side in "AG":
+            st = getattr(ts, side)
+            d = st.U.shape[-2]
+            X = torch.randn((d, 16), generator=torch.Generator().manual_seed(
+                d)).to(st.U.device)
+            Y = st.U @ (st.D[..., None] * (st.U.mT @ X))
+            out[f"{name}/{side}"] = Y.float().cpu()
+    return out
+
+
+def _held_blocks(lm, params) -> dict:
+    """Every leaf a rank holds is its block: the sharded leaves (each a
+    strict block of its whole) and the leaves of another shape."""
+    import math
+    ms = lm.sp.shards
+    sharded = {k: [list(v.shape), list(ms.shapes[k])]
+               for k, v in params.items() if ms.sharded(k)}
+    wrong = [k for k, v in params.items()
+             if tuple(v.shape) != ms.local_shape(k)]
+    strict = all(math.prod(a) < math.prod(b) for a, b in sharded.values())
+    return {"n_sharded": len(sharded), "n_leaves": len(params),
+            "wrong": wrong, "strict": strict,
+            "examples": {k: sharded[k] for k in list(sharded)[:4]}}
+
+
+def tp_rank_slice(rank: int, dev) -> dict:
+    """slice_tp on this rank: step 0 in fp32 (its block of the held
+    leaves' update and the held taps' factors against one process's,
+    whose shifts it replays), then the CLI on ``--mesh 1x2`` (per step:
+    wall time, the collectives' bytes, seconds and calls), launches,
+    calls by shape, peak memory, the blocks it holds; then the builders
+    on the model mesh against the same builders in one process on rank
+    0."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, train
+    from repro_torch.models.lm import LM
+    S = TP_SLICE
+    arch = _tp_slice_arch()
+    tel = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    args = train.parse_args(_tp_slice_argv(
+        ["--mesh", f"1x{S['world']}"]
+        + (["--telemetry-dir", tel] if rank == 0 else [])))
+    stream = TokenStream(vocab=arch.vocab, batch=S["batch"],
+                         seq_len=S["seq"], seed=0, device=dev).batch_at
+    marks, tallies = [], []
+
+    def batches(k):
+        torch.cuda.current_stream().synchronize()
+        marks.append(time.perf_counter())
+        tallies.append({kk: list(v) for kk, v in tally.items()})
+        return stream(k)
+    held_names = lambda k: k.startswith(TP_HELD_PREFIX)
+    mesh = mesh_lib.make_mesh((1, S["world"]), ("data", "model"))
+    lm = LM(arch, steps.shard_policy_for(mesh), device=torch.device("meta"))
+    # step 0 in fp32 from the same state as one process's (the parent's),
+    # with its spectrum-continuation shifts replayed (ROADMAP §3): this
+    # rank's block of the update of the held leaves, and the held taps'
+    # new factors
+    want = torch.load(os.environ["CHIP_SMOKE_TP_UPDATES"])
+    shifts0, want_ops = want.pop("_shifts"), want.pop("_factors")
+    arch32 = dataclasses.replace(arch, dtype="float32")
+    with first_updates(held_names) as upd0, \
+            continuation_replay(shifts0) as own_shifts, \
+            contextlib.redirect_stdout(io.StringIO()):
+        st32, _ = train.run(train.parse_args(_tp_slice_argv(
+            ["--mesh", f"1x{S['world']}", "--steps", "1"])), arch=arch32)
+    ops = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
+    del st32
+    gc.collect()
+    torch.cuda.empty_cache()
+    upd_err = {}
+    for k, w in want.items():
+        g = upd0[k]
+        wb = lm.sp.shards.block(k, w) if lm.sp.shards.sharded(k) else w
+        upd_err[k] = (float((g - wb).abs().max())
+                      / max(float(wb.abs().max()), 1e-30))
+    state_err = {k: float((ops[k] - w).abs().max())
+                 / max(float(w.abs().max()), 1e-30)
+                 for k, w in want_ops.items()}
+    parted0 = sum(int(((a - b).abs() > 1e-3 * b.abs()).sum())
+                  for a, b in zip(own_shifts, shifts0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with calls_by_shape() as by_shape, counted_collectives() as tally:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            state, losses = train.run(args, arch=arch, batches=batches)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        tallies.append({kk: list(v) for kk, v in tally.items()})
+    peak = torch.cuda.max_memory_allocated()
+    counts = _build.launch_counts()
+    kinds = ([e["phase"] for e in _events(tel) if e["type"] == "step"]
+             if rank == 0 else None)
+    per_step = []
+    for k in range(len(losses)):
+        row = {"wall_s": marks[k + 1] - marks[k]}
+        for kind in tally:
+            a, b = tallies[k][kind], tallies[k + 1][kind]
+            row[kind] = {"bytes": b[0] - a[0], "s": b[1] - a[1],
+                         "calls": b[2] - a[2]}
+        per_step.append(row)
+    held = _held_blocks(lm, state.params)
+    params = {k: v.detach() for k, v in state.params.items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the builders on the model mesh; rank 0 also runs them in one process
+    # on the parameters gathered whole
+    whole = shd.globalize(params, lm.param_shardings)
+    if rank != 0:
+        del whole
+        whole = None
+    B = 2
+    prompt = TokenStream(vocab=arch.vocab, batch=B, seq_len=S["prefill"],
+                         seed=1, device=dev).batch_at(0)["tokens"]
+    out = {}
+    pb = steps.build_prefill_step(arch, mesh=mesh, device=dev, cell=ShapeCell(
+        "tp_prefill", S["prefill"], B, "prefill"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg = pb.step_fn(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_block"] = list(lg.shape)
+    lg = coll.all_gather(lg, mesh, "model", 2)
+    if rank == 0:
+        one = steps.build_prefill_step(arch, device=dev, cell=ShapeCell(
+            "tp_prefill", S["prefill"], B, "prefill"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = one.step_fn(whole, {"tokens": prompt})
+        torch.cuda.synchronize()
+        out["prefill_s_one"] = time.perf_counter() - t0
+        out["prefill_err_of_scale"] = _scale_err(lg.float(), ref.float())
+        out["finite"] = bool(torch.isfinite(lg).all())
+        del ref
+    del lg
+    torch.cuda.empty_cache()
+    decodes = [(layout, "tp_decode", S["cache"], B, 0, S["decode"], False)
+               for layout in ("seq", "heads", "hd")]
+    decodes.append(("long", "long_500k", S["long"], 1,
+                    S["long"] // 2 - S["long_tokens"] // 2,
+                    S["long_tokens"], True))
+    for name, cell, n_slots, Bd, t0_, n, ring in decodes:
+        layout = "seq" if name == "long" else name
+        res = {}
+        for mode, m in (("tp", mesh), ("one", None)):
+            if mode == "one" and rank != 0:
+                continue
+            db = steps.build_decode_step(
+                arch32, mesh=m, device=dev, cache_layout=layout,
+                window_caches=ring,
+                cell=ShapeCell(cell, n_slots, Bd, "decode"))
+            rep = (steps.kv_rep_for(arch32, m)
+                   if layout == "heads" and m is not None else 1)
+            cache = db.lm.init_cache(Bd, n_slots, window_caches=ring,
+                                     kv_rep=rep)
+            if m is not None:
+                cache = shd.localize(cache, db.step_shardings[1])
+            use = params if m is not None else whole
+            got = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                for t in range(t0_, t0_ + n):
+                    lgd, cache = db.step_fn(use, cache,
+                                            prompt[:Bd, t % S["prefill"]:
+                                                   t % S["prefill"] + 1], t)
+                    got.append(lgd[:, 0])
+            torch.cuda.synchronize()
+            res[mode] = {"ms": (time.perf_counter() - t1) * 1e3 / n,
+                         "logits": torch.stack(got, 1),
+                         "cache_k": list(cache["0"]["p0"]["k"].shape)}
+            del cache
+            torch.cuda.empty_cache()
+        row = {"tokens": n, "slots": n_slots, "batch": Bd, "from": t0_,
+               "cache_k_block": res["tp"]["cache_k"],
+               "ms_per_token": res["tp"]["ms"]}
+        if rank == 0:
+            row["cache_k_one"] = res["one"]["cache_k"]
+            row["ms_per_token_one"] = res["one"]["ms"]
+            row["err_of_scale"] = _scale_err(res["tp"]["logits"],
+                                             res["one"]["logits"])
+            row["finite"] = bool(torch.isfinite(res["tp"]["logits"]).all())
+        out[name] = row
+        del res
+    return {"losses": losses, "kinds": kinds, "steps": per_step,
+            "log": buf.getvalue() if rank == 0 else "",
+            "peak_mem_bytes": peak, "launches": counts,
+            "calls_by_shape": dict(by_shape), "held": held,
+            "update0_err": upd_err, "state0_err": state_err,
+            "shift_rows_parted0": parted0, "builders": out}
+
+
+def tp_rank_reduced(rank: int, dev) -> dict:
+    """tp_reduced on this rank: the CLI on ``--mesh 2x2`` (launches, calls
+    by shape, collectives), then the replay: every step's tensor-parallel
+    update (a tapped leaf's; an AdamW leaf's gradient) and new state
+    (gathered) against, on rank 0, the one-process optimizer's from the
+    same state, with the gradients and taps of the whole batch from the
+    same parameters (gathered whole) and the tensor-parallel step's
+    continuation shifts replayed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import specs
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import tenant
+    from repro_torch.data.synthetic import TokenStream, rank_rows
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, train
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import base as optbase
+    from repro_torch.train import loop
+    R = TP_REDUCED
+    args = train.parse_args(list(R["argv"]) + [
+        "--steps", str(R["steps"]), "--mesh", "2x2", "--device", "cuda"])
+    _build.reset_launch_counts()
+    with calls_by_shape() as by_shape, counted_collectives() as tally:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            st_cli, losses = train.run(args)
+        torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    cli_tally = {k: list(v) for k, v in tally.items()}
+
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"))
+    lm = LM(get_arch("gemma3_4b").reduced(), steps.shard_policy_for(mesh),
+            remat=False, device=dev)
+    held = _held_blocks(lm, st_cli.params)
+    del st_cli
+    opt = kfac_lib.Kfac(train.kfac_config_of(args), lm.taps, device=dev)
+    opt.model_shards = lm.sp.shards
+    specs.DistSpec(mesh=mesh, curvature_axis="data").attach(opt)
+    one = kfac_lib.Kfac(opt.cfg, opt.taps, device=dev)
+    lm1 = LM(lm.arch, remat=False, device=dev)
+    eng, sp = opt.curvature, lm.sp
+    sched = opt.scheduler()
+    draws = numpy_draws(opt, seed=5)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    state = opt.init(params)
+    stream = TokenStream(vocab=lm.arch.vocab, batch=args.batch,
+                         seq_len=args.seq, seed=0, device=dev)
+    n_tokens = args.batch * args.seq
+    rank0 = dist.get_rank() == 0
+    tapped = {t.param_path for t in opt.taps.values()}
+    o_sh = train.state_shardings(lm, opt).opt    # the engine's and "model"'s
+    whole_state = lambda st: shd.globalize(st, o_sh)
+    ms = sp.shards
+
+    def whole_tree(tree):       # a leaf-keyed tree gathered whole, packed
+        keys = [k for k in tree if ms.sharded(k)]
+        out = {k: v.detach() for k, v in tree.items()}
+        out.update(zip(keys, coll.all_gather_coalesced(
+            [out[k] for k in keys], mesh, "model",
+            [ms.dim(k) for k in keys])))
+        return out
+    whole = whole_state(state)
+    errs, state_errs, loss_errs, parted, worst = [], [], [], [], []
+    for k in range(R["steps"]):
+        work = sched.work(k)
+        batch = stream.batch_at(k)
+        local = rank_rows(batch, sp.dp_index, sp.dp_size)
+        loss, acts, gp, gprobe = loop.kfac_grads(
+            lm.loss_fn, params, layers.make_probes(opt.taps, device=dev),
+            local, sp)
+        kw = dict(n_tokens=n_tokens, rng=None, work=work, draws=draws(k))
+        before = tenant.tree_map(
+            lambda x: x.clone() if torch.is_tensor(x) else x,
+            whole) if rank0 else None
+        wparams, wgp = whole_tree(params), whole_tree(gp)
+        with continuation_replay() as shifts:
+            upd, state = opt.update(dict(gp), state, params, acts=acts,
+                                    probe_grads=gprobe, **kw)
+        wupd = whole_tree(upd)
+        whole = whole_state(state)
+        if rank0:
+            wp = {n: v.requires_grad_() for n, v in wparams.items()}
+            loss1, acts1, gp1, gprobe1 = loop.kfac_grads(
+                lm1.loss_fn, wp, layers.make_probes(opt.taps, device=dev),
+                batch)
+            with continuation_replay(shifts) as own:
+                want, want_state = one.update(gp1, before, wp, acts=acts1,
+                                              probe_grads=gprobe1, **kw)
+            parted.append(sum(int(((a - b).abs() > 1e-3 * b.abs()).sum())
+                              for a, b in zip(shifts, own)))
+            rel = lambda a, b: (float((a - b).abs().max())
+                                / max(float(b.abs().max()), 1e-30))
+            by_name = {n: (rel(wupd[n], w) if n in tapped
+                           else rel(wgp[n], gp1[n]))
+                       for n, w in want.items()}
+            errs.append(max(by_name.values()))
+            worst.append(sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+            state_errs.append(_state_err(whole, want_state))
+            loss_errs.append(abs(float(loss) - float(loss1))
+                             / abs(float(loss1)))
+            del want, want_state, wp
+        del before, wparams, wgp, wupd
+        optbase.apply_updates(params, upd)
+    torch.cuda.synchronize()
+    return {"losses": losses, "log": buf.getvalue() if rank == 0 else "",
+            "launches": counts, "calls_by_shape": dict(by_shape),
+            "collectives": cli_tally, "held": held,
+            "replay": {"update_rel_err": errs, "state_err": state_errs,
+                       "loss_rel_err": loss_errs,
+                       "continuation_rows_parted": parted,
+                       "worst_updates": worst}}
+
+
+def phase_tp_slice(checked):
+    """Path 14 (TP_SLICE): the one-process CLI at the cut first (step 0
+    in fp32: its updates of the held leaves, its continuation shifts, the
+    held taps' new factors; then the bf16 run's losses and step times),
+    then the same on ``--mesh 1x2``: two ranks of this card, each holding
+    its blocks, the fp32 step 0's update and factors at DP_TOL, the bf16
+    run held to one process's over the first DP_HELD steps at DP_TOL;
+    each rank's step time by kind, its collectives, peak memory,
+    launches; the builders against one process's.  Returns the launch
+    counts summed over the ranks."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.param_count import count_params
+    import dataclasses
+    S = TP_SLICE
+    arch = _tp_slice_arch()
+    tel = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # step 0 in fp32: its updates of the held leaves, its shifts, the held
+    # taps' new factors (with bf16 activations the step-0 updates part by
+    # percents between the two runs' reductions: PERF.md §6)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            continuation_replay() as shifts, \
+            first_updates(lambda k: k.startswith(TP_HELD_PREFIX),
+                          at_first=lambda: len(shifts)) as upd0:
+        st32, _ = train.run(train.parse_args(_tp_slice_argv(
+            ["--steps", "1"])), arch=dataclasses.replace(arch,
+                                                         dtype="float32"))
+    factors0 = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
+    del st32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, one = train.run(train.parse_args(_tp_slice_argv(
+            ["--telemetry-dir", tel])), arch=arch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() - base
+    one_walls = [(e["phase"], e["dt_s"]) for e in _events(tel)
+                 if e["type"] == "step"]
+    shutil.rmtree(tel, ignore_errors=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tapped = {n for n in upd0 if n != "_" and not any(
+        n.endswith(x) for x in ("ln", "ln2"))}
+    want_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_u_"),
+                             "updates.pt")
+    torch.save({**{n: upd0[n] for n in tapped},
+                "_shifts": shifts[:upd0["_"]], "_factors": factors0},
+               want_path)
+    card_free = torch.cuda.mem_get_info()[0]
+    _, res, spawn_s = spawn_ranks(
+        "tp_slice", S["world"], S["timeout"],
+        env_extra={"CHIP_SMOKE_TP_UPDATES": want_path})
+    shutil.rmtree(os.path.dirname(want_path), ignore_errors=True)
+    sl = [g["tp_slice"] for g in res]
+    kinds = sl[0]["kinds"]
+    drift = [_rel_drift(s["losses"], one) for s in sl]
+    for k in range(S["steps"]):
+        emit({"phase": "slice_tp", "step": k, "kind": kinds[k],
+              "loss": [s["losses"][k] for s in sl], "loss_one": one[k],
+              "drift": [d[k] for d in drift],
+              "wall_s": [s["steps"][k]["wall_s"] for s in sl],
+              "wall_s_one": one_walls[k][1],
+              "collectives": [{kind: s["steps"][k][kind] for kind in
+                               ("all_reduce", "all_gather",
+                                "all_gather_coalesced")} for s in sl]})
+    by_kind = {}
+    for s in sl:
+        for kind, st in zip(kinds, s["steps"]):
+            by_kind.setdefault(kind, []).append(st["wall_s"])
+    PATH_WALLS["slice_tp"] = by_kind
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [k for k in PATH_KERNELS["slice_tp"] if counts[k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    bl = [s["builders"] for s in sl]
+    upd_err = max(max(s["update0_err"].values()) for s in sl)
+    state0_err = max(max(s["state0_err"].values()) for s in sl)
+    log = [ln for ln in sl[0]["log"].splitlines()
+           if "tensor parallel" in ln or "data parallel" in ln]
+    emit({"phase": "slice_tp", "summary": True, "arch": arch.name,
+          "world": S["world"], "mesh": {"data": 1, "model": S["world"]},
+          "backend": res[0]["backend"], "params": count_params(arch),
+          "reduced": {"n_layers": arch.n_layers,
+                      "repeats": list(S["repeats"])},
+          "argv": _tp_slice_argv(["--mesh", f"1x{S['world']}"]),
+          "kinds": kinds, "losses_one": one,
+          "max_drift_held": max(max(d[:DP_HELD]) for d in drift),
+          "max_drift": max(max(d) for d in drift), "tol": DP_TOL,
+          "held_steps": DP_HELD, "update0_max_rel_err": upd_err,
+          "update0_err": [s["update0_err"] for s in sl],
+          "state0_max_rel_err": max(max(s["state0_err"].values())
+                                    for s in sl),
+          "state0_err": [s["state0_err"] for s in sl],
+          "shift_rows_parted0": [s["shift_rows_parted0"] for s in sl],
+          "held": [s["held"] for s in sl],
+          "wall_s_by_kind": by_kind, "wall_s_one": one_walls,
+          "one_run_s": one_s, "one_peak_mem_bytes": one_peak,
+          "card_free_bytes_at_spawn": card_free,
+          "peak_mem_bytes": [s["peak_mem_bytes"] for s in sl],
+          "builders": bl, "tp_log": log,
+          "launches": counts, "calls_by_shape": [s["calls_by_shape"]
+                                                 for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "run": [g["run_s"] for g in res]},
+          "note": "two ranks share one card's SMs and memory, and their "
+                  "collectives go through host memory (gloo)"})
+    b0 = bl[0]
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    held_ok = all(max(d[:DP_HELD]) < DP_TOL for d in drift)
+    blocks_ok = all(not s["held"]["wrong"] and s["held"]["strict"]
+                    and s["held"]["n_sharded"] > 0 for s in sl)
+    decode_ok = all(b0[n]["finite"] and b0[n]["err_of_scale"] <= DP_TOL
+                    for n in ("seq", "heads", "hd", "long"))
+    layouts_ok = (b0["seq"]["cache_k_block"][2] * 2
+                  == b0["seq"]["cache_k_one"][2]
+                  and b0["heads"]["cache_k_block"][3] * 2
+                  == b0["heads"]["cache_k_one"][3]
+                  and b0["hd"]["cache_k_block"][4] * 2
+                  == b0["hd"]["cache_k_one"][4])
+    build_ok = (b0["finite"] and b0["prefill_err_of_scale"] <= DECODE_TOL
+                and b0["prefill_block"][2] * 2 == arch.vocab)
+    if (not finite or not held_ok or not blocks_ok or not decode_ok
+            or not layouts_ok or not build_ok or not upd_err < DP_TOL
+            or not state0_err < DP_TOL
+            or missing or unchecked or len(kinds) != S["steps"]
+            or not any("tensor parallel over model: 2 ranks" in ln
+                       for ln in log)):
+        raise AssertionError(
+            f"slice_tp: finite {finite}, loss drift {drift}, blocks "
+            f"{[s['held'] for s in sl]}, step-0 update err {upd_err}, "
+            f"state err {state0_err}, "
+            f"builders {bl}, never launched {missing}, calls at unchecked "
+            f"shapes {unchecked}, log {log}")
+    return counts
+
+
+def phase_tp_reduced(checked):
+    """tp_reduced (TP_REDUCED) on four ranks of this card; this process
+    meanwhile runs the one-process CLI, the oracle of the free-running
+    losses.  Every rank must launch each kernel of the path, at shapes
+    the ``kernels`` phase held.  Returns the launch counts of the ranks'
+    CLI runs, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    R = TP_REDUCED
+
+    def one_process():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train.run(train.parse_args(list(R["argv"]) + [
+                "--steps", str(R["steps"]), "--device", "cuda"]))[1]
+    one, res, spawn_s = spawn_ranks("tp_reduced", R["world"], R["timeout"],
+                                    meanwhile=one_process)
+    torch.cuda.synchronize()
+    sl = [g["tp_reduced"] for g in res]
+    drift = [_rel_drift(s["losses"], one) for s in sl]
+    replay = sl[0]["replay"]
+    err = max(replay["update_rel_err"])
+    serr = {f: max(e[f] for e in replay["state_err"])
+            for f in replay["state_err"][0]}
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [(r, k) for r, s in enumerate(sl)
+               for k in PATH_KERNELS["tp_reduced"] if s["launches"][k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    for k in range(R["steps"]):
+        emit({"phase": "tp_reduced", "step": k,
+              "loss": [s["losses"][k] for s in sl], "loss_one": one[k],
+              "drift": [d[k] for d in drift],
+              "update_rel_err": replay["update_rel_err"][k],
+              "state_err": replay["state_err"][k],
+              "loss_rel_err": replay["loss_rel_err"][k],
+              "continuation_rows_parted":
+                  replay["continuation_rows_parted"][k],
+              "worst_updates": replay["worst_updates"][k]})
+    emit({"phase": "tp_reduced", "summary": True, "argv": R["argv"],
+          "world": R["world"], "mesh": {"data": 2, "model": 2},
+          "backend": res[0]["backend"], "steps": R["steps"],
+          "max_drift": max(max(d) for d in drift),
+          "max_update_rel_err": err, "max_state_err": serr,
+          "tol": DP_TOL, "held": [s["held"] for s in sl],
+          "collectives": [s["collectives"] for s in sl],
+          "tp_log": [ln for ln in sl[0]["log"].splitlines()
+                     if "parallel" in ln or "curvature sharded" in ln],
+          "launches": counts, "launches_by_rank": [s["launches"]
+                                                   for s in sl],
+          "calls_by_shape": [s["calls_by_shape"] for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "run": [g["run_s"] for g in res]}})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    state_ok = (serr["counters"] == 0
+                and all(serr[f] < DP_TOL for f in serr if f != "counters"))
+    blocks_ok = all(not s["held"]["wrong"] and s["held"]["strict"]
+                    and s["held"]["n_sharded"] > 0 for s in sl)
+    if (not finite or max(max(d) for d in drift) >= DP_TOL
+            or not err < DP_TOL or not state_ok or not blocks_ok
+            or max(replay["loss_rel_err"]) >= DP_TOL
+            or len(replay["update_rel_err"]) != R["steps"]
+            or missing or unchecked):
+        raise AssertionError(
+            f"tp_reduced: finite {finite}, loss drift {drift}, update rel "
+            f"err {err}, state err {serr}, blocks "
+            f"{[s['held'] for s in sl]}, replay loss err "
+            f"{replay['loss_rel_err']}, never launched (rank, kernel) "
+            f"{missing}, calls at unchecked shapes {unchecked}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dist-rank", nargs=4, default=None,
@@ -4161,6 +4820,11 @@ def main(argv=None) -> int:
     # with the raw gradient all-reduce
     by_path["slice_dp"] = phase_dp_slice(checked)
     by_path["dp_reduced"] = phase_dp_reduced(checked)
+    # tensor-parallel execution of the LM: gemma3-4b at full width on two
+    # ranks (--mesh 1x2, --compress; prefill, decode in each cache layout,
+    # the long-context decode), then B-R-KFAC reduced on a 2 × 2 mesh
+    by_path["slice_tp"] = phase_tp_slice(checked)
+    by_path["tp_reduced"] = phase_tp_reduced(checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -182,13 +182,25 @@ class Kfac:
     each factor bucket's batch axis across a mesh axis; when attached,
     the bucketed factor work is delegated to it and :meth:`init` returns
     the state in its layout.  Duck-typed, so core never imports the
-    distributed package."""
+    distributed package.
+
+    ``model_shards`` (optional; ``distributed/sharding.py::ModelShards``,
+    set by the tensor-parallel builders) says which parameters a rank of
+    a model axis larger than 1 holds a block of.  The update of such a
+    leaf is the one-device update: its gradient is gathered over the axis
+    bucket by bucket just before the bucket is preconditioned (under
+    ``consume_grads`` the blocks leave the dict as they are gathered),
+    the step is made on the whole leaf against the global taps, and the
+    rank keeps its block of it; the AdamW fallback updates each rank's
+    block, and the clip's global norm counts a sharded leaf's blocks once
+    each.  The factor work runs replicated over the model axis."""
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
                  device=None, curvature=None):
         self.device = device_lib.resolve(device)
         self.cfg = cfg
         self.curvature = curvature
+        self.model_shards = None
         self.taps = dict(taps)
         self.specs = {
             name: dict(A=policy.make_factor_spec(cfg.policy, t.d_in,
@@ -496,8 +508,10 @@ class Kfac:
             if t.linear_apply:
                 afac = acts[name].transpose(-1, -2).to(torch.float32)
                 gfac = probe_grads[name].transpose(-1, -2).to(torch.float32)
-            out[name] = self._precondition(name, factors[name],
-                                           grads[t.param_path], phi,
+            grad_w = grads[t.param_path]
+            if self.model_shards is not None:
+                grad_w = self.model_shards.gather(t.param_path, grad_w)
+            out[name] = self._precondition(name, factors[name], grad_w, phi,
                                            g_factor=gfac, a_factor=afac)
         return out
 
@@ -550,7 +564,10 @@ class Kfac:
                 dense_g=dense_swap_g, dense_a=dense_swap_a)
         else:
             paths = [self.taps[e.name].param_path for e in ent]
-            J = gather(ent, {key(e): grads[p] for e, p in zip(ent, paths)}
+            ms = self.model_shards
+            whole = (grads.get if ms is None else
+                     lambda p: ms.gather(p, grads[p]))
+            J = gather(ent, {key(e): whole(p) for e, p in zip(ent, paths)}
                        ).to(torch.float32)
             layout.release(grads, paths)
             S = precond.precondition_with_damping(
@@ -642,8 +659,11 @@ class Kfac:
         # dropped from S_all as it goes: at billions of parameters the
         # optimizer must not hold two more copies of them (the same
         # operations as out of place, so the same bits)
+        ms = self.model_shards
         for name, t in self.taps.items():
             S = S_all.pop(name)
+            if ms is not None:
+                S = ms.block(t.param_path, S)
             S.add_(cfg.weight_decay
                    * params[t.param_path].detach().to(torch.float32))
             if new_mom is not None:
@@ -657,7 +677,9 @@ class Kfac:
         updates.update(fb_updates)
         updates = {k: updates[k] for k in order}     # parameter order
         if cfg.clip > 0:
-            updates = optbase.clip_by_global_norm_(updates, cfg.clip)
+            updates = optbase.clip_by_global_norm_(
+                updates, cfg.clip,
+                norm=None if ms is None else torch.sqrt(ms.sq_norm(updates)))
 
         new_state = KfacState(
             step=state.step + 1,

@@ -23,6 +23,23 @@ the gradients (``torch.distributed.nn.functional.all_reduce``'s
 semantics, over these groups): where a reduced quantity feeds every
 rank's share of the loss, each rank's parameters get the gradient of the
 whole.
+
+**Tensor parallelism** (a model axis larger than 1) uses the autograd
+collectives below.  The port's convention over the model axis is the
+data axes' one: each rank's loss is a 1/M share of the global loss, so
+the backward of every collective is its adjoint — :func:`gather_grad`
+(all-gather along a dim) reduce-scatters, :func:`reduce_scatter_grad`
+gathers, :func:`all_reduce_autograd` sums — and a parameter replicated
+over the model axis gets its full gradient only once the ranks' parts
+are summed (``train/loop.py::kfac_grads``).  Under this convention a
+gather feeding a replicated consumer and one feeding a column-parallel
+matmul need the same backward: the replicated consumer's copies each
+carry a share, and their sum is what reaches the gathered input, so the
+port has one gather and no gather whose backward slices.
+:func:`all_reduce_max` (the vocabulary-parallel softmax's and the
+flash-decoding combine's max) carries no gradient.
+:func:`all_gather_coalesced` packs several tensors' gathers into one
+collective, as :func:`all_reduce_coalesced` packs sums.
 """
 from __future__ import annotations
 
@@ -128,3 +145,93 @@ def all_reduce_autograd(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
     the members' gradients over the same axes: every member's ``x`` gets
     the gradient of the sum of all members' losses."""
     return _SumWithGrad.apply(x, mesh, axis)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axis`` (out of place, no
+    gradient)."""
+    return all_reduce(x.detach().clone(memory_format=torch.contiguous_format),
+                      mesh, axis, op=dist.ReduceOp.MAX)
+
+
+def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = mesh.shape[axis]
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.coord(axis) * size, size)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+    """``x`` summed over ``axis``, then this member's block along ``dim``
+    (``jax.lax.psum_scatter(..., tiled=True)``): a sum and a slice, since
+    gloo has no reduce-scatter; out of place."""
+    if mesh.shape[axis] == 1:
+        return x
+    y = all_reduce(x.clone(memory_format=torch.contiguous_format), mesh,
+                   axis)
+    return _block(y, mesh, axis, dim).contiguous()
+
+
+class _GatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _ReduceScatterGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def gather_grad(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim``, differentiably: the
+    backward sums the members' gradients of the whole and hands each its
+    block (reduce-scatter), the adjoint under the port's convention (every
+    member's loss a share of the global one)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherGrad.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter_grad(x: torch.Tensor, mesh, axis: str,
+                        dim: int) -> torch.Tensor:
+    """:func:`reduce_scatter`, differentiably: the backward gathers the
+    members' gradients of their blocks."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _ReduceScatterGrad.apply(x, mesh, axis, dim)
+
+
+def all_gather_coalesced(xs, mesh, axis: str, dims) -> list:
+    """Each ``xs[i]`` gathered along ``dims[i]`` over ``axis`` (no
+    gradient), the tensors of one dtype packed into one flat buffer and
+    one collective."""
+    n = mesh.shape[axis]
+    if n == 1 or not xs:
+        return list(xs)
+    out = [None] * len(xs)
+    groups = {}
+    for i, x in enumerate(xs):
+        groups.setdefault((x.dtype, x.device), []).append(i)
+    for idx in groups.values():
+        flat = torch.cat([xs[i].detach().reshape(-1) for i in idx])
+        parts = [torch.empty_like(flat) for _ in range(n)]
+        dist.all_gather(parts, flat, group=mesh.group(axis))
+        off = 0
+        for i in idx:
+            x, k = xs[i], xs[i].numel()
+            out[i] = torch.cat([p[off:off + k].view_as(x) for p in parts],
+                               dim=dims[i])
+            off += k
+    return out

@@ -32,6 +32,22 @@ e_r ← g_r − P̂ Qᵀ / N, whose sum over the ranks is the reference's
 the reference's error at every step.  Leaves the compressor leaves whole
 are summed raw.
 
+**Tensor parallelism** (a model axis larger than 1; ``sp.shards`` says
+which leaves a rank holds a block of): the reference compresses the
+*whole* leaf, so every product with M is again a sum of the blocks'
+products.  A leaf split over its last dimension (column blocks M_s, the
+folded matrix's columns) has P = M Q = Σ_s M_s Q_s, summed over the
+model axis as well as the data axes, and Q = Mᵀ P̂ is row-local: each
+rank keeps the rows of Q (and of the seeded basis) of its columns.  A
+leaf split over an earlier dimension (row blocks of the folded matrix,
+an (E,)-stack's experts or a fan-in's rows under each stacked repeat)
+has P's rows local: they are summed over the data axes and gathered over
+the model axis before the QR, which then runs on the whole, identical P
+everywhere, and Q = Σ_s M_sᵀ P̂_s is summed over every axis.  The rank's
+block of the approximation is P̂_s Qᵀ (column split: P̂ Q_sᵀ), its error
+its block of the reference's.  Whether a leaf is compressed goes by its
+whole size, as in the reference.
+
 The seeded bases (the reference's ``jax.random.normal(PRNGKey(m ·
 1315423911 + n), (n, q))``) come from a CPU ``torch.Generator`` seeded
 with the same integer (the same on every device); their numbers are not
@@ -77,8 +93,17 @@ def seeded_basis(m: int, n: int, q: int, device=None) -> Tensor:
     return torch.randn((n, q), generator=g).to(device)
 
 
+def _split(sp, key: Optional[str], g: Tensor):
+    """(the whole leaf's shape, its dimension on the model axis or None)
+    of ``g``, this rank's part of leaf ``key``."""
+    if key is None or sp is None or not sp.model_parallel:
+        return tuple(g.shape), None
+    return sp.shards.shapes[key], sp.shards.dim(key)
+
+
 def _round(g: Tensor, err: Tensor, q_prev: Optional[Tensor], cfg,
-           basis: Optional[Tensor] = None, sp=None, consume: bool = False):
+           basis: Optional[Tensor] = None, sp=None, consume: bool = False,
+           key: Optional[str] = None):
     """One compression round → (P, Q, new_err, approx); ``approx`` is
     ``decompress(P, Q, g.shape)`` bit for bit (made once, after the
     folded matrix is freed).  With a data-parallel ``sp``, ``g`` and
@@ -89,6 +114,10 @@ def _round(g: Tensor, err: Tensor, q_prev: Optional[Tensor], cfg,
     temporaries of the leaf's size."""
     dp = sp is not None and sp.data_parallel
     red = sp.dp_sum if dp else (lambda x: x)
+    whole, tdim = _split(sp, key, g)
+    if tdim is not None:
+        return _round_tp(g, err, q_prev, cfg, basis, sp, consume, whole,
+                         tdim, red)
     g32 = g.to(torch.float32)
     if consume and err.dtype == torch.float32 and err.is_contiguous():
         G2, shape = _as_matrix(err.add_(g32))         # g + err, in place
@@ -122,6 +151,62 @@ def _round(g: Tensor, err: Tensor, q_prev: Optional[Tensor], cfg,
         new_err = torch.sub(g32, approx, alpha=1.0 / sp.dp_size, out=out)
     else:
         new_err = torch.sub(g32, approx, out=out)
+    return P, Q, new_err, approx
+
+
+def _round_tp(g, err, q_prev, cfg, basis, sp, consume, whole, tdim, red):
+    """:func:`_round` of a leaf split over the model axis (module
+    docstring): ``whole`` its shape, ``tdim`` its dimension on the
+    axis."""
+    from repro_torch.distributed import collectives as coll
+    red_all = lambda x: coll.all_reduce(x, sp.mesh, None)
+    g32 = g.to(torch.float32)
+    if consume and err.dtype == torch.float32 and err.is_contiguous():
+        G2, shape = _as_matrix(err.add_(g32))
+    else:
+        consume = False
+        G2, shape = _as_matrix(g32 + err.to(torch.float32))
+    m_all, n_all = _as_matrix(torch.empty(whole, device="meta"))[0].shape
+    q = min(cfg.rank, m_all, n_all)
+    cols = tdim == len(whole) - 1
+    n = G2.shape[1]
+    if q_prev is None or tuple(q_prev.shape) != (n, q):
+        q_prev = basis if basis is not None else seeded_basis(
+            m_all, n_all, q, G2.device)
+        if cols and q_prev.shape[0] != n:
+            q_prev = sp.block(q_prev, 0)
+    q_prev = q_prev.to(G2.device, torch.float32)
+    lead = tuple(g.shape[:-1])
+
+    def gather_rows(P):             # local P rows → the whole P
+        P = coll.all_gather(P.reshape(lead + (q,)), sp.mesh, sp.tp, tdim)
+        return P.reshape(m_all, q)
+
+    def rows(P):                    # the rank's rows of a whole P
+        return sp.block(P.reshape(tuple(whole[:-1]) + (q,)), tdim
+                        ).reshape(-1, q)
+
+    if cols:
+        P = red_all(G2 @ q_prev)
+        for _ in range(cfg.n_power_iter):
+            P, _ = torch.linalg.qr(P)
+            P = red_all(G2 @ red(G2.T @ P))
+        P, _ = torch.linalg.qr(P)
+        Q = red(G2.T @ P)                               # the rank's rows
+        del G2
+        approx = decompress(P, Q, shape)
+    else:
+        P = gather_rows(red(G2 @ q_prev))
+        for _ in range(cfg.n_power_iter):
+            P, _ = torch.linalg.qr(P)
+            P = gather_rows(red(G2 @ red_all(G2.T @ rows(P))))
+        P, _ = torch.linalg.qr(P)
+        Q = red_all(G2.T @ rows(P))
+        del G2
+        approx = decompress(rows(P), Q, shape)
+    out = err if consume else None
+    alpha = 1.0 / sp.dp_size if sp.data_parallel else 1.0
+    new_err = torch.sub(g32, approx, alpha=alpha, out=out)
     return P, Q, new_err, approx
 
 
@@ -174,22 +259,29 @@ class CompressState:
     q: Dict[str, Tensor]
 
 
-def _compressible(g: Tensor, cfg: CompressConfig) -> bool:
-    return g.dim() >= 2 and g.numel() >= cfg.min_size
+def _compressible(g: Tensor, cfg: CompressConfig, sp=None,
+                  key: Optional[str] = None) -> bool:
+    shape, _ = _split(sp, key, g)
+    return len(shape) >= 2 and np_prod(shape) >= cfg.min_size
 
 
 def _cold_q(g: Tensor, cfg: CompressConfig,
-            basis: Optional[Tensor] = None) -> Tensor:
+            basis: Optional[Tensor] = None, sp=None,
+            key: Optional[str] = None) -> Tensor:
     """The deterministic seeded basis :func:`compress` cold-starts from —
     the *initial* warm-start carry, so round 1 of the stateful path is
-    the stateless cold start."""
-    shape = tuple(g.shape)
-    m = shape[0] if g.dim() == 2 else np_prod(shape[:-1])
+    the stateless cold start (a leaf split over its last dimension on a
+    model axis keeps the rows of its columns)."""
+    shape, tdim = _split(sp, key, g)
+    m = shape[0] if len(shape) == 2 else np_prod(shape[:-1])
     n = shape[-1]
     q = min(cfg.rank, m, n)
-    if basis is not None:
-        return basis.to(g.device, torch.float32)
-    return seeded_basis(m, n, q, g.device)
+    if basis is None:
+        basis = seeded_basis(m, n, q, g.device)
+    basis = basis.to(g.device, torch.float32)
+    if tdim == len(shape) - 1:
+        basis = sp.block(basis, 0)
+    return basis
 
 
 def init_errors(params: Mapping[str, Tensor]) -> Dict[str, Tensor]:
@@ -198,13 +290,15 @@ def init_errors(params: Mapping[str, Tensor]) -> Dict[str, Tensor]:
 
 
 def init_state(params: Mapping[str, Tensor], cfg: CompressConfig,
-               bases: Optional[Mapping[str, Tensor]] = None
+               bases: Optional[Mapping[str, Tensor]] = None, sp=None
                ) -> CompressState:
     """Fresh compressor carry: zero error feedback + the seeded cold-start
     basis per compressible leaf (``bases[k]`` where given), a zero-size
-    sentinel otherwise."""
+    sentinel otherwise.  Under tensor parallelism ``params`` are the
+    rank's blocks and ``sp`` the LM's policy."""
     bases = bases or {}
-    q = {k: (_cold_q(p, cfg, bases.get(k)) if _compressible(p, cfg)
+    q = {k: (_cold_q(p, cfg, bases.get(k), sp, k)
+             if _compressible(p, cfg, sp, k)
              else torch.zeros((0,), dtype=torch.float32, device=p.device))
          for k, p in params.items()}
     return CompressState(err=init_errors(params), q=q)
@@ -226,19 +320,22 @@ def compress_tree(grads: Dict[str, Tensor], state: CompressState,
     With a data-parallel ``sp`` the gradients are this rank's shares and
     the approximations come back summed over the data axes (the leaves
     left whole summed raw): the reduced gradient of the module
-    docstring."""
+    docstring.  Under tensor parallelism ``sp`` is the LM's policy, a
+    sharded leaf's gradient is the rank's block (its approximation too)
+    and a replicated leaf's is already summed over the model axis
+    (``kfac_grads(reduce_grads=False)``)."""
     approx: Dict[str, Tensor] = {}
     err: Dict[str, Tensor] = {}
     q: Dict[str, Tensor] = {}
     whole = []
     for k in list(grads):
         g, e, qp = grads.pop(k), state.err.pop(k), state.q.pop(k)
-        if not _compressible(g, cfg):
+        if not _compressible(g, cfg, sp, k):
             whole.append(g)
             approx[k], err[k], q[k] = g, torch.zeros_like(e), qp
             continue
         _, Q, new_err, a = _round(g, e, qp if qp.numel() else None, cfg,
-                                  sp=sp, consume=True)
+                                  sp=sp, consume=True, key=k)
         approx[k], err[k], q[k] = a.to(g.dtype), new_err, Q
         del g, e
     if sp is not None:

@@ -187,14 +187,17 @@ def params_sharding_fsdp(params, mesh):
 
 
 def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
-                        row_axis=None):
+                        row_axis=None, factor_rows: bool = True):
     """K-FAC optimizer state: factor U/M rows on "model", D replicated;
     AdamW fallback mirrors the param sharding; scalars replicated.
     ``curvature_axis`` places stacked taps' dense M on that axis along
     the leading stack dim; ``row_axis`` shards every dense M's rows —
     live and in-flight snapshot alike.  Non-divisible stacks / factor
-    sides fall back to replication (fit_spec)."""
+    sides fall back to replication (fit_spec).  ``factor_rows=False``
+    keeps the factors' rows off "model": the port's tensor-parallel step
+    runs the factor work replicated over the model axis (ROADMAP §1)."""
     tp = "model" if "model" in mesh.axis_names else None
+    rows_tp = tp if factor_rows else None
 
     def one(path, leaf):
         ndim, shape = _ndim(leaf), _shape(leaf)
@@ -210,7 +213,7 @@ def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
             field = path.rsplit("/", 1)[-1]
             if field in ("U", "M") and ndim >= 2 and shape[-1] > 1:
                 lead = (None,) * (ndim - 2)
-                rows = tp
+                rows = rows_tp
                 if field == "M":
                     if curvature_axis is not None and ndim >= 3:
                         lead = (curvature_axis,) + (None,) * (ndim - 3)
@@ -241,11 +244,16 @@ _SEQ_CACHE_LEAVES = {"k", "v", "xk", "xv", "c_kv", "k_rope"}
 
 
 def cache_sharding(cache, mesh, shard_seq: bool = False,
-                   layout: str = "seq", small_seq_threshold: int = 0):
+                   layout: str = "seq", small_seq_threshold: int = 0,
+                   hd_on_model: bool = False):
     """KV/state caches: batch on the data axes + seq on the model axis;
     ``layout="heads"`` puts KV heads on the model axis; long context
     (``shard_seq``) shards the sequence axis of KV-like leaves and
-    replicates recurrent states."""
+    replicates recurrent states.  ``layout="hd"`` gets the sequence rule,
+    as in the reference (whose policy's ``kv_cache`` constraint re-lays
+    the cache out inside the step); ``hd_on_model`` puts the head dim on
+    the model axis instead: the layout the port's decode step takes and
+    attends in."""
     dp = tuple(a for a in mesh.axis_names if a != "model")
     tp = "model" if "model" in mesh.axis_names else None
 
@@ -259,6 +267,8 @@ def cache_sharding(cache, mesh, shard_seq: bool = False,
                 spec = (None, dp, None)
             elif layout == "heads" and ndim >= 5:
                 spec = (None, dp, None, tp)
+            elif layout == "hd" and hd_on_model and ndim >= 5:
+                spec = (None, dp, None, None, tp)
             else:
                 spec = (None, dp, tp)
             sh = P(*(spec + (None,) * (ndim - len(spec))))
@@ -271,6 +281,112 @@ def cache_sharding(cache, mesh, shard_seq: bool = False,
         return NamedSharding(mesh, P())
 
     return _map_with_path(one, cache)
+
+
+class ModelShards:
+    """Which parameters a rank of a model axis larger than 1 holds a
+    block of: each leaf's dimension on "model" under
+    :func:`params_sharding` of the global (abstract) parameters, and the
+    collectives of a tensor-parallel step over them (the optimizer's
+    per-leaf gathers, the global norms, the replicated leaves' gradient
+    sums)."""
+
+    def __init__(self, abstract_params, mesh, axis: str = "model",
+                 taps=None):
+        self.mesh, self.axis = mesh, axis
+        self.taps = dict(taps or {})     # tap name → its parameter's path
+        self.shapes = {k: tuple(v.shape) for k, v in abstract_params.items()}
+        self.dims = {}
+        for k, sh in params_sharding(abstract_params, mesh).items():
+            self.dims[k] = next((i for i, e in enumerate(tuple(sh.spec))
+                                 if e == axis), None)
+
+    @property
+    def size(self) -> int:
+        return int(self.mesh.shape[self.axis])
+
+    @property
+    def index(self) -> int:
+        return self.mesh.coord(self.axis)
+
+    def dim(self, path: str):
+        """The dimension of ``path`` split over the model axis, or None
+        (replicated; also a path that is not a parameter)."""
+        return self.dims.get(path)
+
+    def sharded(self, path: str) -> bool:
+        return self.dim(path) is not None
+
+    def gather(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from the ranks' blocks (no gradient)."""
+        d = self.dim(path)
+        if d is None:
+            return x
+        d = d - len(self.shapes[path]) + x.dim()    # a stacked view
+        return coll.all_gather(x.detach(), self.mesh, self.axis, d)
+
+    def block(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a whole leaf-shaped ``x`` (a copy)."""
+        d = self.dim(path)
+        if d is None:
+            return x
+        d = d - len(self.shapes[path]) + x.dim()
+        size = x.shape[d] // self.size
+        return x.narrow(d, self.index * size, size).clone(
+            memory_format=torch.contiguous_format)
+
+    def probe_dim(self, tap: str):
+        """The dimension of a tap's (…, n_stat, d_out) probe that the
+        ranks hold blocks of — the output columns (-1) of a
+        column-parallel matmul, the experts (-3) of an (E,)-stacked one —
+        or None: a row-parallel or replicated tap's probe gradient is a
+        sum of the ranks' parts."""
+        path = self.taps.get(tap)
+        d = self.dim(path) if path is not None else None
+        if d is None:
+            return None
+        n = len(self.shapes[path])
+        return {n - 1: -1, n - 3: -3}.get(d)
+
+    def local_shape(self, path: str) -> tuple:
+        shape = list(self.shapes[path])
+        d = self.dim(path)
+        if d is not None:
+            shape[d] //= self.size
+        return tuple(shape)
+
+    def sq_norm(self, tree) -> torch.Tensor:
+        """Σ x² over a tree keyed by parameter path: a sharded leaf's
+        blocks each once (summed over the model axis), a replicated leaf
+        once."""
+        sq = lambda xs: sum(torch.sum(torch.square(x.to(torch.float32)))
+                            for x in xs)
+        dev = next(iter(tree.values())).device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        shard = sq([x for k, x in tree.items() if self.sharded(k)]) + zero
+        rep = sq([x for k, x in tree.items() if not self.sharded(k)]) + zero
+        coll.all_reduce(shard, self.mesh, self.axis)
+        return shard + rep
+
+
+class Composed:
+    """Two shardings of one tree applied in turn (``first`` outermost):
+    a curvature engine's layout of an optimizer state and the model
+    axis's blocks of its parameter-shaped leaves touch disjoint leaves,
+    so a restore localizes by both and a save gathers by both."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    def localize(self, tree):
+        return localize(localize(tree, self.first), self.second)
+
+    def globalize(self, tree):
+        return globalize(globalize(tree, self.second), self.first)
+
+    def global_template(self, tree):
+        return global_template(global_template(tree, self.second),
+                               self.first)
 
 
 def replicated(tree, mesh):

@@ -24,12 +24,33 @@ the global batch: the loss, the taps' statistics rows and the gradients
 are summed over the data axes (``train/loop.py::kfac_grads``), so each
 rank runs 1/N of the model work.  A curvature axis (``dist``/
 ``curvature_axis``) shards the factor work through the distributed
-curvature engine, whose inputs are then the global batch's taps.  A model
-axis larger than 1, ``plan="fsdp"`` (sharded parameters) and the
-long-context decode with a sequence-sharded cache need tensor-parallel
-execution, which the port does not have: such a step raises
-``NotImplementedError`` when it runs (ROADMAP §1 item 5); its shardings
-are still built.
+curvature engine, whose inputs are then the global batch's taps.
+
+A model axis larger than 1 runs tensor-parallel under ``plan="tp"``
+(``models/sharding_policy.py``): each rank holds its block of every
+leaf ``params_sharding`` shards (``LM.init`` draws the whole tree and
+keeps the rank's blocks; ``localize`` under ``in_shardings[0]`` does the
+same to a given one), the layers run Megatron-style with
+sequence-parallel residuals, the optimizer gathers a sharded leaf's
+gradient bucket by bucket and keeps the rank's block of its update
+(``Kfac.model_shards``), and the factor work runs replicated over the
+model axis (the optimizer state's shardings keep the factors' rows off
+"model").  The numbers are the reference's one-device step.
+
+``in_shardings`` stay the reference's rules; ``step_shardings`` are the
+layouts the port's step takes where they differ: the optimizer state
+with its factors replicated over "model"
+(``kfac_state_sharding(factor_rows=False)``) and the "hd" decode cache
+with its head dim on "model" (``cache_sharding(hd_on_model=True)``; the
+reference's in-sharding puts that cache's sequence there and re-lays it
+out inside the step).  A rank localizes its arguments under
+``step_shardings``.  Prefill returns the rank's vocabulary
+block of the logits, decode the whole logits; the decode cache is read
+in the layout ``step_shardings`` gives it ("seq", "heads", "hd"), and
+the long-context decode (``long_500k``: B = 1, the cache's sequence
+over every axis) combines its partial softmaxes over the mesh.
+``plan="fsdp"`` raises ``NotImplementedError`` when the step runs (ROADMAP
+§1 item 5); its shardings are still built.
 
 A built step runs eagerly on ``device`` (the card unless the caller asks
 for another).  ``default_kfac_config`` keeps the reference's
@@ -65,21 +86,16 @@ def _axis_sizes(mesh) -> Tuple[Tuple[str, int], ...]:
                                              mesh.devices.shape))
 
 
-def refuse_model_parallel(mesh, plan: str, what: str,
-                          shard_kv_seq: bool = False) -> None:
-    """The run-time refusal of a step the port cannot execute: a model
-    axis larger than 1, ``plan="fsdp"``, or a decode cache sharded over
-    its sequence."""
-    if mesh is None:
-        return
-    sizes = dict(_axis_sizes(mesh))
-    if plan == "fsdp" or sizes.get("model", 1) > 1 or shard_kv_seq:
+def refuse_model_parallel(mesh, plan: str, what: str) -> None:
+    """The run-time refusal of a step the port cannot execute:
+    ``plan="fsdp"`` on a mesh."""
+    if mesh is not None and plan == "fsdp":
         raise NotImplementedError(
-            f"{what}: a model axis larger than 1, plan='fsdp' or a "
-            f"sequence-sharded decode cache needs tensor-parallel "
-            f"execution of the model, which is not ported (ROADMAP §1 "
-            f"item 5, 'Tensor-parallel execution'); run on a mesh of data "
-            f"and curvature axes (the batch is split over them)")
+            f"{what}: plan='fsdp' (every leaf sharded over all axes, "
+            f"weights gathered per layer) is not ported (ROADMAP §1 item "
+            f"5, 'FSDP and the factor rows on model'); use plan='tp', "
+            f"which shards the model over the 'model' axis and the batch "
+            f"over the others")
 
 
 def shard_policy_for(mesh=None, shard_kv_seq: bool = False,
@@ -124,6 +140,7 @@ class BuiltTrain:
     in_shardings: Any
     out_shardings: Any
     batch_specs: Dict[str, torch.Tensor]
+    step_shardings: Any = None   # what a rank's step takes (module doc)
 
 
 def _spec(shape, dtype) -> torch.Tensor:
@@ -199,11 +216,13 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
         sp = shard_policy_for(mesh)
     dev = device_lib.resolve(device)
     lm = LM(arch, sp, remat=remat, unroll=unroll, device=dev)
+    sp = lm.sp
     kcfg = default_kfac_config(arch, variant)
     if async_heavy:
         kcfg = dataclasses.replace(kcfg, async_heavy=True,
                                    heavy_lag=heavy_lag)
     opt = kfac_lib.Kfac(kcfg, lm.taps, device=dev)
+    opt.model_shards = sp.shards
     dist.attach(opt)
     n_tokens = n_tokens_of(arch, cell)
     step_work = work if work is not None else opt.uniform_work(**flags)
@@ -243,10 +262,16 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
         r_sh = shd.NamedSharding(mesh, shd.P())
         in_sh = (p_sh, o_sh, b_sh, r_sh)
         out_sh = (p_sh, o_sh, shd.NamedSharding(mesh, shd.P()))
+        step_sh = in_sh
+        if sp.model_parallel:
+            step_sh = (p_sh, shd.kfac_state_sharding(
+                a_opt, mesh, curvature_axis=curvature_axis,
+                factor_rows=False), b_sh, r_sh)
     return BuiltTrain(lm=lm, opt=opt, step_fn=train_step,
                       abstract_params=a_params, abstract_opt=a_opt,
                       in_shardings=in_sh, out_shardings=out_sh,
-                      batch_specs=batch_specs)
+                      batch_specs=batch_specs,
+                      step_shardings=step_sh if mesh is not None else None)
 
 
 @dataclasses.dataclass
@@ -257,13 +282,15 @@ class BuiltServe:
     arg_specs: Tuple
     in_shardings: Any
     out_shardings: Any
+    step_shardings: Any = None   # what a rank's step takes (module doc)
 
 
 def build_prefill_step(arch: ArchConfig, mesh=None,
                        cell: Optional[ShapeCell] = None,
                        unroll: bool = False, device=None) -> BuiltServe:
     """``step_fn(params, batch) -> logits`` (B, T, vocab), no gradients;
-    on a data mesh ``batch`` and the logits are this rank's rows."""
+    on a data mesh ``batch`` and the logits are this rank's rows, on a
+    model axis larger than 1 its vocabulary block (``out_shardings``)."""
     cell = cell or SHAPES["prefill_32k"]
     sp = shard_policy_for(mesh)
     lm = LM(arch, sp, remat=False, unroll=unroll,
@@ -273,7 +300,6 @@ def build_prefill_step(arch: ArchConfig, mesh=None,
 
     @torch.no_grad()
     def prefill(params, batch):
-        refuse_model_parallel(mesh, "tp", "build_prefill_step")
         logits, _, _, _ = lm.forward(params, batch, train=False)
         return logits
 
@@ -289,7 +315,7 @@ def build_prefill_step(arch: ArchConfig, mesh=None,
             shd.P(dp, None, "model"), logits_shape, mesh))
     return BuiltServe(lm=lm, step_fn=prefill, abstract_params=a_params,
                       arg_specs=(batch_specs,), in_shardings=in_sh,
-                      out_shardings=out_sh)
+                      out_shardings=out_sh, step_shardings=in_sh)
 
 
 def kv_rep_for(arch: ArchConfig, mesh) -> int:
@@ -329,18 +355,17 @@ def build_decode_step(arch: ArchConfig, mesh=None,
                 # heads unrealizable → shard head_dim
                 cache_layout = "hd" if arch.hd % tp == 0 else "seq"
     small_thr = 0
+    cross_len = S if arch.is_encdec else 0
+    S_self = max(S // arch.dec_ratio, 64) if arch.is_encdec else S
     sp = shard_policy_for(mesh, shard_kv_seq=shard_seq)
     if sp.active:
         sp = dataclasses.replace(sp, kv_cache_layout=cache_layout,
-                                 kv_small_seq_threshold=small_thr)
+                                 kv_small_seq_threshold=small_thr,
+                                 kv_lens=(S_self, cross_len, window_caches))
     lm = LM(arch, sp, remat=False, unroll=unroll,
             device=device_lib.resolve(device))
-    cross_len = S if arch.is_encdec else 0
-    S_self = max(S // arch.dec_ratio, 64) if arch.is_encdec else S
 
     def decode(params, cache, token, t):
-        refuse_model_parallel(mesh, "tp", "build_decode_step",
-                              shard_kv_seq=shard_seq)
         return lm.decode_step(params, cache, token, t)
 
     meta_lm = LM(arch, sp, remat=False, device=META)
@@ -362,6 +387,13 @@ def build_decode_step(arch: ArchConfig, mesh=None,
         in_sh = (p_sh, c_sh, tok_sh, shd.NamedSharding(mesh, shd.P()))
         out_logits = shd.P() if shard_seq else shd.P(dp, None, None)
         out_sh = (shd.NamedSharding(mesh, out_logits), c_sh)
+        step_sh = in_sh
+        if cache_layout == "hd" and sp.model_parallel:
+            step_sh = (p_sh, shd.cache_sharding(
+                abstract_cache, mesh, shard_seq=shard_seq,
+                layout=cache_layout, small_seq_threshold=small_thr,
+                hd_on_model=True)) + in_sh[2:]
     return BuiltServe(lm=lm, step_fn=decode, abstract_params=a_params,
                       arg_specs=(abstract_cache, token_spec, t_spec),
-                      in_shardings=in_sh, out_shardings=out_sh)
+                      in_shardings=in_sh, out_shardings=out_sh,
+                      step_shardings=step_sh if mesh is not None else None)

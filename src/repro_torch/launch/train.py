@@ -31,9 +31,15 @@ gradients (or, with ``--compress``, PowerSGD's panels) are summed over
 those axes, so every rank takes the reference's one-device step on the
 global batch.  Rank 0 alone writes the log, the telemetry and the
 checkpoints (the gathered, one-device format); the health guards and the
-telemetry read the global loss.  A mesh with a ``model`` axis larger
-than 1 raises ``NotImplementedError``: tensor parallelism is not ported
-(ROADMAP §1 item 5).
+telemetry read the global loss.  A ``model`` axis larger than 1
+(``--mesh 1x2``, ``--mesh 2x2`` with the default axes ``data,model``)
+runs tensor-parallel (``launch/steps.py``): each rank holds its block of
+every sharded parameter and of its AdamW moments, the optimizer gathers
+the sharded gradients bucket by bucket (rank 0 logs the bytes a step),
+and the checkpoints stay the one-device format: the parameters and the
+optimizer state are gathered (``distributed/sharding.py::globalize``)
+before rank 0 writes them, and a restore lays them out again
+(``shardings=``).
 
 Steps run eagerly (the reference jits one program per work mask).
 :func:`run` is the CLI without the parsing: tests and ``chip_smoke.py``
@@ -43,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import time
 from typing import Callable, Dict, Optional
@@ -58,6 +65,7 @@ from repro_torch.core import kfac as kfac_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.data.synthetic import TokenStream, rank_rows
 from repro_torch.distributed import compress as compress_lib
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.lm import LM
@@ -207,27 +215,46 @@ class _Saver:
     """The CLI's checkpoint writes: on a mesh every rank gathers the
     state to the one-device format and rank 0 writes it."""
 
-    def __init__(self, directory: str, opt, engine, rank0: bool):
-        self.opt, self.engine = opt, engine
+    def __init__(self, directory: str, shardings, mesh, rank0: bool):
+        self.shardings, self.mesh = shardings, mesh
         self.ck = (ckpt.AsyncCheckpointer(directory, keep=3)
                    if rank0 else None)
 
     def submit(self, step: int, state) -> None:
-        if self.engine is not None:
-            state = dataclasses.replace(
-                state, opt=self.engine.gather_state(self.opt, state.opt))
+        if self.shardings is not None:
+            state = shd.globalize(state, self.shardings)
         if self.ck is not None:
             self.ck.submit(step, state)
 
     def wait(self) -> None:
         if self.ck is not None:
             self.ck.wait()
-        if self.engine is not None:     # the files exist for every rank
-            torch.distributed.barrier(group=self.engine.mesh.group())
+        if self.shardings is not None:  # the files exist for every rank
+            torch.distributed.barrier(group=self.mesh.group())
 
     def close(self) -> None:
         if self.ck is not None:
             self.ck.close()
+
+
+def state_shardings(lm: LM, opt):
+    """How a rank holds the CLI's TrainState on its mesh (None without
+    one that splits it): the parameters' blocks on a model axis larger
+    than 1 and the AdamW moments with them (the factors replicated over
+    "model"), the curvature engine's layout of the optimizer state."""
+    eng, sp = opt.curvature, lm.sp
+    if sp.model_parallel:
+        a_opt = kfac_lib.Kfac(opt.cfg, lm.taps, device=steps_lib.META
+                              ).init(lm.init(None))
+        o_sh = shd.kfac_state_sharding(a_opt, sp.mesh, factor_rows=False)
+        if eng is not None:
+            o_sh = shd.Composed(eng.state_sharding(opt), o_sh)
+        return loop_lib.TrainState(params=lm.param_shardings, opt=o_sh,
+                                   rng=None)
+    if eng is not None:
+        return loop_lib.TrainState(params=None,
+                                   opt=eng.state_sharding(opt), rng=None)
+    return None
 
 
 def run(args, arch: Optional[ArchConfig] = None,
@@ -260,11 +287,12 @@ def run(args, arch: Optional[ArchConfig] = None,
         arch = get_arch(args.arch)
         if args.reduced:
             arch = arch.reduced()
-    steps_lib.refuse_model_parallel(mesh, "tp", f"--mesh {args.mesh}")
     sp = steps_lib.shard_policy_for(mesh)
     lm = LM(arch, sp, remat=not args.reduced, device=dev)
+    sp = lm.sp
     kcfg = kfac_config_of(args)
     opt = kfac_lib.Kfac(kcfg, lm.taps, device=dev)
+    opt.model_shards = sp.shards
     curv_axis, row_axis = curvature_axes(args, mesh)
     eng = specs_lib.DistSpec(
         mesh=mesh, curvature_axis=curv_axis, row_axis=row_axis,
@@ -290,6 +318,19 @@ def run(args, arch: Optional[ArchConfig] = None,
         writer.log(f"data parallel over {'×'.join(sp.dp)}: "
                    f"{sp.dp_size} ranks of {args.batch // sp.dp_size} "
                    f"rows; taps summed over them: {tap_mb:.2f} MB a step")
+    if sp.model_parallel:
+        ms = sp.shards
+        held = sum(math.prod(ms.local_shape(k)) for k in ms.shapes)
+        total = sum(math.prod(v) for v in ms.shapes.values())
+        tapped = {t.param_path for t in lm.taps.values()}
+        gathered = sum(math.prod(ms.shapes[k]) for k in tapped
+                       if ms.sharded(k)) * 4 * (ms.size - 1) / ms.size
+        writer.log(f"tensor parallel over {sp.tp}: {ms.size} ranks, "
+                   f"{sum(ms.sharded(k) for k in ms.shapes)} of "
+                   f"{len(ms.shapes)} leaves sharded, {held / 1e6:.2f}M of "
+                   f"{total / 1e6:.2f}M parameters a rank; sharded "
+                   f"gradients gathered for the preconditioning: "
+                   f"{gathered / 1e6:.2f} MB a rank a step")
     sched = opt.scheduler()
     if args.stagger or args.async_heavy:
         writer.emit("sched",
@@ -309,6 +350,12 @@ def run(args, arch: Optional[ArchConfig] = None,
                    rank_rows(_whole(k), sp.dp_index, sp.dp_size))
     if params is None:
         params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    elif sp.model_parallel and any(
+            tuple(v.shape) != sp.shards.local_shape(k)
+            for k, v in params.items()):
+        params = {k: v.requires_grad_() for k, v in shd.localize(
+            {k: v.detach() for k, v in params.items()},
+            lm.param_shardings).items()}
     state = loop_lib.TrainState(
         params=params, opt=opt.init(params),
         rng=torch.Generator(device=dev).manual_seed(1))
@@ -320,7 +367,7 @@ def run(args, arch: Optional[ArchConfig] = None,
     cstate = None
     if args.compress:
         ccfg = compress_lib.CompressConfig(rank=8)
-        cstate = compress_lib.init_state(params, ccfg)
+        cstate = compress_lib.init_state(params, ccfg, sp=sp)
         grad_transform = lambda gp, cs: compress_lib.compress_tree(
             gp, cs, ccfg, sp=sp)
         if args.health:
@@ -345,10 +392,9 @@ def run(args, arch: Optional[ArchConfig] = None,
             lm.loss_fn, opt, n_tokens, meter=meter,
             grad_transform=grad_transform, sp=sp)
 
-    checkpointer = (_Saver(args.ckpt_dir, opt, eng, rank0)
+    shardings = state_shardings(lm, opt)
+    checkpointer = (_Saver(args.ckpt_dir, shardings, mesh, rank0)
                     if args.ckpt_dir else None)
-    shardings = (None if eng is None else loop_lib.TrainState(
-        params=None, opt=eng.state_sharding(opt), rng=None))
     start = ckpt.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if start is not None:
         state, _ = ckpt.restore(args.ckpt_dir, state, shardings=shardings)

@@ -17,7 +17,7 @@ Tensor = torch.Tensor
 
 
 def _stat_rows(xr: Tensor, yr: Tensor, probe: Optional[Tensor], off: int,
-              n_stat: int) -> Tuple[Tensor, Tensor]:
+              n_stat: int, add: bool = True) -> Tuple[Tensor, Tensor]:
     """A rank's part of a tap: ``xr`` (L, d_in) and ``yr`` (L, d_out) are
     rows ``off .. off + L - 1`` of the global statistics order → (act,
     yr): act (n_stat, d_in) holds those of them below ``n_stat`` at their
@@ -28,7 +28,7 @@ def _stat_rows(xr: Tensor, yr: Tensor, probe: Optional[Tensor], off: int,
     k = max(0, min(xr.shape[0], n_stat - off))
     lead = min(off, n_stat)
     act = F.pad(xr[:k], (0, 0, lead, n_stat - lead - k))
-    if probe is not None and k > 0:
+    if probe is not None and k > 0 and add:
         yr = torch.cat([yr[:k] + probe[off:off + k].to(yr.dtype), yr[k:]],
                        dim=0)
     elif probe is not None:     # no row of this rank: the probe's grad is 0
@@ -37,7 +37,8 @@ def _stat_rows(xr: Tensor, yr: Tensor, probe: Optional[Tensor], off: int,
 
 
 def tapped_matmul(W: Tensor, x: Tensor, probe: Optional[Tensor],
-                  n_stat: int, sp=None) -> Tuple[Tensor, Tensor]:
+                  n_stat: int, sp=None, partial: bool = False
+                  ) -> Tuple[Tensor, Tensor]:
     """y = x @ W with K-FAC instrumentation → (y, act).
 
     Flat inputs (…, d_in): act is the first n_stat rows (zero-padded when
@@ -52,10 +53,31 @@ def tapped_matmul(W: Tensor, x: Tensor, probe: Optional[Tensor],
     on rank 0), and the truncation to n_stat and the padding apply to the
     global rows.  The act and the probe's gradient then hold this rank's
     rows at their global places and zeros elsewhere: summed over the data
-    axes they are the reference's."""
-    y = x @ W.to(x.dtype)
+    axes they are the reference's.
+
+    Under tensor parallelism (``sp.model_parallel``) a column-parallel
+    ``W`` (the rank's output columns: fewer than the probe's) takes the
+    probe's block of columns, so ∂L/∂probe holds the rank's columns; a
+    row-parallel one (``partial``: ``x`` is the rank's input columns and
+    ``W`` its rows) gives a partial sum, in fp32 from the operands' dtype
+    (the sum over the model axis is then rounded once, as one device's
+    product is), and the probe is added on model rank 0 only, so the sum
+    of the ranks' probe gradients is ∂L/∂y once.  act is then the rank's
+    input columns; ``models/lm.py`` gathers the acts over the model axis
+    and ``train/loop.py::kfac_grads`` gathers the column blocks of the
+    probe gradients and sums the row-parallel ones."""
+    if partial and x.dtype != torch.float32:
+        y = x.to(torch.float32) @ W.to(x.dtype).to(torch.float32)
+    else:
+        y = x @ W.to(x.dtype)
     d_in = x.shape[-1]
     d_out = y.shape[-1]
+    add = True
+    if sp is not None and sp.model_parallel and probe is not None:
+        if probe.shape[-1] != d_out:
+            lo, hi = sp.block_range(probe.shape[-1], d_out)
+            probe = probe[..., lo:hi]
+        add = not partial or sp.tp_index == 0
     n_dp, idx = (1, 0) if sp is None else (sp.dp_size, sp.dp_index)
     if x.dim() == 3:
         B, T = x.shape[0], x.shape[1]
@@ -63,14 +85,14 @@ def tapped_matmul(W: Tensor, x: Tensor, probe: Optional[Tensor],
         rows = B * n_per
         yr, act = _stat_rows(x[:, :n_per, :].reshape(rows, d_in),
                             y[:, :n_per, :].reshape(rows, d_out), probe,
-                            idx * rows, n_stat)
+                            idx * rows, n_stat, add)
         if probe is not None:
             y = torch.cat([yr.reshape(B, n_per, d_out), y[:, n_per:, :]],
                           dim=1)
         return y, act
     xf = x.reshape(-1, d_in)
     yf, act = _stat_rows(xf, y.reshape(-1, d_out), probe,
-                        idx * xf.shape[0], n_stat)
+                        idx * xf.shape[0], n_stat, add)
     return yf.reshape(y.shape), act
 
 

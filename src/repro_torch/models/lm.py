@@ -25,9 +25,23 @@ of the global loss (summed over the data axes it is the reference's), the
 acts this rank's placements of the global statistics rows
 (``layers.tapped_matmul``).  Serve path: ``decode_step`` (one token, KV /
 state caches, written in place) and ``forward`` (prefill-shaped logits).
+
+**Tensor parallelism** (a policy whose model axis is larger than 1):
+``init`` returns the rank's blocks of the parameters
+(``distributed/sharding.py::params_sharding``; ``param_shardings``
+localizes a whole tree), and ``sp.shards`` records which leaves are
+blocks.  The embedding is vocabulary-parallel (a masked lookup of the
+rank's rows, summed over the model axis), the residual stream is
+sequence-sharded between blocks, the head gives the rank's vocabulary
+block of the logits (prefill returns it), and the cross-entropy is
+vocabulary-parallel: the max and the sum of exponentials are reduced
+over the axis and the target's logit comes from the rank that holds it.
+The loss is each rank's 1/M share, the acts are gathered over the axis
+to the one-device taps, and decode's logits are gathered whole.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -37,6 +51,8 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ArchConfig, LayerSpec, Segment
 from repro_torch.core.kfac import TapInfo
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import blocks, layers
 from repro_torch.models.sharding_policy import NO_SHARD, ShardPolicy
 
@@ -75,6 +91,25 @@ def _ce_loss(logits: Tensor, targets: Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _ce_loss_vp(logits: Tensor, targets: Tensor, sp, vocab: int) -> Tensor:
+    """:func:`_ce_loss` of vocabulary-parallel logits (the rank's block of
+    ``vocab`` columns): the max (no gradient: the log-sum-exp does not
+    depend on it) and the sum of exponentials reduced over the model
+    axis, the target's logit from its owner, the exponentials in the
+    logits' dtype and their sum fp32, as on one device."""
+    Vl = logits.shape[-1]
+    lo = sp.block_range(vocab, Vl)[0]
+    m = sp.tp_max(torch.max(logits.detach(), dim=-1, keepdim=True).values)
+    se = sp.tp_sum(torch.sum(torch.exp(logits - m), dim=-1,
+                             dtype=torch.float32))
+    lse = m[..., 0].to(torch.float32) + torch.log(se)
+    t = targets.to(torch.int64) - lo
+    own = (t >= 0) & (t < Vl)
+    ll = torch.gather(logits, -1, t.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = sp.tp_sum(torch.where(own, ll.to(torch.float32), 0.0))
+    return torch.mean(lse - ll)
 
 
 def _nest(flat: Dict[str, Tensor]) -> Dict:
@@ -122,6 +157,13 @@ class LM:
                                  causal=arch.enc_causal)
             self._enc_segments = (Segment((enc_spec,), arch.n_enc_layers),)
         self.taps = self._build_taps()
+        self.param_shardings = None
+        if sp.model_parallel:
+            abstract = self.init(None)
+            self.param_shardings = shd.params_sharding(abstract, sp.mesh)
+            self.sp = dataclasses.replace(sp, shards=shd.ModelShards(
+                abstract, sp.mesh, sp.tp,
+                taps={n: t.param_path for n, t in self.taps.items()}))
 
     # ------------------------------------------------------------------ taps
     def _seg_taps(self, segments, base: str) -> Dict[str, TapInfo]:
@@ -194,12 +236,14 @@ class LM:
         if arch.mtp:
             params["mtp/w"] = layers.dense_init(g, arch.d_model,
                                                 arch.d_model)
+        if g is not None and self.param_shardings is not None:
+            params = shd.localize(params, self.param_shardings)
         return {k: v.requires_grad_() for k, v in params.items()}
 
     # --------------------------------------------------------------- forward
     def _run_segments(self, segments, params, base, h, probes, positions,
-                      memory=None, train=True):
-        arch, sp = self.arch, self.sp
+                      memory=None, train=True, sp=None):
+        arch, sp = self.arch, sp or self.sp
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         acts: Dict[str, Tensor] = {}
         cross = memory is not None
@@ -241,7 +285,15 @@ class LM:
         return h, aux, acts
 
     def _embed(self, params, tokens):
-        h = params["embed"][tokens].to(self.dtype)
+        E = params["embed"]
+        if E.shape[0] != self.arch.vocab:   # the rank's vocabulary rows
+            lo = self.sp.block_range(self.arch.vocab, E.shape[0])[0]
+            t = tokens.to(torch.int64) - lo
+            own = (t >= 0) & (t < E.shape[0])
+            h = E[t.clamp(0, E.shape[0] - 1)] * own[..., None]
+            h = self.sp.tp_sum(h).to(self.dtype)
+        else:
+            h = E[tokens].to(self.dtype)
         scale = torch.tensor(math.sqrt(self.arch.d_model),
                              dtype=torch.float32).to(self.dtype)
         return h * scale.to(h.device)
@@ -257,10 +309,12 @@ class LM:
             mem = batch["frames"].to(self.dtype)         # (B, Te, d) stub
             pos_e = torch.arange(mem.shape[1], device=mem.device
                                  ).expand(mem.shape[:2])
+            enc_sp = sp.for_seq(mem.shape[1])
             memory, _, acts_e = self._run_segments(
-                self._enc_segments, params, "enc", mem, probes, pos_e,
-                train=train)
+                self._enc_segments, params, "enc", enc_sp.residual(mem),
+                probes, pos_e, train=train, sp=enc_sp)
             memory = layers.rms_norm(memory, params["enc_ln"])
+            memory = enc_sp.full_seq(memory)    # whole for cross-attention
             acts.update(acts_e)
         tokens = batch["tokens"]
         h = self._embed(params, tokens)
@@ -268,45 +322,74 @@ class LM:
             h = torch.cat([batch["embeds"].to(self.dtype), h], dim=1)
         B, T = h.shape[:2]
         positions = torch.arange(T, device=h.device).expand(B, T)
+        sp = sp.for_seq(T)
         h = sp.residual(h)
         h, aux, acts_m = self._run_segments(
             arch.segments, params, "segments", h, probes, positions,
-            memory=memory, train=train)
+            memory=memory, train=train, sp=sp)
         acts.update(acts_m)
-        h = layers.rms_norm(h, params["final_ln"])
+        h = sp.full_seq(layers.rms_norm(h, params["final_ln"]))
         tc = blocks.TapCtx(probes, arch.n_stat, prefix="", sp=sp)
+        # under tensor parallelism the rank's vocabulary block (the
+        # reference's ``sp.logits`` constraint)
         logits = tc.mm("head", params["head/w"], h)
         acts.update(tc.acts)
         if arch.logit_softcap > 0:
             logits = layers.softcap(logits, arch.logit_softcap)
-        logits = sp.logits(logits)
         if arch.mtp and train:
             tcm = blocks.TapCtx(probes, arch.n_stat, prefix="", sp=sp)
-            h_mtp = tcm.mm("mtp_proj", params["mtp/w"], h)
+            h_mtp = sp.gather_cols(tcm.mm("mtp_proj", params["mtp/w"], h),
+                                   arch.d_model)
             acts.update(tcm.acts)
-            logits_mtp = sp.logits(
-                h_mtp @ params["head/w"].to(h_mtp.dtype))
+            logits_mtp = h_mtp @ params["head/w"].to(h_mtp.dtype)
             return logits, aux, acts, logits_mtp
         return logits, aux, acts, None
+
+    def _gather_acts(self, acts: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The one-device taps from the ranks' acts: a row-parallel
+        matmul's (the rank's input columns) and an expert stack's (the
+        rank's experts) gathered over the model axis, in one packed
+        collective."""
+        names, xs, dims = [], [], []
+        for name, a in acts.items():
+            t = self.taps[name]
+            want = tuple(t.stack) + (t.n_stat, t.d_in)
+            diff = [i for i, (g, w) in enumerate(zip(a.shape, want))
+                    if g != w]
+            if diff:
+                names.append(name)
+                xs.append(a)
+                dims.append(diff[0])
+        out = dict(acts)
+        out.update(zip(names, coll.all_gather_coalesced(
+            xs, self.sp.mesh, self.sp.tp, dims)))
+        return out
 
     def loss_fn(self, params, probes, batch):
         arch = self.arch
         logits, aux, acts, logits_mtp = self.forward(params, batch, probes,
                                                      train=True)
         targets = batch["targets"]
+        sp = self.sp
+        ce = (_ce_loss if logits.shape[-1] == arch.vocab else
+              lambda lg, tg: _ce_loss_vp(lg, tg, sp, arch.vocab))
         if arch.frontend == "vision":       # loss only on the token span
             logits = logits[:, arch.n_prefix:]
-        loss = _ce_loss(logits[:, :-1], targets[:, 1:])
+        loss = ce(logits[:, :-1], targets[:, 1:])
         if logits_mtp is not None:          # MTP: predict t+2 (depth-1)
             if arch.frontend == "vision":
                 logits_mtp = logits_mtp[:, arch.n_prefix:]
-            loss = loss + 0.3 * _ce_loss(logits_mtp[:, :-2], targets[:, 2:])
+            loss = loss + 0.3 * ce(logits_mtp[:, :-2], targets[:, 2:])
         loss = loss + arch.aux_loss_coef * aux
-        if self.sp.data_parallel:
+        if sp.data_parallel:
             # this rank's share of the global mean: its rows' token mean
             # over the data ranks (the rows split evenly), and a 1/N share
             # of the load-balance loss, which is global already
-            loss = loss / self.sp.dp_size
+            loss = loss / sp.dp_size
+        if sp.model_parallel:
+            # every model rank holds the same value: a 1/M share each
+            loss = loss / sp.tp_size
+            acts = self._gather_acts(acts)
         return loss, acts
 
     # ----------------------------------------------------------------- serve
@@ -358,4 +441,4 @@ class LM:
         logits = h_t @ params["head/w"].to(h_t.dtype)
         if arch.logit_softcap > 0:
             logits = layers.softcap(logits, arch.logit_softcap)
-        return logits, cache
+        return sp.gather_cols(logits, arch.vocab), cache

@@ -30,6 +30,16 @@ the rank's rows at their global slots (``layers.tapped_matmul``'s rule). The
 Switch loss ``E·Σ me·fe`` is a product of two global means: both sums are
 summed over the data axes before it (``me``'s differentiably), so every
 rank's router gets its share of the global gradient.
+
+**Expert parallelism** (a tensor-parallel ``sp``, experts on the model
+axis): the router stays replicated, and every model rank routes the
+whole (gathered) token set exactly as one device does, the global
+capacity over the data axes included; each rank then keeps its experts'
+buffers (``dispatch``'s sentinel takes the others' tokens), runs them,
+and its combine is a partial sum over the model axis, which the block
+reduces into the residual.  The shared experts are column- then
+row-parallel.  The (E,)-stacked taps hold the rank's experts;
+``models/lm.py`` gathers their acts along the stack dim.
 """
 from __future__ import annotations
 
@@ -173,27 +183,66 @@ def expert_ffn(buffers: Tensor, p: Dict, probes, acts, tag: str,
     return y
 
 
+def _local_experts(buffers: Tensor, info, sp):
+    """The rank's experts of ``dispatch``'s buffers and scatter info
+    (``sp.moe_buffers``' block): the other experts' assignments go to the
+    sentinel and leave ``keep``."""
+    order, token_of, buf_idx, keep, offs = info
+    E, C = buffers.shape[:2]
+    buffers = sp.moe_buffers(buffers)
+    El = buffers.shape[0]
+    e0 = sp.block_range(E, El)[0]
+    loc = (buf_idx >= e0 * C) & (buf_idx < (e0 + El) * C)
+    buf_idx = torch.where(loc, buf_idx - e0 * C,
+                          torch.full_like(buf_idx, El * C))
+    offs = offs[e0:e0 + El] if offs is not None else None
+    return buffers, (order, token_of, buf_idx, keep & loc, offs)
+
+
 def moe_block(x: Tensor, p: Dict, dims: MoeDims, probes, acts, tag: str,
               n_stat: int, sp=None) -> Tuple[Tensor, Tensor]:
     """Full MoE FFN. x: (B, T, d) → (y, aux_loss); with a data-parallel
     ``sp``, x is this rank's rows and the capacity, the slots, the taps'
-    rows and the aux loss are the global batch's."""
+    rows and the aux loss are the global batch's.  Under tensor
+    parallelism (module docstring) y is the rank's fp32 partial sum over
+    the model axis."""
     B, T, d = x.shape
     N = B * T
+    tp = sp is not None and sp.model_parallel
     xf = x.reshape(N, d)
     w, idx, aux = route(xf, p["router"], dims, sp)
     n_all = N * (sp.dp_size if sp is not None else 1)
     buffers, info = dispatch(xf, idx, dims, capacity(n_all, dims), sp)
+    El = p["wi"].shape[0]
+    if El != dims.n_experts:
+        e0 = sp.block_range(dims.n_experts, El)[0]
+        buffers, info = _local_experts(buffers, info, sp)
+        probes = dict(probes)
+        for name in ("moe_wi", "moe_wo"):
+            if f"{tag}/{name}" in probes:
+                probes[f"{tag}/{name}"] = probes[f"{tag}/{name}"][e0:e0 + El]
     expert_out = expert_ffn(buffers, p, probes, acts, tag, n_stat, info[4])
     y = combine(expert_out, w, info, N)
+    if tp and El == dims.n_experts:
+        y = sp.as_partial(y)
     if dims.n_shared > 0:
+        fs = dims.d_ff * dims.n_shared
         h, acts[f"{tag}/shared_wi"] = layers.tapped_matmul(
             p["shared_wi"], xf, probes.get(f"{tag}/shared_wi"), n_stat, sp)
+        if tp:
+            h = sp.gather_cols(h, 2 * fs)
         gate, up = torch.chunk(h, 2, dim=-1)
+        partial = tp and p["shared_wo"].shape[0] != fs
+        if partial:
+            gate, up = sp.block(gate, -1), sp.block(up, -1)
         h = F.silu(gate) * up
         sy, acts[f"{tag}/shared_wo"] = layers.tapped_matmul(
-            p["shared_wo"], h, probes.get(f"{tag}/shared_wo"), n_stat, sp)
-        y = y + sy.to(torch.float32)
+            p["shared_wo"], h, probes.get(f"{tag}/shared_wo"), n_stat, sp,
+            partial)
+        sy = sy.to(torch.float32)
+        y = y + (sy if partial or not tp else sp.as_partial(sy))
+    if tp:
+        return y.reshape(B, T, d), aux
     return y.reshape(B, T, d).to(x.dtype), aux
 
 

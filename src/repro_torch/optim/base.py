@@ -8,7 +8,7 @@ so reading the learning rate or the damping never waits on the card.
 from __future__ import annotations
 
 import bisect
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -57,13 +57,16 @@ def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float
     return {k: (x * scale).to(x.dtype) for k, x in tree.items()}
 
 
-def clip_by_global_norm_(tree: Dict[str, torch.Tensor], max_norm: float
+def clip_by_global_norm_(tree: Dict[str, torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None
                          ) -> Dict[str, torch.Tensor]:
     """``clip_by_global_norm`` that scales every tensor of ``tree`` in
     place and returns it: the same bits, without a second copy of an
     update of billions of parameters.  For a caller that owns the
-    tensors."""
-    norm = global_norm(tree)
+    tensors.  ``norm`` replaces the tree's own global norm (a tensor-
+    parallel tree's, over every rank's blocks)."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     for x in tree.values():
         x.mul_(scale)

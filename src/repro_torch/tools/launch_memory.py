@@ -4,7 +4,7 @@ deepest that fits one card.
 
     PYTHONPATH=src python -m repro_torch.tools.launch_memory \\
         [--layers 3,1 4,1] [--steps 2] [--expandable] [--stages] \\
-        [--ranks 2]
+        [--ranks 2 | --mesh 1x2]
 
 Each ``--layers`` gives the repeats of gemma3-4b's two segments (3,1: 22
 of its 34 layers).  Each cut runs the CLI's defaults (batch 4 × 64,
@@ -18,8 +18,10 @@ them; ``--stages`` adds the peak of each stage of each step (forward and
 backward, compression, the optimizer update).  ``--ranks N`` runs each
 cut data-parallel on ``--mesh Nx1``: N processes of this tool on the one
 card (gloo), each on its rows of the batch, each printing its own line
-(``rank``) — the card holds the N ranks' peaks together.  It needs one
-CUDA card.
+(``rank``) — the card holds the N ranks' peaks together.  ``--mesh
+DxM`` runs each cut on that mesh instead (axes data, model: M > 1 is
+tensor-parallel, each rank holding its blocks of the sharded
+parameters), on D·M processes.  It needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -80,14 +82,15 @@ def stage_peaks():
 
 
 def measure(repeats, steps: int, stages: bool = False,
-            ranks: int = 1) -> dict:
+            mesh: str = "none") -> dict:
     """One CLI run at gemma3-4b cut to ``repeats`` → its JSON line (with
-    ``stages``, each stage's peak a step, the whole step's unread); with
-    ``ranks`` > 1 this process is one rank of ``--mesh {ranks}x1``."""
+    ``stages``, each stage's peak a step, the whole step's unread); on a
+    ``mesh`` (DxM) this process is one of its ranks."""
     arch = get_arch("gemma3_4b").with_repeats(repeats)
+    ranks = mesh_ranks(mesh)
     args = train_lib.parse_args(
         ["--compress", "--steps", str(steps), "--metrics-every", "0"]
-        + (["--mesh", f"{ranks}x1"] if ranks > 1 else []))
+        + (["--mesh", mesh] if ranks > 1 else []))
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -121,7 +124,7 @@ def measure(repeats, steps: int, stages: bool = False,
     gc.collect()
     torch.cuda.empty_cache()
     return {"case": "cli_compress", "repeats": list(repeats),
-            "ranks": ranks,
+            "ranks": ranks, "mesh": mesh,
             "rank": (torch.distributed.get_rank() if ranks > 1 else 0),
             "n_layers": arch.n_layers, "params": count_params(arch),
             "batch": [args.batch, args.seq], "steps": steps,
@@ -130,6 +133,16 @@ def measure(repeats, steps: int, stages: bool = False,
             "peak_gb": peak / GB,
             **({"stage_peaks_gb": by_stage} if stages else {}),
             "losses": losses, "oom": err}
+
+
+def mesh_ranks(mesh: str) -> int:
+    """The processes of a ``DxM`` mesh (1 for ``none``)."""
+    if mesh in ("none", ""):
+        return 1
+    n = 1
+    for x in mesh.split("x"):
+        n *= int(x)
+    return n
 
 
 def spawn(argv, ranks: int) -> int:
@@ -162,12 +175,17 @@ def main(argv=None):
                          "optimizer update")
     ap.add_argument("--ranks", type=int, default=1,
                     help="data-parallel ranks on the card (--mesh Nx1)")
+    ap.add_argument("--mesh", default="",
+                    help="DxM (data, model) mesh of ranks on the card; "
+                         "M > 1 is tensor-parallel (overrides --ranks)")
     ap.add_argument("--rank", nargs=2, default=None,
                     metavar=("RANK", "RENDEZVOUS"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.ranks > 1 and args.rank is None:
+    mesh = args.mesh or (f"{args.ranks}x1" if args.ranks > 1 else "none")
+    ranks = mesh_ranks(mesh)
+    if ranks > 1 and args.rank is None:
         argv = list(sys.argv[1:] if argv is None else argv)
-        rc = spawn(argv, args.ranks)
+        rc = spawn(argv, ranks)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
@@ -176,7 +194,7 @@ def main(argv=None):
         from repro_torch.launch import mesh as mesh_lib
         mesh_lib.init_process_group(
             None, init_method=f"file://{args.rank[1]}",
-            rank=int(args.rank[0]), world_size=args.ranks)
+            rank=int(args.rank[0]), world_size=ranks)
     if args.expandable:
         set_allocator = (getattr(torch._C,
                                  "_accelerator_setAllocatorSettings", None)
@@ -184,7 +202,7 @@ def main(argv=None):
         set_allocator("expandable_segments:True")
     for layers in args.layers:
         reps = tuple(int(r) for r in layers.split(","))
-        line = measure(reps, args.steps, args.stages, args.ranks)
+        line = measure(reps, args.steps, args.stages, mesh)
         print(json.dumps(line), flush=True)
         if args.rank is not None and line["oom"]:
             os._exit(1)

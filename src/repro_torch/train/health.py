@@ -127,7 +127,7 @@ def _factor_groups(opt, factors, shards=None):
     return out
 
 
-def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors,
+def _read(opt, loss: Tensor, groups: Dict, factors,
           shards=None) -> Dict[str, float]:
     """Device reductions for ``groups`` and the factor buckets, moved to
     the host in one transfer with the loss; exact counts where a
@@ -135,16 +135,41 @@ def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors,
     "<group>_abs_max", "bucket{bi}/factor_nonfinite",
     "bucket{bi}/ns_res"}.  Under a curvature engine the factor sums are
     summed over the mesh (each member checks its own M block), so every
-    member reaches the same verdict."""
+    member reaches the same verdict.  A group may be a dict keyed by
+    parameter path; under tensor parallelism (``opt.model_shards``) the
+    sums and maxima of its sharded leaves' blocks are reduced over the
+    model axis and its replicated leaves count once."""
     dev = loss.device
     fgroups = _factor_groups(opt, factors, shards)
     parts = [loss.detach().to(torch.float32).reshape(1)]
-    parts += [_sum_and_max(ts, dev) for ts in groups.values()]
+    ms = getattr(opt, "model_shards", None)
+    split = {}
+    if ms is not None and groups:
+        # a tree keyed by parameter path: its blocks of sharded leaves
+        # are summed (maxed) over the model axis, its replicated leaves
+        # count once
+        for name, tree in groups.items():
+            split[name] = ([x for k, x in tree.items() if ms.sharded(k)],
+                           [x for k, x in tree.items() if not ms.sharded(k)])
+        sh = torch.stack([_sum_and_max(a, dev) for a, _ in split.values()])
+        sums = coll.all_reduce(sh[:, 0].contiguous(), ms.mesh, ms.axis)
+        maxs = coll.all_reduce_max(sh[:, 1], ms.mesh, ms.axis)
+        for (name, (_, r)), s_, m_ in zip(split.items(), sums, maxs):
+            sr = _sum_and_max(r, dev)
+            parts.append(torch.stack([s_ + sr[0], torch.maximum(m_, sr[1])]))
+        groups = {k: list(v.values()) for k, v in groups.items()}
+    else:
+        groups = {k: list(v.values()) if isinstance(v, dict) else v
+                  for k, v in groups.items()}
+        parts += [_sum_and_max(ts, dev) for ts in groups.values()]
     fparts = [_sum_and_max(ts, dev) for ts, _ in fgroups]
     engine = getattr(opt, "curvature", None)
     if engine is not None and shards and fparts:
+        # each engine member checks its own M block: summed over the
+        # engine's axes (model ranks hold the same blocks)
+        axes = tuple(a for a in (engine.axis, engine.row_axis) if a)
         sums = coll.all_reduce(torch.stack([p[0] for p in fparts]),
-                                   engine.mesh)
+                               engine.mesh, axes)
         fparts = [torch.stack([s, p[1]]) for s, p in zip(sums, fparts)]
     parts += fparts
     parts += [r.to(torch.float32).reshape(1) for _, r in fgroups
@@ -156,8 +181,15 @@ def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors,
     for name, ts in groups.items():
         s, m = vals[i:i + 2]
         i += 2
-        out[f"{name}_nonfinite"] = (0.0 if finite(s, m)
-                                    else _count_nonfinite(ts))
+        if finite(s, m):
+            bad = 0.0
+        elif name in split:
+            bad = _count_nonfinite(split[name][1]) + float(coll.all_reduce(
+                torch.tensor([_count_nonfinite(split[name][0])],
+                             device=dev), ms.mesh, ms.axis)[0])
+        else:
+            bad = _count_nonfinite(ts)
+        out[f"{name}_nonfinite"] = bad
         out[f"{name}_abs_max"] = m
     for bi, (ts, _) in enumerate(fgroups):
         s, m = vals[i:i + 2]
@@ -165,7 +197,7 @@ def _read(opt, loss: Tensor, groups: Dict[str, Sequence[Tensor]], factors,
         bad = 0.0 if finite(s, m) else _count_nonfinite(ts)
         if engine is not None and shards and not finite(s, m):
             bad = float(coll.all_reduce(
-                torch.tensor([bad], device=dev), engine.mesh)[0])
+                torch.tensor([bad], device=dev), engine.mesh, axes)[0])
         out[f"bucket{bi}/factor_nonfinite"] = bad
     for bi, (_, r) in enumerate(fgroups):
         if r is not None:
@@ -189,8 +221,7 @@ def health_report(hcfg: HealthConfig, opt, loss: Tensor, grads, updates,
     """The step's health vector, read on the host: a flat dict of floats
     with the reference's keys.  ``ok`` is the guard's verdict — 1.0 iff
     the step is safe to apply."""
-    rep = _read(opt, loss, {"grad": list(grads.values()),
-                            "update": list(updates.values())},
+    rep = _read(opt, loss, {"grad": dict(grads), "update": dict(updates)},
                 opt_state.factors, opt_state.shards)
     loss_v = rep.pop("loss")
     factor_bad = sum(v for k, v in rep.items()

@@ -38,6 +38,7 @@ from repro_torch import device as device_lib
 from repro_torch import specs as specs_lib
 from repro_torch.core import kfac as kfac_lib
 from repro_torch.core import kfactor
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import layers
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -72,7 +73,21 @@ def kfac_grads(loss_fn, params, probes, batch, sp=None,
     axes, so every rank gets the global batch's loss and statistics rows;
     so are the parameter gradients unless ``reduce_grads`` is False (a
     gradient transform that reduces them itself, such as
-    ``compress.compress_tree(sp=)``, then gets each rank's share)."""
+    ``compress.compress_tree(sp=)``, then gets each rank's share).
+
+    Under tensor parallelism (``sp.model_parallel``; ``sp`` the LM's
+    policy, whose ``shards`` say which parameters are blocks) the loss is
+    each model rank's 1/M share, the acts come back gathered
+    (``LM.loss_fn``), the probe gradients of column-parallel and expert
+    taps are the ranks' blocks (``ModelShards.probe_dim``), gathered over
+    the model axis in one packed collective, and the loss, the other
+    probe gradients (a row-parallel tap's is model rank 0's) and the
+    gradients of the parameters replicated over the model axis (each
+    rank's part: a norm scale ahead of ``full_seq`` sees only its
+    T-block) are summed over every axis in one packed pass; a sharded
+    parameter's gradient is the rank's block, whole over "model", and is
+    summed over the data axes only, as are the gathered probe
+    gradients."""
     loss, acts = loss_fn(params, probes, batch)
     pk, qk = list(params), list(probes)
     grads = torch.autograd.grad(loss, [params[k] for k in pk]
@@ -81,7 +96,26 @@ def kfac_grads(loss_fn, params, probes, batch, sp=None,
     gprobe = dict(zip(qk, grads[len(pk):]))
     loss = loss.detach()
     acts = {k: v.detach() for k, v in acts.items()}
-    if sp is not None and sp.data_parallel:
+    if sp is not None and sp.model_parallel:
+        ms = sp.shards
+        loss = loss.clone()
+        dims = {k: ms.probe_dim(k) for k in gprobe}
+        blocks = [k for k in gprobe if dims[k] is not None]
+        gprobe.update(zip(blocks, coll.all_gather_coalesced(
+            [sp.block(gprobe[k], dims[k]) for k in blocks], sp.mesh, sp.tp,
+            [dims[k] for k in blocks])))
+        rep = [g for k, g in gp.items() if not ms.sharded(k)]
+        every = [loss] + [g for k, g in gprobe.items() if dims[k] is None]
+        local = list(acts.values()) + [gprobe[k] for k in blocks]
+        if reduce_grads:
+            coll.all_reduce_coalesced(every + rep, sp.mesh, None)
+            sp.dp_sum_all(local + [g for k, g in gp.items()
+                                   if ms.sharded(k)])
+        else:           # the transform sums the gradients over the data axes
+            coll.all_reduce_coalesced(every, sp.mesh, None)
+            coll.all_reduce_coalesced(rep, sp.mesh, sp.tp)
+            sp.dp_sum_all(local)
+    elif sp is not None and sp.data_parallel:
         loss = loss.clone()
         sp.dp_sum_all([loss] + list(acts.values()) + list(gprobe.values())
                       + (list(gp.values()) if reduce_grads else []))

@@ -30,9 +30,9 @@ are computed in this process meanwhile).
   at 1e-5 of scale), and the taps summed over the data axes, row for row
   (acts and probe gradients at 1e-5 of scale), for the dense cut and the
   MoE.
-* **Refusals.**  A model axis of 2, ``plan="fsdp"`` and a long-context
-  decode (sequence-sharded cache) still raise ``NotImplementedError``,
-  naming ROADMAP §1 item 5.
+* **Refusals.**  ``plan="fsdp"`` still raises ``NotImplementedError``,
+  naming ROADMAP §1 item 5; a model axis of 2 and a long-context decode
+  (sequence-sharded cache) build (``test_torch_tp.py`` runs them).
 """
 import contextlib
 import dataclasses
@@ -497,28 +497,30 @@ def _stand_in(shape, axes):
 
 
 def test_model_axis_fsdp_and_sequence_sharded_decode_still_raise():
-    """What needs tensor parallelism raises when the step runs, naming
-    ROADMAP §1 item 5: a model axis of 2, ``plan="fsdp"``, the long-context
-    decode (its cache sharded over the sequence); a data-parallel policy's
+    """A model axis of 2 and the long-context decode (its cache sharded
+    over the sequence) build tensor-parallel steps (they run in
+    ``test_torch_tp.py``: no world here); only ``plan="fsdp"`` raises when
+    the step runs, naming ROADMAP §1 item 5; a data-parallel policy's
     roles stay the identity."""
     arch = worker.dp_arch(("cut", 0))
     tp = _stand_in((2, 2), ("data", "model"))
     dp = _stand_in((4, 1), ("data", "model"))
     cell = ShapeCell("t", T, B, "train")
-    for mesh, plan in ((tp, "tp"), (dp, "fsdp")):
-        tb = tsteps.build_train_step(arch, mesh=mesh, cell=cell, plan=plan,
+    tb = tsteps.build_train_step(arch, mesh=tp, cell=cell, device=CPU)
+    assert tb.lm.sp.model_parallel and tb.opt.model_shards is not None
+    assert tb.step_shardings[0]["embed"].spec == ("model", None)
+    for mesh in (tp, dp):
+        fb = tsteps.build_train_step(arch, mesh=mesh, cell=cell, plan="fsdp",
                                      device=CPU)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tb.step_fn({}, None, {}, None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsteps.build_prefill_step(arch, mesh=tp, cell=cell,
-                                  device=CPU).step_fn({}, {})
+        with pytest.raises(NotImplementedError, match="item 5.*FSDP"):
+            fb.step_fn({}, None, {}, None)
+    pb = tsteps.build_prefill_step(arch, mesh=tp, cell=cell, device=CPU)
+    assert tuple(pb.out_shardings.spec) == ("data", None, "model")
     db = tsteps.build_decode_step(arch, mesh=dp, cell=SHAPES["long_500k"],
                                   device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        db.step_fn({}, {}, None, 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsteps.shard_policy_for(tp).residual(torch.zeros(1, 1, 1))
+    assert db.lm.sp.shard_kv_seq and tuple(db.in_shardings[2].spec) == ()
+    sp = tsteps.shard_policy_for(tp)
+    assert sp.model_parallel and sp.tp_size == 2
     sp = tsteps.shard_policy_for(dp)
     x = torch.zeros(1, 2, 3)
     assert sp.data_parallel and sp.dp_size == 4

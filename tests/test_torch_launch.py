@@ -186,8 +186,10 @@ def test_one_device_policy_and_refusals():
             curvature_axis="curv"), curvature_axis="curv", device=CPU)
     # a mesh with a model axis larger than 1: the policy and the
     # shardings are the reference's (the port's policy also holds the
-    # mesh its data-parallel collectives run over), but a step refuses to
-    # run (the port has no tensor parallelism: ROADMAP §1 item 5)
+    # mesh its collectives run over, the forward's length, the LM's
+    # parameter blocks and the decode caches' lengths); the steps build
+    # tensor-parallel (they run in test_torch_tp.py: no world here) and
+    # only plan="fsdp" refuses to run (ROADMAP §1 item 5)
     mesh = argparse.Namespace(axis_names=("data", "model"),
                               devices=np.zeros((2, 2)))
     jarch = jget("gemma3_4b").reduced()
@@ -195,16 +197,17 @@ def test_one_device_policy_and_refusals():
     tpol = tsteps.shard_policy_for(mesh).__dict__
     jpol = jsteps.shard_policy_for(mesh).__dict__
     assert {k: tpol[k] for k in jpol} == jpol
-    assert set(tpol) - set(jpol) == {"mesh"} and tpol["mesh"] is mesh
+    assert set(tpol) - set(jpol) == {"mesh", "seq", "shards", "kv_lens"}
+    assert tpol["mesh"] is mesh
     built = tsteps.build_train_step(arch, mesh=mesh, device=CPU)
     dec = tsteps.build_decode_step(arch, mesh=mesh, device=CPU)
+    pre = tsteps.build_prefill_step(arch, mesh=mesh, device=CPU)
     assert built.in_shardings is not None and dec.in_shardings is not None
-    for call in (lambda: built.step_fn(None, None, None, None),
-                 lambda: dec.step_fn(None, None, None, 0),
-                 lambda: tsteps.build_prefill_step(
-                     arch, mesh=mesh, device=CPU).step_fn(None, None)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    assert built.lm.sp.model_parallel and pre.lm.sp.model_parallel
+    assert dec.lm.sp.kv_lens == (SHAPES["decode_32k"].seq_len, 0, False)
+    fsdp = tsteps.build_train_step(arch, mesh=mesh, plan="fsdp", device=CPU)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        fsdp.step_fn(None, None, None, None)
 
 
 def test_api_exports_build_train_step():

@@ -18,7 +18,8 @@ reference, on the CPU.
   a builder step on a 2 × 2 [data, curv] mesh against the reference's
   replicated step; the CLI at ``--mesh 2x2 --mesh-axes data,curv``
   against the port's own ``--mesh none`` run (losses at 1e-5, the engine
-  seen in its log lines) and a model axis refused; metrics on ≡ off and
+  seen in its log lines) and on a model axis (tensor-parallel, the same
+  losses; only ``plan="fsdp"`` refused); metrics on ≡ off and
   health on ≡ off under the engine (``tests/test_obs.py:301``,
   ``tests/test_chaos.py:276``); a checkpoint saved on (2, 2) restored on
   (2, 1) and on one device, synchronous and mid-lag
@@ -417,12 +418,15 @@ def test_cli_on_a_2x2_mesh_equals_no_mesh(world):
     """``--mesh 2x2 --mesh-axes data,curv`` on four ranks ≡ ``--mesh
     none``: losses at 1e-5; rank 0's log shows the engine (slots on curv,
     rows on data) and the memory it divides; the other ranks print
-    nothing; a model axis larger than 1 is refused."""
+    nothing; a model axis larger than 1 (``--mesh 2x2``: data, model)
+    runs tensor-parallel to the same losses, and only ``plan="fsdp"`` is
+    refused, naming ROADMAP §1 item 5."""
     want = world[1]["cli"]
     runs = _one(world, "cli")
     for got in runs:
         np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
-        assert "item 5" in got["refused"]
+        np.testing.assert_allclose(got["model_losses"], want, rtol=1e-5)
+        assert "item 5" in got["refused"] and "fsdp" in got["refused"]
     log = runs[0]["console"]
     assert "curvature sharded on 'curv'" in log
     assert "rows=data n_rows=2" in log and "dense-M memory" in log

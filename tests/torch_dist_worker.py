@@ -1,6 +1,6 @@
 """The rank program of the port's multi-process CPU tests
-(``test_torch_dist.py``, ``test_torch_mesh.py``, ``test_torch_dp.py``),
-and :func:`spawn`, which runs it.
+(``test_torch_dist.py``, ``test_torch_mesh.py``, ``test_torch_dp.py``,
+``test_torch_tp.py``), and :func:`spawn`, which runs it.
 
 One ``gloo`` world of ``WORLD`` processes per test file: the parent
 writes the cases to a pickle, each rank joins through a file rendezvous
@@ -467,21 +467,28 @@ def tcut(vocab: int = 256):
 
 def _cli(ctx, case):
     """The CLI on the 2 × 2 [data, curv] mesh (rank 0's console captured)
-    and a model axis larger than 1 refused."""
+    and on the 2 × 2 [data, model] mesh (tensor-parallel); the fsdp plan
+    refused."""
     import torch.distributed as dist
+    from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as ttrain
     buf = io.StringIO()
     args = ttrain.parse_args(case["argv"])
     with contextlib.redirect_stdout(buf):
         _, losses = ttrain.run(args, arch=tcut())
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, model_losses = ttrain.run(ttrain.parse_args(case["model_argv"]),
+                                     arch=tcut())
     refused = None
+    tb = tsteps.build_train_step(tcut(), mesh=ttrain.mesh_of(
+        ttrain.parse_args(case["model_argv"])), plan="fsdp", device=ctx.cpu)
     try:
-        ttrain.run(ttrain.parse_args(case["model_argv"]), arch=tcut())
+        tb.step_fn({}, None, {}, None)
     except NotImplementedError as e:
         refused = str(e)
     dist.barrier()
     return {"losses": losses, "console": buf.getvalue(),
-            "refused": refused}
+            "model_losses": model_losses, "refused": refused}
 
 
 def _builder(ctx, case):
@@ -881,7 +888,384 @@ def suite_dp(ctx, cases):
     return {case["name"]: kinds[case["kind"]](ctx, case) for case in cases}
 
 
-SUITES = {"engine": suite_engine, "mesh": suite_mesh, "dp": suite_dp}
+# -- the tensor-parallel suite -----------------------------------------------
+
+#: the suite's meshes (data, model)
+TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "1x2": (1, 2)}
+
+
+@contextlib.contextmanager
+def continuation_replay(shifts=None):
+    """Record the spectrum continuation's shift (``core/precond.py``'s min
+    over modes with D > 0, per row) of every call while the block runs,
+    as numpy arrays in the yielded list; with ``shifts`` (another run's
+    record) apply that run's shift of the same call instead.  A
+    rounding-level mode that is positive in one run and not in another
+    moves λ by the smallest real mode there (ROADMAP §3); replaying one
+    run's shifts in the other holds the rest of their arithmetic to each
+    other (``chip_smoke.py``'s replay, for the CPU tests)."""
+    import torch
+    from repro_torch.core import precond
+    orig = precond.spectrum_continuation
+    rec = []
+
+    def continuation(D, lam):
+        _, own = orig(D, torch.zeros_like(lam))
+        i = len(rec)
+        rec.append(_np(own))
+        if shifts is None:
+            return orig(D, lam)
+        sh = torch.as_tensor(shifts[i], dtype=D.dtype, device=D.device)
+        return torch.clamp(D - sh[..., None], min=0.0), lam + sh
+
+    precond.spectrum_continuation = continuation
+    try:
+        yield rec
+    finally:
+        precond.spectrum_continuation = orig
+
+
+def _tp_mesh(ctx, name):
+    from repro_torch.launch import mesh as mesh_lib
+    return mesh_lib.make_mesh(TP_MESHES[name], ("data", "model"),
+                              device=ctx.cpu)
+
+
+def _tp_lm(ctx, case, mesh):
+    import torch
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.lm import LM
+    lm = LM(dp_arch(case["arch"]), tsteps.shard_policy_for(mesh),
+            remat=case.get("remat", False), device=ctx.cpu)
+    if "init" in case:                  # the reference's, localized
+        from repro_torch import convert
+        from repro_torch.distributed import sharding as shd
+        params = shd.localize(convert.params_from_jax(case["init"],
+                                                      device=ctx.cpu),
+                              lm.param_shardings)
+    else:
+        params = lm.init(torch.Generator().manual_seed(0))
+    return lm, {k: v.detach().requires_grad_() for k, v in params.items()}
+
+
+def _blocks_held(lm, params) -> dict:
+    """Whether every leaf is this rank's block: {path: (local shape, the
+    whole leaf's)} of the sharded leaves, and the replicated leaves whose
+    shape is not the whole one."""
+    ms = lm.sp.shards
+    out = {"sharded": {}, "wrong": []}
+    for k, v in params.items():
+        if tuple(v.shape) != ms.local_shape(k):
+            out["wrong"].append(k)
+        if ms.sharded(k):
+            out["sharded"][k] = (tuple(v.shape), ms.shapes[k])
+    return out
+
+
+def _whole(lm, tree) -> dict:
+    """A parameter-keyed tree of this rank's blocks gathered whole
+    (collective), as numpy."""
+    from repro_torch.distributed import sharding as shd
+    g = shd.globalize({k: v.detach() for k, v in tree.items()},
+                      lm.param_shardings)
+    return {k: _np(v) for k, v in g.items()}
+
+
+def _tp_step(ctx, case):
+    """``make_scheduled_kfac_step`` (the CLI's step) on the model mesh
+    (the curvature engine on "data" when it has members, as ``--curvature
+    auto`` picks), from the reference's parameters (this rank's blocks),
+    with its batches (each rank its data block) and heavy-op draws."""
+    import torch
+    from repro_torch import specs
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.data.synthetic import rank_rows
+    from repro_torch.train import loop as tloop
+    mesh = _tp_mesh(ctx, case["mesh"])
+    lm, params = _tp_lm(ctx, case, mesh)
+    sp = lm.sp
+    seen = RowsSeen(lm)
+    opt = tkfac.Kfac(dp_kfac_config(case["variant"]), lm.taps,
+                     device=ctx.cpu)
+    opt.model_shards = sp.shards
+    if sp.dp_size > 1:
+        specs.DistSpec(mesh=mesh, curvature_axis="data").attach(opt)
+    step = tloop.make_scheduled_kfac_step(lm.loss_fn, opt, case["n_tokens"],
+                                          sp=sp)
+    held = _blocks_held(lm, params)
+    state = tloop.TrainState(params=params, opt=opt.init(params),
+                             rng=torch.Generator().manual_seed(1))
+    work = opt.uniform_work(True, True, True)
+    losses = []
+    for k, batch in enumerate(case["batches"]):
+        local = rank_rows({n: _t(v) for n, v in batch.items()},
+                          sp.dp_index, sp.dp_size)
+        draws = {int(b): _t(d) for b, d in case["draws"][k].items()}
+        state, loss = step(state, local, work, draws=draws)
+        losses.append(float(loss))
+    return {"losses": losses, "rows": seen.rows, "held": held,
+            "after": _whole(lm, state.params),
+            "mu": _whole(lm, state.opt.fallback.mu)}
+
+
+def _tp_taps(ctx, case):
+    """``kfac_grads`` on the model mesh from the reference's parameters:
+    the loss, the acts and probe gradients (whole on every rank), the
+    gradients gathered whole, and the rows each forward saw."""
+    from repro_torch.data.synthetic import rank_rows
+    from repro_torch.models import layers
+    from repro_torch.train import loop as tloop
+    mesh = _tp_mesh(ctx, case["mesh"])
+    lm, params = _tp_lm(ctx, case, mesh)
+    sp = lm.sp
+    seen = RowsSeen(lm)
+    local = rank_rows({n: _t(v) for n, v in case["batch"].items()},
+                      sp.dp_index, sp.dp_size)
+    loss, acts, gp, gprobe = tloop.kfac_grads(
+        lm.loss_fn, params, layers.make_probes(lm.taps, device=ctx.cpu),
+        local, sp)
+    return {"loss": float(loss), "rows": seen.rows,
+            "held": _blocks_held(lm, params),
+            "acts": {k: _np(v) for k, v in acts.items()},
+            "probe_grads": {k: _np(v) for k, v in gprobe.items()},
+            "grads": _whole(lm, gp)}
+
+
+def _tp_archs(ctx, case):
+    """Every architecture's ``build_train_step`` (stats, light, heavy;
+    remat) on the (1, 2) mesh, one step from the port's seeded parameters
+    (each rank its blocks); the ranks outside the mesh wait."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as tsteps
+    mesh = _tp_mesh(ctx, "1x2")
+    out = {}
+    if not mesh.member:
+        return out
+    B, T = case["B"], case["T"]
+    for name, batch in case["batches"].items():
+        tb = tsteps.build_train_step(
+            dp_arch((name, 0)), mesh=mesh, cell=ShapeCell("t", T, B, "train"),
+            flags=dict(do_stats=True, do_light=True, do_heavy=True),
+            device=ctx.cpu)
+        params = tb.lm.init(torch.Generator().manual_seed(0))
+        held = _blocks_held(tb.lm, params)
+        local = shd.localize({k: _t(v) for k, v in batch.items()},
+                             tb.step_shardings[2])
+        with continuation_replay() as shifts, applied_updates() as upd:
+            p, st, loss = tb.step_fn(params, tb.opt.init(params), local,
+                                     torch.Generator().manual_seed(1))
+        out[name] = {"loss": float(loss), "held": held, "shifts": shifts,
+                     "updates": _whole(tb.lm, upd[0]),
+                     "mu": _whole(tb.lm, st.fallback.mu)}
+    return out
+
+
+@contextlib.contextmanager
+def applied_updates():
+    """The updates every ``optim/base.py::apply_updates`` call adds while
+    the block runs (copies, in the yielded list): a step's change before
+    fp32 rounds it into parameters many times its size."""
+    from repro_torch.optim import base as optbase
+    orig, got = optbase.apply_updates, []
+
+    def recorded(params, updates):
+        got.append({k: v.detach().clone() for k, v in updates.items()})
+        return orig(params, updates)
+    optbase.apply_updates = recorded
+    try:
+        yield got
+    finally:
+        optbase.apply_updates = orig
+
+
+def _tp_serve(ctx, case):
+    """The prefill and decode builders on the model mesh from the port's
+    seeded parameters: the prefill's vocabulary blocks gathered (this
+    rank's rows), and decode's logits in every cache layout over a cache
+    whose shards the tokens cross; the long-context decode (B = 1, the
+    sequence over every axis, ring caches)."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as tsteps
+    mesh = _tp_mesh(ctx, case["mesh"])
+    arch = dp_arch(case["arch"])
+    B, T = case["B"], case["T"]
+    tokens = _t(case["tokens"])
+    pb = tsteps.build_prefill_step(arch, mesh=mesh, cell=ShapeCell(
+        "p", T, B, "prefill"), device=ctx.cpu)
+    params = pb.lm.init(torch.Generator().manual_seed(0))
+    local = shd.localize({"tokens": tokens}, pb.step_shardings[1])
+    lg = pb.step_fn(params, local)
+    out = {"prefill_block": list(lg.shape),
+           "prefill": _np(coll.all_gather(lg, mesh, "model", 2))}
+    for name, cell, layout, window, n in case["decodes"]:
+        db = tsteps.build_decode_step(arch, mesh=mesh, cell=ShapeCell(
+            cell, case["S"], B if cell != "long_500k" else 1, "decode"),
+            cache_layout=layout, window_caches=window, device=ctx.cpu)
+        Bd = B if cell != "long_500k" else 1
+        rep = (tsteps.kv_rep_for(arch, mesh)
+               if layout == "heads" and cell != "long_500k" else 1)
+        cache = shd.localize(db.lm.init_cache(Bd, case["S"],
+                                              window_caches=window,
+                                              kv_rep=rep),
+                             db.step_shardings[1])
+        tok = shd.localize(tokens[:Bd], db.step_shardings[2])
+        got = []
+        for t in range(n):
+            lgd, cache = db.step_fn(params, cache, tok[:, t:t + 1], t)
+            got.append(_np(lgd))
+        out[name] = {"logits": got,
+                     "cache_k": list(cache["0"]["p0"]["k"].shape)}
+    return out
+
+
+def _tp_compress(ctx, case):
+    """``compress_tree`` of sharded leaves over the 2 × 2 mesh: each data
+    rank's share of the global gradients, this rank's block of it; rounds
+    with error feedback from the given bases → this rank's block of the
+    reduced approximations and of its error, each round."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.distributed import compress as tcomp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as tsteps
+    mesh = _tp_mesh(ctx, case["mesh"])
+    abstract = {k: torch.empty(s, device="meta")
+                for k, s in case["shapes"].items()}
+    ms = shd.ModelShards(abstract, mesh)
+    sp = dc.replace(tsteps.shard_policy_for(mesh), shards=ms)
+    cfg = tcomp.CompressConfig(**case["cfg"])
+    r = sp.dp_index
+    blk = lambda k, v: ms.block(k, _t(v))
+    shares = case["shares"]
+    state = tcomp.init_state({k: blk(k, v) for k, v in shares[0][r].items()},
+                             cfg, bases={k: _t(v) for k, v in
+                                         case["bases"].items()}, sp=sp)
+    out = []
+    for round_ in shares:
+        grads = {k: blk(k, v) for k, v in round_[r].items()}
+        approx, state = tcomp.compress_tree(grads, state, cfg, sp=sp)
+        out.append({"approx": {k: _np(v) for k, v in approx.items()},
+                    "err": {k: _np(v) for k, v in state.err.items()},
+                    "dims": {k: ms.dim(k) for k in approx}})
+    return {"rounds": out, "coord": (mesh.coord("data"),
+                                     mesh.coord("model"))}
+
+
+def _tp_cli(ctx, case):
+    """The CLI on the case's model mesh with ``--compress`` and a
+    checkpoint directory: its losses, compressed gradients and final
+    parameters (gathered whole), rank 0's log."""
+    from repro_torch.distributed import compress as tcomp
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.lm import LM
+    grads, compress_tree = [], tcomp.compress_tree
+
+    def recorded(gp, cs, cfg, sp=None):      # the leaves compressed whole
+        out, cs = compress_tree(gp, cs, cfg, sp=sp)
+        grads.append({k: v.detach().clone() for k, v in out.items()
+                      if tcomp._compressible(v, cfg, sp, k)})
+        return out, cs
+    tcomp.compress_tree = recorded
+    args = ttrain.parse_args(case["argv"])
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            state, losses = ttrain.run(args, arch=dp_arch(case["arch"]))
+    finally:
+        tcomp.compress_tree = compress_tree
+    lm = LM(dp_arch(case["arch"]), tsteps.shard_policy_for(
+        ttrain.mesh_of(args)), device=ctx.cpu)
+    ms = lm.sp.shards
+    return {"losses": losses, "log": buf.getvalue(),
+            "held": _blocks_held(lm, state.params),
+            "grads": [{k: _np(ms.gather(k, v)) for k, v in g.items()}
+                      for g in grads],
+            "after": _whole(lm, state.params)}
+
+
+def _tp_health(ctx, case):
+    """The CLI with ``--health`` on the model mesh: its losses and the
+    guard's verdicts (each rank reads the same report: the sums and
+    maxima of the sharded leaves' blocks reduced over "model")."""
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import health
+    reports, make = [], health.health_report
+
+    def recorded(*a, **kw):
+        rep = make(*a, **kw)
+        reports.append({k: rep[k] for k in ("ok", "grad_nonfinite",
+                                            "update_nonfinite")})
+        return rep
+    health.health_report = recorded
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, losses = ttrain.run(ttrain.parse_args(case["argv"]),
+                                   arch=dp_arch(case["arch"]))
+    finally:
+        health.health_report = make
+    return {"losses": losses, "reports": reports}
+
+
+def _tp_restore(ctx, case):
+    """The CLI's checkpoint restored onto the model mesh (its
+    ``state_shardings``): the blocks this rank holds, gathered whole."""
+    import torch
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.lm import LM
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop as tloop
+    args = ttrain.parse_args(case["argv"])
+    mesh = ttrain.mesh_of(args)
+    lm = LM(dp_arch(case["arch"]), tsteps.shard_policy_for(mesh),
+            device=ctx.cpu)
+    opt = tkfac.Kfac(ttrain.kfac_config_of(args), lm.taps, device=ctx.cpu)
+    opt.model_shards = lm.sp.shards
+    curv, rows = ttrain.curvature_axes(args, mesh)
+    from repro_torch import specs
+    specs.DistSpec(mesh=mesh, curvature_axis=curv, row_axis=rows).attach(opt)
+    params = lm.init(torch.Generator().manual_seed(5))
+    state = tloop.TrainState(params=params, opt=opt.init(params),
+                             rng=torch.Generator().manual_seed(1))
+    state, man = ckpt.restore(case["dir"], state,
+                              shardings=ttrain.state_shardings(lm, opt))
+    return {"step": int(man["step"]), "held": _blocks_held(lm, state.params),
+            "params": _whole(lm, state.params),
+            "mu": _whole(lm, {k: v for k, v in state.opt.fallback.mu.items()
+                              if lm.sp.shards.sharded(k)})}
+
+
+def _tp_fsdp(ctx, case):
+    """``plan="fsdp"`` on the model mesh: built, refused when it runs."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import steps as tsteps
+    tb = tsteps.build_train_step(dp_arch(case["arch"]),
+                                 mesh=_tp_mesh(ctx, case["mesh"]),
+                                 cell=ShapeCell("t", 16, 4, "train"),
+                                 plan="fsdp", device=ctx.cpu)
+    try:
+        tb.step_fn({}, None, {}, None)
+    except NotImplementedError as e:
+        return {"refused": str(e)}
+    return {"refused": None}
+
+
+def suite_tp(ctx, cases):
+    kinds = {"step": _tp_step, "taps": _tp_taps, "archs": _tp_archs,
+             "serve": _tp_serve, "compress": _tp_compress, "cli": _tp_cli,
+             "restore": _tp_restore, "fsdp": _tp_fsdp,
+             "health": _tp_health}
+    return {case["name"]: kinds[case["kind"]](ctx, case) for case in cases}
+
+
+SUITES = {"engine": suite_engine, "mesh": suite_mesh, "dp": suite_dp,
+          "tp": suite_tp}
 
 
 def main(argv):
