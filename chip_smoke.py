@@ -144,8 +144,9 @@ Phases, run in this order (each prints one JSON line):
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
 phase checked; on paths 4, 5, 8, 9, 10, 11, 12 and launch_reduced every
-kernel's); then the ``kernels`` line
-(launches summed over the paths) and, last, the ``ok`` line.  Any failure
+kernel's); then a ``seconds`` line (each phase's wall seconds), the
+``kernels`` line (launches summed over the paths) and, last, the ``ok``
+line.  Any failure
 raises: the script exits nonzero and prints no ``ok`` line.  It has no CPU
 path.
 """
@@ -2451,7 +2452,7 @@ ROUNDING_MODE = 1e-6
 
 
 @contextlib.contextmanager
-def continuation_replay(shifts=None):
+def continuation_replay(shifts=None, prefix=False):
     """Record the spectrum continuation's shift (``core/precond.py``'s min
     over modes with D > 0, per row) at every call while the block runs,
     as CPU tensors in the yielded list; with
@@ -2461,9 +2462,10 @@ def continuation_replay(shifts=None):
     rounding-level mode that is positive on one device and not on the
     other moves λ by the smallest real mode there (ROADMAP §3).  Replaying
     one run's shifts in the other holds the rest of the two runs'
-    arithmetic to each other.  Calls past the end of ``shifts`` take
-    their own shift (a record of a run's first step replays that step
-    only)."""
+    arithmetic to each other.  The block must make as many calls as
+    ``shifts`` holds; with ``prefix`` (a record of a run's first step,
+    replayed in a longer run) the calls past its end take their own
+    shift."""
     import torch
     from repro_torch.core import precond
     orig = precond.spectrum_continuation
@@ -2473,8 +2475,11 @@ def continuation_replay(shifts=None):
         _, own = orig(D, torch.zeros_like(lam))     # λ = 0: own = min D>0
         i = len(rec)
         rec.append(own.detach().cpu())
-        if shifts is None or i >= len(shifts):
+        if shifts is None or (prefix and i >= len(shifts)):
             return orig(D, lam)
+        if i >= len(shifts):
+            raise AssertionError(f"continuation_replay: call {i} past the "
+                                 f"{len(shifts)} replayed shifts")
         s = shifts[i].to(D.device, D.dtype)
         return torch.clamp(D - s[..., None], min=0.0), lam + s
 
@@ -2483,6 +2488,9 @@ def continuation_replay(shifts=None):
         yield rec
     finally:
         precond.spectrum_continuation = orig
+    if shifts is not None and len(rec) < len(shifts):
+        raise AssertionError(f"continuation_replay: {len(rec)} calls "
+                             f"replayed {len(shifts)} shifts")
 
 
 def factor_partings(card_state, host_state) -> list:
@@ -4121,23 +4129,25 @@ def phase_dp_reduced(checked):
 #: block of every sharded leaf) with ``--compress``, the CLI's defaults
 #: (batch 4 x 64, B-KFAC, every factor BRAND), cut to ``repeats`` of its
 #: two segments (1, 0: 6 of 34 layers, gemma3's five local layers and
-#: its global one).  16 layers are the deepest that two ranks fit alone
-#: (35.10 GB peak a rank; 18 run the card out of memory:
-#: tools/launch_memory.py --mesh 1x2), and every step gathers each
-#: sharded gradient and sums the probe gradients over gloo (~1 GB/s of
-#: data moved on one card): at 10 layers 3.41 GB gathered and 1.40 GB
-#: summed a rank, 10.5–13.6 s an idle step, which took the script to
-#: 934 s of its 1200, so the cut is chosen with the time limit in view.  Step 0 is
-#: first run in fp32 (``--steps 1``) beside one process's, its update and
-#: new factors held (with bf16 activations the step-0 updates part by
-#: percents between the two runs' reductions).  Then the
-#: builders at that cut: a 2 x 2048 prefill (vocabulary blocks gathered),
-#: fp32 decode of ``decode`` tokens over a ``cache``-slot cache (past the
-#: shard boundary) in each of the "seq", "heads" and "hd" layouts, and
-#: the long-context decode (B = 1, ``window_caches``) at ``long`` slots,
-#: ``long_tokens`` tokens from just below the middle shard boundary; each
-#: against the same builders in one process on rank 0.
-TP_SLICE = dict(arch="gemma3_4b", repeats=(1, 0), steps=6, batch=4, seq=64,
+#: its global one), ``steps`` steps, all held.  16 layers are the deepest
+#: that two ranks fit alone (35.10 GB peak a rank; 18 run the card out of
+#: memory: tools/launch_memory.py --mesh 1x2), and every step gathers
+#: each sharded gradient and sums the probe gradients over gloo (~1 GB/s
+#: of data moved on one card): at 10 layers 3.41 GB gathered and 1.40 GB
+#: summed a rank, 10.5–13.6 s an idle step, so the cut is chosen with the
+#: script's time limit in view.  Step 0 is held twice against one
+#: process's from the same state, with its continuation shifts replayed:
+#: in fp32 (``--steps 1``) at DP_TOL, and in bf16 (the run's first step)
+#: at TP_WITNESS_FACTOR times the parting of one process's bf16 step 0
+#: from itself with every initial weight one ulp up (the witness).  Then
+#: the builders at that cut in fp32: a 2 x 2048 prefill (vocabulary
+#: blocks gathered), decode of ``decode`` tokens over a ``cache``-slot
+#: cache (past the shard boundary) in each of the "seq", "heads" and "hd"
+#: layouts, and the long-context decode (B = 1, ``window_caches``) at
+#: ``long`` slots, ``long_tokens`` tokens from just below the middle shard
+#: boundary; each against the same builders in one process on rank 0, at
+#: TP_FP32_TOL of scale.
+TP_SLICE = dict(arch="gemma3_4b", repeats=(1, 0), steps=4, batch=4, seq=64,
                 prefill=2048, decode=10, cache=16, long=524288,
                 long_tokens=4, world=2, timeout=900)
 #: tp_reduced: B-R-KFAC at --reduced on ``--mesh 2x2`` (data 2, model 2)
@@ -4148,10 +4158,21 @@ TP_SLICE = dict(arch="gemma3_4b", repeats=(1, 0), steps=6, batch=4, seq=64,
 #: tensor-parallel step's continuation shifts replayed
 TP_REDUCED = dict(argv=("--reduced", "--variant", "brkfac"), steps=12,
                   world=4, data=2, timeout=600)
-#: slice_tp's step 0 (fp32) is held per tapped leaf of these blocks, and
-#: by the new factors of their taps
-TP_HELD_PREFIX = "segments/0/p0/"
-TP_HELD_TAPS = "segments/seg0/p0/"
+#: slice_tp's step 0 is held on the leaves under these prefixes (the
+#: vocabulary-parallel embedding and head, the final norm, a local layer
+#: and the global one): a tapped leaf by its update, every leaf by the
+#: gradient entering the optimizer; and by the new factors of these taps
+TP_HELD = ("embed", "segments/0/p0/", "segments/0/p5/", "final_ln",
+           "head/w")
+TP_HELD_TAPS = ("segments/seg0/p0/", "segments/seg0/p5/", "head")
+#: of the embedding's rows and the head's columns (262,144 each) every
+#: TP_VOCAB_STRIDE-th is held: both ranks' blocks, at a host copy of 1/8
+TP_VOCAB_STRIDE = 8
+#: the fp32 builders' logits against one process's, of scale
+TP_FP32_TOL = 1e-4
+#: slice_tp's bf16 step 0 parts from one process's by at most this many
+#: times the witness's parting (both the largest over the held entries)
+TP_WITNESS_FACTOR = 2.0
 
 
 def _tp_slice_arch():
@@ -4166,25 +4187,91 @@ def _tp_slice_argv(extra=()):
             "--metrics-every", "0", *extra]
 
 
-@contextlib.contextmanager
-def first_updates(keep, at_first=lambda: None):
-    """The first ``apply_updates`` call's updates of the leaves ``keep``
-    accepts, copied to the host (the yielded dict; ``at_first()``'s value
-    under "_")."""
-    from repro_torch.optim import base as optbase
-    orig, got = optbase.apply_updates, {}
+def _tp_held(k: str) -> bool:
+    return k.startswith(TP_HELD)
 
-    def recorded(params, updates):
-        if not got:
-            got.update({k: v.detach().float().cpu()
-                        for k, v in updates.items() if keep(k)})
-            got["_"] = at_first()
-        return orig(params, updates)
-    optbase.apply_updates = recorded
+
+def _held_view(k: str, t):
+    """The held part of leaf ``k`` (every TP_VOCAB_STRIDE-th vocabulary
+    entry of the embedding and the head), as an fp32 host copy (a copy:
+    the optimizer makes an untapped leaf's update in its gradient's
+    storage)."""
+    if k == "embed":
+        t = t[::TP_VOCAB_STRIDE]
+    elif k == "head/w":
+        t = t[:, ::TP_VOCAB_STRIDE]
+    return t.detach().contiguous().to("cpu", copy=True).float()
+
+
+@contextlib.contextmanager
+def first_step(keep, at_first=lambda: None):
+    """The first step's gradients entering the optimizer (``Kfac.update``)
+    of the leaves ``keep`` accepts and its updates (``apply_updates``) of
+    the tapped ones among them, each through ``_held_view``, in the
+    yielded {"grad": …, "update": …} (``at_first()``'s value at the first
+    update under "at")."""
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.optim import base as optbase
+    got = {"grad": {}, "update": {}}
+    update, apply = kfac_lib.Kfac.update, optbase.apply_updates
+    tapped = set()
+
+    def recorded_update(self, grads, *a, **kw):
+        if not got["grad"]:
+            tapped.update(t.param_path for t in self.taps.values())
+            got["grad"].update({k: _held_view(k, v)
+                                for k, v in grads.items() if keep(k)})
+        return update(self, grads, *a, **kw)
+
+    def recorded_apply(params, updates):
+        if "at" not in got:
+            got["update"].update({k: _held_view(k, v)
+                                  for k, v in updates.items()
+                                  if keep(k) and k in tapped})
+            got["at"] = at_first()
+        return apply(params, updates)
+    kfac_lib.Kfac.update, optbase.apply_updates = (recorded_update,
+                                                   recorded_apply)
     try:
         yield got
     finally:
-        optbase.apply_updates = orig
+        kfac_lib.Kfac.update, optbase.apply_updates = update, apply
+
+
+def tp_one_step0(arch, argv, shifts=None, params=None):
+    """The CLI at slice_tp's settings (``argv`` added) in this process,
+    its first step recorded (``first_step``: the held leaves' gradients
+    and updates, and that step's continuation shifts under "shifts");
+    ``shifts`` replays another run's step 0 in it → (state, losses,
+    record)."""
+    from repro_torch.launch import train
+    with contextlib.redirect_stdout(io.StringIO()), \
+            continuation_replay(shifts, prefix=True) as sh, \
+            first_step(_tp_held, at_first=lambda: len(sh)) as got:
+        state, losses = train.run(train.parse_args(_tp_slice_argv(argv)),
+                                  arch=arch, params=params)
+    got["shifts"] = sh[:got.pop("at")]
+    return state, losses, got
+
+
+def _step0_errs(got, want, block=lambda k, w: w) -> dict:
+    """Each held entry's parting of ``got`` from ``want`` ("grad <leaf>",
+    "update <leaf>", "factors <tap>/<side>"): the largest absolute
+    difference over the largest entry of ``want`` (of its block where
+    ``block`` takes the rank's)."""
+    out = {}
+    for kind in ("grad", "update", "factors"):
+        for k, w in want.get(kind, {}).items():
+            w = block(k, w) if kind != "factors" else w
+            out[f"{kind} {k}"] = (float((got[kind][k] - w).abs().max())
+                                  / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def _parted(own, shifts) -> int:
+    """Rows whose own continuation shift parts from the replayed one."""
+    return sum(int(((a - b).abs() > 1e-3 * b.abs()).sum())
+               for a, b in zip(own, shifts))
 
 
 def _factor_ops(factors, prefix: str) -> dict:
@@ -4224,12 +4311,13 @@ def _held_blocks(lm, params) -> dict:
 
 def tp_rank_slice(rank: int, dev) -> dict:
     """slice_tp on this rank: step 0 in fp32 (its block of the held
-    leaves' update and the held taps' factors against one process's,
-    whose shifts it replays), then the CLI on ``--mesh 1x2`` (per step:
-    wall time, the collectives' bytes, seconds and calls), launches,
-    calls by shape, peak memory, the blocks it holds; then the builders
-    on the model mesh against the same builders in one process on rank
-    0."""
+    leaves' gradients and updates and the held taps' factors against one
+    process's, whose shifts it replays), then the CLI on ``--mesh 1x2``
+    in bf16, its step 0 replaying one process's shifts and held likewise
+    (per step: wall time, the collectives' bytes, seconds and calls),
+    launches, calls by shape, peak memory, the blocks it holds; then the
+    builders on the model mesh against the same builders in one process
+    on rank 0."""
     import dataclasses
     import gc
     import os
@@ -4258,40 +4346,35 @@ def tp_rank_slice(rank: int, dev) -> dict:
         marks.append(time.perf_counter())
         tallies.append({kk: list(v) for kk, v in tally.items()})
         return stream(k)
-    held_names = lambda k: k.startswith(TP_HELD_PREFIX)
     mesh = mesh_lib.make_mesh((1, S["world"]), ("data", "model"))
     lm = LM(arch, steps.shard_policy_for(mesh), device=torch.device("meta"))
-    # step 0 in fp32 from the same state as one process's (the parent's),
-    # with its spectrum-continuation shifts replayed (ROADMAP §3): this
-    # rank's block of the update of the held leaves, and the held taps'
-    # new factors
-    want = torch.load(os.environ["CHIP_SMOKE_TP_UPDATES"])
-    shifts0, want_ops = want.pop("_shifts"), want.pop("_factors")
+    ms = lm.sp.shards
+    block = lambda k, w: ms.block(k, w) if ms.sharded(k) else w
+    # one process's step 0 (the parent's), fp32 and bf16, from the same
+    # state: its held leaves, new factors (fp32) and continuation shifts
+    want = torch.load(os.environ["CHIP_SMOKE_TP_STEP0"], mmap=True)
     arch32 = dataclasses.replace(arch, dtype="float32")
-    with first_updates(held_names) as upd0, \
-            continuation_replay(shifts0) as own_shifts, \
+    t_fp32 = time.perf_counter()
+    with first_step(_tp_held) as got32, \
+            continuation_replay(want["fp32"]["shifts"]) as own32, \
             contextlib.redirect_stdout(io.StringIO()):
         st32, _ = train.run(train.parse_args(_tp_slice_argv(
             ["--mesh", f"1x{S['world']}", "--steps", "1"])), arch=arch32)
-    ops = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
+    got32["factors"] = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
     del st32
     gc.collect()
     torch.cuda.empty_cache()
-    upd_err = {}
-    for k, w in want.items():
-        g = upd0[k]
-        wb = lm.sp.shards.block(k, w) if lm.sp.shards.sharded(k) else w
-        upd_err[k] = (float((g - wb).abs().max())
-                      / max(float(wb.abs().max()), 1e-30))
-    state_err = {k: float((ops[k] - w).abs().max())
-                 / max(float(w.abs().max()), 1e-30)
-                 for k, w in want_ops.items()}
-    parted0 = sum(int(((a - b).abs() > 1e-3 * b.abs()).sum())
-                  for a, b in zip(own_shifts, shifts0))
+    err32 = _step0_errs(got32, want["fp32"], block)
+    parted32 = _parted(own32, want["fp32"]["shifts"])
+    factors_held = sorted(want["fp32"]["factors"])
+    del got32
+    t_cli = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    with calls_by_shape() as by_shape, counted_collectives() as tally:
+    with calls_by_shape() as by_shape, counted_collectives() as tally, \
+            first_step(_tp_held) as got16, \
+            continuation_replay(want["bf16"]["shifts"], prefix=True) as own16:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             state, losses = train.run(args, arch=arch, batches=batches)
@@ -4300,6 +4383,9 @@ def tp_rank_slice(rank: int, dev) -> dict:
         tallies.append({kk: list(v) for kk, v in tally.items()})
     peak = torch.cuda.max_memory_allocated()
     counts = _build.launch_counts()
+    err16 = _step0_errs(got16, want["bf16"], block)
+    parted16 = _parted(own16, want["bf16"]["shifts"])
+    del got16, want
     kinds = ([e["phase"] for e in _events(tel) if e["type"] == "step"]
              if rank == 0 else None)
     per_step = []
@@ -4316,6 +4402,7 @@ def tp_rank_slice(rank: int, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t_builders = time.perf_counter()
     # the builders on the model mesh; rank 0 also runs them in one process
     # on the parameters gathered whole
     whole = shd.globalize(params, lm.param_shardings)
@@ -4326,8 +4413,9 @@ def tp_rank_slice(rank: int, dev) -> dict:
     prompt = TokenStream(vocab=arch.vocab, batch=B, seq_len=S["prefill"],
                          seed=1, device=dev).batch_at(0)["tokens"]
     out = {}
-    pb = steps.build_prefill_step(arch, mesh=mesh, device=dev, cell=ShapeCell(
-        "tp_prefill", S["prefill"], B, "prefill"))
+    pb = steps.build_prefill_step(arch32, mesh=mesh, device=dev,
+                                  cell=ShapeCell("tp_prefill", S["prefill"],
+                                                 B, "prefill"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lg = pb.step_fn(params, {"tokens": prompt})
@@ -4336,14 +4424,15 @@ def tp_rank_slice(rank: int, dev) -> dict:
     out["prefill_block"] = list(lg.shape)
     lg = coll.all_gather(lg, mesh, "model", 2)
     if rank == 0:
-        one = steps.build_prefill_step(arch, device=dev, cell=ShapeCell(
+        one = steps.build_prefill_step(arch32, device=dev, cell=ShapeCell(
             "tp_prefill", S["prefill"], B, "prefill"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref = one.step_fn(whole, {"tokens": prompt})
         torch.cuda.synchronize()
         out["prefill_s_one"] = time.perf_counter() - t0
-        out["prefill_err_of_scale"] = _scale_err(lg.float(), ref.float())
+        out["prefill_err_of_scale"] = (float((lg - ref).abs().max())
+                                       / float(ref.abs().max()))
         out["finite"] = bool(torch.isfinite(lg).all())
         del ref
     del lg
@@ -4368,7 +4457,7 @@ def tp_rank_slice(rank: int, dev) -> dict:
             cache = db.lm.init_cache(Bd, n_slots, window_caches=ring,
                                      kv_rep=rep)
             if m is not None:
-                cache = shd.localize(cache, db.step_shardings[1])
+                cache = shd.localize(cache, db.in_shardings[1])
             use = params if m is not None else whole
             got = []
             torch.cuda.synchronize()
@@ -4400,8 +4489,13 @@ def tp_rank_slice(rank: int, dev) -> dict:
             "log": buf.getvalue() if rank == 0 else "",
             "peak_mem_bytes": peak, "launches": counts,
             "calls_by_shape": dict(by_shape), "held": held,
-            "update0_err": upd_err, "state0_err": state_err,
-            "shift_rows_parted0": parted0, "builders": out}
+            "step0_err_fp32": err32, "step0_err_bf16": err16,
+            "factors_held": factors_held,
+            "shift_rows_parted0": {"fp32": parted32, "bf16": parted16},
+            "builders": out,
+            "seconds": {"step0_fp32": t_cli - t_fp32,
+                        "cli": t_builders - t_cli,
+                        "builders": time.perf_counter() - t_builders}}
 
 
 def tp_rank_reduced(rank: int, dev) -> dict:
@@ -4524,52 +4618,49 @@ def tp_rank_reduced(rank: int, dev) -> dict:
 
 
 def phase_tp_slice(checked):
-    """Path 14 (TP_SLICE): the one-process CLI at the cut first (step 0
-    in fp32: its updates of the held leaves, its continuation shifts, the
-    held taps' new factors; then the bf16 run's losses and step times),
+    """Path 14 (TP_SLICE): the one-process CLI at the cut first: step 0
+    in fp32 (its held leaves' gradients and updates, its continuation
+    shifts, the held taps' new factors), the bf16 run (its losses and
+    step times, its step 0 recorded likewise), and the witness (bf16 step
+    0 again from every initial weight one ulp up, the shifts replayed);
     then the same on ``--mesh 1x2``: two ranks of this card, each holding
-    its blocks, the fp32 step 0's update and factors at DP_TOL, the bf16
-    run held to one process's over the first DP_HELD steps at DP_TOL;
-    each rank's step time by kind, its collectives, peak memory,
-    launches; the builders against one process's.  Returns the launch
-    counts summed over the ranks."""
+    its blocks, the fp32 step 0 at DP_TOL, the bf16 step 0 at
+    TP_WITNESS_FACTOR times the witness's parting, the bf16 losses at
+    DP_TOL over the DP_HELD steps; each rank's step time by kind, its
+    collectives, peak memory, launches; the builders against one
+    process's.  Returns the launch counts summed over the ranks."""
+    import dataclasses
     import gc
+    import math
     import os
     import shutil
     import tempfile
     import numpy as np
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.launch import train
     from repro_torch.launch.param_count import count_params
-    import dataclasses
+    from repro_torch.models.lm import LM
     S = TP_SLICE
     arch = _tp_slice_arch()
+    dev = torch.device("cuda")
     tel = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    # step 0 in fp32: its updates of the held leaves, its shifts, the held
-    # taps' new factors (with bf16 activations the step-0 updates part by
-    # percents between the two runs' reductions: PERF.md §6)
-    with contextlib.redirect_stdout(io.StringIO()), \
-            continuation_replay() as shifts, \
-            first_updates(lambda k: k.startswith(TP_HELD_PREFIX),
-                          at_first=lambda: len(shifts)) as upd0:
-        st32, _ = train.run(train.parse_args(_tp_slice_argv(
-            ["--steps", "1"])), arch=dataclasses.replace(arch,
-                                                         dtype="float32"))
-    factors0 = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    free()
+    t_one = time.perf_counter()
+    st32, _, f32 = tp_one_step0(dataclasses.replace(arch, dtype="float32"),
+                                ["--steps", "1"])
+    f32["factors"] = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
     del st32
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        state, one = train.run(train.parse_args(_tp_slice_argv(
-            ["--telemetry-dir", tel])), arch=arch)
+    state, one, f16 = tp_one_step0(arch, ["--telemetry-dir", tel])
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
     one_peak = torch.cuda.max_memory_allocated() - base
@@ -4577,19 +4668,30 @@ def phase_tp_slice(checked):
                  if e["type"] == "step"]
     shutil.rmtree(tel, ignore_errors=True)
     del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    tapped = {n for n in upd0 if n != "_" and not any(
-        n.endswith(x) for x in ("ln", "ln2"))}
+    free()
+    # the witness: how far rounding alone parts one process's bf16 step 0
+    # from itself (PR 23's ``phase_rounding_witness``, with the shifts
+    # replayed as the ranks replay them)
+    init = LM(arch, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    up = {k: torch.nextafter(v.detach(), torch.full_like(v, math.inf)
+                             ).requires_grad_() for k, v in init.items()}
+    del init
+    _, _, wit = tp_one_step0(arch, ["--steps", "1"], shifts=f16["shifts"],
+                             params=up)
+    del up
+    free()
+    witness = _step0_errs(wit, f16)
+    del wit
     want_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_u_"),
-                             "updates.pt")
-    torch.save({**{n: upd0[n] for n in tapped},
-                "_shifts": shifts[:upd0["_"]], "_factors": factors0},
-               want_path)
+                             "step0.pt")
+    torch.save({"fp32": f32, "bf16": f16}, want_path)
+    del f32, f16
+    one_process_s = time.perf_counter() - t_one
     card_free = torch.cuda.mem_get_info()[0]
     _, res, spawn_s = spawn_ranks(
         "tp_slice", S["world"], S["timeout"],
-        env_extra={"CHIP_SMOKE_TP_UPDATES": want_path})
+        env_extra={"CHIP_SMOKE_TP_STEP0": want_path})
     shutil.rmtree(os.path.dirname(want_path), ignore_errors=True)
     sl = [g["tp_slice"] for g in res]
     kinds = sl[0]["kinds"]
@@ -4613,8 +4715,10 @@ def phase_tp_slice(checked):
     unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
                         if k not in checked})
     bl = [s["builders"] for s in sl]
-    upd_err = max(max(s["update0_err"].values()) for s in sl)
-    state0_err = max(max(s["state0_err"].values()) for s in sl)
+    err32 = max(max(s["step0_err_fp32"].values()) for s in sl)
+    err16 = max(max(s["step0_err_bf16"].values()) for s in sl)
+    wit = max(witness.values())
+    worst = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:4]
     log = [ln for ln in sl[0]["log"].splitlines()
            if "tensor parallel" in ln or "data parallel" in ln]
     emit({"phase": "slice_tp", "summary": True, "arch": arch.name,
@@ -4626,15 +4730,21 @@ def phase_tp_slice(checked):
           "kinds": kinds, "losses_one": one,
           "max_drift_held": max(max(d[:DP_HELD]) for d in drift),
           "max_drift": max(max(d) for d in drift), "tol": DP_TOL,
-          "held_steps": DP_HELD, "update0_max_rel_err": upd_err,
-          "update0_err": [s["update0_err"] for s in sl],
-          "state0_max_rel_err": max(max(s["state0_err"].values())
-                                    for s in sl),
-          "state0_err": [s["state0_err"] for s in sl],
+          "held_steps": DP_HELD,
+          "step0_fp32": {"max_rel_err": err32, "tol": DP_TOL,
+                         "worst": [worst(s["step0_err_fp32"]) for s in sl],
+                         "by_entry": [s["step0_err_fp32"] for s in sl]},
+          "step0_bf16": {"max_rel_err": err16, "witness_max": wit,
+                         "limit": TP_WITNESS_FACTOR * wit,
+                         "worst": [worst(s["step0_err_bf16"]) for s in sl],
+                         "witness_worst": worst(witness),
+                         "by_entry": [s["step0_err_bf16"] for s in sl],
+                         "witness": witness},
           "shift_rows_parted0": [s["shift_rows_parted0"] for s in sl],
           "held": [s["held"] for s in sl],
           "wall_s_by_kind": by_kind, "wall_s_one": one_walls,
           "one_run_s": one_s, "one_peak_mem_bytes": one_peak,
+          "one_process_s": one_process_s,
           "card_free_bytes_at_spawn": card_free,
           "peak_mem_bytes": [s["peak_mem_bytes"] for s in sl],
           "builders": bl, "tp_log": log,
@@ -4642,7 +4752,8 @@ def phase_tp_slice(checked):
                                                  for s in sl],
           "seconds": {"spawn_to_end": spawn_s,
                       "init": [g["init_s"] for g in res],
-                      "run": [g["run_s"] for g in res]},
+                      "run": [g["run_s"] for g in res],
+                      "rank": [s["seconds"] for s in sl]},
           "note": "two ranks share one card's SMs and memory, and their "
                   "collectives go through host memory (gloo)"})
     b0 = bl[0]
@@ -4650,7 +4761,7 @@ def phase_tp_slice(checked):
     held_ok = all(max(d[:DP_HELD]) < DP_TOL for d in drift)
     blocks_ok = all(not s["held"]["wrong"] and s["held"]["strict"]
                     and s["held"]["n_sharded"] > 0 for s in sl)
-    decode_ok = all(b0[n]["finite"] and b0[n]["err_of_scale"] <= DP_TOL
+    decode_ok = all(b0[n]["finite"] and b0[n]["err_of_scale"] <= TP_FP32_TOL
                     for n in ("seq", "heads", "hd", "long"))
     layouts_ok = (b0["seq"]["cache_k_block"][2] * 2
                   == b0["seq"]["cache_k_one"][2]
@@ -4658,18 +4769,25 @@ def phase_tp_slice(checked):
                   == b0["heads"]["cache_k_one"][3]
                   and b0["hd"]["cache_k_block"][4] * 2
                   == b0["hd"]["cache_k_one"][4])
-    build_ok = (b0["finite"] and b0["prefill_err_of_scale"] <= DECODE_TOL
+    build_ok = (b0["finite"] and b0["prefill_err_of_scale"] <= TP_FP32_TOL
                 and b0["prefill_block"][2] * 2 == arch.vocab)
+    # every held leaf compared on every rank, in both dtypes, and the
+    # held taps' factors in fp32
+    entries_ok = len(witness) > 0 and all(
+        set(s["step0_err_bf16"]) == set(witness)
+        and set(s["step0_err_fp32"]) - set(witness)
+        == {f"factors {k}" for k in s["factors_held"]}
+        and len(s["factors_held"]) >= 2 * len(TP_HELD_TAPS) for s in sl)
     if (not finite or not held_ok or not blocks_ok or not decode_ok
-            or not layouts_ok or not build_ok or not upd_err < DP_TOL
-            or not state0_err < DP_TOL
+            or not layouts_ok or not build_ok or not err32 < DP_TOL
+            or not err16 <= TP_WITNESS_FACTOR * wit or not entries_ok
             or missing or unchecked or len(kinds) != S["steps"]
             or not any("tensor parallel over model: 2 ranks" in ln
                        for ln in log)):
         raise AssertionError(
             f"slice_tp: finite {finite}, loss drift {drift}, blocks "
-            f"{[s['held'] for s in sl]}, step-0 update err {upd_err}, "
-            f"state err {state0_err}, "
+            f"{[s['held'] for s in sl]}, step-0 fp32 err {err32}, bf16 "
+            f"err {err16} (witness {wit}), held entries {entries_ok}, "
             f"builders {bl}, never launched {missing}, calls at unchecked "
             f"shapes {unchecked}, log {log}")
     return counts
@@ -4748,6 +4866,19 @@ def phase_tp_reduced(checked):
     return counts
 
 
+#: each phase's wall seconds in this run (``timed``)
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dist-rank", nargs=4, default=None,
@@ -4770,61 +4901,70 @@ def main(argv=None) -> int:
     if args.dp_rank is not None:
         job, rank, world, rdv, out = args.dp_rank
         return dp_rank_main(job, int(rank), int(world), rdv, out)
-    smi = phase_device()
-    phase_build()
-    kernels = phase_kernels()
-    phase_agree("bkfac")
-    phase_agree("nskfac")
-    phase_agree("bkfac", linear_taps=("fc0", "fc1"))
-    phase_agree_async()
-    phase_agree_baseline("slice_sgd")
-    phase_agree_baseline("slice_seng")
-    phase_agree_state()
-    by_path = {"slice": phase_path("slice", "bkfac"),
-               "slice_nskfac": phase_path("slice_nskfac", "nskfac"),
-               "slice_linear": phase_path("slice_linear", "bkfac",
-                                          linear_taps=("fc0", "fc1"))}
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels)
+    timed("agree_bkfac", phase_agree, "bkfac")
+    timed("agree_nskfac", phase_agree, "nskfac")
+    timed("agree_linear", phase_agree, "bkfac", linear_taps=("fc0", "fc1"))
+    timed("agree_async", phase_agree_async)
+    timed("agree_sgd", phase_agree_baseline, "slice_sgd")
+    timed("agree_seng", phase_agree_baseline, "slice_seng")
+    timed("agree_state", phase_agree_state)
+    by_path = {}
+    by_path["slice"] = timed("slice", phase_path, "slice", "bkfac")
+    by_path["slice_nskfac"] = timed("slice_nskfac", phase_path,
+                                    "slice_nskfac", "nskfac")
+    by_path["slice_linear"] = timed("slice_linear", phase_path,
+                                    "slice_linear", "bkfac",
+                                    linear_taps=("fc0", "fc1"))
     # B-R-KFAC, 31 steps (the RSVD overwrite inline at 0 and 25), then the
     # same with the step-25 overwrite on the async pipeline's side stream,
     # landing at 30; every kernel call there at a shape checked above
     checked = set().union(*(row["checked"] for row in kernels.values()))
-    by_path["slice_brkfac"] = phase_path("slice_brkfac", "brkfac", steps=31,
-                                         checked=checked)
-    by_path["slice_async"] = phase_path("slice_async", "brkfac", steps=31,
-                                        lag=5, checked=checked)
-    by_path["slice_sgd"] = phase_baseline("slice_sgd")
-    by_path["slice_seng"] = phase_baseline("slice_seng")
+    by_path["slice_brkfac"] = timed("slice_brkfac", phase_path,
+                                    "slice_brkfac", "brkfac", steps=31,
+                                    checked=checked)
+    by_path["slice_async"] = timed("slice_async", phase_path, "slice_async",
+                                   "brkfac", steps=31, lag=5,
+                                   checked=checked)
+    by_path["slice_sgd"] = timed("slice_sgd", phase_baseline, "slice_sgd")
+    by_path["slice_seng"] = timed("slice_seng", phase_baseline, "slice_seng")
     # B-KFAC through the whole one-device trainer surface, faults injected
-    by_path["slice_resilient"] = phase_resilient(checked)
+    by_path["slice_resilient"] = timed("slice_resilient", phase_resilient,
+                                       checked)
     # the LM stack: all ten architectures reduced, card against CPU; then
     # gemma3-4b at full width under B-KFAC, and its decode
-    phase_agree_lm()
-    by_path["slice_lm"] = phase_slice_lm(checked)
+    timed("agree_lm", phase_agree_lm)
+    by_path["slice_lm"] = timed("slice_lm", phase_slice_lm, checked)
     # the tenant bank and the serving stack: card against CPU at the
     # reduced config, then two full-width gemma3-4b tenants
-    phase_agree_serve()
-    by_path["slice_serve"] = phase_slice_serve(checked)
+    timed("agree_serve", phase_agree_serve)
+    by_path["slice_serve"] = timed("slice_serve", phase_slice_serve,
+                                   checked)
     # the launch layer: the CLI and the builders card against CPU at the
     # reduced config; the CLI and the builders at gemma3-4b's full width;
     # the CLI's health, checkpoint, async and resume branches reduced
-    phase_agree_launch()
-    by_path["slice_launch"] = phase_slice_launch(checked)
-    by_path["launch_reduced"] = phase_launch_reduced(checked)
+    timed("agree_launch", phase_agree_launch)
+    by_path["slice_launch"] = timed("slice_launch", phase_slice_launch,
+                                    checked)
+    by_path["launch_reduced"] = timed("launch_reduced",
+                                      phase_launch_reduced, checked)
     # the distributed curvature engine: one member on nccl, then four
     # ranks of this card on gloo (the taps, the small VGG, the CLI on a
     # 2 × 2 mesh), and B-R-KFAC at full width on a (2, 2) curv × rows mesh
-    phase_agree_dist_single()
-    by_path["slice_dist"] = phase_dist(checked)
+    timed("agree_dist_single", phase_agree_dist_single)
+    by_path["slice_dist"] = timed("slice_dist", phase_dist, checked)
     # data-parallel execution of the LM: gemma3-4b at full width on two
     # ranks (--mesh 2x1, --compress), then B-R-KFAC reduced on four ranks
     # with the raw gradient all-reduce
-    by_path["slice_dp"] = phase_dp_slice(checked)
-    by_path["dp_reduced"] = phase_dp_reduced(checked)
+    by_path["slice_dp"] = timed("slice_dp", phase_dp_slice, checked)
+    by_path["dp_reduced"] = timed("dp_reduced", phase_dp_reduced, checked)
     # tensor-parallel execution of the LM: gemma3-4b at full width on two
     # ranks (--mesh 1x2, --compress; prefill, decode in each cache layout,
     # the long-context decode), then B-R-KFAC reduced on a 2 × 2 mesh
-    by_path["slice_tp"] = phase_tp_slice(checked)
-    by_path["tp_reduced"] = phase_tp_reduced(checked)
+    by_path["slice_tp"] = timed("slice_tp", phase_tp_slice, checked)
+    by_path["tp_reduced"] = timed("tp_reduced", phase_tp_reduced, checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (
@@ -4834,6 +4974,7 @@ def main(argv=None) -> int:
             | {k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
+    emit({"phase": "seconds", "by_phase": PHASE_SECONDS})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

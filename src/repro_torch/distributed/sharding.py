@@ -187,17 +187,16 @@ def params_sharding_fsdp(params, mesh):
 
 
 def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
-                        row_axis=None, factor_rows: bool = True):
-    """K-FAC optimizer state: factor U/M rows on "model", D replicated;
+                        row_axis=None):
+    """K-FAC optimizer state: factor U/M/D replicated over "model";
     AdamW fallback mirrors the param sharding; scalars replicated.
     ``curvature_axis`` places stacked taps' dense M on that axis along
     the leading stack dim; ``row_axis`` shards every dense M's rows —
     live and in-flight snapshot alike.  Non-divisible stacks / factor
-    sides fall back to replication (fit_spec).  ``factor_rows=False``
-    keeps the factors' rows off "model": the port's tensor-parallel step
-    runs the factor work replicated over the model axis (ROADMAP §1)."""
-    tp = "model" if "model" in mesh.axis_names else None
-    rows_tp = tp if factor_rows else None
+    sides fall back to replication (fit_spec).  The reference puts the
+    factors' U/M rows on "model"; the port's tensor-parallel step runs
+    the factor work replicated over the model axis, and this is the
+    layout it takes (ROADMAP §1 item 5 places the rows there)."""
 
     def one(path, leaf):
         ndim, shape = _ndim(leaf), _shape(leaf)
@@ -213,7 +212,7 @@ def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
             field = path.rsplit("/", 1)[-1]
             if field in ("U", "M") and ndim >= 2 and shape[-1] > 1:
                 lead = (None,) * (ndim - 2)
-                rows = rows_tp
+                rows = None
                 if field == "M":
                     if curvature_axis is not None and ndim >= 3:
                         lead = (curvature_axis,) + (None,) * (ndim - 3)
@@ -244,16 +243,14 @@ _SEQ_CACHE_LEAVES = {"k", "v", "xk", "xv", "c_kv", "k_rope"}
 
 
 def cache_sharding(cache, mesh, shard_seq: bool = False,
-                   layout: str = "seq", small_seq_threshold: int = 0,
-                   hd_on_model: bool = False):
+                   layout: str = "seq", small_seq_threshold: int = 0):
     """KV/state caches: batch on the data axes + seq on the model axis;
-    ``layout="heads"`` puts KV heads on the model axis; long context
-    (``shard_seq``) shards the sequence axis of KV-like leaves and
-    replicates recurrent states.  ``layout="hd"`` gets the sequence rule,
-    as in the reference (whose policy's ``kv_cache`` constraint re-lays
-    the cache out inside the step); ``hd_on_model`` puts the head dim on
-    the model axis instead: the layout the port's decode step takes and
-    attends in."""
+    ``layout="heads"`` puts KV heads on the model axis, ``layout="hd"``
+    the head dim; long context (``shard_seq``) shards the sequence axis
+    of KV-like leaves and replicates recurrent states.  The reference
+    gives the "hd" layout the sequence rule and re-lays the cache out
+    inside the step (its policy's ``kv_cache`` constraint); the port's
+    decode step takes the cache in the layout it attends in."""
     dp = tuple(a for a in mesh.axis_names if a != "model")
     tp = "model" if "model" in mesh.axis_names else None
 
@@ -267,7 +264,7 @@ def cache_sharding(cache, mesh, shard_seq: bool = False,
                 spec = (None, dp, None)
             elif layout == "heads" and ndim >= 5:
                 spec = (None, dp, None, tp)
-            elif layout == "hd" and hd_on_model and ndim >= 5:
+            elif layout == "hd" and ndim >= 5:
                 spec = (None, dp, None, None, tp)
             else:
                 spec = (None, dp, tp)

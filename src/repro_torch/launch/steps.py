@@ -34,20 +34,18 @@ same to a given one), the layers run Megatron-style with
 sequence-parallel residuals, the optimizer gathers a sharded leaf's
 gradient bucket by bucket and keeps the rank's block of its update
 (``Kfac.model_shards``), and the factor work runs replicated over the
-model axis (the optimizer state's shardings keep the factors' rows off
-"model").  The numbers are the reference's one-device step.
+model axis.  The numbers are the reference's one-device step.
 
-``in_shardings`` stay the reference's rules; ``step_shardings`` are the
-layouts the port's step takes where they differ: the optimizer state
-with its factors replicated over "model"
-(``kfac_state_sharding(factor_rows=False)``) and the "hd" decode cache
-with its head dim on "model" (``cache_sharding(hd_on_model=True)``; the
-reference's in-sharding puts that cache's sequence there and re-lays it
-out inside the step).  A rank localizes its arguments under
-``step_shardings``.  Prefill returns the rank's vocabulary
-block of the logits, decode the whole logits; the decode cache is read
-in the layout ``step_shardings`` gives it ("seq", "heads", "hd"), and
-the long-context decode (``long_500k``: B = 1, the cache's sequence
+``in_shardings`` and ``out_shardings`` are the layouts the port's step
+takes and returns; a rank localizes its arguments under them.  They are
+the reference's rules but in two places: the optimizer state keeps the
+factors replicated over "model" (the reference puts their rows there;
+ROADMAP §1 item 5), and the "hd" decode cache has its head dim on
+"model" (the reference's in-sharding puts that cache's sequence there
+and re-lays it out inside the step).  Prefill returns the rank's
+vocabulary block of the logits, decode the whole logits; the decode
+cache is read in its layout ("seq", "heads", "hd"), and the
+long-context decode (``long_500k``: B = 1, the cache's sequence
 over every axis) combines its partial softmaxes over the mesh.
 ``plan="fsdp"`` raises ``NotImplementedError`` when the step runs (ROADMAP
 §1 item 5); its shardings are still built.
@@ -140,7 +138,6 @@ class BuiltTrain:
     in_shardings: Any
     out_shardings: Any
     batch_specs: Dict[str, torch.Tensor]
-    step_shardings: Any = None   # what a rank's step takes (module doc)
 
 
 def _spec(shape, dtype) -> torch.Tensor:
@@ -262,16 +259,10 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
         r_sh = shd.NamedSharding(mesh, shd.P())
         in_sh = (p_sh, o_sh, b_sh, r_sh)
         out_sh = (p_sh, o_sh, shd.NamedSharding(mesh, shd.P()))
-        step_sh = in_sh
-        if sp.model_parallel:
-            step_sh = (p_sh, shd.kfac_state_sharding(
-                a_opt, mesh, curvature_axis=curvature_axis,
-                factor_rows=False), b_sh, r_sh)
     return BuiltTrain(lm=lm, opt=opt, step_fn=train_step,
                       abstract_params=a_params, abstract_opt=a_opt,
                       in_shardings=in_sh, out_shardings=out_sh,
-                      batch_specs=batch_specs,
-                      step_shardings=step_sh if mesh is not None else None)
+                      batch_specs=batch_specs)
 
 
 @dataclasses.dataclass
@@ -282,7 +273,6 @@ class BuiltServe:
     arg_specs: Tuple
     in_shardings: Any
     out_shardings: Any
-    step_shardings: Any = None   # what a rank's step takes (module doc)
 
 
 def build_prefill_step(arch: ArchConfig, mesh=None,
@@ -315,7 +305,7 @@ def build_prefill_step(arch: ArchConfig, mesh=None,
             shd.P(dp, None, "model"), logits_shape, mesh))
     return BuiltServe(lm=lm, step_fn=prefill, abstract_params=a_params,
                       arg_specs=(batch_specs,), in_shardings=in_sh,
-                      out_shardings=out_sh, step_shardings=in_sh)
+                      out_shardings=out_sh)
 
 
 def kv_rep_for(arch: ArchConfig, mesh) -> int:
@@ -387,13 +377,6 @@ def build_decode_step(arch: ArchConfig, mesh=None,
         in_sh = (p_sh, c_sh, tok_sh, shd.NamedSharding(mesh, shd.P()))
         out_logits = shd.P() if shard_seq else shd.P(dp, None, None)
         out_sh = (shd.NamedSharding(mesh, out_logits), c_sh)
-        step_sh = in_sh
-        if cache_layout == "hd" and sp.model_parallel:
-            step_sh = (p_sh, shd.cache_sharding(
-                abstract_cache, mesh, shard_seq=shard_seq,
-                layout=cache_layout, small_seq_threshold=small_thr,
-                hd_on_model=True)) + in_sh[2:]
     return BuiltServe(lm=lm, step_fn=decode, abstract_params=a_params,
                       arg_specs=(abstract_cache, token_spec, t_spec),
-                      in_shardings=in_sh, out_shardings=out_sh,
-                      step_shardings=step_sh if mesh is not None else None)
+                      in_shardings=in_sh, out_shardings=out_sh)

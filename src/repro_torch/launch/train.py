@@ -246,7 +246,7 @@ def state_shardings(lm: LM, opt):
     if sp.model_parallel:
         a_opt = kfac_lib.Kfac(opt.cfg, lm.taps, device=steps_lib.META
                               ).init(lm.init(None))
-        o_sh = shd.kfac_state_sharding(a_opt, sp.mesh, factor_rows=False)
+        o_sh = shd.kfac_state_sharding(a_opt, sp.mesh)
         if eng is not None:
             o_sh = shd.Composed(eng.state_sharding(opt), o_sh)
         return loop_lib.TrainState(params=lm.param_shardings, opt=o_sh,

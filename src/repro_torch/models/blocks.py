@@ -341,7 +341,7 @@ def decode_gqa(spec: LayerSpec, arch: ArchConfig, p, h_t, cache, t,
     layout = sp.kv_cache_layout if tp and not sp.shard_kv_seq else "seq"
     if layout == "hd" and hd_c == hd:
         raise ValueError("the 'hd' decode layout takes the cache's head-dim "
-                         "block (launch/steps.py: step_shardings)")
+                         "block (launch/steps.py: in_shardings)")
     if layout == "heads":
         Hc = Hc * sp.tp_size            # the rank holds a block of heads
     if Hc != Hk:        # "heads" layout: KV heads replicated to Hc

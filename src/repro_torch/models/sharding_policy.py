@@ -27,8 +27,10 @@ takes a rank's T-block of a whole tensor, :meth:`residual_reduce`
 reduce-scatters a row-parallel product's partial sums over T), a block
 gathers it (:meth:`full_seq`), column-parallel matmuls give the rank's
 output columns (:meth:`gather_cols` joins them where a consumer needs
-every column), and :meth:`heads`, :meth:`ffn_hidden`, :meth:`logits` and
-:meth:`moe_buffers` take the rank's block of a whole tensor.  ``seq`` is
+every column), and :meth:`heads`, :meth:`ffn_hidden` and
+:meth:`moe_buffers` take the rank's block of a whole tensor (the head's
+column-parallel matmul gives the rank's vocabulary block of the logits
+itself).  ``seq`` is
 the global sequence length of the forward the policy runs
 (:meth:`for_seq`); as in the reference's ``_c`` an axis that does not
 divide its dimension is dropped, so a length the model axis does not
@@ -225,10 +227,6 @@ class ShardPolicy:
     def moe_buffers(self, x: Tensor) -> Tensor:
         """(E, C, d) — the rank's experts of a whole ``x``."""
         return self.block(x, 0)
-
-    def logits(self, x: Tensor) -> Tensor:
-        """(B, T, V) — the rank's vocabulary block of a whole ``x``."""
-        return self.block(x, -1)
 
     def cache_axes(self) -> Tuple[str, ...]:
         """The axes a decode cache's sequence is split over: every axis

@@ -508,7 +508,10 @@ def test_model_axis_fsdp_and_sequence_sharded_decode_still_raise():
     cell = ShapeCell("t", T, B, "train")
     tb = tsteps.build_train_step(arch, mesh=tp, cell=cell, device=CPU)
     assert tb.lm.sp.model_parallel and tb.opt.model_shards is not None
-    assert tb.step_shardings[0]["embed"].spec == ("model", None)
+    assert tb.in_shardings[0]["embed"].spec == ("model", None)
+    u = [getattr(ts, side).U.spec
+         for ts in tb.in_shardings[1].factors.values() for side in "AG"]
+    assert u and all("model" not in spec for spec in u)
     for mesh in (tp, dp):
         fb = tsteps.build_train_step(arch, mesh=mesh, cell=cell, plan="fsdp",
                                      device=CPU)
@@ -524,4 +527,4 @@ def test_model_axis_fsdp_and_sequence_sharded_decode_still_raise():
     sp = tsteps.shard_policy_for(dp)
     x = torch.zeros(1, 2, 3)
     assert sp.data_parallel and sp.dp_size == 4
-    assert sp.residual(x) is x and sp.logits(x) is x
+    assert sp.residual(x) is x and sp.full_seq(x) is x

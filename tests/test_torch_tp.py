@@ -246,8 +246,36 @@ def _one_serve(tokens):
     return out
 
 
+def _oracle_pool(submit, workers=4):
+    """A pool of ``workers`` fresh processes that import this module
+    (its directory put on their path) → (pool, ``submit(pool)``)."""
+    import multiprocessing
+    import os
+    old = os.environ.get("PYTHONPATH")
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([old] if old else []))
+    try:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        return pool, submit(pool)   # the workers start as tasks arrive
+    finally:
+        if old is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = old
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
+    # the reference's steps trace and compile in processes of their own
+    # (threads would share the interpreter lock), the longest first, while
+    # this process starts the ranks and computes the one-process oracles
+    keys = list(dict.fromkeys((spec, variant, Bg, Tg)
+                              for _, spec, variant, _, Bg, Tg in STEP_CASES))
+    keys.sort(key=lambda k: k[0][0] not in ("deepseek_v3_671b", "cut"))
+    pool, pending = _oracle_pool(lambda pool: {
+        k: pool.submit(ref_run, *k) for k in keys})
     root = tmp_path_factory.mktemp("tp")
     cases = []
     taps = {"cut": (CUT, "2x2", lm_batch(worker.dp_arch(CUT), B, T, 3)),
@@ -283,17 +311,6 @@ def world(tmp_path_factory):
     wait, send = worker.later(str(root), "tp", timeout=240)
     join = worker.start("tp", cases + [wait], str(root), timeout=300)
     refs, steps = {}, []
-    keys = list(dict.fromkeys((spec, variant, Bg, Tg)
-                              for _, spec, variant, _, Bg, Tg in STEP_CASES))
-    keys.sort(key=lambda k: k[0][0] != "deepseek_v3_671b")   # the longest
-    # the reference's steps compile side by side (XLA compiles off the
-    # interpreter lock)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        oracles = dict(zip(keys, pool.map(lambda k: ref_run(*k), keys)))
-    for name, spec, variant, mesh, Bg, Tg in STEP_CASES:
-        case, refs[name] = oracles[(spec, variant, Bg, Tg)]
-        steps.append({**case, "name": name, "kind": "step", "mesh": mesh})
-    send(steps)
     one = {"serve": _one_serve(torch.as_tensor(tokens)),
            "compress": _ref_compress(comp)}
     for tag, (spec, _, batch) in taps.items():
@@ -312,6 +329,12 @@ def world(tmp_path_factory):
     one["cli"] = {"losses": losses, "grads": grads,
                   "init": TLM(worker.dp_arch(("cut", 1024)), device=CPU
                               ).init(torch.Generator().manual_seed(0))}
+    oracles = {k: f.result() for k, f in pending.items()}
+    pool.shutdown()
+    for name, spec, variant, mesh, Bg, Tg in STEP_CASES:
+        case, refs[name] = oracles[(spec, variant, Bg, Tg)]
+        steps.append({**case, "name": name, "kind": "step", "mesh": mesh})
+    send(steps)
     ranks = join()
     one["archs"] = _one_archs(arch_batches, {
         n: g["shifts"] for n, g in worker.ok(ranks, "archs")[0].items()})

@@ -1052,7 +1052,7 @@ def _tp_archs(ctx, case):
         params = tb.lm.init(torch.Generator().manual_seed(0))
         held = _blocks_held(tb.lm, params)
         local = shd.localize({k: _t(v) for k, v in batch.items()},
-                             tb.step_shardings[2])
+                             tb.in_shardings[2])
         with continuation_replay() as shifts, applied_updates() as upd:
             p, st, loss = tb.step_fn(params, tb.opt.init(params), local,
                                      torch.Generator().manual_seed(1))
@@ -1098,7 +1098,7 @@ def _tp_serve(ctx, case):
     pb = tsteps.build_prefill_step(arch, mesh=mesh, cell=ShapeCell(
         "p", T, B, "prefill"), device=ctx.cpu)
     params = pb.lm.init(torch.Generator().manual_seed(0))
-    local = shd.localize({"tokens": tokens}, pb.step_shardings[1])
+    local = shd.localize({"tokens": tokens}, pb.in_shardings[1])
     lg = pb.step_fn(params, local)
     out = {"prefill_block": list(lg.shape),
            "prefill": _np(coll.all_gather(lg, mesh, "model", 2))}
@@ -1112,8 +1112,8 @@ def _tp_serve(ctx, case):
         cache = shd.localize(db.lm.init_cache(Bd, case["S"],
                                               window_caches=window,
                                               kv_rep=rep),
-                             db.step_shardings[1])
-        tok = shd.localize(tokens[:Bd], db.step_shardings[2])
+                             db.in_shardings[1])
+        tok = shd.localize(tokens[:Bd], db.in_shardings[2])
         got = []
         for t in range(n):
             lgd, cache = db.step_fn(params, cache, tok[:, t:t + 1], t)
