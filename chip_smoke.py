@@ -154,6 +154,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -301,6 +302,10 @@ def phase_kernels():
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)
 
     def orth(b, d, w):
+        if d < w:
+            # a factor's row block of fewer rows than U has columns (the
+            # rows of tp_kernels' U): scaled noise of its shape
+            return (rnd(b, d, w) / d ** 0.5).contiguous()
         return torch.linalg.qr(rnd(b, d, w))[0].contiguous()
 
     def inv_diag(b, w):
@@ -447,8 +452,17 @@ def phase_kernels():
     # dp_reduced's, per rank: ⌈B/4⌉ slots of each bucket on the data axis
     dp_dense, dp_panels = dp_kernel_shapes()
     # tp_reduced's, per rank: ⌈B/2⌉ slots on the data axis of (2, 2)
-    tp_dense, tp_panels = dp_kernel_shapes(TP_REDUCED["data"],
-                                           TP_REDUCED["steps"])
+    _, tp_panels = dp_kernel_shapes(TP_REDUCED["data"], TP_REDUCED["steps"])
+    # and its M rows' (the absorb's row-block form; the same in its
+    # use_kernels step), the Brand passes on the factor rows of its
+    # slots, the precondition passes on the tap groups' rows
+    tp_rows, tp_brand, tp_precond = tp_kernel_shapes()
+
+    def dense_rows(b, rb, d, n):
+        # a rank's rows [rb, 2·rb) of the factor: the second model rank's
+        X = rnd(b, d, n)
+        return (rnd(b, rb, d), X, X[:, rb:2 * rb]) if rb < d else (
+            sym(b, d), X)
     record("ea_syrk", csrc + "ea_syrk.cu", "src/repro/kernels/ea_syrk.py:53",
            [(sym(b, d), rnd(b, d, 256))
             for b, d in ((2, 256),) + tuple(x for x in NS_BUCKETS
@@ -456,19 +470,23 @@ def phase_kernels():
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in launch_dense]
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in dist_dense]
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in dp_dense]
-           + [(sym(b, d), rnd(b, d, n)) for b, d, n in tp_dense
-              if (b, d, n) not in dp_dense],
-           lambda M, X: ea.ea_syrk_batched(M, X, keep, coef),
-           lambda M, X: ref.ea_syrk(M, X, 0.95, False),
-           lambda M, X: torch.baddbmm(M, X, X.mT, beta=keep, alpha=coef),
-           # X Xᵀ is symmetric: n·d·(d+1) FLOP for one triangle
-           lambda M, X: (X.shape[0] * X.shape[2] * X.shape[1]
-                         * (X.shape[1] + 1),
-                         F * (2 * M.numel() + X.numel())),
+           + [lambda c=c: dense_rows(*c) for c in tp_rows
+              if c[1] < c[2] or (c[0], c[2], c[3]) not in dp_dense],
+           lambda M, X, Xr=None: ea.ea_syrk_batched(M, X, keep, coef, Xr),
+           lambda M, X, Xr=None: ref.ea_syrk(M, X, 0.95, False, Xr),
+           lambda M, X, Xr=None: torch.baddbmm(
+               M, X if Xr is None else Xr, X.mT, beta=keep, alpha=coef),
+           # X Xᵀ is symmetric: n·d·(d+1) FLOP for one triangle; a row
+           # block X_rows Xᵀ is not: 2·rb·d·n
+           lambda M, X, Xr=None: (
+               X.shape[0] * X.shape[2] * X.shape[1] * (X.shape[1] + 1)
+               if Xr is None else 2 * X.shape[0] * M.shape[1] * X.shape[1]
+               * X.shape[2], F * (2 * M.numel() + X.numel())),
            bitwise=True, graph=True,
-           exact=lambda M, X: (keep * M.double()
-                               + coef * (X.double() @ X.double().mT)),
-           tc_k=lambda M, X: X.shape[2])
+           exact=lambda M, X, Xr=None: (
+               keep * M.double() + coef * ((X if Xr is None else Xr).double()
+                                           @ X.double().mT)),
+           tc_k=lambda M, X, Xr=None: X.shape[2])
 
     # Brand panel: fc0's bucket (d = 16384, B = 1) and the d = 512, B = 4
     brand = [(orth(1, 16384, 230), rnd(1, 16384, 256)),
@@ -489,9 +507,10 @@ def phase_kernels():
     sv_brand, sv_precond, (sv_r, sv_n) = serve_kernel_shapes()
     ut_a_cases += [(orth(b, d, sv_r + sv_n)[..., :sv_r], rnd(b, d, sv_n))
                    for b, d in sv_brand]
-    # slice_dist's: each rank's ⌈B/2⌉ slots of a Brand bucket
+    # slice_dist's: each rank's ⌈B/2⌉ slots of a Brand bucket; and
+    # tp_kernels': those of tp_reduced's engine, on the factor rows
     ut_a_cases += [(orth(b, d, w)[..., :r], rnd(b, d, n))
-                   for b, d, w, r, n in dist_brand]
+                   for b, d, w, r, n in dist_brand + tp_brand]
     record("ut_a", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:58", ut_a_cases,
            bp.ut_a_batched, ref.ut_a, lambda U, A: torch.bmm(U.mT, A),
@@ -539,7 +558,9 @@ def phase_kernels():
               + [(rnd(c, d, k),) for c, d, k in dp_panels]
               # tp_reduced's per rank, as dp_reduced's on two members
               + [(rnd(c, d, k),) for c, d, k in tp_panels
-                 if (c, d, k) not in dp_panels])
+                 if (c, d, k) not in dp_panels]
+              # tp_kernels' A⊥ panels on the factor rows
+              + [(rnd(b, d, n),) for b, d, _, _, n in tp_brand])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -577,7 +598,7 @@ def phase_kernels():
 
     # each case made at its turn (slice_lm's and slice_serve's are tens of
     # gigabytes together)
-    pc = PRECOND_BUCKETS + lm_precond + sv_precond
+    pc = PRECOND_BUCKETS + lm_precond + sv_precond + tuple(tp_precond)
 
     def panel_case(c):
         J, Ug, sg = pcase(*c)[:3]
@@ -971,8 +992,16 @@ PATH_KERNELS = {
     "dp_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
     # the CLI tensor-parallel at full width: BRAND under use_kernels=False
     "slice_tp": (),
-    # the CLI tensor-parallel at --reduced under B-R-KFAC, on every rank
+    # the CLI tensor-parallel at --reduced under B-R-KFAC, on every rank:
+    # the EA absorb of its M rows (every factor's d divides the model
+    # axis: ea_syrk's row-block form) and the RSVD range finder's
+    # CholeskyQR2 on the gathered M rows
     "tp_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
+    # tp_reduced's step with use_kernels=True, on every rank: the absorb,
+    # the Brand update's passes and the preconditioning's on the factor
+    # rows
+    "tp_kernels": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                   "precond_panel", "precond_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -1003,7 +1032,9 @@ def _lowrank_shape_key(X, U, s, il) -> str:
 #: the wrapper's arguments: operand shapes, U's row stride, X's layout)
 WRAPPERS = {
     "ea_syrk": ("ea_syrk", "ea_syrk_batched",
-                lambda M, X, *_: f"X {_fmt(X)}"),
+                lambda M, X, *_: f"X {_fmt(X)}" + (
+                    f" rows {M.shape[1]}" if M.shape[1] != X.shape[1]
+                    else "")),
     "syrk_tn": ("cholqr", "syrk_tn_batched", lambda A: f"A {_fmt(A)}"),
     "ut_a": ("brand_panel", "ut_a_batched",
              lambda U, A: f"U {_fmt(U)} ld {U.stride(1)} A {_fmt(A)}"),
@@ -3570,6 +3601,63 @@ def dp_kernel_shapes(world=None, steps=None):
     return dense, panels
 
 
+def tp_kernel_shapes():
+    """tp_reduced's shapes on each rank of its 2 × 2 mesh (the engine's
+    ⌈B/2⌉ slots of a bucket on "data", the factor rows d/2 on "model"):
+    each dense bucket's EA absorb on its M rows (slots, rows, d,
+    n_stat); and of its use_kernels step each Brand bucket's (slots,
+    rows, width, r, n_stat) and each precondition launch's (count, p, d,
+    w_g, w_a) in the kernels' (J, U_g, U_a) order — a column-parallel
+    group on its G rows, a row-parallel one on its A rows, a tap of
+    neither whole."""
+    import math
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import kfactor
+    from repro_torch.distributed import curvature
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    data, model = TP_REDUCED["data"], TP_REDUCED["world"] // TP_REDUCED["data"]
+    mesh = types.SimpleNamespace(
+        axis_names=("data", "model"), devices=np.zeros((data, model)),
+        shape={"data": data, "model": model}, coord=lambda a: 0)
+    lm = LM(get_arch("gemma3_4b").reduced(), device=torch.device("meta"))
+    opt = kfac_lib.Kfac(train.reduced_kfac_config("brkfac"), lm.taps,
+                        device=torch.device("meta"))
+    opt.model_shards = shd.ModelShards(
+        lm.init(None), mesh, taps={n: t.param_path
+                                   for n, t in lm.taps.items()})
+    eng = curvature.CurvatureEngine(mesh, "data", opt.factor_buckets)
+    dense, brand = [], []
+    for b, plan in zip(opt.factor_buckets, eng.plans):
+        s = b.spec
+        rows, m_rows = opt._factor_rows(s), opt._m_rows(s)
+        if s.needs_m:
+            dense.append((plan.per_device, m_rows.rb if m_rows else s.d,
+                          s.d, s.n_stat))
+        if s.mode in kfactor._HAS_BRAND:
+            brand.append((plan.per_device, rows.rb if rows else s.d,
+                          s.width, s.r, s.n_stat))
+    precond = []
+    for b in opt.precond_buckets:
+        a, g = b.spec_a, b.spec_g
+        for kind in ("col", "row"):
+            n = sum(math.prod(e.stack) for e in b.entries
+                    if opt._precond_kind(e.name) == kind)
+            if n:
+                p_, o_ = (g, a) if kind == "col" else (a, g)
+                precond.append((n, opt._factor_rows(p_).rb, o_.d,
+                                p_.width, o_.width))
+        precond += [(math.prod(e.stack), a.d, g.d, a.width, g.width)
+                    for e in b.entries
+                    if opt._precond_kind(e.name) == "whole"]
+    return dense, brand, precond
+
+
 @contextlib.contextmanager
 def counted_collectives():
     """Bytes and seconds of every all-reduce and all-gather while the
@@ -4173,6 +4261,13 @@ TP_FP32_TOL = 1e-4
 #: slice_tp's bf16 step 0 parts from one process's by at most this many
 #: times the witness's parting (both the largest over the held entries)
 TP_WITNESS_FACTOR = 2.0
+#: slice_tp's figures with every factor whole on each rank and the
+#: sharded gradients gathered whole (PR 25's final run, PERF.md §5; H100
+#: 80GB HBM3 at 700 W), printed beside this run's
+TP_PR25 = {"idle_step_s": [6.35, 6.61], "grad_gather_gb": 2.59,
+           "grad_gather_calls": 118, "grad_gather_s": [4.76, 5.05],
+           "probe_gather_gb": 0.46, "probe_gather_calls": 2,
+           "peak_gb_a_rank": 26.05, "peak_gb_one_process": 37.97}
 
 
 def _tp_slice_arch():
@@ -4274,11 +4369,12 @@ def _parted(own, shifts) -> int:
                for a, b in zip(own, shifts))
 
 
-def _factor_ops(factors, prefix: str) -> dict:
+def _factor_ops(factors, prefix: str, whole_u=None) -> dict:
     """Each factor of the taps under ``prefix`` as its operator U·diag(D)·Uᵀ
     applied to a fixed random (d, 16) panel (seeded by d, on the factor's
     device), on the host: the new state compared without forming the
-    d × d matrices."""
+    d × d matrices.  ``whole_u(name, side, U)`` gives U whole from a
+    rank's row block (collective)."""
     import torch
     out = {}
     for name, ts in factors.items():
@@ -4286,6 +4382,8 @@ def _factor_ops(factors, prefix: str) -> dict:
             continue
         for side in "AG":
             st = getattr(ts, side)
+            if whole_u is not None:
+                st = dataclasses.replace(st, U=whole_u(name, side, st.U))
             d = st.U.shape[-2]
             X = torch.randn((d, 16), generator=torch.Generator().manual_seed(
                 d)).to(st.U.device)
@@ -4339,12 +4437,16 @@ def tp_rank_slice(rank: int, dev) -> dict:
         + (["--telemetry-dir", tel] if rank == 0 else [])))
     stream = TokenStream(vocab=arch.vocab, batch=S["batch"],
                          seq_len=S["seq"], seed=0, device=dev).batch_at
-    marks, tallies = [], []
+    marks, tallies, held_mem = [], [], []
 
     def batches(k):
         torch.cuda.current_stream().synchronize()
         marks.append(time.perf_counter())
         tallies.append({kk: list(v) for kk, v in tally.items()})
+        # what the rank holds between steps (parameters, optimizer
+        # state, error feedback; the parent's nothing: it holds no tensor
+        # on the card then)
+        held_mem.append(torch.cuda.memory_allocated())
         return stream(k)
     mesh = mesh_lib.make_mesh((1, S["world"]), ("data", "model"))
     lm = LM(arch, steps.shard_policy_for(mesh), device=torch.device("meta"))
@@ -4360,7 +4462,12 @@ def tp_rank_slice(rank: int, dev) -> dict:
             contextlib.redirect_stdout(io.StringIO()):
         st32, _ = train.run(train.parse_args(_tp_slice_argv(
             ["--mesh", f"1x{S['world']}", "--steps", "1"])), arch=arch32)
-    got32["factors"] = _factor_ops(st32.opt.factors, TP_HELD_TAPS)
+    def whole_u(name, side, U):          # the factor's rows gathered
+        t = lm.taps[name]
+        d = t.d_in if side == "A" else t.d_out
+        return (U if U.shape[-2] == d
+                else coll.all_gather(U, mesh, "model", U.dim() - 2))
+    got32["factors"] = _factor_ops(st32.opt.factors, TP_HELD_TAPS, whole_u)
     del st32
     gc.collect()
     torch.cuda.empty_cache()
@@ -4397,6 +4504,7 @@ def tp_rank_slice(rank: int, dev) -> dict:
                          "calls": b[2] - a[2]}
         per_step.append(row)
     held = _held_blocks(lm, state.params)
+    factor_bytes = state.opt.factor_bytes()
     params = {k: v.detach() for k, v in state.params.items()}
     del state
     gc.collect()
@@ -4487,7 +4595,8 @@ def tp_rank_slice(rank: int, dev) -> dict:
         del res
     return {"losses": losses, "kinds": kinds, "steps": per_step,
             "log": buf.getvalue() if rank == 0 else "",
-            "peak_mem_bytes": peak, "launches": counts,
+            "peak_mem_bytes": peak, "held_mem_bytes": held_mem,
+            "factor_bytes": factor_bytes, "launches": counts,
             "calls_by_shape": dict(by_shape), "held": held,
             "step0_err_fp32": err32, "step0_err_bf16": err16,
             "factors_held": factors_held,
@@ -4522,6 +4631,7 @@ def tp_rank_reduced(rank: int, dev) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.optim import base as optbase
     from repro_torch.train import loop
+    import dataclasses
     R = TP_REDUCED
     args = train.parse_args(list(R["argv"]) + [
         "--steps", str(R["steps"]), "--mesh", "2x2", "--device", "cuda"])
@@ -4608,13 +4718,61 @@ def tp_rank_reduced(rank: int, dev) -> dict:
         del before, wparams, wgp, wupd
         optbase.apply_updates(params, upd)
     torch.cuda.synchronize()
+
+    # one more step (stats and the Brand update on the factor rows, the
+    # preconditioning) with use_kernels=True on the same mesh and state:
+    # the row-block kernel route, its launches counted on every rank,
+    # against one process's step with use_kernels=True from the same
+    # gathered state (rank 0)
+    kcfg = dataclasses.replace(opt.cfg, use_kernels=True)
+    opt_k = kfac_lib.Kfac(kcfg, lm.taps, device=dev)
+    opt_k.model_shards = sp.shards
+    specs.DistSpec(mesh=mesh, curvature_axis="data").attach(opt_k)
+    one_k = kfac_lib.Kfac(kcfg, opt.taps, device=dev)
+    work_k = opt_k.uniform_work(True, True, False)
+    batch = stream.batch_at(R["steps"])
+    local = rank_rows(batch, sp.dp_index, sp.dp_size)
+    loss, acts, gp, gprobe = loop.kfac_grads(
+        lm.loss_fn, params, layers.make_probes(opt.taps, device=dev),
+        local, sp, keep_blocks=opt_k.probe_blocks())
+    kw = dict(n_tokens=n_tokens, rng=None, work=work_k)
+    before = tenant.tree_map(lambda x: x.clone() if torch.is_tensor(x)
+                             else x, whole) if rank0 else None
+    wparams, wgp = whole_tree(params), whole_tree(gp)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with calls_by_shape() as k_shapes, continuation_replay() as shifts:
+        upd, state = opt_k.update(dict(gp), state, params, acts=acts,
+                                  probe_grads=gprobe, **kw)
+        torch.cuda.synchronize()
+    k_counts = _build.launch_counts()
+    wupd, whole = whole_tree(upd), whole_state(state)
+    kernels_step = {"launches": k_counts, "calls_by_shape": dict(k_shapes)}
+    if rank0:
+        wp = {n: v.requires_grad_() for n, v in wparams.items()}
+        _, acts1, gp1, gprobe1 = loop.kfac_grads(
+            lm1.loss_fn, wp, layers.make_probes(opt.taps, device=dev), batch)
+        with continuation_replay(shifts):
+            want, want_state = one_k.update(gp1, before, wp, acts=acts1,
+                                            probe_grads=gprobe1, **kw)
+        rel = lambda a, b: (float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+        by_name = {n: (rel(wupd[n], w) if n in tapped
+                       else rel(wgp[n], gp1[n])) for n, w in want.items()}
+        kernels_step.update(
+            update_rel_err=max(by_name.values()),
+            worst=sorted(by_name.items(), key=lambda kv: -kv[1])[:3],
+            state_err=_state_err(whole, want_state))
+        del want, want_state, wp
+    torch.cuda.synchronize()
     return {"losses": losses, "log": buf.getvalue() if rank == 0 else "",
             "launches": counts, "calls_by_shape": dict(by_shape),
             "collectives": cli_tally, "held": held,
             "replay": {"update_rel_err": errs, "state_err": state_errs,
                        "loss_rel_err": loss_errs,
                        "continuation_rows_parted": parted,
-                       "worst_updates": worst}}
+                       "worst_updates": worst},
+            "kernels_step": kernels_step}
 
 
 def phase_tp_slice(checked):
@@ -4756,6 +4914,24 @@ def phase_tp_slice(checked):
                       "rank": [s["seconds"] for s in sl]},
           "note": "two ranks share one card's SMs and memory, and their "
                   "collectives go through host memory (gloo)"})
+    # the factor rows on "model" against PR 25's layout (its run of this
+    # phase: every factor whole on each rank, the sharded gradients
+    # gathered whole for the preconditioning)
+    cost = {}
+    for kind in sorted(set(kinds)):
+        ks = [k for k, kd in enumerate(kinds) if kd == kind]
+        cost[kind] = {
+            "wall_s": [[s["steps"][k]["wall_s"] for k in ks] for s in sl],
+            "collectives": [{c: {f: [s["steps"][k][c][f] for k in ks]
+                                 for f in ("bytes", "s", "calls")}
+                             for c in ("all_reduce", "all_gather",
+                                       "all_gather_coalesced")}
+                            for s in sl]}
+    emit({"phase": "slice_tp", "layout_cost": True, "by_kind": cost,
+          "held_gb": [[h / 1e9 for h in s["held_mem_bytes"]] for s in sl],
+          "peak_gb": [s["peak_mem_bytes"] / 1e9 for s in sl],
+          "factor_gb": [s["factor_bytes"] / 1e9 for s in sl],
+          "pr25": TP_PR25})
     b0 = bl[0]
     finite = all(np.isfinite(s["losses"]).all() for s in sl)
     held_ok = all(max(d[:DP_HELD]) < DP_TOL for d in drift)
@@ -4820,8 +4996,13 @@ def phase_tp_reduced(checked):
     counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
     missing = [(r, k) for r, s in enumerate(sl)
                for k in PATH_KERNELS["tp_reduced"] if s["launches"][k] == 0]
-    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+    ks = [s["kernels_step"] for s in sl]
+    missing += [(r, k) for r, s in enumerate(ks)
+                for k in PATH_KERNELS["tp_kernels"] if s["launches"][k] == 0]
+    unchecked = sorted({k for s in sl + ks for k in s["calls_by_shape"]
                         if k not in checked})
+    k_err = ks[0]["update_rel_err"]
+    k_serr = ks[0]["state_err"]
     for k in range(R["steps"]):
         emit({"phase": "tp_reduced", "step": k,
               "loss": [s["losses"][k] for s in sl], "loss_one": one[k],
@@ -4847,23 +5028,37 @@ def phase_tp_reduced(checked):
           "seconds": {"spawn_to_end": spawn_s,
                       "init": [g["init_s"] for g in res],
                       "run": [g["run_s"] for g in res]}})
+    emit({"phase": "tp_reduced", "kernels_step": True,
+          "use_kernels": True, "tol": DP_TOL,
+          "update_rel_err": k_err, "worst_updates": ks[0]["worst"],
+          "state_err": k_serr,
+          "launches_by_rank": [{k: s["launches"][k]
+                                for k in PATH_KERNELS["tp_kernels"]}
+                               for s in ks],
+          "calls_by_shape": [s["calls_by_shape"] for s in ks]})
     finite = all(np.isfinite(s["losses"]).all() for s in sl)
     state_ok = (serr["counters"] == 0
-                and all(serr[f] < DP_TOL for f in serr if f != "counters"))
+                and all(serr[f] < DP_TOL for f in serr if f != "counters")
+                and k_serr["counters"] == 0
+                and all(k_serr[f] < DP_TOL for f in k_serr
+                        if f != "counters"))
     blocks_ok = all(not s["held"]["wrong"] and s["held"]["strict"]
                     and s["held"]["n_sharded"] > 0 for s in sl)
     if (not finite or max(max(d) for d in drift) >= DP_TOL
-            or not err < DP_TOL or not state_ok or not blocks_ok
+            or not err < DP_TOL or not k_err < DP_TOL or not state_ok
+            or not blocks_ok
             or max(replay["loss_rel_err"]) >= DP_TOL
             or len(replay["update_rel_err"]) != R["steps"]
             or missing or unchecked):
         raise AssertionError(
             f"tp_reduced: finite {finite}, loss drift {drift}, update rel "
-            f"err {err}, state err {serr}, blocks "
+            f"err {err}, state err {serr}, use_kernels step update err "
+            f"{k_err} state err {k_serr}, blocks "
             f"{[s['held'] for s in sl]}, replay loss err "
             f"{replay['loss_rel_err']}, never launched (rank, kernel) "
             f"{missing}, calls at unchecked shapes {unchecked}")
-    return counts
+    return counts, {k: sum(s["launches"][k] for s in ks)
+                    for k in ks[0]["launches"]}
 
 
 #: each phase's wall seconds in this run (``timed``)
@@ -4964,7 +5159,8 @@ def main(argv=None) -> int:
     # ranks (--mesh 1x2, --compress; prefill, decode in each cache layout,
     # the long-context decode), then B-R-KFAC reduced on a 2 × 2 mesh
     by_path["slice_tp"] = timed("slice_tp", phase_tp_slice, checked)
-    by_path["tp_reduced"] = timed("tp_reduced", phase_tp_reduced, checked)
+    by_path["tp_reduced"], by_path["tp_kernels"] = timed(
+        "tp_reduced", phase_tp_reduced, checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -124,6 +124,19 @@ class KfacState:
     # keyed by tap name (one checkpoint key each, as in the reference)
     TAP_KEYED: ClassVar[Tuple[str, ...]] = ("factors", "momentum")
 
+    def factor_bytes(self) -> int:
+        """Bytes of the factor state this rank holds: U, D, M and aux of
+        every tap as held, and the curvature engine's M blocks."""
+        return sum(x.numel() * x.element_size()
+                   for ts in self.factors.values() for side in (ts.A, ts.G)
+                   for x in (side.U, side.D, side.M, side.aux)) + sum(
+            x.numel() * x.element_size() for x in self.shards.values())
+
+
+#: the factor sides whose U a tensor-parallel step gathers whole, by the
+#: tap's kind (``Kfac._precond_kind``)
+_GATHERED = {"col": "A", "row": "G", "whole": "AG"}
+
 
 class BucketLayout:
     """How a bucket's flat batch axis is laid out over the per-tap
@@ -186,14 +199,20 @@ class Kfac:
 
     ``model_shards`` (optional; ``distributed/sharding.py::ModelShards``,
     set by the tensor-parallel builders) says which parameters a rank of
-    a model axis larger than 1 holds a block of.  The update of such a
-    leaf is the one-device update: its gradient is gathered over the axis
-    bucket by bucket just before the bucket is preconditioned (under
-    ``consume_grads`` the blocks leave the dict as they are gathered),
-    the step is made on the whole leaf against the global taps, and the
-    rank keeps its block of it; the AdamW fallback updates each rank's
-    block, and the clip's global norm counts a sharded leaf's blocks once
-    each.  The factor work runs replicated over the model axis."""
+    a model axis larger than 1 holds a block of, and which factor rows
+    (``ModelShards.factor_rows``: the reference's ``kfac_state_sharding``
+    puts U and M rows on "model" where the axis divides d).  A rank then
+    holds its row block of every such factor (:meth:`init`) and runs the
+    factor work on it (``core/kfactor.py``'s row blocks; X whole or its
+    rows, :meth:`_stats_factors`).  A sharded tapped leaf's gradient is
+    never gathered: where its sharded dimension is one factor's rows
+    (a column-parallel tap's G, a row-parallel tap's A), the step is made
+    on those rows with one panel summed over the axis per bucket and the
+    other side's U gathered whole (``core/precond.py``'s row blocks); a
+    replicated or expert-stacked tap gathers both U's transiently
+    (:meth:`_precondition_shards`).  The AdamW fallback updates each
+    rank's block, and the clip's global norm counts a sharded leaf's
+    blocks once each."""
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
                  device=None, curvature=None):
@@ -232,6 +251,35 @@ class Kfac:
                              "in-flight buffers live in bucket layout)")
         self._cycle = self.scheduler().cycle
 
+    def _factor_rows(self, spec):
+        """The row block this rank holds of a factor of ``spec`` (None:
+        whole, also without model shards)."""
+        if self.model_shards is None or spec.width <= 1:
+            return None
+        return self.model_shards.factor_rows(spec.d)
+
+    def _m_rows(self, spec):
+        """The row block of a dense M: the factor's rows on "model",
+        unless a curvature engine keeps M's rows on a row axis of its
+        own (it then gathers and slices them itself)."""
+        if not spec.needs_m or getattr(self.curvature, "row_axis", None):
+            return None
+        return self._factor_rows(spec)
+
+    def probe_blocks(self) -> Tuple[str, ...]:
+        """Taps whose probe gradient a tensor-parallel step may leave as
+        the rank's block (``train/loop.py::kfac_grads(keep_blocks=)``):
+        the column-parallel ones whose G factor the rank holds by rows and
+        feeds no dense M (the block is exactly its rows of X_G)."""
+        ms = self.model_shards
+        if ms is None:
+            return ()
+        return tuple(
+            n for n, t in self.taps.items()
+            if ms.probe_dim(n) == -1 and not t.linear_apply
+            and self._factor_rows(self.specs[n]["G"]) is not None
+            and not self.specs[n]["G"].needs_m)
+
     def scheduler(self, **kw) -> schedule.Scheduler:
         """A work scheduler over this optimizer's factor buckets; with a
         curvature engine attached, heavy chunks align to its ``align``
@@ -268,7 +316,10 @@ class Kfac:
         factors = {}
         for name, t in self.taps.items():
             def stacked(spec):
-                st = spec.init(device=device)
+                rows, m_rows = self._factor_rows(spec), self._m_rows(spec)
+                st = kfactor.make_state(
+                    spec.d, spec.width, spec.needs_m, device=device,
+                    rows=rows and rows.rb, m_rows=m_rows and m_rows.rb)
                 return st.map(lambda x: x.expand(tuple(t.stack) + x.shape)
                               .clone())
             factors[name] = TapState(A=stacked(self.specs[name]["A"]),
@@ -296,7 +347,10 @@ class Kfac:
 
     # -- factor work --------------------------------------------------------
     def _stats_factors(self, name, acts, probe_grads, n_tokens):
-        """(X_A, X_G): K-factor square roots, (*stack, d, n_stat)."""
+        """(X_A, X_G): K-factor square roots, (*stack, d, n_stat); for a
+        factor this rank holds by rows, its rows of X unless a dense M
+        needs X whole for the absorb (a kept probe block is its rows
+        already, ``probe_blocks``)."""
         a = acts[name]
         g = probe_grads[name]
         scale = 1.0 / math.sqrt(a.shape[-2])
@@ -305,7 +359,16 @@ class Kfac:
         # sum-loss grads (Martens–Grosse)
         X_G = g.transpose(-1, -2).to(torch.float32) * (float(n_tokens)
                                                         * scale)
-        return X_A, X_G
+        if self.model_shards is None:
+            return X_A, X_G
+        out = []
+        for side, X in (("A", X_A), ("G", X_G)):
+            spec = self.specs[name][side]
+            rows = self._factor_rows(spec)
+            if rows is not None and not spec.needs_m:
+                X = rows.local(X)
+            out.append(X)
+        return tuple(out)
 
     def _tap_factor_work(self, factors, acts, probe_grads, n_tokens,
                          rng: Optional[torch.Generator], first: bool,
@@ -338,7 +401,8 @@ class Kfac:
                 flat = kfactor.bucket_factor_step(
                     spec, flat, Xf, first, work.stats, work.light,
                     ((0, count),) if heavy else (), self.cfg.use_kernels,
-                    draws=tdraws)
+                    draws=tdraws, rows=self._factor_rows(spec),
+                    m_rows=self._m_rows(spec))
                 new[side] = flat.map(lambda x: x.reshape(
                     tuple(stack) + x.shape[1:]))
             factors[name] = TapState(A=new["A"], G=new["G"])
@@ -374,7 +438,9 @@ class Kfac:
                 return kfactor.bucket_factor_step_async(
                     bucket.spec, st, X, first, work.stats, work.light,
                     layout.ranges(work.heavy[bi]), launch, land, buf,
-                    self.cfg.use_kernels, draws=bdraws, landed=landed)
+                    self.cfg.use_kernels, draws=bdraws, landed=landed,
+                    rows=self._factor_rows(bucket.spec),
+                    m_rows=self._m_rows(bucket.spec))
         inflight = dict(inflight)
         states, X_all = {}, {}
         for name in sorted(self.taps):
@@ -456,7 +522,16 @@ class Kfac:
         d = spec.d
         k = min(8, d)
         idx = torch.arange(k, device=st.M.device) * max(1, d // k)
-        sq = self._residual_sq(spec, st.M[..., idx, :], idx, st, phi)
+        rows = self._factor_rows(spec)
+        if rows is None:
+            sq = self._residual_sq(spec, st.M[..., idx, :], idx, st, phi)
+            return torch.max(torch.sqrt(sq / k))
+        # the probed rows this rank holds, against U gathered whole; the
+        # ranks' squares summed
+        mine = idx[(idx >= rows.r0) & (idx < rows.r0 + rows.rb)]
+        whole = dataclasses.replace(st, U=rows.gather(st.U))
+        sq = rows.sum(self._residual_sq(spec, st.M[..., mine - rows.r0, :],
+                                        mine, whole, phi))
         return torch.max(torch.sqrt(sq / k))
 
     def _residual_sq(self, spec, Mrows, idx, st, phi) -> Tensor:
@@ -508,10 +583,13 @@ class Kfac:
             if t.linear_apply:
                 afac = acts[name].transpose(-1, -2).to(torch.float32)
                 gfac = probe_grads[name].transpose(-1, -2).to(torch.float32)
-            grad_w = grads[t.param_path]
             if self.model_shards is not None:
-                grad_w = self.model_shards.gather(t.param_path, grad_w)
-            out[name] = self._precondition(name, factors[name], grad_w, phi,
+                out.update(self._precondition_shards(
+                    [name], factors, grads, acts, probe_grads, phi,
+                    swapped=False))
+                continue
+            out[name] = self._precondition(name, factors[name],
+                                           grads[t.param_path], phi,
                                            g_factor=gfac, a_factor=afac)
         return out
 
@@ -537,6 +615,11 @@ class Kfac:
                              ) -> Dict[str, Tensor]:
         """One precondition bucket's steps, {name: S} (see
         ``_bucketed_precondition``)."""
+        if self.model_shards is not None:
+            return self._precondition_shards(
+                [e.name for e in bucket.entries], factors, grads, acts,
+                probe_grads, phi, release=lambda paths: layout.release(
+                    grads, paths))
         cont = self.cfg.spectrum_continuation
         use_k = self.cfg.use_kernels
         ent = bucket.entries
@@ -564,10 +647,7 @@ class Kfac:
                 dense_g=dense_swap_g, dense_a=dense_swap_a)
         else:
             paths = [self.taps[e.name].param_path for e in ent]
-            ms = self.model_shards
-            whole = (grads.get if ms is None else
-                     lambda p: ms.gather(p, grads[p]))
-            J = gather(ent, {key(e): whole(p) for e, p in zip(ent, paths)}
+            J = gather(ent, {key(e): grads[p] for e, p in zip(ent, paths)}
                        ).to(torch.float32)
             layout.release(grads, paths)
             S = precond.precondition_with_damping(
@@ -576,6 +656,202 @@ class Kfac:
                 dense_g=dense_swap_g, dense_a=dense_swap_a,
                 consume=layout.consumes)
         return {name: Se for (name, _), Se in layout.scatter(ent, S).items()}
+
+    def _precond_kind(self, name: str) -> str:
+        """How a tensor-parallel step preconditions tap ``name``: "col"
+        (on its G rows), "row" (on its A rows) or "whole" (its U's
+        gathered; see :meth:`_precondition_shards`)."""
+        ms, t = self.model_shards, self.taps[name]
+        nd, dim = len(ms.shapes[t.param_path]), ms.dim(t.param_path)
+        for kind, side, at in (("col", "G", nd - 1), ("row", "A", nd - 2)):
+            spec = self.specs[name][side]
+            if not t.linear_apply and dim == at and \
+                    spec.mode is not kfactor.Mode.NS and \
+                    self._factor_rows(spec) is not None:
+                return kind
+        return "whole"
+
+    def shard_bytes(self) -> Dict[str, int]:
+        """What a rank holds and moves under tensor parallelism, in bytes
+        (fp32): ``factors`` held (U, D and M as the rank holds them) and
+        ``factors_whole`` (one device's); a step's preconditioning
+        traffic as received by a rank: ``u_gathered`` (the U row blocks
+        gathered), ``panels`` (the panels summed) and ``grads_gathered``
+        (gradients gathered whole: an NS panel side's)."""
+        ms = self.model_shards
+        out = dict(factors=0, factors_whole=0, u_gathered=0, panels=0,
+                   grads_gathered=0)
+        part = (ms.size - 1) / ms.size
+        for name, t in self.taps.items():
+            k = math.prod(t.stack)
+            for side in "AG":
+                spec = self.specs[name][side]
+                rows, mrows = self._factor_rows(spec), self._m_rows(spec)
+                m = spec.d if spec.needs_m else 1
+                out["factors_whole"] += 4 * k * (
+                    spec.d * spec.width + spec.width + m * m)
+                out["factors"] += 4 * k * (
+                    (rows.rb if rows else spec.d) * spec.width + spec.width
+                    + (mrows.rb if mrows else m) * m)
+            kind = self._precond_kind(name)
+            w = {s: self.specs[name][s].width for s in "AG"}
+            d = {"A": t.d_in, "G": t.d_out}
+            for side in _GATHERED[kind]:
+                if self._factor_rows(self.specs[name][side]) is not None:
+                    out["u_gathered"] += int(4 * k * d[side] * w[side] * part)
+            if kind != "whole":
+                p = "G" if kind == "col" else "A"
+                out["panels"] += 4 * k * w[p] * d["A" if p == "G" else "G"]
+            elif ms.dim(t.param_path) is not None and not t.linear_apply \
+                    and ms.probe_dim(name) != -3:
+                out["grads_gathered"] += int(4 * k * t.d_in * t.d_out * part)
+        return out
+
+    def _precondition_shards(self, names, factors, grads: Params, acts,
+                             probe_grads, phi, release=None,
+                             swapped: bool = True) -> Dict[str, Tensor]:
+        """Under tensor parallelism: {name: the rank's block of the
+        preconditioned step} for taps that share their factor specs (a
+        precondition bucket's, or one tap), no sharded gradient gathered.
+
+        * a column-parallel tap (its gradient's columns on "model", the
+          G factor by the same rows): S = Γ̄⁻¹ gWᵀ Ā⁻¹ on its G rows, then
+          transposed back (the inverse factors are symmetric);
+        * a row-parallel tap (gradient rows, A by the same rows): S =
+          Ā⁻¹ gW Γ̄⁻¹ on its A rows, the bucketed path's swapped layout;
+
+        each as one panel on the local rows summed over "model" (the
+        panels of the call packed into one collective), then the apply
+        pass with the other side's U gathered whole (``core/precond.py``'s
+        row blocks).  A replicated tap (its gradient whole), an
+        expert-stacked one (whole experts; their factors' rows on
+        "model"), an Alg-8 tap or one whose panel side is dense (NS)
+        gathers its U's (an NS panel side also its gradient) and takes the
+        one-device step on its experts, or its block of it.  The U gathers
+        of the call are one collective.  The damping and continuation run
+        once over the call's taps, as the one-device bucket (``swapped``)
+        or tap (not) runs them, so a run's continuation shifts replay in
+        the other.  ``release(paths)`` is called once the gradients are
+        read."""
+        ms = self.model_shards
+        cont, use_k = self.cfg.spectrum_continuation, self.cfg.use_kernels
+        spec_a, spec_g = self.specs[names[0]]["A"], self.specs[names[0]]["G"]
+        dense = {"A": spec_a.mode is kfactor.Mode.NS,
+                 "G": spec_g.mode is kfactor.Mode.NS}
+        rows = {"A": self._factor_rows(spec_a), "G": self._factor_rows(spec_g)}
+        axis_rows = rows["G"] or rows["A"]
+        flat = lambda x, core: x.reshape((-1,) + tuple(x.shape[x.dim()
+                                                              - core:]))
+        cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+        # damping and continuation over every tap of the call at once
+        D = {side: cat([flat(getattr(factors[n], side).D, 1)
+                        for n in names]) for side in "AG"}
+        lam = {}
+        if swapped:
+            D["A"], lam["A"], D["G"], lam["G"] = precond._damped_sides(
+                D["A"], D["G"], phi, cont, dense["A"], dense["G"])
+        else:
+            D["G"], lam["G"], D["A"], lam["A"] = precond._damped_sides(
+                D["G"], D["A"], phi, cont, dense["G"], dense["A"])
+        span, off = {}, 0
+        for n in names:
+            k = math.prod(self.taps[n].stack)
+            span[n], off = (off, off + k), off + k
+        part = lambda x, n: x if x.dim() == 0 else x[span[n][0]:span[n][1]]
+        kinds, pending = {}, []          # pending: (name, side) to gather
+        for name in names:
+            kinds[name] = kind = self._precond_kind(name)
+            pending += [(name, side) for side in _GATHERED[kind]
+                        if rows[side] is not None]
+        gathered = dict(zip(pending, axis_rows.gather_all(
+            [getattr(factors[n], side).U for n, side in pending],
+            [-2] * len(pending)) if pending else []))
+        U_of = lambda n, side: gathered.get(
+            (n, side), getattr(factors[n], side).U)
+        out: Dict[str, Tensor] = {}
+        panels, shapes = {}, {}
+        for kind, p_side, o_side in (("col", "G", "A"), ("row", "A", "G")):
+            mine = [n for n in names if kinds[n] == kind]
+            if not mine:
+                continue
+            J = []
+            for n in mine:
+                g = grads[self.taps[n].param_path]
+                shapes[n] = g.shape
+                J.append(flat(g.transpose(-1, -2) if kind == "col" else g,
+                              2).to(torch.float32))
+            J = cat(J)
+            U_p = cat([flat(getattr(factors[n], p_side).U, 2) for n in mine])
+            U_o = cat([flat(U_of(n, o_side), 2) for n in mine])
+            sides = [cat([part(x, n) for n in mine]) for x in (
+                D[p_side], lam[p_side], D[o_side], lam[o_side])]
+            Cg = precond.rows_panel(J, U_p, precond.lowrank_inv_diag(
+                sides[0], sides[1]), use_k)
+            panels[kind] = (mine, J, U_p, Cg, U_o, sides, dense[o_side])
+        if release is not None:      # J holds what the steps still read
+            release([self.taps[n].param_path for n in shapes])
+        if panels:
+            axis_rows.sum_all([v[3] for v in panels.values()])
+        for kind in list(panels):
+            mine, J, U_p, Cg, U_o, sides, dense_o = panels.pop(kind)
+            S = precond.rows_apply(J, U_p, Cg, U_o, sides[2], sides[1],
+                                   sides[3], use_k, dense_o)
+            del J, Cg
+            off = 0
+            for n in mine:
+                k = math.prod(shapes[n][:-2])
+                Sn = S[off:off + k]
+                off += k
+                if kind == "col":
+                    Sn = Sn.transpose(-1, -2)
+                out[n] = Sn.reshape(shapes[n])
+        for n in [n for n in names if kinds[n] == "whole"]:
+            stack = tuple(self.taps[n].stack)
+            side = lambda s: (U_of(n, s),
+                              part(D[s], n).reshape(stack + (-1,)),
+                              part(lam[s], n).reshape(
+                                  stack if lam[s].dim() else ()))
+            out[n] = self._precondition_whole(n, side("G"), side("A"),
+                                              dense, grads, acts,
+                                              probe_grads)
+        if release is not None:
+            release([self.taps[n].param_path for n in names
+                     if n not in shapes])
+        return out
+
+    def _precondition_whole(self, name, g, a, dense, grads, acts,
+                            probe_grads) -> Tensor:
+        """One tap's step from its sides whole, ``g``/``a`` = (U gathered,
+        damped D, λ) each: the one-device step on its gradient as the rank
+        holds it — whole (a replicated tap), its experts (their sides
+        taken likewise), or its block of the step on the gradient gathered
+        whole (an Alg-8 tap's from its factors, an NS panel side's)."""
+        ms, t = self.model_shards, self.taps[name]
+        path = t.param_path
+        nd, dim = len(ms.shapes[path]), ms.dim(path)
+        grad = grads.get(path)
+        if dim is not None and dim == nd - 3 and not t.linear_apply:
+            # an expert stack: the rank's experts of every side (the last
+            # stack dimension)
+            e = len(t.stack) - 1
+            size = t.stack[e] // ms.size
+            ex = lambda x: x if x.dim() <= e else x.narrow(
+                e, ms.index * size, size)
+            g, a = tuple(map(ex, g)), tuple(map(ex, a))
+            dim = None
+        elif dim is not None and not t.linear_apply:
+            grad = ms.gather(path, grad)
+        if t.linear_apply:
+            afac = acts[name].transpose(-1, -2).to(torch.float32)
+            gfac = probe_grads[name].transpose(-1, -2).to(torch.float32)
+            S = precond.kfac_precondition_linear(
+                afac, gfac, *a, *g, self.cfg.use_kernels,
+                dense_g=dense["A"], dense_a=dense["G"])
+        else:
+            S = precond.kfac_precondition(
+                grad.to(torch.float32), *a, *g, self.cfg.use_kernels,
+                dense_g=dense["A"], dense_a=dense["G"])
+        return S if dim is None else ms.block(path, S)
 
     # -- the update ---------------------------------------------------------
     def update(self, grads: Params, state: KfacState, params: Params, *,
@@ -662,8 +938,6 @@ class Kfac:
         ms = self.model_shards
         for name, t in self.taps.items():
             S = S_all.pop(name)
-            if ms is not None:
-                S = ms.block(t.param_path, S)
             S.add_(cfg.weight_decay
                    * params[t.param_path].detach().to(torch.float32))
             if new_mom is not None:

@@ -29,6 +29,17 @@ taken from the same generator in the same order as the synchronous path
 takes them on that step.  ``heavy_from_snapshot`` then draws nothing: it
 is a pure function of the buffer, which both the overlapped landing (a
 worker thread, on the card a side stream) and the in-graph landing need.
+
+**Row blocks** (tensor parallelism, ``rows``/``m_rows``: a
+``distributed/sharding.py::RowBlock`` of U's and of the dense M's rows,
+None for whole).  A rank holds rows [r0, r0+rb) of U and M; D and aux
+are replicated.  The stats absorb of a row block is exact (the
+EA-SYRK kernel's row-block form, X whole); the Brand update runs on the rows
+(``core/brand.py``); a heavy range gathers its slots' M rows (and U's,
+for the modes that read it) transiently, runs the one-device program —
+so ``orthonormalize``'s kernels still launch — and keeps its rows of U.
+The async pipeline's buffers stay whole: a launch gathers the rows it
+snapshots, and a landing keeps its rows of the landed and replayed U.
 """
 from __future__ import annotations
 
@@ -83,10 +94,13 @@ class KFactorState:
 
 
 def make_state(d: int, width: int, needs_m: bool, dtype=torch.float32,
-               device=None) -> KFactorState:
-    m_shape = (d, d) if needs_m else (1, 1)
+               device=None, rows: Optional[int] = None,
+               m_rows: Optional[int] = None) -> KFactorState:
+    """A zero state; ``rows``/``m_rows`` are the row-block heights a rank
+    holds of U and M (None: all d)."""
+    m_shape = (m_rows or d, d) if needs_m else (1, 1)
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
-    return KFactorState(U=z(d, width), D=z(width), M=z(*m_shape),
+    return KFactorState(U=z(rows or d, width), D=z(width), M=z(*m_shape),
                         aux=z(AUX_WIDTH))
 
 
@@ -132,12 +146,15 @@ def ea_update_m(M: Tensor, X: Tensor, rho: float, first: bool) -> Tensor:
     return keep * M + coef * (X @ X.transpose(-1, -2))
 
 
-def ea_update_m_kernel(M: Tensor, X: Tensor, rho: float, first: bool
-                       ) -> Tensor:
+def ea_update_m_kernel(M: Tensor, X: Tensor, rho: float, first: bool,
+                       rows=None) -> Tensor:
     """Same as ea_update_m through ``ops.ea_syrk``: the EA-SYRK kernel on
-    the card, its plain version on the CPU."""
+    the card, its plain version on the CPU.  With ``rows`` (a
+    ``RowBlock``) M is the rank's rows of the factor and X whole: the
+    kernel's row-block form, which is exactly the update's rows."""
     from repro_torch.kernels import ops as kops
-    return kops.ea_syrk(M, X, rho, first)
+    return kops.ea_syrk(M, X, rho, first,
+                        None if rows is None else rows.take(X))
 
 
 def ea_update_m_rows(M_rows: Tensor, X: Tensor, r0: int, rb: int,
@@ -163,16 +180,19 @@ def ea_update_m_rows(M_rows: Tensor, X: Tensor, r0: int, rb: int,
 
 
 def brand_step(spec: KFactorSpec, st: KFactorState, X: Tensor, first: bool,
-               use_kernel: bool = False) -> KFactorState:
+               use_kernel: bool = False, rows=None) -> KFactorState:
     """B-update (Alg 4): on the first-ever stats batch initialise from the
     factor; otherwise truncate to r, then the symmetric Brand update with
     the EA term.  ``first`` is a Python bool (the step counters live on
-    the host)."""
+    the host).  With ``rows`` U is the rank's row block and X whole or
+    its rows."""
+    if rows is not None:
+        X = rows.local(X)
     if first:
-        U, D = brand.init_from_factor(X, spec.width)
+        U, D = brand.init_from_factor(X, spec.width, rows=rows)
     else:
         U, D = brand.ea_brand_step(st.U, st.D, X, spec.rho, spec.r,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel, rows=rows)
         if U.shape[-1] > spec.width:  # r + n_stat exceeded d: re-truncate
             U, D = U[..., :, :spec.width], D[..., :spec.width]
     return KFactorState(U=U, D=D, M=st.M, aux=st.aux)
@@ -355,12 +375,13 @@ def has_work(spec: KFactorSpec, do_stats: bool, do_light: bool,
     return False
 
 
-def stats_step(spec: KFactorSpec, st: KFactorState, X: Tensor, first: bool
-               ) -> KFactorState:
+def stats_step(spec: KFactorSpec, st: KFactorState, X: Tensor, first: bool,
+               m_rows=None) -> KFactorState:
     """Absorb one incoming stats factor X into the EA (dense M if held) —
-    always through ``ops.ea_syrk``, as the reference does."""
+    always through ``ops.ea_syrk``, as the reference does; a row block of
+    M (``m_rows``) through its row-block form, X whole."""
     if spec.needs_m:
-        M = ea_update_m_kernel(st.M, X, spec.rho, first)
+        M = ea_update_m_kernel(st.M, X, spec.rho, first, m_rows)
         return KFactorState(U=st.U, D=st.D, M=M, aux=st.aux)
     return st
 
@@ -398,33 +419,66 @@ def heavy_overwrite_batched(spec: KFactorSpec, st: KFactorState,
     return st
 
 
+#: heavy modes whose op reads the held U (NS's warm start, the
+#: correction's columns); the others only read M
+_READS_U = {Mode.NS, Mode.BRAND_CORR}
+
+
+def whole_rows(spec: KFactorSpec, st: KFactorState, rows=None, m_rows=None
+               ) -> KFactorState:
+    """``st`` with its row blocks gathered whole (transient): M's over
+    ``m_rows``, U's over ``rows`` where the heavy op reads it."""
+    U, M = st.U, st.M
+    if m_rows is not None and spec.needs_m:
+        M = m_rows.gather(M)
+    if rows is not None and spec.mode in _READS_U:
+        U = rows.gather(U)
+    return KFactorState(U=U, D=st.D, M=M, aux=st.aux)
+
+
+def heavy_overwrite_rows(spec: KFactorSpec, st: KFactorState,
+                         draws: Optional[Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         rows=None, m_rows=None) -> KFactorState:
+    """:func:`heavy_overwrite_batched` on row blocks: the one-device op on
+    the slots' rows gathered whole, the rank's rows of its U kept (no
+    heavy op writes M)."""
+    if (rows is None and m_rows is None) or not has_heavy_op(spec):
+        return heavy_overwrite_batched(spec, st, draws, generator)
+    out = heavy_overwrite_batched(spec, whole_rows(spec, st, rows, m_rows),
+                                  draws, generator)
+    U = out.U if rows is None else rows.take(out.U).contiguous()
+    return KFactorState(U=U, D=out.D, M=st.M, aux=out.aux)
+
+
 def bucket_factor_step(spec: KFactorSpec, st: KFactorState, X: Tensor,
                        first: bool, stats: bool, light: bool,
                        heavy_ranges: Sequence[Tuple[int, int]],
                        use_kernel: bool = False,
                        draws: Optional[Tensor] = None,
-                       generator: Optional[torch.Generator] = None
-                       ) -> KFactorState:
+                       generator: Optional[torch.Generator] = None,
+                       rows=None, m_rows=None) -> KFactorState:
     """One scheduled step for a whole shape-class bucket (flat batch axis
     B): stats absorb, the Brand light update (bucket-wide whenever the
     step is light OR any heavy fires — the reference's coupling), then the
     heavy overwrite of each slot range in ``heavy_ranges``.  ``draws``
     holds the heavy op's random inputs for all B slots; each range takes
     its slice.  Each phase is a profiler span (``stats``,
-    ``light_brand``, ``heavy_{lo}_{hi}``)."""
+    ``light_brand``, ``heavy_{lo}_{hi}``).  ``rows``/``m_rows``: the row
+    blocks of U and M (the module docstring)."""
     if stats:
         with obs_trace.span("stats"):
-            st = stats_step(spec, st, X, first)
+            st = stats_step(spec, st, X, first, m_rows)
     heavy_ranges = tuple(heavy_ranges)
     if (light or heavy_ranges) and spec.mode in _HAS_BRAND:
         with obs_trace.span("light_brand"):
-            st = brand_step(spec, st, X, first, use_kernel)
+            st = brand_step(spec, st, X, first, use_kernel, rows)
     for lo, hi in heavy_ranges:
         with obs_trace.span(f"heavy_{lo}_{hi}"):
             sub = st.map(lambda x: x[lo:hi])
-            sub = heavy_overwrite_batched(
+            sub = heavy_overwrite_rows(
                 spec, sub, None if draws is None else draws[lo:hi],
-                generator)
+                generator, rows, m_rows)
             if (lo, hi) == (0, st.U.shape[0]):
                 st = sub
                 continue
@@ -545,17 +599,20 @@ def replay_panels(spec: KFactorSpec, U: Tensor, D: Tensor, panels: Tensor,
 
 
 def land_swap(spec: KFactorSpec, st: KFactorState, buf: InflightState,
-              lo: int, hi: int, use_kernel: bool = False, landed=None
-              ) -> Tuple[KFactorState, InflightState]:
+              lo: int, hi: int, use_kernel: bool = False, landed=None,
+              rows=None) -> Tuple[KFactorState, InflightState]:
     """Swap the landed inverse rep of slots [lo, hi) into the live state.
     ``landed`` is an optionally pre-computed (U, D, aux) from an
     overlapped dispatch; absent, the heavy op runs here from the snapshot
     (same function, same operands, same result).  Only live slots swap,
-    and their flag is consumed."""
+    and their flag is consumed.  With ``rows`` the live U is the rank's
+    row block: the whole landed and replayed U gives its rows."""
     U, D, aux = (heavy_from_snapshot(spec, buf, lo, hi) if landed is None
                  else landed)
     if spec.mode in _HAS_BRAND:
         U, D = replay_panels(spec, U, D, buf.panels[lo:hi], use_kernel)
+    if rows is not None:
+        U = rows.take(U)
     ok = buf.live[lo:hi]
     U = torch.where(ok[:, None, None], U, st.U[lo:hi])
     D = torch.where(ok[:, None], D, st.D[lo:hi])
@@ -570,7 +627,8 @@ def bucket_factor_step_async(spec: KFactorSpec, st: KFactorState, X: Tensor,
                              heavy_ranges, launch_ranges, land_ranges,
                              buf: Optional[InflightState],
                              use_kernel: bool = False,
-                             draws: Optional[Tensor] = None, landed=None
+                             draws: Optional[Tensor] = None, landed=None,
+                             rows=None, m_rows=None
                              ) -> Tuple[KFactorState, Optional[InflightState]]:
     """One scheduled step of the async pipeline for a whole bucket: the
     synchronous program (stats, Brand, any inline heavy such as the step-0
@@ -580,19 +638,30 @@ def bucket_factor_step_async(spec: KFactorSpec, st: KFactorState, X: Tensor,
     snapshot just written, so the step is bit for bit the synchronous
     one.  ``draws`` are the bucket's draws of this step (all B slots),
     shared by the inline heavy ranges and the launch ranges; ``landed``
-    optionally holds one pre-computed (U, D, aux) per land range."""
+    optionally holds one pre-computed (U, D, aux) per land range.  With
+    ``rows``/``m_rows`` the buffer stays whole (X whole: every async mode
+    holds M): a launch snapshots its rows gathered."""
     st = bucket_factor_step(spec, st, X, first, stats, light, heavy_ranges,
-                            use_kernel, draws=draws)
+                            use_kernel, draws=draws, rows=rows,
+                            m_rows=m_rows)
     if buf is None:
         return st, None
     if light:
         buf = record_panel(buf, X)
-    for lo, hi in tuple(launch_ranges):
+    launch_ranges = tuple(launch_ranges)
+    if launch_ranges and (rows is not None or m_rows is not None):
+        whole = KFactorState(
+            U=st.U if rows is None else rows.gather(st.U), D=st.D,
+            M=st.M if m_rows is None else m_rows.gather(st.M), aux=st.aux)
+    else:
+        whole = st
+    for lo, hi in launch_ranges:
         with obs_trace.span(f"launch_{lo}_{hi}"):
-            buf = launch_snapshot(buf, st, draws, lo, hi)
+            buf = launch_snapshot(buf, whole, draws, lo, hi)
+    del whole
     for i, (lo, hi) in enumerate(tuple(land_ranges)):
         with obs_trace.span(f"land_{lo}_{hi}"):
             st, buf = land_swap(spec, st, buf, lo, hi, use_kernel,
                                 landed=None if landed is None
-                                else landed[i])
+                                else landed[i], rows=rows)
     return st, buf

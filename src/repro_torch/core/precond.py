@@ -12,6 +12,16 @@ Paper §3.5 spectrum continuation: shift the retained spectrum down by its
 smallest retained eigenvalue and fold that amount into λ.
 
 Every function is stacked-native with per-element λ.
+
+**Row blocks** (tensor parallelism): where a gradient's sharded
+dimension is the rows of one factor (the *panel side*, p), a rank holds
+those rows of J and of that factor's U.  S = P̄⁻¹ J Ō⁻¹ is then made in
+two passes with a sum between them: the panel Cg = diag(s_p) U_pᵀ J on
+the local rows (:func:`rows_panel`), summed over the model axis by the
+caller, then W = U_p Cg + J/λ_p and S = W Ō⁻¹ on the local rows with the
+other side's U whole (:func:`rows_apply`).  With ``use_kernel`` these are
+the ``precond_panel`` and ``precond_apply`` launches of
+``ops.precond_fused``; without, the same split in plain matmuls.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import mt as _mt, scal as _scal
 
 Tensor = torch.Tensor
@@ -178,3 +189,33 @@ def precondition_linear_with_damping(G: Tensor, A: Tensor, U_g: Tensor,
     return kfac_precondition_linear(G, A, U_g, D_g, lam_g, U_a, D_a, lam_a,
                                     use_kernel, dense_g=dense_g,
                                     dense_a=dense_a)
+
+
+def rows_panel(J: Tensor, U_p: Tensor, s_p: Tensor,
+               use_kernel: bool = False) -> Tensor:
+    """The rank's part of the panel Cg = diag(s_p) U_pᵀ J from its rows
+    of J (…, p_rows, d) and U_p (…, p_rows, w) → (…, w, d) fp32; the sum
+    of the ranks' parts is the whole panel."""
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.precond_panel(U_p, J, s_p)
+    return ref.precond_panel(U_p, J, s_p)
+
+
+def rows_apply(J: Tensor, U_p: Tensor, Cg: Tensor, U_o: Tensor, D_o: Tensor,
+               lam_p, lam_o, use_kernel: bool = False,
+               dense_o: bool = False) -> Tensor:
+    """The rank's rows of S = (U_p Cg + J/λ_p) Ō⁻¹ from its rows of J and
+    U_p, the summed panel ``Cg`` and the other side whole: Ō⁻¹ =
+    (U_o diag(D_o) U_oᵀ + λ_o I)⁻¹, or U_o itself where that side is
+    dense (NS)."""
+    lam_p = _lam_safe(lam_p)
+    if use_kernel and not dense_o:
+        from repro_torch.kernels import ops as kops
+        lam_o = _lam_safe(lam_o)
+        return kops.precond_apply(J, U_p, Cg, U_o,
+                                  lowrank_inv_diag(D_o, lam_o), lam_p, lam_o)
+    W = torch.matmul(U_p, Cg).addcdiv_(J, _scal(lam_p, J))
+    if dense_o:
+        return W @ U_o
+    return apply_inv_right(W, U_o, D_o, lam_o)

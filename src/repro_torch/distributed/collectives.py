@@ -39,7 +39,10 @@ port has one gather and no gather whose backward slices.
 :func:`all_reduce_max` (the vocabulary-parallel softmax's and the
 flash-decoding combine's max) carries no gradient.
 :func:`all_gather_coalesced` packs several tensors' gathers into one
-collective, as :func:`all_reduce_coalesced` packs sums.
+collective, as :func:`all_reduce_coalesced` packs sums; the factor rows
+on the model axis (``sharding.RowBlock``) use both: a precondition
+bucket's panels are summed in one call, and the U row blocks its steps
+need whole are gathered in one.
 """
 from __future__ import annotations
 

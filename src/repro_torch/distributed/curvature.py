@@ -27,6 +27,12 @@ snapshots and lands only its local slots, and on a 2D mesh gathers the
 live and in-flight M rows only on a step that fires or lands heavy work
 on it.
 
+**On a model mesh** (tensor parallelism: ``Kfac.model_shards``) a rank
+holds its row block on "model" of every factor's U and, unless a row
+axis takes M's rows, of its M (``kfac_state_sharding``): the per-bucket
+program on the local slots is ``core/kfactor.py``'s row-block one, and
+the (U, λ) gathers over the curvature axis move the rank's rows only.
+
 How ``shard_map`` becomes torch: one process is one mesh member (a
 :class:`~repro_torch.launch.mesh.Mesh`); ``jax.lax.all_gather(x, axis,
 tiled=True)`` is ``distributed/collectives.py::all_gather`` over the
@@ -171,16 +177,19 @@ class CurvatureEngine:
         dev = sum(p.per_device for p in self.plans)
         return rep, dev
 
-    def m_bytes(self) -> Tuple[int, int]:
+    def m_bytes(self, opt=None) -> Tuple[int, int]:
         """(replicated, per-device) dense-M bytes across all buckets;
         per-device M is ⌈B/N_curv⌉ · d/N_rows · d floats for row-sharded
-        buckets."""
+        buckets (d/N_model rows for those ``opt`` holds by rows on a model
+        axis)."""
         rep = dev = 0
         for spec, plan, rb in zip(self.specs, self.plans, self.row_blocks):
             if not spec.needs_m:
                 continue
             rep += plan.total * spec.d * spec.d * 4
-            rows = rb if rb is not None else spec.d
+            mrows = None if opt is None else opt._m_rows(spec)
+            rows = (rb if rb is not None else
+                    mrows.rb if mrows is not None else spec.d)
             dev += plan.per_device * rows * spec.d * 4
         return rep, dev
 
@@ -226,8 +235,9 @@ class CurvatureEngine:
 
     # -- layout conversions ---------------------------------------------------
     def localize_state(self, opt, state):
-        """A one-device KfacState → this member's layout (no
-        communication: every member holds the global state).  The
+        """A KfacState in the one-device format (on a model mesh: with
+        the rank's row blocks of the factors) → this member's layout (no
+        communication: every member holds that state).  The
         per-tap path (``bucketed=False``) runs replicated, as the
         reference's, so its state stays whole."""
         if not opt.cfg.bucketed:
@@ -265,8 +275,9 @@ class CurvatureEngine:
                                    shards=shards)
 
     def gather_state(self, opt, state):
-        """This member's layout → the one-device KfacState, on every
-        member (collective over the mesh)."""
+        """This member's layout → the one-device KfacState (on a model
+        mesh: the rank's row blocks), on every member (collective over the
+        engine's axes)."""
         if not state.shards:
             return state
         factors = {n: dataclasses.replace(ts) for n, ts in
@@ -301,14 +312,19 @@ class CurvatureEngine:
         """Uninitialized one-device KfacState of a local one's shapes."""
         factors = {n: dataclasses.replace(ts) for n, ts in
                    state.factors.items()}
-        for bucket in opt.factor_buckets:
+        for bi, bucket in enumerate(opt.factor_buckets):
             if not bucket.spec.needs_m:
                 continue
+            # the rows a member holds before the engine's own split (a
+            # model axis's row block, or all d)
+            mrows = opt._m_rows(bucket.spec)
+            rows = bucket.spec.d if mrows is None else mrows.rb
             for e in bucket.entries:
                 st = getattr(factors[e.name], e.side)
                 d = st.M.shape[-1]
                 setattr(factors[e.name], e.side, dataclasses.replace(
-                    st, M=st.M.new_empty(tuple(st.M.shape[:-2]) + (d, d))))
+                    st, M=st.M.new_empty(tuple(st.M.shape[:-2])
+                                         + (rows, d))))
         inflight = {}
         for key, buf in state.inflight.items():
             bucket = opt.factor_buckets[int(key)]
@@ -356,7 +372,8 @@ class CurvatureEngine:
                                      self.row_blocks[bi], st, X, bdraws,
                                      first, work.stats, work.light,
                                      work.heavy[bi], launch, land, buf,
-                                     use_kernel)
+                                     use_kernel,
+                                     opt._factor_rows(bucket.spec))
 
         factors, inflight = opt._bucketed_factor_work(
             factors, inflight, acts, probe_grads, n_tokens, rng, first,
@@ -386,14 +403,17 @@ class CurvatureEngine:
             aux = plan.unshard(g(st.aux))
         return KFactorState(U=U, D=D, M=st.M, aux=aux)
 
-    def _heavy_rows(self, spec, st: KFactorState, draws, llo: int, lhi: int
-                    ) -> KFactorState:
+    def _heavy_rows(self, spec, st: KFactorState, draws, llo: int, lhi: int,
+                    urows=None) -> KFactorState:
         """One local heavy range on row-sharded M: gather the firing
         slots' rows to full (transient), split the range across the row
-        members, re-gather the refreshed chunks.  No heavy op writes M."""
+        members, re-gather the refreshed chunks.  No heavy op writes M.
+        ``urows``: U's row block on a model axis (gathered where the op
+        reads U, the rank's rows of the result kept)."""
         sub = st.map(lambda x: x[llo:lhi])
         Mfull = coll.all_gather(sub.M, self.mesh, self.row_axis, dim=1)
-        subf = KFactorState(U=sub.U, D=sub.D, M=Mfull, aux=sub.aux)
+        subf = kfactor.whole_rows(spec, KFactorState(
+            U=sub.U, D=sub.D, M=Mfull, aux=sub.aux), urows)
         dsub = None if draws is None else draws[llo:lhi]
         bh = lhi - llo
         if bh >= self.n_rows and bh % self.n_rows == 0:
@@ -409,6 +429,8 @@ class CurvatureEngine:
             # row member computes the whole range
             out = kfactor.heavy_overwrite_batched(spec, subf, dsub)
             U, D, aux = out.U, out.D, out.aux
+        if urows is not None:
+            U = urows.take(U)
         put = kfactor._put
         return KFactorState(U=put(st.U, llo, lhi, U),
                             D=put(st.D, llo, lhi, D), M=st.M,
@@ -424,12 +446,14 @@ class CurvatureEngine:
     def _bucket_step(self, spec, plan: ShardPlan, rb: Optional[int],
                      st: KFactorState, X: Tensor, draws, first: bool,
                      stats: bool, light: bool, ranges, launch, land, buf,
-                     use_kernel: bool):
+                     use_kernel: bool, urows=None):
         """One bucket's step on this member: the shared per-bucket program
         on its ⌈B/N⌉ local slots, then the all-gather of the O(d·r)
         low-rank rep; the dense M — live and in flight — stays local (and
         row-blocked with ``rb``).  ``st`` holds the global U/D/aux and,
-        for a bucket that keeps M, the member's M block."""
+        for a bucket that keeps M, the member's M block.  ``urows``: the
+        model axis's row block of U (and of M where ``rb`` is None)."""
+        mrows = urows if (rb is None and spec.needs_m) else None
         loc = lambda r: buckets.localize_ranges(r, plan.total, plan.n)
         local_heavy, local_launch, local_land = (loc(ranges), loc(launch),
                                                  loc(land))
@@ -449,23 +473,24 @@ class CurvatureEngine:
             if rb is None:
                 stl = kfactor.bucket_factor_step(
                     spec, stl, Xl, first, stats, light, local_heavy,
-                    use_kernel, draws=dl)
+                    use_kernel, draws=dl, rows=urows, m_rows=mrows)
                 return finish(stl), None
             if stats:
                 stl = self._stats_rows(spec, stl, Xl, rb, first)
             if (light or local_heavy) and spec.mode in kfactor._HAS_BRAND:
                 with obs_trace.span("light_brand"):
                     stl = kfactor.brand_step(spec, stl, Xl, first,
-                                             use_kernel)
+                                             use_kernel, urows)
             for llo, lhi in local_heavy:
                 with obs_trace.span(f"heavy_{llo}_{lhi}"):
-                    stl = self._heavy_rows(spec, stl, dl, llo, lhi)
+                    stl = self._heavy_rows(spec, stl, dl, llo, lhi, urows)
             return finish(stl), None
 
         if rb is None:
             stl, buf = kfactor.bucket_factor_step_async(
                 spec, stl, Xl, first, stats, light, local_heavy,
-                local_launch, local_land, buf, use_kernel, draws=dl)
+                local_launch, local_land, buf, use_kernel, draws=dl,
+                rows=urows, m_rows=mrows)
             return finish(stl), buf
         # 2D: row-block stats first (exact); only when this member's slots
         # fire or land heavy work, gather the live and in-flight M rows
@@ -479,7 +504,8 @@ class CurvatureEngine:
             buff = dataclasses.replace(buf, M=g1(buf.M))
             stf, buff = kfactor.bucket_factor_step_async(
                 spec, stf, Xl, first, False, light, local_heavy,
-                local_launch, local_land, buff, use_kernel, draws=dl)
+                local_launch, local_land, buff, use_kernel, draws=dl,
+                rows=urows)
             r0 = self._r0(rb)
             s1 = lambda x: x[:, r0:r0 + rb].clone(
                 memory_format=torch.contiguous_format)
@@ -488,7 +514,7 @@ class CurvatureEngine:
         else:
             stl, buf = kfactor.bucket_factor_step_async(
                 spec, stl, Xl, first, False, light, (), local_launch, (),
-                buf, use_kernel, draws=dl)
+                buf, use_kernel, draws=dl, rows=urows)
         return finish(stl), buf
 
     # -- telemetry ------------------------------------------------------------
@@ -499,21 +525,26 @@ class CurvatureEngine:
         members sum them, the curvature members take the worst slot —
         the replicated proxy's value on every member."""
         plan, rb = self.plans[bi], self.row_blocks[bi]
+        urows = opt._factor_rows(spec)
         c = self._coord()
         d = spec.d
         k = min(8, d)
         rows = torch.arange(k, device=st.M.device) * max(1, d // k)
-        loc = KFactorState(U=plan.local(st.U, c), D=plan.local(st.D, c),
+        U = st.U if urows is None else urows.gather(st.U)
+        loc = KFactorState(U=plan.local(U, c), D=plan.local(st.D, c),
                            M=st.M, aux=plan.local(st.aux, c))
-        if rb is None:
-            Mrows, grows = st.M[:, rows, :], rows
-        else:
-            r0 = self._r0(rb)
-            mine = (rows >= r0) & (rows < r0 + rb)
-            grows = rows[mine]
-            Mrows = st.M[:, grows - r0, :]
+        # M's rows held by this member: a row axis's block, a model
+        # axis's, or all
+        axis, r0, hb = self.row_axis, 0, d
+        if rb is not None:
+            r0, hb = self._r0(rb), rb
+        elif urows is not None:
+            axis, r0, hb = urows.axis, urows.r0, urows.rb
+        mine = (rows >= r0) & (rows < r0 + hb)
+        grows = rows[mine]
+        Mrows = st.M[:, grows - r0, :]
         sq = opt._residual_sq(spec, Mrows, grows, loc, phi)
-        coll.all_reduce(sq, self.mesh, self.row_axis)
+        coll.all_reduce(sq, self.mesh, axis)
         worst = torch.max(torch.sqrt(sq / k)).reshape(1)
         return coll.all_reduce(worst, self.mesh, self.axis,
                                    op=dist.ReduceOp.MAX)[0]

@@ -188,15 +188,15 @@ def params_sharding_fsdp(params, mesh):
 
 def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
                         row_axis=None):
-    """K-FAC optimizer state: factor U/M/D replicated over "model";
-    AdamW fallback mirrors the param sharding; scalars replicated.
+    """K-FAC optimizer state: factor U/M rows on "model" (each model rank
+    owns the rows of its weight shard's factor), D replicated; AdamW
+    fallback mirrors the param sharding; scalars replicated.
     ``curvature_axis`` places stacked taps' dense M on that axis along
-    the leading stack dim; ``row_axis`` shards every dense M's rows —
-    live and in-flight snapshot alike.  Non-divisible stacks / factor
-    sides fall back to replication (fit_spec).  The reference puts the
-    factors' U/M rows on "model"; the port's tensor-parallel step runs
-    the factor work replicated over the model axis, and this is the
-    layout it takes (ROADMAP §1 item 5 places the rows there)."""
+    the leading stack dim; ``row_axis`` shards every dense M's rows
+    there instead of on "model" — live and in-flight snapshot alike.
+    Non-divisible stacks / factor sides fall back to replication
+    (fit_spec)."""
+    tp = "model" if "model" in mesh.axis_names else None
 
     def one(path, leaf):
         ndim, shape = _ndim(leaf), _shape(leaf)
@@ -212,7 +212,7 @@ def kfac_state_sharding(opt_state, mesh, curvature_axis=None,
             field = path.rsplit("/", 1)[-1]
             if field in ("U", "M") and ndim >= 2 and shape[-1] > 1:
                 lead = (None,) * (ndim - 2)
-                rows = None
+                rows = tp
                 if field == "M":
                     if curvature_axis is not None and ndim >= 3:
                         lead = (curvature_axis,) + (None,) * (ndim - 3)
@@ -283,8 +283,9 @@ def cache_sharding(cache, mesh, shard_seq: bool = False,
 class ModelShards:
     """Which parameters a rank of a model axis larger than 1 holds a
     block of: each leaf's dimension on "model" under
-    :func:`params_sharding` of the global (abstract) parameters, and the
-    collectives of a tensor-parallel step over them (the optimizer's
+    :func:`params_sharding` of the global (abstract) parameters, which
+    factor rows (:meth:`factor_rows`, :func:`kfac_state_sharding`'s
+    rule), and the collectives of a tensor-parallel step over them (the
     per-leaf gathers, the global norms, the replicated leaves' gradient
     sums)."""
 
@@ -345,6 +346,14 @@ class ModelShards:
         n = len(self.shapes[path])
         return {n - 1: -1, n - 3: -3}.get(d)
 
+    def factor_rows(self, d: int):
+        """The :class:`RowBlock` a rank holds of a factor with ``d`` rows
+        (``kfac_state_sharding``'s rule: rows on the model axis where it
+        divides them), or None (replicated)."""
+        if d % self.size:
+            return None
+        return RowBlock(self.mesh, self.axis, self.index, d // self.size)
+
     def local_shape(self, path: str) -> tuple:
         shape = list(self.shapes[path])
         d = self.dim(path)
@@ -364,6 +373,54 @@ class ModelShards:
         rep = sq([x for k, x in tree.items() if not self.sharded(k)]) + zero
         coll.all_reduce(shard, self.mesh, self.axis)
         return shard + rep
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """A rank's row block [r0, r0 + rb) of a factor of d = n·rb rows
+    split over ``axis`` (``kfac_state_sharding``'s rows on "model"), and
+    the collectives of the factor work on such blocks: a reduction over
+    the d rows is the same reduction on the local rows summed over the
+    axis (:meth:`sum`), and a side that needs its U whole gathers the
+    blocks (:meth:`gather`)."""
+    mesh: Any
+    axis: str
+    index: int
+    rb: int
+
+    @property
+    def r0(self) -> int:
+        return self.index * self.rb
+
+    def take(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """The rank's rows of a whole ``x`` (a view)."""
+        return x.narrow(dim, self.r0, self.rb)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` if it holds the rank's rows already (rb rows), else its
+        rows of the whole."""
+        return x if x.shape[-2] == self.rb else self.take(x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the axis (contiguous, in place)."""
+        return coll.all_reduce(x.contiguous(), self.mesh, self.axis)
+
+    def sum_all(self, xs) -> None:
+        """Every tensor of ``xs`` summed over the axis, in place, in one
+        packed collective."""
+        coll.all_reduce_coalesced(list(xs), self.mesh, self.axis)
+
+    def gather(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """The whole from the ranks' blocks along ``dim`` (no gradient)."""
+        return coll.all_gather(x.detach(), self.mesh, self.axis,
+                               dim % x.dim())
+
+    def gather_all(self, xs, dims) -> list:
+        """:meth:`gather` of each ``xs[i]`` along ``dims[i]``, packed into
+        one collective."""
+        return coll.all_gather_coalesced(
+            list(xs), self.mesh, self.axis,
+            [d % x.dim() for x, d in zip(xs, dims)])
 
 
 class Composed:

@@ -20,20 +20,30 @@
 // read once and the result written once — the same single round trip the
 // TPU kernel's epilogue gives.  The small buckets split K = n over a
 // cluster (_build.tc_plan), summed in one launch in a fixed order.
+//
+// Row blocks.  Where a rank holds rows [r0, r0+rb) of M (a factor's rows
+// on the model axis), A is those rows of X (Xr, stored [rb][n]) and B the
+// whole X: out (rb, d) = keep·M_rows + coef·Xr Xᵀ, the TPU kernel's grid
+// restricted to the block's row tiles (its xi and xj tiles are separate
+// operands).  That product is not symmetric: it runs unmirrored, on the
+// BT layout of tc_products.cu (its 16-byte widths serve X's rows).
 #include "tc_gemm.cuh"
+#include "tc_products.cuh"
 
+// rows == d with Xr == X: the symmetric product; otherwise the row block.
 extern "C" int kfk_ea_syrk(const float* M, long long ldM, long long sM,
+                           const float* Xr, long long ldXr, long long sXr,
                            const float* X, long long ldX, long long sX,
                            float* out, float* ws, int* counters, int batch,
-                           int d, int n, float keep, float coef, int splits,
-                           int cluster, void* stream) {
+                           int rows, int d, int n, float keep, float coef,
+                           int splits, int cluster, void* stream) {
   kfk::Problem p;
   p.batch = batch;
-  p.M = d;
+  p.M = rows;
   p.N = d;
   p.K = n;
-  p.A = {X, ldX, sX};  // stored [d][n] = [M][K]
-  p.B = {X, ldX, sX};  // stored [d][n] = [N][K]
+  p.A = {Xr, ldXr, sXr};  // stored [rows][n] = [M][K]
+  p.B = {X, ldX, sX};     // stored [d][n] = [N][K]
   p.C = out;
   p.epi.alpha = coef;
   p.epi.addend = M;
@@ -42,6 +52,9 @@ extern "C" int kfk_ea_syrk(const float* M, long long ldM, long long sM,
   p.epi.beta = keep;
   p.splits = splits;
   p.ws = ws;
+  if (rows != d || Xr != X || ldXr != ldX || sXr != sX)
+    return (int)kfk::tc_products::bt_gemm(p, cluster, counters,
+                                          (cudaStream_t)stream);
   // X is (B, d, 256) on the path: 16-byte copies
   using kfk::tc::Widths;
   return (int)kfk::tc::tc_gemm<false, true, true>(

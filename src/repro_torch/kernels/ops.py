@@ -64,18 +64,22 @@ def _stack_lam(lam, stack: Tuple[int, ...], b: int, like: Tensor) -> Tensor:
     return lam.reshape((b,)).contiguous()
 
 
-def ea_syrk(M: Tensor, X: Tensor, rho, first) -> Tensor:
+def ea_syrk(M: Tensor, X: Tensor, rho, first, X_rows=None) -> Tensor:
     """M ← keep·M + coef·X Xᵀ (EA update, paper eq. 5).
-    M: (*stack, d, d), X: (*stack, d, n); ``rho`` float, ``first`` bool."""
+    M: (*stack, d, d), X: (*stack, d, n); ``rho`` float, ``first`` bool.
+    With ``X_rows`` (*stack, rb, n), rows of X (a view of them), M is the
+    same rows of the factor, (*stack, rb, d): keep·M + coef·X_rows Xᵀ."""
     if not X.is_cuda:
-        return ref.ea_syrk(M, X, rho, first)
+        return ref.ea_syrk(M, X, rho, first, X_rows)
     d = X.shape[-2]
+    rows = d if X_rows is None else X_rows.shape[-2]
     stack = _common_stack((M, 2), (X, 2))
     keep = np.float32(rho) * (np.float32(1.0) - np.float32(bool(first)))
     coef = np.float32(1.0) - keep
-    out = _ea.ea_syrk_batched(_flat(M, 2, stack), _flat(X, 2, stack),
-                              float(keep), float(coef))
-    return out.to(M.dtype).reshape(stack + (d, d))
+    out = _ea.ea_syrk_batched(
+        _flat(M, 2, stack), _flat(X, 2, stack), float(keep), float(coef),
+        None if X_rows is None else _flat(X_rows, 2, stack))
+    return out.to(M.dtype).reshape(stack + (rows, d))
 
 
 def ns_step(Mhat: Tensor, X: Tensor) -> Tensor:
@@ -100,6 +104,51 @@ def brand_panel(U: Tensor, A: Tensor) -> Tuple[Tensor, Tensor]:
     C, P = _bp.brand_panel_batched(_flat(U, 2, stack), _flat(A, 2, stack))
     return (C.to(U.dtype).reshape(stack + (r, n)),
             P.to(A.dtype).reshape(stack + (d, n)))
+
+
+def ut_a(U: Tensor, A: Tensor) -> Tensor:
+    """C = UᵀA — the first launch of ``brand_panel`` alone (a row-block
+    Brand update sums it over the model axis before ``a_perp``).
+    U: (*stack, d, r), A: (*stack, d, n)."""
+    if not A.is_cuda:
+        return ref.ut_a(U, A)
+    r, n = U.shape[-1], A.shape[-1]
+    stack = _common_stack((U, 2), (A, 2))
+    C = _bp.ut_a_batched(_flat(U, 2, stack), _flat(A, 2, stack))
+    return C.to(U.dtype).reshape(stack + (r, n))
+
+
+def a_perp(A: Tensor, U: Tensor, C: Tensor) -> Tensor:
+    """A⊥ = A − U C — the second launch of ``brand_panel`` alone.
+    A: (*stack, d, n), U: (*stack, d, r), C: (*stack, r, n)."""
+    if not A.is_cuda:
+        return ref.a_perp(A, U, C)
+    d, n = A.shape[-2:]
+    stack = _common_stack((A, 2), (U, 2), (C, 2))
+    P = _bp.a_perp_batched(_flat(A, 2, stack), _flat(U, 2, stack),
+                           _flat(C, 2, stack))
+    return P.to(A.dtype).reshape(stack + (d, n))
+
+
+def syrk_tn(A: Tensor) -> Tensor:
+    """G = AᵀA in fp32 — the Gram pass of ``cholqr2`` alone (a row-block
+    QR sums it over the model axis).  A: (*stack, d, n)."""
+    if not A.is_cuda:
+        return ref.syrk_tn(A)
+    n = A.shape[-1]
+    stack = _common_stack((A, 2))
+    return _cq.syrk_tn_batched(_flat(A, 2, stack)).reshape(stack + (n, n))
+
+
+def rinv_apply(A: Tensor, Rinv: Tensor) -> Tensor:
+    """Q = A Rinv — the apply pass of ``cholqr2`` alone, in A's dtype.
+    A: (*stack, d, n), Rinv: (*stack, n, n)."""
+    if not A.is_cuda:
+        return ref.rinv_apply(A, Rinv)
+    d, n = A.shape[-2:]
+    stack = _common_stack((A, 2), (Rinv, 2))
+    Q = _cq.rinv_apply_batched(_flat(A, 2, stack), _flat(Rinv, 2, stack))
+    return Q.to(A.dtype).reshape(stack + (d, n))
 
 
 def cholqr2(A: Tensor) -> Tuple[Tensor, Tensor]:
@@ -161,4 +210,38 @@ def precond_fused(J: Tensor, U_g: Tensor, s_g: Tensor, lam_g,
     ilam_a = 1.0 / _stack_lam(lam_a, stack, b, J)
     out = _pf.precond_fused_batched(Jb, _flat(U_g, 2, stack), sgb, ilam_g,
                                     _flat(U_a, 2, stack), sab, ilam_a)
+    return out.to(J.dtype).reshape(stack + (p, d))
+
+
+def precond_panel(U_g: Tensor, J: Tensor, s_g: Tensor) -> Tensor:
+    """Cg = diag(s_g) U_gᵀ J — the panel launch of ``precond_fused`` alone
+    (on row blocks it is summed over the model axis before
+    ``precond_apply``).  U_g: (*stack, p, w_g), J: (*stack, p, d),
+    s_g: (*stack, w_g) → (*stack, w_g, d) fp32."""
+    if not J.is_cuda:
+        return ref.precond_panel(U_g, J, s_g)
+    d, w_g = J.shape[-1], U_g.shape[-1]
+    stack = _common_stack((U_g, 2), (J, 2), (s_g, 1))
+    Cg = _pf.precond_panel_batched(_flat(U_g, 2, stack), _flat(J, 2, stack),
+                                   _flat(s_g, 1, stack).contiguous())
+    return Cg.reshape(stack + (w_g, d))
+
+
+def precond_apply(J: Tensor, U_g: Tensor, Cg: Tensor, U_a: Tensor,
+                  s_a: Tensor, lam_g, lam_a) -> Tensor:
+    """S = (W U_a) diag(s_a) U_aᵀ + W/λ_a with W = U_g Cg + J/λ_g — the
+    apply launch of ``precond_fused`` alone.  J: (*stack, p, d), U_g:
+    (*stack, p, w_g), Cg: (*stack, w_g, d), U_a: (*stack, d, w_a), s_a:
+    (*stack, w_a); λ's scalar or (*stack,)."""
+    if not J.is_cuda:
+        return ref.precond_apply(J, U_g, Cg, U_a, s_a, lam_g, lam_a)
+    p, d = J.shape[-2:]
+    stack = _common_stack((J, 2), (U_g, 2), (Cg, 2), (U_a, 2), (s_a, 1))
+    Jb = _flat(J, 2, stack)
+    b = Jb.shape[0]
+    out = _pf.precond_apply_batched(
+        Jb, _flat(U_g, 2, stack), _flat(Cg, 2, stack), _flat(U_a, 2, stack),
+        _flat(s_a, 1, stack).contiguous(),
+        1.0 / _stack_lam(lam_g, stack, b, J),
+        1.0 / _stack_lam(lam_a, stack, b, J))
     return out.to(J.dtype).reshape(stack + (p, d))

@@ -71,14 +71,18 @@ def eigh(M: Tensor) -> Tuple[Tensor, Tensor]:
     return vals.to(M.dtype), vecs.to(M.dtype)
 
 
-def ea_syrk(M: Tensor, X: Tensor, rho, first) -> Tensor:
+def ea_syrk(M: Tensor, X: Tensor, rho, first, X_rows=None) -> Tensor:
     """EA K-factor update:  M ← keep·M + coef·X Xᵀ with
-    keep = ρ·(1-first), coef = 1-ρ·(1-first)   (paper eq. 5, κ(0)=1)."""
+    keep = ρ·(1-first), coef = 1-ρ·(1-first)   (paper eq. 5, κ(0)=1).
+    With ``X_rows`` (rows [r0, r0+rb) of X) M is those rows of the factor
+    and the update is keep·M + coef·X_rows Xᵀ: each entry of X Xᵀ is a
+    dot product of its own, so this is exactly the whole update's rows."""
     rho = torch.as_tensor(rho, dtype=M.dtype, device=M.device)
     firstf = torch.as_tensor(float(first), dtype=M.dtype, device=M.device)
     keep = rho * (1.0 - firstf)
     coef = 1.0 - keep
-    return keep * M + coef * (X @ mt(X)).to(M.dtype)
+    Xr = X if X_rows is None else X_rows
+    return keep * M + coef * (Xr @ mt(X)).to(M.dtype)
 
 
 def ut_a(U: Tensor, A: Tensor) -> Tensor:

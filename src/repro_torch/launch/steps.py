@@ -31,18 +31,19 @@ A model axis larger than 1 runs tensor-parallel under ``plan="tp"``
 leaf ``params_sharding`` shards (``LM.init`` draws the whole tree and
 keeps the rank's blocks; ``localize`` under ``in_shardings[0]`` does the
 same to a given one), the layers run Megatron-style with
-sequence-parallel residuals, the optimizer gathers a sharded leaf's
-gradient bucket by bucket and keeps the rank's block of its update
-(``Kfac.model_shards``), and the factor work runs replicated over the
-model axis.  The numbers are the reference's one-device step.
+sequence-parallel residuals, and the optimizer (``Kfac.model_shards``)
+holds the rank's row block of every factor whose rows the model axis
+divides (U and M rows on "model", D replicated: the reference's
+``kfac_state_sharding``), runs the factor work on those rows and
+preconditions each sharded gradient on the rows of the factor its
+sharded dimension matches, with no gradient gathered whole.  The numbers
+are the reference's one-device step.
 
 ``in_shardings`` and ``out_shardings`` are the layouts the port's step
 takes and returns; a rank localizes its arguments under them.  They are
-the reference's rules but in two places: the optimizer state keeps the
-factors replicated over "model" (the reference puts their rows there;
-ROADMAP §1 item 5), and the "hd" decode cache has its head dim on
-"model" (the reference's in-sharding puts that cache's sequence there
-and re-lays it out inside the step).  Prefill returns the rank's
+the reference's rules but in one place: the "hd" decode cache has its
+head dim on "model" (the reference's in-sharding puts that cache's
+sequence there and re-lays it out inside the step).  Prefill returns the rank's
 vocabulary block of the logits, decode the whole logits; the decode
 cache is read in its layout ("seq", "heads", "hd"), and the
 long-context decode (``long_500k``: B = 1, the cache's sequence
@@ -91,7 +92,7 @@ def refuse_model_parallel(mesh, plan: str, what: str) -> None:
         raise NotImplementedError(
             f"{what}: plan='fsdp' (every leaf sharded over all axes, "
             f"weights gathered per layer) is not ported (ROADMAP §1 item "
-            f"5, 'FSDP and the factor rows on model'); use plan='tp', "
+            f"5, 'FSDP'); use plan='tp', "
             f"which shards the model over the 'model' axis and the batch "
             f"over the others")
 
@@ -231,7 +232,8 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
             draws, rng = rng, None
         probes = layers.make_probes(opt.taps, device=dev)
         loss, acts, gp, gprobe = loop_lib.kfac_grads(
-            lm.loss_fn, params, probes, batch, sp)
+            lm.loss_fn, params, probes, batch, sp,
+            keep_blocks=opt.probe_blocks())
         updates, opt_state = opt.update(
             gp, opt_state, params, acts=acts, probe_grads=gprobe,
             n_tokens=n_tokens, rng=rng, work=step_work, draws=draws,

@@ -34,9 +34,10 @@ checkpoints (the gathered, one-device format); the health guards and the
 telemetry read the global loss.  A ``model`` axis larger than 1
 (``--mesh 1x2``, ``--mesh 2x2`` with the default axes ``data,model``)
 runs tensor-parallel (``launch/steps.py``): each rank holds its block of
-every sharded parameter and of its AdamW moments, the optimizer gathers
-the sharded gradients bucket by bucket (rank 0 logs the bytes a step),
-and the checkpoints stay the one-device format: the parameters and the
+every sharded parameter and of its AdamW moments and its row block of
+every factor, the optimizer preconditions the sharded gradients on those
+rows (rank 0 logs the factor bytes a rank holds and what a step gathers
+and sums), and the checkpoints stay the one-device format: the parameters and the
 optimizer state are gathered (``distributed/sharding.py::globalize``)
 before rank 0 writes them, and a restore lays them out again
 (``shardings=``).
@@ -240,15 +241,26 @@ class _Saver:
 def state_shardings(lm: LM, opt):
     """How a rank holds the CLI's TrainState on its mesh (None without
     one that splits it): the parameters' blocks on a model axis larger
-    than 1 and the AdamW moments with them (the factors replicated over
-    "model"), the curvature engine's layout of the optimizer state."""
+    than 1 and the AdamW moments with them, the factors' U and M rows on
+    "model" (``kfac_state_sharding``; M's rows on the curvature engine's
+    row axis instead where it has one), and the engine's layout of the
+    optimizer state, applied after the model axis's."""
     eng, sp = opt.curvature, lm.sp
     if sp.model_parallel:
         a_opt = kfac_lib.Kfac(opt.cfg, lm.taps, device=steps_lib.META
                               ).init(lm.init(None))
         o_sh = shd.kfac_state_sharding(a_opt, sp.mesh)
+        if eng is not None and eng.row_axis is not None:
+            # the engine splits M's rows itself, over its row axis
+            o_sh = dataclasses.replace(o_sh, factors={
+                n: kfac_lib.TapState(**{
+                    side: dataclasses.replace(
+                        getattr(ts, side),
+                        M=shd.NamedSharding(sp.mesh, shd.P()))
+                    for side in ("A", "G")})
+                for n, ts in o_sh.factors.items()})
         if eng is not None:
-            o_sh = shd.Composed(eng.state_sharding(opt), o_sh)
+            o_sh = shd.Composed(o_sh, eng.state_sharding(opt))
         return loop_lib.TrainState(params=lm.param_shardings, opt=o_sh,
                                    rng=None)
     if eng is not None:
@@ -302,7 +314,7 @@ def run(args, arch: Optional[ArchConfig] = None,
         writer.log(f"curvature sharded on '{curv_axis}': "
                    f"{rep} factor slots replicated -> {per_dev}/device "
                    f"({eng.describe()})")
-        m_rep, m_dev = eng.m_bytes()
+        m_rep, m_dev = eng.m_bytes(opt)
         cb = eng.collective_bytes()
         writer.log(f"dense-M memory: {m_rep / 1e6:.2f} MB replicated -> "
                    f"{m_dev / 1e6:.2f} MB/device; (U, lambda) gather "
@@ -322,15 +334,18 @@ def run(args, arch: Optional[ArchConfig] = None,
         ms = sp.shards
         held = sum(math.prod(ms.local_shape(k)) for k in ms.shapes)
         total = sum(math.prod(v) for v in ms.shapes.values())
-        tapped = {t.param_path for t in lm.taps.values()}
-        gathered = sum(math.prod(ms.shapes[k]) for k in tapped
-                       if ms.sharded(k)) * 4 * (ms.size - 1) / ms.size
+        sb = opt.shard_bytes()
         writer.log(f"tensor parallel over {sp.tp}: {ms.size} ranks, "
                    f"{sum(ms.sharded(k) for k in ms.shapes)} of "
                    f"{len(ms.shapes)} leaves sharded, {held / 1e6:.2f}M of "
-                   f"{total / 1e6:.2f}M parameters a rank; sharded "
-                   f"gradients gathered for the preconditioning: "
-                   f"{gathered / 1e6:.2f} MB a rank a step")
+                   f"{total / 1e6:.2f}M parameters a rank; factor rows on "
+                   f"{sp.tp}: {sb['factors'] / 1e6:.2f} MB of "
+                   f"{sb['factors_whole'] / 1e6:.2f} MB a rank; for the "
+                   f"preconditioning a rank a step: U rows gathered "
+                   f"{sb['u_gathered'] / 1e6:.2f} MB, panels summed "
+                   f"{sb['panels'] / 1e6:.2f} MB, sharded gradients "
+                   f"gathered for the preconditioning: "
+                   f"{sb['grads_gathered'] / 1e6:.2f} MB")
     sched = opt.scheduler()
     if args.stagger or args.async_heavy:
         writer.emit("sched",

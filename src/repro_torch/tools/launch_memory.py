@@ -21,7 +21,10 @@ card (gloo), each on its rows of the batch, each printing its own line
 (``rank``) — the card holds the N ranks' peaks together.  ``--mesh
 DxM`` runs each cut on that mesh instead (axes data, model: M > 1 is
 tensor-parallel, each rank holding its blocks of the sharded
-parameters), on D·M processes.  It needs one CUDA card.
+parameters and its row blocks of the factors), on D·M processes.  Each
+line also gives the factor state a rank holds after the run
+(``factor_gb``: U, D, M and aux, the curvature engine's M blocks
+included).  It needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -112,10 +115,13 @@ def measure(repeats, steps: int, stages: bool = False,
     losses = []
     by_stage = {}
     pk = None
+    factor_bytes = None
     try:
         with (stage_peaks() if stages else contextlib.nullcontext()) as pk:
-            _, losses = train_lib.run(args, arch=arch, batches=batches)
+            state, losses = train_lib.run(args, arch=arch, batches=batches)
             torch.cuda.synchronize()
+        factor_bytes = state.opt.factor_bytes()
+        del state
     except torch.OutOfMemoryError as e:
         err = str(e).splitlines()[0]
     by_stage = {k: [(v - base) / GB for v in vs]
@@ -131,6 +137,8 @@ def measure(repeats, steps: int, stages: bool = False,
             "held_gb": held[0] / GB if held else None,
             "held_gb_by_step": [h / GB for h in held],
             "peak_gb": peak / GB,
+            "factor_gb": (None if factor_bytes is None
+                          else factor_bytes / GB),
             **({"stage_peaks_gb": by_stage} if stages else {}),
             "losses": losses, "oom": err}
 

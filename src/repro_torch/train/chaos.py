@@ -16,10 +16,9 @@ and hooks, on the port's tensors and runner.
                           ones: exercises the landing deadline.
   ``worker_death``      — replace pending futures with ones that raise:
                           exercises the crash-miss path + pool respawn.
-  ``host_loss``         — raise ``RuntimeError`` out of the step loop.
-                          The reference's elastic mesh ladder that
-                          catches it is not ported yet (ROADMAP, module
-                          item "Distributed").
+  ``host_loss``         — raise ``RuntimeError`` out of the step loop;
+                          the elastic runner (``train/elastic.py``)
+                          catches it and resumes on the shrunk mesh.
   ``truncate_ckpt``     — truncate the newest snapshot's array file on
                           disk: exercises checksum verification and
                           ``restore_latest_healthy``'s ring walk.

@@ -110,20 +110,31 @@ def _count_nonfinite(tensors: Sequence[Tensor]) -> float:
 
 
 def _factor_groups(opt, factors, shards=None):
-    """Per factor bucket: (its tensors the guard checks, its NS
-    residuals or None).  Under a curvature engine a bucket's dense M is
-    this member's block in ``shards``."""
+    """Per factor bucket: (its tensors the guard checks that a rank holds
+    by rows on the model axis, those it holds whole, the curvature
+    engine's block of its dense M in ``shards`` as a list (empty without
+    one), whether that block's rows are on the model axis, its NS
+    residuals or None).  U's rows are on "model" where the model axis
+    divides d; M's too, unless the engine keeps them on a row axis of its
+    own (then every model rank holds the same block)."""
     out = []
+    rows_of = getattr(opt, "_factor_rows", lambda spec: None)
+    m_rows_of = getattr(opt, "_m_rows", lambda spec: None)
     for bi, bucket in enumerate(opt.factor_buckets):
-        ts, res = [], []
+        u_held = rows_of(bucket.spec) is not None
+        m_held = m_rows_of(bucket.spec) is not None
+        held, rep, res = [], [], []
         for e in bucket.entries:
             st = getattr(factors[e.name], e.side)
-            ts += [st.U, st.D] + ([st.M] if bucket.spec.needs_m else [])
+            (held if u_held else rep).append(st.U)
+            if bucket.spec.needs_m:
+                (held if m_held else rep).append(st.M)
+            rep.append(st.D)
             if bucket.spec.mode is kfactor.Mode.NS:
                 res.append(torch.max(st.aux[..., kfactor.AUX_RES]))
-        if shards and str(bi) in shards:
-            ts.append(shards[str(bi)])
-        out.append((ts, torch.stack(res).max() if res else None))
+        shard = [shards[str(bi)]] if shards and str(bi) in shards else []
+        out.append((held, rep, shard, m_held,
+                    torch.stack(res).max() if res else None))
     return out
 
 
@@ -138,7 +149,8 @@ def _read(opt, loss: Tensor, groups: Dict, factors,
     member reaches the same verdict.  A group may be a dict keyed by
     parameter path; under tensor parallelism (``opt.model_shards``) the
     sums and maxima of its sharded leaves' blocks are reduced over the
-    model axis and its replicated leaves count once."""
+    model axis and its replicated leaves count once, and so are those of
+    the factor row blocks (U, M) and the replicated D."""
     dev = loss.device
     fgroups = _factor_groups(opt, factors, shards)
     parts = [loss.detach().to(torch.float32).reshape(1)]
@@ -162,44 +174,65 @@ def _read(opt, loss: Tensor, groups: Dict, factors,
         groups = {k: list(v.values()) if isinstance(v, dict) else v
                   for k, v in groups.items()}
         parts += [_sum_and_max(ts, dev) for ts in groups.values()]
-    fparts = [_sum_and_max(ts, dev) for ts, _ in fgroups]
+    fparts = [_sum_and_max(h + (sh if on_m else []), dev)
+              for h, _, sh, on_m, _ in fgroups]
+    if ms is not None and fparts:
+        # the row blocks' sums and maxima over the model axis
+        sh = torch.stack(fparts)
+        sums = coll.all_reduce(sh[:, 0].contiguous(), ms.mesh, ms.axis)
+        maxs = coll.all_reduce_max(sh[:, 1], ms.mesh, ms.axis)
+        fparts = [torch.stack([s_, m_]) for s_, m_ in zip(sums, maxs)]
+    fparts = [torch.stack([p[0] + q[0], torch.maximum(p[1], q[1])])
+              for p, q in zip(fparts, (_sum_and_max(r + ([] if on_m else sh),
+                                                    dev)
+                                       for _, r, sh, on_m, _ in fgroups))]
     engine = getattr(opt, "curvature", None)
     if engine is not None and shards and fparts:
         # each engine member checks its own M block: summed over the
-        # engine's axes (model ranks hold the same blocks)
+        # engine's axes (the model axis's row blocks are summed above)
         axes = tuple(a for a in (engine.axis, engine.row_axis) if a)
         sums = coll.all_reduce(torch.stack([p[0] for p in fparts]),
                                engine.mesh, axes)
         fparts = [torch.stack([s, p[1]]) for s, p in zip(sums, fparts)]
     parts += fparts
-    parts += [r.to(torch.float32).reshape(1) for _, r in fgroups
+    parts += [r.to(torch.float32).reshape(1) for *_, r in fgroups
               if r is not None]
     vals = torch.cat(parts).cpu().tolist()              # the one transfer
     out = {"loss": vals[0]}
     i = 1
     finite = lambda s, m: math.isfinite(s) and math.isfinite(m)
+    total = lambda x, mesh, axis: float(coll.all_reduce(
+        torch.tensor([x], device=dev), mesh, axis)[0])
     for name, ts in groups.items():
         s, m = vals[i:i + 2]
         i += 2
         if finite(s, m):
             bad = 0.0
         elif name in split:
-            bad = _count_nonfinite(split[name][1]) + float(coll.all_reduce(
-                torch.tensor([_count_nonfinite(split[name][0])],
-                             device=dev), ms.mesh, ms.axis)[0])
+            bad = _count_nonfinite(split[name][1]) + total(
+                _count_nonfinite(split[name][0]), ms.mesh, ms.axis)
         else:
             bad = _count_nonfinite(ts)
         out[f"{name}_nonfinite"] = bad
         out[f"{name}_abs_max"] = m
-    for bi, (ts, _) in enumerate(fgroups):
+    for bi, (held, rep, shard, on_m, _) in enumerate(fgroups):
         s, m = vals[i:i + 2]
         i += 2
-        bad = 0.0 if finite(s, m) else _count_nonfinite(ts)
-        if engine is not None and shards and not finite(s, m):
-            bad = float(coll.all_reduce(
-                torch.tensor([bad], device=dev), engine.mesh, axes)[0])
+        bad = 0.0
+        if not finite(s, m):
+            # each entry counted once: a row block summed over "model",
+            # the engine's M block over the engine's axes (and over
+            # "model" too where its rows are there)
+            n_held, n_shard = _count_nonfinite(held), _count_nonfinite(shard)
+            if ms is not None:
+                n_held = total(n_held, ms.mesh, ms.axis)
+                if on_m and shard:
+                    n_shard = total(n_shard, ms.mesh, ms.axis)
+            if shard:
+                n_shard = total(n_shard, engine.mesh, axes)
+            bad = n_held + n_shard + _count_nonfinite(rep)
         out[f"bucket{bi}/factor_nonfinite"] = bad
-    for bi, (_, r) in enumerate(fgroups):
+    for bi, (*_, r) in enumerate(fgroups):
         if r is not None:
             out[f"bucket{bi}/ns_res"] = vals[i]
             i += 1
@@ -273,7 +306,8 @@ def make_resilient_kfac_step(loss_fn, opt, n_tokens: int,
         dev = next(iter(state.params.values())).device
         probes = layers.make_probes(opt.taps, device=dev, dtype=probe_dtype)
         loss, acts, gp, gprobe = loop_lib.kfac_grads(
-            loss_fn, state.params, probes, batch, sp)
+            loss_fn, state.params, probes, batch, sp,
+            keep_blocks=opt.probe_blocks())
 
         def body():
             updates, opt_state = opt.update(

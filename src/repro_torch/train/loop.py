@@ -61,7 +61,7 @@ class TrainState:
 
 
 def kfac_grads(loss_fn, params, probes, batch, sp=None,
-               reduce_grads: bool = True):
+               reduce_grads: bool = True, keep_blocks=()):
     """(loss, acts, grads w.r.t. params, grads w.r.t. probes) from one
     backward pass.  ``acts`` come back detached.
 
@@ -79,15 +79,17 @@ def kfac_grads(loss_fn, params, probes, batch, sp=None,
     policy, whose ``shards`` say which parameters are blocks) the loss is
     each model rank's 1/M share, the acts come back gathered
     (``LM.loss_fn``), the probe gradients of column-parallel and expert
-    taps are the ranks' blocks (``ModelShards.probe_dim``), gathered over
-    the model axis in one packed collective, and the loss, the other
-    probe gradients (a row-parallel tap's is model rank 0's) and the
-    gradients of the parameters replicated over the model axis (each
-    rank's part: a norm scale ahead of ``full_seq`` sees only its
-    T-block) are summed over every axis in one packed pass; a sharded
-    parameter's gradient is the rank's block, whole over "model", and is
-    summed over the data axes only, as are the gathered probe
-    gradients."""
+    taps are the ranks' blocks (``ModelShards.probe_dim``): those of the
+    taps in ``keep_blocks`` stay the rank's block (``Kfac.probe_blocks``:
+    a column-parallel tap whose G factor the rank holds by rows needs only
+    its rows of X_G), the others are gathered over the model axis in one
+    packed collective.  The loss, the other probe gradients (a
+    row-parallel tap's is model rank 0's) and the gradients of the
+    parameters replicated over the model axis (each rank's part: a norm
+    scale ahead of ``full_seq`` sees only its T-block) are summed over
+    every axis in one packed pass; a sharded parameter's gradient is the
+    rank's block, whole over "model", and is summed over the data axes
+    only, as are the probe gradients' blocks, kept or gathered."""
     loss, acts = loss_fn(params, probes, batch)
     pk, qk = list(params), list(probes)
     grads = torch.autograd.grad(loss, [params[k] for k in pk]
@@ -101,9 +103,13 @@ def kfac_grads(loss_fn, params, probes, batch, sp=None,
         loss = loss.clone()
         dims = {k: ms.probe_dim(k) for k in gprobe}
         blocks = [k for k in gprobe if dims[k] is not None]
-        gprobe.update(zip(blocks, coll.all_gather_coalesced(
-            [sp.block(gprobe[k], dims[k]) for k in blocks], sp.mesh, sp.tp,
-            [dims[k] for k in blocks])))
+        kept = [k for k in blocks if k in keep_blocks]
+        gathered = [k for k in blocks if k not in keep_blocks]
+        gprobe.update({k: sp.block(gprobe[k], dims[k]).contiguous()
+                       for k in kept})
+        gprobe.update(zip(gathered, coll.all_gather_coalesced(
+            [sp.block(gprobe[k], dims[k]) for k in gathered], sp.mesh,
+            sp.tp, [dims[k] for k in gathered])))
         rep = [g for k, g in gp.items() if not ms.sharded(k)]
         every = [loss] + [g for k, g in gprobe.items() if dims[k] is None]
         local = list(acts.values()) + [gprobe[k] for k in blocks]
@@ -192,7 +198,8 @@ def make_scheduled_kfac_step(loss_fn: Callable, opt: kfac_lib.Kfac,
         probes = layers.make_probes(opt.taps, device=dev, dtype=probe_dtype)
         loss, acts, gp, gprobe = kfac_grads(
             loss_fn, state.params, probes, batch, sp,
-            reduce_grads=grad_transform is None)
+            reduce_grads=grad_transform is None,
+            keep_blocks=opt.probe_blocks())
         if grad_transform is not None:
             gp, cstate = grad_transform(gp, cstate)
         # the step owns gp: the update may drop each gradient once its

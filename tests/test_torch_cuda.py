@@ -77,6 +77,25 @@ def test_cuda_ea_syrk_strides(cuda, ld):
     assert torch.equal(got, tea.ea_syrk_batched(M, X, 0.95, 0.05))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,d,n,rb", [(2, 512, 16, 256), (1, 300, 33, 150),
+                                          (3, 2560, 16, 1280)])
+def test_cuda_ea_syrk_row_block(cuda, batch, d, n, rb):
+    """ea_syrk's row-block form (a rank's rows [r0, r0+rb) of M, X whole:
+    keep·M_rows + coef·X_rows Xᵀ, unmirrored) at each block: against the
+    plain version, one launch a call, the same bits on a second launch."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    X = torch.randn((batch, d, n), generator=g, device=cuda)
+    for r0 in range(0, d, rb):
+        M = torch.randn((batch, rb, d), generator=g, device=cuda)
+        Xr = X[:, r0:r0 + rb]
+        _build.reset_launch_counts()
+        got = ops.ea_syrk(M, X, 0.95, False, Xr)
+        assert _build.launch_counts()["ea_syrk"] == 1
+        _close(got.cpu(), tref.ea_syrk(M, X, 0.95, False, Xr).cpu())
+        assert torch.equal(got, ops.ea_syrk(M, X, 0.95, False, Xr))
+
+
 #: (batch, d, n, layout of A) of syrk_tn: fc0's A⊥ (more splits than one
 #: cluster), a Brand bucket, the RSVD range finder's (2, 256, 240) panel;
 #: "slice": the [..., :n] column slice of a wider matrix (8- or 4-byte

@@ -79,6 +79,26 @@ def test_ea_syrk_matches_reference(stack, d, n, first):
     _close(ops.ea_syrk(_t(M), _t(X), 0.95, first), want)
 
 
+@pytest.mark.parametrize("stack,d,n,rb,first", [
+    ((), 12, 5, 4, False), ((2, 3), 16, 8, 8, True), ((2,), 30, 16, 15,
+                                                      False)])
+def test_ea_syrk_row_block_matches_reference(stack, d, n, rb, first):
+    """The row-block form (a rank's rows of M, X whole) of the plain
+    version and of ``ops.ea_syrk`` on the CPU ≡ the reference's
+    ``ea_update_m_rows`` of every block."""
+    from repro.core import kfactor as jkf
+    rng = _rng(d + n + rb)
+    M = rng.standard_normal(stack + (d, d)).astype(np.float32)
+    X = rng.standard_normal(stack + (d, n)).astype(np.float32)
+    for r0 in range(0, d, rb):
+        Mr = M[..., r0:r0 + rb, :]
+        want = jkf.ea_update_m_rows(jnp.asarray(Mr), jnp.asarray(X), r0, rb,
+                                    0.95, first)
+        Xr = _t(X)[..., r0:r0 + rb, :]
+        _close(tref.ea_syrk(_t(Mr), _t(X), 0.95, first, Xr), want)
+        _close(ops.ea_syrk(_t(Mr), _t(X), 0.95, first, Xr), want)
+
+
 @pytest.mark.parametrize("stack,d,r,n", [
     ((), 27, 23, 16), ((3,), 64, 8, 24), ((2, 2), 40, 23, 5)])
 def test_brand_panel_matches_reference(stack, d, r, n):

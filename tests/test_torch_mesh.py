@@ -120,19 +120,6 @@ def tspecs_of(tree, path=()):
     return out
 
 
-def factors_off_model(ref):
-    """The reference's optimizer-state specs with the port's documented
-    difference: the factors' U/M rows, which the reference puts on
-    "model", replicated over it (the port's tensor-parallel step runs the
-    factor work replicated; ROADMAP §1 item 5)."""
-    def one(k, spec):
-        if (k.startswith("inflight") or "/factors/" not in f"/{k}/"
-                or k.rsplit("/", 1)[-1] not in ("U", "M")):
-            return spec
-        return tuple(None if a == "model" else a for a in spec)
-    return {k: one(k, v) for k, v in ref.items()}
-
-
 def hd_on_model(ref, cache, m):
     """The reference's "hd"-layout cache specs (its sequence rule: it
     re-lays the cache out inside the step) with the port's documented
@@ -224,8 +211,7 @@ def test_param_and_state_rules_equal_reference(name, mesh, trees,
     for kw in (dict(), dict(curvature_axis="data"),
                dict(curvature_axis="data", row_axis=m.axis_names[0])):
         _same(tspecs_of(tshd.kfac_state_sharding(tb.abstract_opt, m, **kw)),
-              factors_off_model(jspecs(jshd.kfac_state_sharding(
-                  jb.abstract_opt, m, **kw))),
+              jspecs(jshd.kfac_state_sharding(jb.abstract_opt, m, **kw)),
               f"opt {kw}", allow_missing=FALLBACK)
     _same(tspecs_of(tshd.batch_sharding(tb.batch_specs, m)),
           jspecs(jshd.batch_sharding(jb.batch_specs, m)), "batch")
@@ -297,8 +283,6 @@ def test_builder_shardings_equal_reference(mesh, plan, ref_specs):
                                      device=CPU)
         for i, what in enumerate(("params", "opt", "batch", "rng")):
             ref = jspecs(jb.in_shardings[i])
-            if what == "opt" and plan == "tp":
-                ref = factors_off_model(ref)
             _same(tspecs_of(tb.in_shardings[i]), ref, what,
                   allow_missing=FALLBACK)
         _same(tspecs_of(tb.out_shardings[2]), jspecs(jb.out_shardings[2]),

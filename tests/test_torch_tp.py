@@ -42,6 +42,20 @@ oracles are computed in this process meanwhile).
 * **Checkpoints.**  The CLI's checkpoint saved on (2, 2) restores in one
   process (the one-device format: the parameters the ranks hold,
   gathered) and back onto (2, 2) (each rank its blocks again).
+* **Factor rows on "model".**  Each rank holds its row block of every
+  factor U and M the reference's ``kfac_state_sharding`` shards: a rank's
+  held entries of every factor leaf (all ten architectures on (1, 2))
+  equal the reference rule's per-device ones, and no step (the CLI's
+  step cases, the builders') gathers a tapped parameter's gradient whole
+  (counted at ``ModelShards.gather``).  The row-block Brand update
+  (``kfactor.brand_step``: the TSQR init, then the update; plain and
+  through the kernels' passes, their plain versions here) on (1, 4)
+  against the one-device one, as U diag(D) Uᵀ at 1e-5 of scale, for a
+  d the axis divides (rows of 8, fewer than the panel's 12 columns) and
+  one it does not (replicated).  The bucketed preconditioning of a
+  column-parallel, a row-parallel (the two in one bucket), a replicated
+  and an expert-stacked tap on the ranks' blocks against
+  ``precondition_with_damping`` of the whole, at 1e-5 of scale.
 * ``plan="fsdp"`` raises ``NotImplementedError`` naming ROADMAP §1 item 5.
 """
 import concurrent.futures
@@ -62,6 +76,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import ARCH_NAMES, ShapeCell  # noqa: E402
 from repro_torch.core import kfac as tkfac  # noqa: E402
+from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.distributed import compress as tcomp  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -70,8 +85,13 @@ from repro_torch.models.lm import LM as TLM  # noqa: E402
 from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 from repro.core import kfac as jkfac  # noqa: E402
+from repro.core import kfactor as jkfactor  # noqa: E402
+from repro.core import precond as jprecond  # noqa: E402
+from repro.distributed import sharding as jshd  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
 from test_torch_dp import STEPS, _close, jarch, jkfac_config  # noqa: E402
 from test_torch_dp import lm_batch, ref_draws  # noqa: E402
+from test_torch_mesh import _Spec, jspecs, stand_in  # noqa: E402
 import torch_dist_worker as worker  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -96,13 +116,34 @@ STEP_CASES = (
     ("mla-bkfac-2x2", ("deepseek_v3_671b", 0), "bkfac", "2x2", B, T),
     ("whisper-bkfac-2x2", ("whisper_medium", 0), "bkfac", "2x2", B, T),
     ("whisper-odd-vocab-bkfac-1x4", ("whisper_medium", 257), "bkfac", "1x4",
-     B, T))
+     B, T),
+    # the curvature engine's slots on "curv" and its M rows on "data", the
+    # factors' U rows on "model"
+    ("cut-brkfac-rows-1x2x2", CUT, "brkfac", "1x2x2", B, T))
 #: the serve case's decodes: (name, cell, layout, window caches, tokens)
 DECODES = (("seq", "d", "seq", False, 12), ("heads", "d", "heads", False, 12),
            ("hd", "d", "hd", False, 12), ("long", "long_500k", "seq", True, 14))
 S = 16                   # decode cache slots: 8 a rank in "seq" on (2, 2)
 #: leaves PowerSGD compresses, split over "model" by their columns, their
 #: rows (under a stacked repeat) and their experts
+#: the row-block Brand update: d's of which the model axis of 4 divides
+#: the first (rows of 8, fewer than the panel's ROWS_N columns) and not
+#: the second; (rank, stack, panel columns)
+ROWS_D = (32, 30)
+ROWS_R, ROWS_STACK, ROWS_N = 6, (2,), 12
+#: the row-block preconditioning's taps: column- and row-parallel in one
+#: bucket, a replicated one, an expert stack (an expert a rank on 4)
+APPLY_TAPS = {
+    "col": dict(param_path="p/mix/wq", d_in=48, d_out=48, stack=(2,),
+                n_stat=8),
+    "row": dict(param_path="p/mix/wo", d_in=48, d_out=48, stack=(2,),
+                n_stat=8),
+    "rep": dict(param_path="p/ffn/router", d_in=48, d_out=8, stack=(2,),
+                n_stat=8),
+    "exp": dict(param_path="p/ffn/wi", d_in=48, d_out=32, stack=(1, 4),
+                n_stat=8)}
+APPLY_POLICY = dict(variant="bkfac", r=8)
+APPLY_PHI = 0.1
 COMPRESS_SHAPES = {"segments/0/p0/mix/wq": (2, 48, 64),
                    "segments/0/p0/mix/wo": (2, 64, 48),
                    "segments/0/p0/ffn/wi": (1, 4, 32, 24),
@@ -134,6 +175,67 @@ def _compress_case(rs):
                 (n, min(cfg["rank"], m, n))))
     return {"cfg": cfg, "shares": shares, "bases": bases,
             "shapes": COMPRESS_SHAPES}
+
+
+def _rows_brand_case(rs):
+    return {"name": "rows-brand", "kind": "rows_brand", "mesh": "1x4",
+            "r": ROWS_R, "inputs": {
+                d: tuple(rs.standard_normal(ROWS_STACK + (d, ROWS_N))
+                         .astype(np.float32) for _ in range(2))
+                for d in ROWS_D}}
+
+
+def _one_rows_brand(case):
+    """The reference's one-device ``brand_step``s of the row-block case
+    (``use_kernel`` through its plain versions on the CPU)."""
+    out = {}
+    for d, (X0, X1) in case["inputs"].items():
+        spec = jkfactor.KFactorSpec(d=d, r=case["r"], n_stat=ROWS_N,
+                                    mode=jkfactor.Mode.BRAND)
+        for uk in (False, True):
+            st = jax.tree_util.tree_map(
+                lambda x: jnp.broadcast_to(x, ROWS_STACK + x.shape),
+                spec.init())
+            st = jkfactor.brand_step(spec, st, jnp.asarray(X0), True, uk)
+            st = jkfactor.brand_step(spec, st, jnp.asarray(X1), False, uk)
+            out[(d, uk)] = (np.asarray(st.U), np.asarray(st.D))
+    return out
+
+
+def _rows_apply_case(rs):
+    """Whole factors (orthonormal U, descending D ≥ 0) and gradients of
+    the APPLY_TAPS."""
+    taps = {n: tkfac.TapInfo(**t) for n, t in APPLY_TAPS.items()}
+    specs = tkfac.Kfac(tkfac.KfacConfig(
+        policy=tpolicy.PolicyConfig(**APPLY_POLICY)), taps, device=CPU).specs
+    factors, grads = {}, {}
+    for n, t in taps.items():
+        factors[n] = {}
+        for side, d in (("A", t.d_in), ("G", t.d_out)):
+            w = specs[n][side].width
+            U = np.linalg.qr(rs.standard_normal(t.stack + (d, w)))[0]
+            D = -np.sort(-rs.uniform(0.0, 2.0, t.stack + (w,)), axis=-1)
+            factors[n][side] = {"U": U.astype(np.float32),
+                                "D": D.astype(np.float32)}
+        grads[n] = rs.standard_normal(t.stack + (t.d_in, t.d_out)
+                                      ).astype(np.float32)
+    return {"name": "rows-apply", "kind": "rows_apply", "mesh": "1x4",
+            "taps": APPLY_TAPS, "policy": APPLY_POLICY, "phi": APPLY_PHI,
+            "factors": factors, "grads": grads}
+
+
+def _one_rows_apply(case):
+    """The reference's ``precondition_with_damping`` of each whole tap,
+    in its parameter layout."""
+    out = {}
+    for n in case["taps"]:
+        f = {s: {k: jnp.asarray(v) for k, v in case["factors"][n][s]
+                 .items()} for s in "AG"}
+        J = jnp.swapaxes(jnp.asarray(case["grads"][n]), -1, -2)
+        out[n] = np.swapaxes(np.asarray(jprecond.precondition_with_damping(
+            J, f["G"]["U"], f["G"]["D"], f["A"]["U"], f["A"]["D"],
+            case["phi"])), -1, -2)
+    return out
 
 
 def ref_run(spec, variant, Bg, Tg):
@@ -308,11 +410,16 @@ def world(tmp_path_factory):
                   "mesh": "2x2"})
     cases.append({"name": "health", "kind": "health", "arch": CUT,
                   "argv": HEALTH + ["--mesh", "2x2"]})
+    rows_brand = _rows_brand_case(np.random.default_rng(7))
+    rows_apply = _rows_apply_case(np.random.default_rng(8))
+    cases += [rows_brand, rows_apply]
     wait, send = worker.later(str(root), "tp", timeout=240)
     join = worker.start("tp", cases + [wait], str(root), timeout=300)
     refs, steps = {}, []
     one = {"serve": _one_serve(torch.as_tensor(tokens)),
-           "compress": _ref_compress(comp)}
+           "compress": _ref_compress(comp),
+           "rows-brand": _one_rows_brand(rows_brand),
+           "rows-apply": _one_rows_apply(rows_apply)}
     for tag, (spec, _, batch) in taps.items():
         one[f"taps-{tag}"] = _one_taps(spec, inits[tag], batch)
     one["grads-cut"] = _ref_grads(CUT, inits["cut"], taps["cut"][2])
@@ -377,7 +484,7 @@ def test_step_equals_the_reference_one_device_step(world, name):
     saw its data rows."""
     want = world[1][name]
     case = next(c for c in STEP_CASES if c[0] == name)
-    n_dp = worker.TP_MESHES[case[3]][0]
+    n_dp = int(np.prod(worker.TP_MESHES[case[3]][:-1]))
     init = convert.params_from_jax(want["init"], device=CPU)
     after = convert.params_from_jax(want["after"], device=CPU)
     mu = {k: v.numpy() for k, v in convert.params_from_jax(
@@ -575,7 +682,7 @@ def test_checkpoint_saved_on_a_2x2_mesh_restores_in_one_process_and_back(
 
 def test_fsdp_still_raises_naming_the_next_item(world):
     """``plan="fsdp"`` on (2, 2) builds and refuses to run, naming ROADMAP
-    §1 item 5 (FSDP and the factor rows on "model")."""
+    §1 item 5 (FSDP)."""
     for got in _all(world, "fsdp"):
         assert "item 5" in got["refused"] and "fsdp" in got["refused"]
 
@@ -591,6 +698,103 @@ def test_health_guards_on_a_2x2_mesh_read_the_global_step(world):
         assert len(got["reports"]) == 3
         assert all(r == {"ok": 1.0, "grad_nonfinite": 0.0,
                          "update_nonfinite": 0.0} for r in got["reports"])
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("d", ROWS_D)
+def test_row_block_brand_update_equals_one_device(world, d, use_kernel):
+    """``brand_step`` (the init, then the update) on the ranks' rows of
+    U and X (a d the model axis of 4 divides: rows of 8, each gathered
+    whole) or replicated (one it does not) ≡ the reference's one-device
+    step on the same inputs: U diag(D) Uᵀ at 1e-5 of scale, on every
+    rank, plain and through the kernels' passes (``ut_a``, ``a_perp``,
+    ``syrk_tn``, ``rinv_apply``; their plain versions on the CPU; the
+    reference's ``use_kernel`` route through its plain versions)."""
+    U1, D1 = world[2]["rows-brand"][(d, use_kernel)]
+    want = (U1 * D1[..., None, :]) @ np.swapaxes(U1, -1, -2)
+    for got in _all(world, "rows-brand"):
+        g = got[(d, use_kernel)]
+        assert g["rows"] == (d // 4 if d % 4 == 0 else None)
+        have = (g["U"] * g["D"][..., None, :]) @ np.swapaxes(g["U"], -1, -2)
+        _close(have, want, REL, f"d {d} kernel {use_kernel}")
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("tap", sorted(APPLY_TAPS))
+def test_row_block_application_equals_the_whole(world, tap, use_kernels):
+    """The bucketed preconditioning on (1, 4), each rank its gradient
+    blocks and factor row blocks: a column-parallel tap on its G rows,
+    a row-parallel one on its A rows (both in one bucket), a replicated
+    and an expert-stacked one from their U's gathered — each rank's
+    block ≡ the block of the reference's ``precondition_with_damping`` of
+    the whole tap (1e-5 of scale), plain and through ``precond_panel``
+    and ``precond_apply``; no gradient gathered whole."""
+    want = world[2]["rows-apply"][tap]
+    path = APPLY_TAPS[tap]["param_path"]
+    kinds = {"col": "col", "row": "row", "rep": "whole", "exp": "whole"}
+    for got in _all(world, "rows-apply"):
+        assert got["kinds"][tap] == kinds[tap]
+        assert not got["gathered"]
+        m = got["coord"]
+        dim = {"col": -1, "row": -2, "rep": None, "exp": -3}[tap]
+        block = want
+        if dim is not None:
+            n = want.shape[dim] // 4
+            block = np.take(want, range(m * n, (m + 1) * n), axis=dim)
+        _close(got[(tap, use_kernels)], block, REL,
+               f"{tap} {path} kernels {use_kernels}")
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_held_factor_entries_equal_the_reference_rule(world, name,
+                                                      monkeypatch):
+    """On (1, 2) each rank holds, of every factor leaf (U, D, M, aux),
+    the entries the reference's ``kfac_state_sharding`` gives a device:
+    U and M by rows on "model" where it divides d, the rest whole; and
+    the builder's step gathers no tapped parameter's gradient whole."""
+    monkeypatch.setattr(jshd, "NamedSharding", _Spec)
+    jb = jsteps.build_train_step(jarch((name, 0)))
+    mesh = stand_in((1, 2), ("data", "model"))
+    specs = jspecs(jshd.kfac_state_sharding(jb.abstract_opt, mesh))
+    shapes = {jshd._leaf_path(kp): leaf.shape for kp, leaf in
+              jax.tree_util.tree_flatten_with_path(jb.abstract_opt)[0]}
+    sizes = {"data": 1, "model": 2}
+    want = {k: int(np.prod(shapes[k])) // int(np.prod(
+                [sizes[a] for a in v if a is not None] or [1]))
+            for k, v in specs.items() if k.startswith("factors/")}
+    sharded = [k for k, v in specs.items() if k.startswith("factors/")
+               and "model" in v]
+    assert sharded
+    for got in _all(world, "archs")[:2]:
+        g = got[name]
+        assert g["factor_numel"] == want
+        assert not set(g["gathered"]) & set(g["tapped"])
+
+
+@pytest.mark.parametrize("name", [c[0] for c in STEP_CASES
+                                  if c[2] == "brkfac"])
+def test_health_counts_each_nonfinite_factor_entry_once(world, name):
+    """After the CLI's step on the model mesh, one nonfinite entry of the
+    global factor state planted in each of D, U (a row block on
+    "model") and M (the curvature engine's block: rows on "model", or,
+    on (1, 2, 2), on the engine's row axis with every model rank holding
+    the same block): the guard's ``bucket{bi}/factor_nonfinite`` is 3 on
+    every rank."""
+    got = [g["planted"] for g in _all(world, name)]
+    assert got[0] is not None
+    assert all(g == got[0] for g in got)
+    assert got[0][1] == 3.0
+
+
+def test_steps_gather_no_tapped_gradient_whole(world):
+    """The CLI's step on (1, 4) and (2, 2), every architecture of the
+    step cases: ``ModelShards.gather`` never sees a tapped parameter (the
+    sharded gradients are preconditioned on factor rows; only an NS panel
+    side would gather one)."""
+    for name, spec, *_ in STEP_CASES:
+        tapped = _tapped(spec)
+        for got in _all(world, name):
+            assert not set(got["gathered"]) & tapped, name
 
 
 @pytest.mark.parametrize("model", [2, 4, 16])

@@ -891,7 +891,8 @@ def suite_dp(ctx, cases):
 # -- the tensor-parallel suite -----------------------------------------------
 
 #: the suite's meshes (data, model)
-TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "1x2": (1, 2)}
+TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "1x2": (1, 2),
+             "1x2x2": (1, 2, 2)}
 
 
 @contextlib.contextmanager
@@ -926,9 +927,13 @@ def continuation_replay(shifts=None):
 
 
 def _tp_mesh(ctx, name):
+    """A model mesh: axes (data, model), or (curv, data, model) for a
+    curvature engine with a row axis of its own."""
     from repro_torch.launch import mesh as mesh_lib
-    return mesh_lib.make_mesh(TP_MESHES[name], ("data", "model"),
-                              device=ctx.cpu)
+    shape = TP_MESHES[name]
+    axes = ("data", "model") if len(shape) == 2 else ("curv", "data",
+                                                      "model")
+    return mesh_lib.make_mesh(shape, axes, device=ctx.cpu)
 
 
 def _tp_lm(ctx, case, mesh):
@@ -974,8 +979,11 @@ def _whole(lm, tree) -> dict:
 def _tp_step(ctx, case):
     """``make_scheduled_kfac_step`` (the CLI's step) on the model mesh
     (the curvature engine on "data" when it has members, as ``--curvature
-    auto`` picks), from the reference's parameters (this rank's blocks),
-    with its batches (each rank its data block) and heavy-op draws."""
+    auto`` picks; on a (curv, data, model) mesh its slots on "curv" and
+    its M rows on "data"), from the reference's parameters (this rank's
+    blocks), with its batches (each rank its data block) and heavy-op
+    draws; then the health guard's count of nonfinite entries planted in
+    the final factors (:func:`_planted_count`)."""
     import torch
     from repro_torch import specs
     from repro_torch.core import kfac as tkfac
@@ -988,7 +996,10 @@ def _tp_step(ctx, case):
     opt = tkfac.Kfac(dp_kfac_config(case["variant"]), lm.taps,
                      device=ctx.cpu)
     opt.model_shards = sp.shards
-    if sp.dp_size > 1:
+    if "curv" in mesh.axis_names:
+        specs.DistSpec(mesh=mesh, curvature_axis="curv",
+                       row_axis="data").attach(opt)
+    elif sp.dp_size > 1:
         specs.DistSpec(mesh=mesh, curvature_axis="data").attach(opt)
     step = tloop.make_scheduled_kfac_step(lm.loss_fn, opt, case["n_tokens"],
                                           sp=sp)
@@ -997,15 +1008,48 @@ def _tp_step(ctx, case):
                              rng=torch.Generator().manual_seed(1))
     work = opt.uniform_work(True, True, True)
     losses = []
-    for k, batch in enumerate(case["batches"]):
-        local = rank_rows({n: _t(v) for n, v in batch.items()},
-                          sp.dp_index, sp.dp_size)
-        draws = {int(b): _t(d) for b, d in case["draws"][k].items()}
-        state, loss = step(state, local, work, draws=draws)
-        losses.append(float(loss))
+    with gathers_seen() as gathered:
+        for k, batch in enumerate(case["batches"]):
+            local = rank_rows({n: _t(v) for n, v in batch.items()},
+                              sp.dp_index, sp.dp_size)
+            draws = {int(b): _t(d) for b, d in case["draws"][k].items()}
+            state, loss = step(state, local, work, draws=draws)
+            losses.append(float(loss))
     return {"losses": losses, "rows": seen.rows, "held": held,
+            "gathered": gathered,
             "after": _whole(lm, state.params),
-            "mu": _whole(lm, state.opt.fallback.mu)}
+            "mu": _whole(lm, state.opt.fallback.mu),
+            "planted": _planted_count(opt, state.opt, mesh)}
+
+
+def _planted_count(opt, st, mesh):
+    """One nonfinite entry of the global factor state planted in each of
+    D, U and M of the first bucket that holds M by rows of U on "model"
+    (where each lies: D on every rank; U's rows on the first model rank;
+    M in the curvature engine's block of the first member, on the first
+    model rank where its rows are on "model", else on both), then the
+    guard's ``factor_report`` → (bucket, its count), or None without
+    such a bucket.  Each entry must count once: 3."""
+    from repro_torch.train import health
+    bi = next((i for i, b in enumerate(opt.factor_buckets)
+               if b.spec.needs_m and opt._factor_rows(b.spec)), None)
+    if bi is None:
+        return None
+    e = opt.factor_buckets[bi].entries[0]
+    ts = getattr(st.factors[e.name], e.side)
+    first = lambda x: (0,) * x.dim()
+    m0 = mesh.coord("model") == 0
+    ts.D[first(ts.D)] = float("nan")
+    if m0:
+        ts.U[first(ts.U)] = float("nan")
+    on_model = opt._m_rows(opt.factor_buckets[bi].spec) is not None
+    M = st.shards.get(str(bi), ts.M)
+    owner = all(mesh.coord(a) == 0 for a in mesh.axis_names
+                if a != "model") if st.shards else True
+    if owner and (m0 or not on_model):
+        M[first(M)] = float("nan")
+    rep = health.factor_report(opt, st.factors, st.shards)
+    return bi, rep[f"bucket{bi}/factor_nonfinite"]
 
 
 def _tp_taps(ctx, case):
@@ -1053,12 +1097,121 @@ def _tp_archs(ctx, case):
         held = _blocks_held(tb.lm, params)
         local = shd.localize({k: _t(v) for k, v in batch.items()},
                              tb.in_shardings[2])
-        with continuation_replay() as shifts, applied_updates() as upd:
+        with continuation_replay() as shifts, applied_updates() as upd, \
+                gathers_seen() as gathered:
             p, st, loss = tb.step_fn(params, tb.opt.init(params), local,
                                      torch.Generator().manual_seed(1))
         out[name] = {"loss": float(loss), "held": held, "shifts": shifts,
                      "updates": _whole(tb.lm, upd[0]),
-                     "mu": _whole(tb.lm, st.fallback.mu)}
+                     "mu": _whole(tb.lm, st.fallback.mu),
+                     "factor_numel": factor_numel(st),
+                     "gathered": gathered,
+                     "tapped": sorted(t.param_path
+                                      for t in tb.opt.taps.values())}
+    return out
+
+
+@contextlib.contextmanager
+def gathers_seen():
+    """The parameter paths of every ``ModelShards.gather`` (a leaf
+    gathered whole over "model") while the block runs."""
+    from repro_torch.distributed import sharding as shd
+    orig, seen = shd.ModelShards.gather, []
+
+    def recorded(self, path, x):
+        if self.dim(path) is not None:
+            seen.append(path)
+        return orig(self, path, x)
+    shd.ModelShards.gather = recorded
+    try:
+        yield seen
+    finally:
+        shd.ModelShards.gather = orig
+
+
+def factor_numel(opt_state) -> dict:
+    """{"factors/<tap>/<side>/<field>": entries this rank holds}."""
+    return {f"factors/{n}/{side}/{f}": getattr(getattr(ts, side), f).numel()
+            for n, ts in opt_state.factors.items() for side in "AG"
+            for f in ("U", "D", "M", "aux")}
+
+
+def _tp_rows_brand(ctx, case):
+    """``kfactor.brand_step`` on the model mesh: each d of the case's
+    (its init from X0, then the Brand update with X1, plain and through
+    the kernels' passes) on the rank's rows where the model axis divides
+    d (``ModelShards.factor_rows``), U gathered whole → {key: (U, D)}."""
+    import torch
+    from repro_torch.core import kfactor
+    from repro_torch.distributed import sharding as shd
+    mesh = _tp_mesh(ctx, case["mesh"])
+    out = {}
+    for d, (X0, X1) in case["inputs"].items():
+        ms = shd.ModelShards({"w": torch.empty((d, d), device="meta")}, mesh)
+        rows = ms.factor_rows(d)
+        spec = kfactor.KFactorSpec(d=d, r=case["r"], n_stat=X0.shape[-1],
+                                   mode=kfactor.Mode.BRAND)
+        stack = X0.shape[:-2]
+        for uk in (False, True):
+            st = kfactor.make_state(d, spec.width, False,
+                                    rows=rows and rows.rb)
+            st = st.map(lambda x: x.expand(stack + x.shape).clone())
+            local = (lambda x: x) if rows is None else rows.take
+            st = kfactor.brand_step(spec, st, local(_t(X0)), True, uk, rows)
+            st = kfactor.brand_step(spec, st, local(_t(X1)), False, uk, rows)
+            U = st.U if rows is None else rows.gather(st.U)
+            out[(d, uk)] = {"U": _np(U), "D": _np(st.D),
+                            "rows": None if rows is None else rows.rb}
+    return out
+
+
+def _tp_rows_apply(ctx, case):
+    """The optimizer's bucketed preconditioning on the model mesh for a
+    column-parallel, a row-parallel, a replicated and an expert-stacked
+    tap (``Kfac._bucketed_precondition``: each rank its blocks of the
+    gradients and its row blocks of the factors, plain and with
+    ``use_kernels``) → {(tap, use_kernels): the rank's block of S},
+    and the leaves ``ModelShards.gather`` gathered whole."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.core import kfac as tkfac
+    from repro_torch.core import kfactor
+    from repro_torch.core import policy
+    from repro_torch.distributed import sharding as shd
+    mesh = _tp_mesh(ctx, case["mesh"])
+    taps = {n: tkfac.TapInfo(**t) for n, t in case["taps"].items()}
+    abstract = {t.param_path: torch.empty(t.stack + (t.d_in, t.d_out),
+                                          device="meta")
+                for t in taps.values()}
+    ms = shd.ModelShards(abstract, mesh, taps={n: t.param_path
+                                               for n, t in taps.items()})
+    out = {"gathered": []}
+    for uk in (False, True):
+        cfg = tkfac.KfacConfig(policy=policy.PolicyConfig(**case["policy"]),
+                               use_kernels=uk)
+        opt = tkfac.Kfac(cfg, taps, device=ctx.cpu)
+        opt.model_shards = ms
+        factors, grads = {}, {}
+        for n, t in taps.items():
+            sides = {}
+            for side in "AG":
+                rows = opt._factor_rows(opt.specs[n][side])
+                U = _t(case["factors"][n][side]["U"])
+                sides[side] = kfactor.KFactorState(
+                    U=U if rows is None else rows.take(U).clone(),
+                    D=_t(case["factors"][n][side]["D"]),
+                    M=torch.zeros(t.stack + (1, 1)),
+                    aux=torch.zeros(t.stack + (kfactor.AUX_WIDTH,)))
+            factors[n] = tkfac.TapState(**sides)
+            grads[t.param_path] = ms.block(t.param_path,
+                                           _t(case["grads"][n]))
+        with gathers_seen() as seen:
+            S = opt._bucketed_precondition(factors, grads, None, None,
+                                           case["phi"])
+        out["gathered"] += seen
+        out.update({(n, uk): _np(v) for n, v in S.items()})
+        out["kinds"] = {n: opt._precond_kind(n) for n in taps}
+    out["coord"] = mesh.coord("model")
     return out
 
 
@@ -1260,7 +1413,8 @@ def suite_tp(ctx, cases):
     kinds = {"step": _tp_step, "taps": _tp_taps, "archs": _tp_archs,
              "serve": _tp_serve, "compress": _tp_compress, "cli": _tp_cli,
              "restore": _tp_restore, "fsdp": _tp_fsdp,
-             "health": _tp_health}
+             "health": _tp_health, "rows_brand": _tp_rows_brand,
+             "rows_apply": _tp_rows_apply}
     return {case["name"]: kinds[case["kind"]](ctx, case) for case in cases}
 
 
