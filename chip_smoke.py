@@ -40,7 +40,7 @@ Phases, run in this order (each prints one JSON line):
            stream in the runner's worker thread and lands at step 30
   slice_sgd, slice_seng
            paths 6 and 7: the baselines SGD and SENG (T_fim = 5) on the
-           same model and batch, 11 steps each; the first 6 steps are
+           same model and batch, 11 steps each; the first 2 steps are
            replayed on the host's CPU and printed beside the card's
   agree_state
            the small VGG under B-KFAC on the card, at the settings of the
@@ -141,6 +141,27 @@ Phases, run in this order (each prints one JSON line):
            the drift of a witness: slice_brkfac again in this process
            from weights one ulp apart (rounding alone parts runs at this
            width)
+  slice_dp, dp_reduced, slice_tp, tp_reduced
+           paths 13 and 14: the CLI data-parallel (--mesh 2x1) and
+           tensor-parallel (--mesh 1x2) at gemma3-4b's full width on two
+           ranks of this card, held to one process; B-R-KFAC at --reduced
+           on four ranks (4x1, 2x2), each step replayed against one
+           process, tp_reduced with a use_kernels=True step on the factor
+           rows
+  slice_fsdp
+           path 15: build_train_step(plan="fsdp") at slice_tp's cut on a
+           (1, 2) [data, model] mesh, two ranks each holding its block of
+           every ≥ 2-D parameter and optimizer leaf: step 0 in fp32 held
+           to one process's (the held leaves' gradients and updates, the
+           held taps' new factors, its continuation shifts replayed), then
+           2 bf16 steps' losses; each rank's gathers and reduce-scatters
+           by bytes, seconds and calls, the memory it holds and its peak
+  fsdp_reduced
+           the builder under plan="fsdp" at --reduced under B-R-KFAC on a
+           2 × 2 mesh of four ranks: 4 steps, each step's update and new
+           state held to the one-process builder step's; then one step
+           with use_kernels=True (the "fsdp_kernels" path: the seven
+           kernels on every rank's factor rows) held at 1e-4
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
 phase checked; on paths 4, 5, 8, 9, 10, 11, 12 and launch_reduced every
@@ -457,6 +478,9 @@ def phase_kernels():
     # use_kernels step), the Brand passes on the factor rows of its
     # slots, the precondition passes on the tap groups' rows
     tp_rows, tp_brand, tp_precond = tp_kernel_shapes()
+    # fsdp_reduced's, per rank: every slot, the factor rows d/4 over the
+    # whole 2 × 2 mesh; its RSVD panels on the M rows gathered whole
+    fsdp_rows, fsdp_brand, fsdp_precond, fsdp_panels = fsdp_kernel_shapes()
 
     def dense_rows(b, rb, d, n):
         # a rank's rows [rb, 2·rb) of the factor: the second model rank's
@@ -471,7 +495,9 @@ def phase_kernels():
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in dist_dense]
            + [(sym(b, d), rnd(b, d, n)) for b, d, n in dp_dense]
            + [lambda c=c: dense_rows(*c) for c in tp_rows
-              if c[1] < c[2] or (c[0], c[2], c[3]) not in dp_dense],
+              if c[1] < c[2] or (c[0], c[2], c[3]) not in dp_dense]
+           + [lambda c=c: dense_rows(*c) for c in fsdp_rows
+              if c not in tp_rows],
            lambda M, X, Xr=None: ea.ea_syrk_batched(M, X, keep, coef, Xr),
            lambda M, X, Xr=None: ref.ea_syrk(M, X, 0.95, False, Xr),
            lambda M, X, Xr=None: torch.baddbmm(
@@ -510,7 +536,8 @@ def phase_kernels():
     # slice_dist's: each rank's ⌈B/2⌉ slots of a Brand bucket; and
     # tp_kernels': those of tp_reduced's engine, on the factor rows
     ut_a_cases += [(orth(b, d, w)[..., :r], rnd(b, d, n))
-                   for b, d, w, r, n in dist_brand + tp_brand]
+                   for b, d, w, r, n in dist_brand + tp_brand
+                   + [c for c in fsdp_brand if c not in tp_brand]]
     record("ut_a", csrc + "brand_panel.cu",
            "src/repro/kernels/brand_panel.py:58", ut_a_cases,
            bp.ut_a_batched, ref.ut_a, lambda U, A: torch.bmm(U.mT, A),
@@ -560,7 +587,12 @@ def phase_kernels():
               + [(rnd(c, d, k),) for c, d, k in tp_panels
                  if (c, d, k) not in dp_panels]
               # tp_kernels' A⊥ panels on the factor rows
-              + [(rnd(b, d, n),) for b, d, _, _, n in tp_brand])
+              + [(rnd(b, d, n),) for b, d, _, _, n in tp_brand]
+              # fsdp_reduced's RSVD panels and fsdp_kernels' A⊥ rows
+              + [(rnd(c, d, k),) for c, d, k in fsdp_panels
+                 if (c, d, k) not in launch_panels]
+              + [(rnd(b, d, n),) for b, d, w, r, n in fsdp_brand
+                 if (b, d, w, r, n) not in tp_brand])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -598,7 +630,8 @@ def phase_kernels():
 
     # each case made at its turn (slice_lm's and slice_serve's are tens of
     # gigabytes together)
-    pc = PRECOND_BUCKETS + lm_precond + sv_precond + tuple(tp_precond)
+    pc = (PRECOND_BUCKETS + lm_precond + sv_precond + tuple(tp_precond)
+          + tuple(c for c in fsdp_precond if c not in tp_precond))
 
     def panel_case(c):
         J, Ug, sg = pcase(*c)[:3]
@@ -1002,6 +1035,18 @@ PATH_KERNELS = {
     # rows
     "tp_kernels": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
                    "precond_panel", "precond_apply"),
+    # the builder under plan="fsdp" at full width: BRAND under
+    # use_kernels=False, as slice_tp
+    "slice_fsdp": (),
+    # the builder under plan="fsdp" at --reduced under B-R-KFAC, on every
+    # rank: the EA absorb on the M rows over the whole mesh and the RSVD
+    # range finder's CholeskyQR2 on the M rows gathered whole
+    "fsdp_reduced": ("ea_syrk", "syrk_tn", "rinv_apply"),
+    # fsdp_reduced's step with use_kernels=True, on every rank: the
+    # absorb, the Brand passes and the preconditioning's on the factor
+    # rows
+    "fsdp_kernels": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
+                     "precond_panel", "precond_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -1291,8 +1336,9 @@ def phase_agree_baseline(phase: str):
                              f"{err:.3g})")
 
 
-#: steps of a full-width baseline path that are replayed on the CPU
-WITNESS_STEPS = 6
+#: steps of a full-width baseline path that are replayed on the CPU: the
+#: witness asserts nothing, and each of its host-CPU steps takes ~7 s
+WITNESS_STEPS = 2
 
 
 def phase_baseline(phase: str, steps: int = 11):
@@ -3609,8 +3655,7 @@ def tp_kernel_shapes():
     rows, width, r, n_stat) and each precondition launch's (count, p, d,
     w_g, w_a) in the kernels' (J, U_g, U_a) order — a column-parallel
     group on its G rows, a row-parallel one on its A rows, a tap of
-    neither whole."""
-    import math
+    neither whole (``_precond_launches``)."""
     import types
     import numpy as np
     import torch
@@ -3642,6 +3687,15 @@ def tp_kernel_shapes():
         if s.mode in kfactor._HAS_BRAND:
             brand.append((plan.per_device, rows.rb if rows else s.d,
                           s.width, s.r, s.n_stat))
+    return dense, brand, _precond_launches(opt)
+
+
+def _precond_launches(opt) -> list:
+    """Each precondition launch's (count, p, d, w_g, w_a) of an optimizer
+    on factor rows, in the kernels' (J, U_g, U_a) order: a column-parallel
+    group on its G rows, a row-parallel one on its A rows, a tap of
+    neither whole."""
+    import math
     precond = []
     for b in opt.precond_buckets:
         a, g = b.spec_a, b.spec_g
@@ -3655,28 +3709,82 @@ def tp_kernel_shapes():
         precond += [(math.prod(e.stack), a.d, g.d, a.width, g.width)
                     for e in b.entries
                     if opt._precond_kind(e.name) == "whole"]
-    return dense, brand, precond
+    return precond
+
+
+def fsdp_kernel_shapes():
+    """fsdp_reduced's shapes on each rank of its 2 × 2 mesh under FSDP (no
+    engine: every slot of a bucket on each rank; the factor rows d/4 over
+    the whole mesh): each dense bucket's EA absorb on its M rows (slots,
+    rows, d, n_stat) and each heavy bucket's RSVD panels on its M
+    gathered whole (slots, d, r + r_o); of its use_kernels step each
+    Brand bucket's (slots, rows, width, r, n_stat) and each precondition
+    launch's (``_precond_launches``)."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.core import kfactor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    world = FSDP_REDUCED["world"]
+    mesh = types.SimpleNamespace(
+        axis_names=("data", "model"), devices=np.zeros((2, world // 2)),
+        shape={"data": 2, "model": world // 2}, size=world,
+        coord=lambda a: 0, group=lambda a=None: None)
+    meta = torch.device("meta")
+    lm = LM(get_arch("gemma3_4b").reduced(), device=meta)
+    opt = kfac_lib.Kfac(train.reduced_kfac_config(FSDP_REDUCED["variant"]),
+                        lm.taps, device=meta)
+    opt.model_shards = shd.ModelShards(
+        lm.init(None), mesh, None,
+        taps={n: t.param_path for n, t in lm.taps.items()})
+    dense, brand, panels = [], [], []
+    for b in opt.factor_buckets:
+        s = b.spec
+        rows, m_rows = opt._factor_rows(s), opt._m_rows(s)
+        if s.needs_m:
+            dense.append((b.total, m_rows.rb if m_rows else s.d, s.d,
+                          s.n_stat))
+        if s.mode in kfactor._HAS_BRAND:
+            brand.append((b.total, rows.rb if rows else s.d, s.width, s.r,
+                          s.n_stat))
+        if kfactor.has_heavy_op(s):
+            panels.append((b.total, s.d, min(s.r + s.r_o, s.d)))
+    return dense, brand, _precond_launches(opt), panels
 
 
 @contextlib.contextmanager
 def counted_collectives():
-    """Bytes and seconds of every all-reduce and all-gather while the
-    block runs ({kind: [bytes, seconds, calls]}, from this process's
-    calls; a call over a tuple of axes counts as its per-axis calls)."""
+    """Bytes and seconds of every all-reduce, all-gather and packed
+    reduce-scatter while the block runs ({kind: [bytes, seconds, calls]},
+    from this process's calls; a call over a tuple of axes counts as its
+    per-axis calls, unless the tuple is every axis of the mesh, which is
+    one call; a collective made inside another counted one counts only
+    in that one)."""
     import torch
     from repro_torch.distributed import collectives as coll
     tally = {"all_reduce": [0, 0.0, 0], "all_gather": [0, 0.0, 0],
-             "all_gather_coalesced": [0, 0.0, 0]}
+             "all_gather_coalesced": [0, 0.0, 0],
+             "reduce_scatter_coalesced": [0, 0.0, 0]}
     saved = {k: getattr(coll, k) for k in tally}
+    depth = [0]
 
     def wrap(kind):
         fn = saved[kind]
 
         def counted(x, mesh, axis=None, *a, **kw):
-            if isinstance(axis, tuple):
+            if depth[0] or (isinstance(axis, tuple)
+                            and coll.sum_axes(mesh, axis) is not None):
                 return fn(x, mesh, axis, *a, **kw)
             t0 = time.perf_counter()
-            out = fn(x, mesh, axis, *a, **kw)
+            depth[0] += 1
+            try:
+                out = fn(x, mesh, axis, *a, **kw)
+            finally:
+                depth[0] -= 1
             xs = x if isinstance(x, list) else [x]
             if any(t.is_cuda for t in xs):
                 torch.cuda.current_stream().synchronize()
@@ -3962,7 +4070,9 @@ def dp_rank_main(job: str, rank: int, world: int, rdv: str, out: str) -> int:
                    init_s=time.perf_counter() - t0)
         t1 = time.perf_counter()
         run = {"slice": dp_rank_slice, "reduced": dp_rank_reduced,
-               "tp_slice": tp_rank_slice, "tp_reduced": tp_rank_reduced}[job]
+               "tp_slice": tp_rank_slice, "tp_reduced": tp_rank_reduced,
+               "fsdp_slice": fsdp_rank_slice,
+               "fsdp_reduced": fsdp_rank_reduced}[job]
         res[job] = run(rank, dev)
         res["run_s"] = time.perf_counter() - t1
         dist.barrier()
@@ -5061,6 +5171,542 @@ def phase_tp_reduced(checked):
                     for k in ks[0]["launches"]}
 
 
+#: slice_fsdp (path 15): build_train_step(plan="fsdp") at gemma3-4b's full
+#: width, cut as slice_tp (its first pattern once: 6 layers), batch 4 × 64
+#: from TokenStream(seed=0), on a (1, 2) [data, model] mesh: two gloo
+#: ranks of this card, each holding its block of every ≥ 2-D leaf of the
+#: parameters and the optimizer state, the batch split over both axes;
+#: step 0 in fp32 held to one process's, then ``steps`` bf16 steps
+FSDP_SLICE = dict(arch="gemma3_4b", repeats=(1, 0), steps=2, batch=4,
+                  seq=64, world=2, timeout=900)
+#: fsdp_reduced: build_train_step(plan="fsdp") at --reduced gemma3 under
+#: B-R-KFAC with the CLI's --reduced optimizer on a (2, 2) [data, model]
+#: mesh, four ranks, batch 4 × 64: ``steps`` steps (stats, light, heavy),
+#: each step's update and new state held to the one-process builder
+#: step's from the same whole parameters, state and batch (rank 0) with
+#: this step's continuation shifts replayed; then one step with
+#: use_kernels=True (stats, light), held at FSDP_KERNELS_TOL
+FSDP_REDUCED = dict(variant="brkfac", steps=4, world=4, batch=4, seq=64,
+                    timeout=600)
+FSDP_KERNELS_TOL = 1e-4
+#: slice_tp's memory a rank as PERF.md §5 records it (H100 80GB HBM3 at
+#: 700 W), printed beside slice_fsdp's
+TP_SLICE_GB = {"held": 11.26, "peak": 20.55, "factors": 0.86,
+              "factors_one_process": 1.73}
+
+
+def _fsdp_slice_arch():
+    from repro_torch.configs.base import get_arch
+    return get_arch(FSDP_SLICE["arch"]).with_repeats(FSDP_SLICE["repeats"])
+
+
+def _fsdp_cell(cfg: dict, name: str):
+    from repro_torch.configs.base import ShapeCell
+    return ShapeCell(name, cfg["seq"], cfg["batch"], "train")
+
+
+def _fsdp_blocks(arch, p_sh, dev) -> dict:
+    """The seeded parameters (``LM.init`` from a card generator seeded 0,
+    as one process draws them) cut to this rank's blocks under ``p_sh``;
+    the whole tree is dropped."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.lm import LM
+    whole = LM(arch, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    out = {k: v.detach().requires_grad_()
+           for k, v in shd.localize(whole, p_sh).items()}
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_held(tree, shardings, abstract) -> dict:
+    """Whether this rank holds exactly its block of every leaf of ``tree``
+    (parameters or optimizer state) under ``shardings`` of the global
+    (``abstract``) tree: the leaves of another shape, and how many of the
+    leaves are strict blocks."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import checkpoint as ck
+    want = ck.leaves(shd.localize(abstract, shardings))
+    whole = ck.leaves(abstract)
+    have = {k: v for k, v in ck.leaves(tree).items()
+            if hasattr(v, "shape")}
+    return {"n_leaves": len(have),
+            "n_blocks": sum(v.numel() < whole[k].numel()
+                            for k, v in have.items()),
+            "wrong": sorted(k for k, v in have.items()
+                            if tuple(v.shape) != tuple(want[k].shape))
+            + sorted(set(k for k, v in want.items() if hasattr(v, "shape"))
+                     - set(have))}
+
+
+@contextlib.contextmanager
+def update_io():
+    """The gradients entering every ``Kfac.update`` while the block runs
+    and the updates it returns (copies), in the yielded list of
+    {"grad", "update"}."""
+    from repro_torch.core import kfac as kfac_lib
+    orig, got = kfac_lib.Kfac.update, []
+
+    def recorded(self, grads, *a, **kw):
+        g = {k: v.detach().clone() for k, v in grads.items()}
+        upd, st = orig(self, grads, *a, **kw)
+        got.append({"grad": g, "update": {k: v.detach().clone()
+                                          for k, v in upd.items()}})
+        return upd, st
+    kfac_lib.Kfac.update = recorded
+    try:
+        yield got
+    finally:
+        kfac_lib.Kfac.update = orig
+
+
+def fsdp_one_process(arch, dev) -> tuple:
+    """slice_fsdp's oracle in this process: the builder without a mesh at
+    the cut from the seeded weights; its step 0 in fp32 recorded
+    (``first_step``: the held leaves' gradients and updates; its
+    continuation shifts; the held taps' new factors), then the bf16 steps'
+    losses and wall times → (record, bf16 run)."""
+    import gc
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+    S = FSDP_SLICE
+    cell = _fsdp_cell(S, "fsdp_slice")
+    stream = TokenStream(vocab=arch.vocab, batch=S["batch"],
+                         seq_len=S["seq"], seed=0, device=dev).batch_at
+    seeded = lambda: LM(arch, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    tb = steps.build_train_step(dataclasses.replace(arch, dtype="float32"),
+                                cell=cell, device=dev)
+    params = seeded()
+    with first_step(_tp_held) as rec, continuation_replay() as shifts:
+        params, st, loss = tb.step_fn(params, tb.opt.init(params),
+                                      stream(0), None)
+    rec.pop("at", None)
+    rec["shifts"] = list(shifts)
+    rec["factors"] = _factor_ops(st.factors, TP_HELD_TAPS)
+    rec["loss"] = float(loss)
+    del tb, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    tb = steps.build_train_step(arch, cell=cell, device=dev)
+    params = seeded()
+    st = tb.opt.init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for k in range(S["steps"]):
+        t0 = time.perf_counter()
+        params, st, loss = tb.step_fn(params, st, stream(k), None)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    run = {"losses": losses, "wall_s": walls,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
+           "factor_bytes": st.factor_bytes()}
+    del tb, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, run
+
+
+def fsdp_rank_slice(rank: int, dev) -> dict:
+    """slice_fsdp on this rank: step 0 in fp32 through
+    ``build_train_step(plan="fsdp")`` (its block of the held leaves'
+    gradients and updates, and the held taps' new factors gathered
+    whole, against one process's, whose shifts it replays), then the bf16
+    steps from the same weights (per step: wall time, the collectives'
+    bytes, seconds and calls; the memory held between steps, the peak,
+    the factor bytes; launches and calls by shape); what it holds."""
+    import gc
+    import os
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    S = FSDP_SLICE
+    arch = _fsdp_slice_arch()
+    cell = _fsdp_cell(S, "fsdp_slice")
+    mesh = mesh_lib.make_mesh((1, S["world"]), ("data", "model"))
+    stream = TokenStream(vocab=arch.vocab, batch=S["batch"],
+                         seq_len=S["seq"], seed=0, device=dev).batch_at
+    want = torch.load(os.environ["CHIP_SMOKE_FSDP_STEP0"], mmap=True)
+    t_fp32 = time.perf_counter()
+    tb = steps.build_train_step(dataclasses.replace(arch, dtype="float32"),
+                                mesh=mesh, cell=cell, plan="fsdp",
+                                device=dev)
+    p_sh, o_sh, b_sh = tb.in_shardings[:3]
+    ms = tb.lm.sp.shards
+    block = lambda k, w: ms.block(k, w) if ms.sharded(k) else w
+    params = _fsdp_blocks(arch, p_sh, dev)
+    held = {"params": _fsdp_held(params, p_sh, tb.abstract_params)}
+    st = tb.opt.init(params)
+    held["opt_init"] = _fsdp_held(st, o_sh, tb.abstract_opt)
+    with first_step(_tp_held) as got32, \
+            continuation_replay(want["shifts"]) as own32:
+        params, st, _ = tb.step_fn(params, st, shd.localize(stream(0), b_sh),
+                                   None)
+    held["opt"] = _fsdp_held(st, o_sh, tb.abstract_opt)
+    got32["factors"] = _factor_ops(
+        {n: shd.globalize(ts, o_sh.factors[n])
+         for n, ts in st.factors.items() if n.startswith(TP_HELD_TAPS)},
+        TP_HELD_TAPS)
+    err32 = _step0_errs(got32, want, block)
+    parted32 = _parted(own32, want["shifts"])
+    factors_held = sorted(want["factors"])
+    del tb, params, st, got32, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_bf16 = time.perf_counter()
+    tb = steps.build_train_step(arch, mesh=mesh, cell=cell, plan="fsdp",
+                                device=dev)
+    params = _fsdp_blocks(arch, p_sh, dev)
+    st = tb.opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, per_step, held_mem = [], [], []
+    with calls_by_shape() as by_shape:
+        for k in range(S["steps"]):
+            batch = shd.localize(stream(k), b_sh)
+            torch.cuda.synchronize()
+            held_mem.append(torch.cuda.memory_allocated())
+            with counted_collectives() as tally:
+                t0 = time.perf_counter()
+                params, st, loss = tb.step_fn(params, st, batch, None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            losses.append(float(loss))
+            per_step.append({"wall_s": wall, **{
+                kind: {"bytes": v[0], "s": v[1], "calls": v[2]}
+                for kind, v in tally.items()}})
+    torch.cuda.synchronize()
+    held_mem.append(torch.cuda.memory_allocated())
+    return {"losses": losses, "steps": per_step,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "held_mem_bytes": held_mem, "factor_bytes": st.factor_bytes(),
+            "param_bytes": sum(v.numel() * v.element_size()
+                               for v in params.values()),
+            "launches": _build.launch_counts(),
+            "calls_by_shape": dict(by_shape), "held": held,
+            "step0_err_fp32": err32, "factors_held": factors_held,
+            "shift_rows_parted0": parted32,
+            "seconds": {"step0_fp32": t_bf16 - t_fp32,
+                        "bf16": time.perf_counter() - t_bf16}}
+
+
+def fsdp_rank_reduced(rank: int, dev) -> dict:
+    """fsdp_reduced on this rank: FSDP_REDUCED's builder steps under
+    plan="fsdp" on the 2 × 2 mesh from the seeded parameters (its blocks)
+    and TokenStream batches (its rows), launches and calls by shape
+    counted; each step's update (a tapped leaf's; an AdamW leaf's
+    gradient) and new state gathered whole and, on rank 0, held to the
+    one-process builder step from the same whole parameters, state and
+    batch with this step's continuation shifts replayed; then one
+    use_kernels=True step (stats, light) likewise."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, train
+    R = FSDP_REDUCED
+    arch = get_arch("gemma3_4b").reduced()
+    cell = _fsdp_cell(R, "fsdp_reduced")
+    mesh = mesh_lib.make_mesh((2, R["world"] // 2), ("data", "model"))
+    rank0 = dist.get_rank() == 0
+    cfg = train.reduced_kfac_config(R["variant"])
+    heavy = dict(do_stats=True, do_light=True, do_heavy=True)
+    light = dict(do_stats=True, do_light=True, do_heavy=False)
+
+    def build(c, flags, m):
+        return steps.build_train_step(arch, mesh=m, cell=cell, flags=flags,
+                                      plan="fsdp", kfac_config=c,
+                                      device=dev)
+    stream = TokenStream(vocab=arch.vocab, batch=R["batch"],
+                         seq_len=R["seq"], seed=0, device=dev).batch_at
+    gen = lambda k: torch.Generator(device=dev).manual_seed(100 + k)
+    rel = lambda a, b: (float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+
+    def replayed(tb, one, params, state, k):
+        """One step on the mesh and, on rank 0, the same in one process
+        → (params, state, loss, its comparison)."""
+        p_sh, o_sh, b_sh = tb.in_shardings[:3]
+        batch = stream(k)
+        wp = shd.globalize({n: v.detach() for n, v in params.items()}, p_sh)
+        ws = shd.globalize(state, o_sh)
+        local = shd.localize(batch, b_sh)
+        torch.cuda.synchronize()
+        before = _build.launch_counts()
+        with continuation_replay() as shifts, update_io() as io_, \
+                counted_collectives() as tally, calls_by_shape() as shapes:
+            params, state, loss = tb.step_fn(params, state, local, gen(k))
+            torch.cuda.synchronize()
+        after = _build.launch_counts()
+        # the mesh step's own launches, collectives and kernel shapes (the
+        # one-process replay below launches at whole shapes)
+        out = {"collectives": {kind: list(v) for kind, v in tally.items()},
+               "launches": {n: after[n] - before.get(n, 0) for n in after},
+               "calls_by_shape": dict(shapes)}
+        tapped = {t.param_path for t in tb.opt.taps.values()}
+        mine = io_[0]["update"] | {n: g for n, g in io_[0]["grad"].items()
+                                   if n not in tapped}
+        got = shd.globalize(mine, {n: p_sh[n] for n in mine})
+        whole = shd.globalize(state, o_sh)
+        if rank0:
+            wp = {n: v.requires_grad_() for n, v in wp.items()}
+            with continuation_replay(shifts) as own, update_io() as io1:
+                _, want_state, loss1 = one.step_fn(wp, ws, batch, gen(k))
+            want = {n: (io1[0]["update"][n] if n in tapped
+                        else io1[0]["grad"][n]) for n in got}
+            by_name = {n: rel(got[n], w) for n, w in want.items()}
+            out |= {"update_rel_err": max(by_name.values()),
+                   "worst": sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:3],
+                   "state_err": _state_err(whole, want_state),
+                   "loss_rel_err": abs(float(loss) - float(loss1))
+                   / abs(float(loss1)),
+                   "continuation_rows_parted": sum(
+                       int(((a - b).abs() > 1e-3 * b.abs()).sum())
+                       for a, b in zip(shifts, own))}
+        return params, state, float(loss), out
+
+    tb = build(cfg, heavy, mesh)
+    one = build(cfg, heavy, None) if rank0 else None
+    p_sh, o_sh = tb.in_shardings[:2]
+    params = _fsdp_blocks(arch, p_sh, dev)
+    held = {"params": _fsdp_held(params, p_sh, tb.abstract_params)}
+    state = tb.opt.init(params)
+    losses, replay, tally, counts, by_shape = [], [], {}, {}, {}
+    _build.reset_launch_counts()
+    for k in range(R["steps"]):
+        params, state, loss, cmp = replayed(tb, one, params, state, k)
+        losses.append(loss)
+        for kind, v in cmp.pop("collectives").items():
+            tally[kind] = [a + b for a, b in zip(tally.get(kind, [0] * 3),
+                                                 v)]
+        for n, c in cmp.pop("launches").items():
+            counts[n] = counts.get(n, 0) + c
+        for key, c in cmp.pop("calls_by_shape").items():
+            by_shape[key] = by_shape.get(key, 0) + c
+        replay.append(cmp)
+    held["opt"] = _fsdp_held(state, o_sh, tb.abstract_opt)
+
+    kcfg = dataclasses.replace(cfg, use_kernels=True)
+    tbk = build(kcfg, light, mesh)
+    onek = build(kcfg, light, None) if rank0 else None
+    params, state, loss, kernels_step = replayed(tbk, onek, params, state,
+                                                 R["steps"])
+    kernels_step.pop("collectives")
+    kernels_step["loss"] = loss
+    return {"losses": losses, "launches": counts,
+            "calls_by_shape": by_shape, "collectives": tally,
+            "held": held, "replay": replay, "kernels_step": kernels_step}
+
+
+def phase_fsdp_slice(checked):
+    """Path 15 (FSDP_SLICE): the one-process builder at the cut first
+    (``fsdp_one_process``), then the same through
+    ``build_train_step(plan="fsdp")`` on two ranks of this card: the fp32
+    step 0 at DP_TOL on the held leaves and taps, the bf16 losses at
+    DP_TOL; each rank's step time by kind, its gathers and
+    reduce-scatters (bytes, seconds, calls), the memory it holds between
+    steps and its peak beside slice_tp's.  Returns the launch counts
+    summed over the ranks."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.param_count import count_params
+    S = FSDP_SLICE
+    arch = _fsdp_slice_arch()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter()
+    rec, one = fsdp_one_process(arch, dev)
+    want_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_fsdp_"),
+                             "step0.pt")
+    torch.save(rec, want_path)
+    del rec
+    one_process_s = time.perf_counter() - t_one
+    card_free = torch.cuda.mem_get_info()[0]
+    _, res, spawn_s = spawn_ranks(
+        "fsdp_slice", S["world"], S["timeout"],
+        env_extra={"CHIP_SMOKE_FSDP_STEP0": want_path})
+    shutil.rmtree(os.path.dirname(want_path), ignore_errors=True)
+    sl = [g["fsdp_slice"] for g in res]
+    kinds = ["first"] + ["light"] * (S["steps"] - 1)
+    drift = [_rel_drift(s["losses"], one["losses"]) for s in sl]
+    kinds_of = ("all_gather_coalesced", "reduce_scatter_coalesced",
+                "all_reduce", "all_gather")
+    for k in range(S["steps"]):
+        emit({"phase": "slice_fsdp", "step": k, "kind": kinds[k],
+              "loss": [s["losses"][k] for s in sl],
+              "loss_one": one["losses"][k], "drift": [d[k] for d in drift],
+              "wall_s": [s["steps"][k]["wall_s"] for s in sl],
+              "wall_s_one": one["wall_s"][k],
+              "collectives": [{c: s["steps"][k][c] for c in kinds_of}
+                              for s in sl]})
+    by_kind = {}
+    for s in sl:
+        for kind, st in zip(kinds, s["steps"]):
+            by_kind.setdefault(kind, []).append(st["wall_s"])
+    PATH_WALLS["slice_fsdp"] = by_kind
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [k for k in PATH_KERNELS["slice_fsdp"] if counts[k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    err32 = max(max(s["step0_err_fp32"].values()) for s in sl)
+    worst = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:4]
+    emit({"phase": "slice_fsdp", "summary": True, "arch": arch.name,
+          "world": S["world"], "mesh": {"data": 1, "model": S["world"]},
+          "backend": res[0]["backend"], "params": count_params(arch),
+          "reduced": {"n_layers": arch.n_layers,
+                      "repeats": list(S["repeats"])},
+          "batch": [S["batch"], S["seq"]], "kinds": kinds,
+          "losses_one": one["losses"], "max_drift": max(max(d)
+                                                        for d in drift),
+          "tol": DP_TOL,
+          "step0_fp32": {"max_rel_err": err32, "tol": DP_TOL,
+                         "worst": [worst(s["step0_err_fp32"]) for s in sl],
+                         "by_entry": [s["step0_err_fp32"] for s in sl]},
+          "shift_rows_parted0": [s["shift_rows_parted0"] for s in sl],
+          "held": [s["held"] for s in sl],
+          "wall_s_by_kind": by_kind, "wall_s_one": one["wall_s"],
+          "one_peak_mem_bytes": one["peak_mem_bytes"],
+          "one_process_s": one_process_s,
+          "card_free_bytes_at_spawn": card_free,
+          "launches": counts, "calls_by_shape": [s["calls_by_shape"]
+                                                 for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "run": [g["run_s"] for g in res],
+                      "rank": [s["seconds"] for s in sl]},
+          "note": "two ranks share one card's SMs and memory, and their "
+                  "collectives go through host memory (gloo)"})
+    cost = {}
+    for kind in sorted(set(kinds)):
+        ks = [k for k, kd in enumerate(kinds) if kd == kind]
+        cost[kind] = {
+            "wall_s": [[s["steps"][k]["wall_s"] for k in ks] for s in sl],
+            "collectives": [{c: {f: [s["steps"][k][c][f] for k in ks]
+                                 for f in ("bytes", "s", "calls")}
+                             for c in kinds_of} for s in sl]}
+    emit({"phase": "slice_fsdp", "layout_cost": True, "by_kind": cost,
+          "held_gb": [[h / 1e9 for h in s["held_mem_bytes"]] for s in sl],
+          "peak_gb": [s["peak_mem_bytes"] / 1e9 for s in sl],
+          "param_gb": [s["param_bytes"] / 1e9 for s in sl],
+          "factor_gb": [s["factor_bytes"] / 1e9 for s in sl],
+          "one_process": {"peak_gb": one["peak_mem_bytes"] / 1e9,
+                          "factor_gb": one["factor_bytes"] / 1e9},
+          "slice_tp_gb": TP_SLICE_GB})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    held_ok = all(not h["wrong"] and h["n_blocks"] > 0
+                  for s in sl for h in s["held"].values())
+    entries_ok = all(
+        len(s["factors_held"]) >= 2 * len(TP_HELD_TAPS)
+        and {f"factors {k}" for k in s["factors_held"]}
+        <= set(s["step0_err_fp32"])
+        and any(k.startswith("update ") for k in s["step0_err_fp32"])
+        for s in sl)
+    if (not finite or not held_ok or not entries_ok or not err32 < DP_TOL
+            or max(max(d) for d in drift) >= DP_TOL or missing
+            or unchecked):
+        raise AssertionError(
+            f"slice_fsdp: finite {finite}, loss drift {drift}, held "
+            f"{[s['held'] for s in sl]}, step-0 fp32 err {err32} "
+            f"(entries {entries_ok}), never launched {missing}, calls at "
+            f"unchecked shapes {unchecked}")
+    return counts
+
+
+def phase_fsdp_reduced(checked):
+    """fsdp_reduced (FSDP_REDUCED) on four ranks of this card: each step
+    replayed against one process at DP_TOL, the use_kernels=True step at
+    FSDP_KERNELS_TOL.  Every rank must launch each kernel of the path, at
+    shapes the ``kernels`` phase held.  Returns the launch counts of the
+    steps and of the use_kernels step, summed over the ranks."""
+    import numpy as np
+    import torch
+    R = FSDP_REDUCED
+    _, res, spawn_s = spawn_ranks("fsdp_reduced", R["world"], R["timeout"])
+    torch.cuda.synchronize()
+    sl = [g["fsdp_reduced"] for g in res]
+    replay = sl[0]["replay"]
+    ks = [s["kernels_step"] for s in sl]
+    err = max(r["update_rel_err"] for r in replay)
+    serr = {f: max(r["state_err"][f] for r in replay)
+            for f in replay[0]["state_err"]}
+    k_err, k_serr = ks[0]["update_rel_err"], ks[0]["state_err"]
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [(r, k) for r, s in enumerate(sl)
+               for k in PATH_KERNELS["fsdp_reduced"] if s["launches"][k] == 0]
+    missing += [(r, k) for r, s in enumerate(ks)
+                for k in PATH_KERNELS["fsdp_kernels"]
+                if s["launches"][k] == 0]
+    unchecked = sorted({k for s in sl + ks for k in s["calls_by_shape"]
+                        if k not in checked})
+    for k, r in enumerate(replay):
+        emit({"phase": "fsdp_reduced", "step": k,
+              "loss": [s["losses"][k] for s in sl], **r})
+    emit({"phase": "fsdp_reduced", "summary": True,
+          "variant": R["variant"], "world": R["world"],
+          "mesh": {"data": 2, "model": R["world"] // 2},
+          "batch": [R["batch"], R["seq"]], "backend": res[0]["backend"],
+          "steps": R["steps"], "max_update_rel_err": err,
+          "max_state_err": serr, "tol": DP_TOL,
+          "held": [s["held"] for s in sl],
+          "collectives": [s["collectives"] for s in sl],
+          "launches": counts, "launches_by_rank": [s["launches"]
+                                                   for s in sl],
+          "calls_by_shape": [s["calls_by_shape"] for s in sl],
+          "seconds": {"spawn_to_end": spawn_s,
+                      "init": [g["init_s"] for g in res],
+                      "run": [g["run_s"] for g in res]}})
+    emit({"phase": "fsdp_reduced", "kernels_step": True,
+          "use_kernels": True, "tol": FSDP_KERNELS_TOL,
+          "update_rel_err": k_err, "worst_updates": ks[0]["worst"],
+          "state_err": k_serr, "loss_rel_err": ks[0]["loss_rel_err"],
+          "launches_by_rank": [{k: s["launches"][k]
+                                for k in PATH_KERNELS["fsdp_kernels"]}
+                               for s in ks],
+          "calls_by_shape": [s["calls_by_shape"] for s in ks]})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    state_ok = (serr["counters"] == 0 and k_serr["counters"] == 0
+                and all(serr[f] < DP_TOL for f in serr if f != "counters")
+                and all(k_serr[f] < FSDP_KERNELS_TOL for f in k_serr
+                        if f not in ("counters", "aux"))
+                and k_serr["aux"] < DP_TOL)
+    held_ok = all(not h["wrong"] and h["n_blocks"] > 0
+                  for s in sl for h in s["held"].values())
+    if (not finite or not err < DP_TOL or not k_err < FSDP_KERNELS_TOL
+            or not state_ok or not held_ok
+            or max(r["loss_rel_err"] for r in replay) >= DP_TOL
+            or len(replay) != R["steps"] or missing or unchecked):
+        raise AssertionError(
+            f"fsdp_reduced: finite {finite}, update rel err {err}, state "
+            f"err {serr}, use_kernels step update err {k_err} state err "
+            f"{k_serr}, held {[s['held'] for s in sl]}, replay loss err "
+            f"{[r['loss_rel_err'] for r in replay]}, never launched "
+            f"(rank, kernel) {missing}, calls at unchecked shapes "
+            f"{unchecked}")
+    return counts, {k: sum(s["launches"][k] for s in ks)
+                    for k in ks[0]["launches"]}
+
+
 #: each phase's wall seconds in this run (``timed``)
 PHASE_SECONDS = {}
 
@@ -5161,6 +5807,11 @@ def main(argv=None) -> int:
     by_path["slice_tp"] = timed("slice_tp", phase_tp_slice, checked)
     by_path["tp_reduced"], by_path["tp_kernels"] = timed(
         "tp_reduced", phase_tp_reduced, checked)
+    # FSDP (build_train_step(plan="fsdp")): gemma3-4b at full width on
+    # two ranks (--mesh 1x2's cut), then B-R-KFAC reduced on a 2 × 2 mesh
+    by_path["slice_fsdp"] = timed("slice_fsdp", phase_fsdp_slice, checked)
+    by_path["fsdp_reduced"], by_path["fsdp_kernels"] = timed(
+        "fsdp_reduced", phase_fsdp_reduced, checked)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

@@ -186,6 +186,33 @@ class _ConsumedGrads(BucketLayout):
             leaves.pop(k, None)
 
 
+class _HeldLayout(BucketLayout):
+    """The one-optimizer layout under FSDP (``Kfac.model_shards.fsdp``): a
+    bucket's states are relaid from the blocks a rank holds between
+    steps to the rows the bucket works on as it is gathered, and back as
+    it is scattered (``Kfac._relaid``), so no factor leaf is whole
+    outside its bucket."""
+
+    def __init__(self, opt: "Kfac"):
+        self.opt = opt
+
+    def _scope(self, entries) -> str:
+        e = entries[0]
+        return f"factor bucket {self.opt._slot[(e.name, e.side)][0]}"
+
+    def gather_states(self, entries, states):
+        keys = [(e.name, e.side) for e in entries]
+        moved = self.opt._relaid(keys, [states[k] for k in keys], True,
+                                 self._scope(entries))
+        return buckets.gather_states(entries, dict(zip(keys, moved)))
+
+    def scatter_states(self, entries, batched, old):
+        per = buckets.scatter_states(entries, batched)
+        keys = list(per)
+        return dict(zip(keys, self.opt._relaid(
+            keys, [per[k] for k in keys], False, self._scope(entries))))
+
+
 class Kfac:
     """K-FAC optimizer over a tapped model (holds statics only).
     ``device=None`` means the card; its state lives there.
@@ -212,7 +239,17 @@ class Kfac:
     replicated or expert-stacked tap gathers both U's transiently
     (:meth:`_precondition_shards`).  The AdamW fallback updates each
     rank's block, and the clip's global norm counts a sharded leaf's
-    blocks once each."""
+    blocks once each.
+
+    Under FSDP (``model_shards.fsdp``: the parameters split over the
+    whole mesh, ``launch/steps.py``'s ``plan="fsdp"``) a rank holds, between
+    steps, its block of every factor leaf by the parameters' rule
+    (``ModelShards.state_dim``: U and M usually by their rows, D and aux
+    by their widths or channels) and works on the same row blocks as
+    above: each bucket's leaves that lie otherwise are relaid for that
+    bucket only (:meth:`_relaid`), the factor work's as its bucket is
+    gathered and scattered (:class:`_HeldLayout`), the preconditioning's
+    U and D as its bucket starts."""
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
                  device=None, curvature=None):
@@ -250,6 +287,50 @@ class Kfac:
             raise ValueError("async_heavy requires bucketed=True (the "
                              "in-flight buffers live in bucket layout)")
         self._cycle = self.scheduler().cycle
+
+    @property
+    def _fsdp(self) -> bool:
+        return bool(getattr(self.model_shards, "fsdp", False))
+
+    _FIELDS = ("U", "D", "M", "aux")
+
+    def _layout_dims(self, name: str, side: str, held: bool) -> Dict:
+        """Field → the dimension a rank holds a block of (None: whole):
+        under FSDP between steps (``held``) the parameters' rule on each
+        leaf's global shape, else the rows the factor work runs on."""
+        spec, stack = self.specs[name][side], tuple(self.taps[name].stack)
+        if held:
+            m = (spec.d, spec.d) if spec.needs_m else (1, 1)
+            shapes = dict(U=stack + (spec.d, spec.width),
+                          D=stack + (spec.width,), M=stack + m,
+                          aux=stack + (kfactor.AUX_WIDTH,))
+            return {f: self.model_shards.state_dim(sh)
+                    for f, sh in shapes.items()}
+        rows = len(stack)
+        return dict(U=rows if self._factor_rows(spec) else None, D=None,
+                    M=rows if self._m_rows(spec) else None, aux=None)
+
+    def _relaid(self, keys, states, to_work: bool, scope: str,
+                fields=_FIELDS) -> list:
+        """The factor states of ``keys`` ((name, side) each) moved from the
+        layout they are held in between steps to the one the factor work
+        runs on (``to_work``), or back; only ``fields`` are moved (the
+        others are kept as they are)."""
+        xs, src, dst = [], [], []
+        for (name, side), st in zip(keys, states):
+            held = self._layout_dims(name, side, True)
+            work = self._layout_dims(name, side, False)
+            a, b = (held, work) if to_work else (work, held)
+            for f in fields:
+                xs.append(getattr(st, f))
+                src.append(a[f])
+                dst.append(b[f])
+        moved = iter(self.model_shards.relayout(
+            xs, src, dst, scope=scope,
+            keys=[f"factors/{n}/{side}/{f}" for n, side in keys
+                  for f in fields]))
+        return [dataclasses.replace(st, **{f: next(moved) for f in fields})
+                for st in states]
 
     def _factor_rows(self, spec):
         """The row block this rank holds of a factor of ``spec`` (None:
@@ -315,15 +396,27 @@ class Kfac:
             raise ValueError(f"parameters {wrong[:3]} are not on {device}")
         factors = {}
         for name, t in self.taps.items():
-            def stacked(spec):
+            def stacked(side):
+                spec = self.specs[name][side]
+                if self._fsdp:      # the held blocks of the whole zeros
+                    st = kfactor.make_state(spec.d, spec.width,
+                                            spec.needs_m, device=device)
+                    st = st.map(lambda x: x.expand(tuple(t.stack)
+                                                   + x.shape))
+                    held = self._layout_dims(name, side, True)
+                    xs = self.model_shards.relayout(
+                        [getattr(st, f) for f in self._FIELDS],
+                        [None] * 4, [held[f] for f in self._FIELDS])
+                    return kfactor.KFactorState(
+                        **{f: x.contiguous()
+                           for f, x in zip(self._FIELDS, xs)})
                 rows, m_rows = self._factor_rows(spec), self._m_rows(spec)
                 st = kfactor.make_state(
                     spec.d, spec.width, spec.needs_m, device=device,
                     rows=rows and rows.rb, m_rows=m_rows and m_rows.rb)
                 return st.map(lambda x: x.expand(tuple(t.stack) + x.shape)
                               .clone())
-            factors[name] = TapState(A=stacked(self.specs[name]["A"]),
-                                     G=stacked(self.specs[name]["G"]))
+            factors[name] = TapState(A=stacked("A"), G=stacked("G"))
         mom = None
         if self.cfg.momentum > 0:
             mom = {n: torch.zeros_like(params[t.param_path],
@@ -616,8 +709,18 @@ class Kfac:
         """One precondition bucket's steps, {name: S} (see
         ``_bucketed_precondition``)."""
         if self.model_shards is not None:
+            names = [e.name for e in bucket.entries]
+            if self._fsdp:          # the bucket's U and D on the work rows
+                keys = [(n, side) for n in names for side in "AG"]
+                moved = dict(zip(keys, self._relaid(
+                    keys, [getattr(factors[n], side) for n, side in keys],
+                    True, f"precond bucket "
+                    f"{self.precond_buckets.index(bucket)}",
+                    fields=("U", "D"))))
+                factors = {n: TapState(A=moved[(n, "A")], G=moved[(n, "G")])
+                           for n in names}
             return self._precondition_shards(
-                [e.name for e in bucket.entries], factors, grads, acts,
+                names, factors, grads, acts,
                 probe_grads, phi, release=lambda paths: layout.release(
                     grads, paths))
         cont = self.cfg.spectrum_continuation
@@ -883,6 +986,11 @@ class Kfac:
         old ones' (``AdamW.update(consume=True)``), so ``state`` is not to
         be used again; the numbers are the same."""
         cfg = self.cfg
+        if self._fsdp and (not cfg.bucketed or self.curvature is not None
+                           or self._async_buckets):
+            raise NotImplementedError(
+                "FSDP runs the bucketed synchronous update without a "
+                "curvature engine (ROADMAP §1 item 5)")
         first = state.n_stats == 0
         phi = cfg.damping_phi(state.step)
         if damping_scale is not None:
@@ -911,7 +1019,8 @@ class Kfac:
         elif work.any and cfg.bucketed:
             factors, inflight = self._bucketed_factor_work(
                 factors, inflight, acts, probe_grads, n_tokens, rng, first,
-                work, draws=draws, landing=landing, phi=phi)
+                work, draws=draws, landing=landing, phi=phi,
+                layout=_HeldLayout(self) if self._fsdp else BucketLayout)
         elif work.any:
             if work.any_async:
                 raise ValueError("async launch/land masks require the "

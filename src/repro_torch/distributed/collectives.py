@@ -46,6 +46,7 @@ need whole are gathered in one.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
@@ -64,30 +65,56 @@ def backend_for(device: torch.device, world_size: int) -> str:
 Axes = Union[None, str, Tuple[str, ...]]
 
 
+def _whole_mesh(mesh, axis) -> bool:
+    """Whether ``axis`` is a tuple naming every axis of ``mesh`` in its
+    order: its members are the whole mesh's group, ranked row-major."""
+    return (isinstance(axis, tuple) and len(axis) > 1
+            and axis == tuple(mesh.axis_names))
+
+
+def group_of(mesh, axis):
+    """(process group, members, this rank's index among them) of a single
+    axis, or of every axis at once (a tuple naming all of them: one
+    collective over the whole mesh instead of one an axis)."""
+    if _whole_mesh(mesh, axis):
+        idx = 0
+        for a in mesh.axis_names:
+            idx = idx * mesh.shape[a] + mesh.coord(a)
+        return mesh.group(None), mesh.size, idx
+    return mesh.group(axis), mesh.shape[axis], mesh.coord(axis)
+
+
+def _members(mesh, axis) -> int:
+    return mesh.size if _whole_mesh(mesh, axis) else mesh.shape[axis]
+
+
 def all_gather(x: torch.Tensor, mesh, axis: Axes,
                dim: int = 0) -> torch.Tensor:
     """Every member's ``x`` concatenated along ``dim`` in the axis's
     coordinate order (``jax.lax.all_gather(x, axis, axis=dim,
-    tiled=True)``; over a tuple of axes, row-major).  An axis of size 1
-    (or None) returns ``x``."""
-    if not isinstance(axis, str):
+    tiled=True)``; over a tuple of axes, row-major: one collective when
+    the tuple is every axis of the mesh).  An axis of size 1 (or None)
+    returns ``x``."""
+    if not isinstance(axis, str) and not _whole_mesh(mesh, axis):
         for a in reversed(axis or ()):
             x = all_gather(x, mesh, a, dim)
         return x
-    if mesh.shape[axis] == 1:
+    if _members(mesh, axis) == 1:
         return x
     if x.dtype == torch.bool:           # not every backend moves bools
         return all_gather(x.to(torch.uint8), mesh, axis, dim).bool()
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, x, group=mesh.group(axis))
+    group, n, _ = group_of(mesh, axis)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
 def all_reduce(x: torch.Tensor, mesh, axis: Axes = None,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced over ``axis`` (a name or a tuple of names; the whole
-    mesh with ``axis=None``), in place and returned."""
+    mesh with ``axis=None``, in one collective), in place and
+    returned."""
     if isinstance(axis, tuple):
         for a in axis:
             all_reduce(x, mesh, a, op)
@@ -157,21 +184,33 @@ def all_reduce_max(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
                       mesh, axis, op=dist.ReduceOp.MAX)
 
 
-def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    n = mesh.shape[axis]
+def _block(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    _, n, idx = group_of(mesh, axis)
     size = x.shape[dim] // n
-    return x.narrow(dim, mesh.coord(axis) * size, size)
+    return x.narrow(dim, idx * size, size)
 
 
-def reduce_scatter(x: torch.Tensor, mesh, axis: str,
+def sum_axes(mesh, axis) -> Axes:
+    """What :func:`all_reduce` takes to sum over ``axis`` in one
+    collective: None (the whole mesh) for a tuple naming every axis of
+    the mesh, else ``axis``."""
+    return None if _whole_mesh(mesh, axis) else axis
+
+
+def _sum_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    return all_reduce(x, mesh, sum_axes(mesh, axis))
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis,
                    dim: int = 0) -> torch.Tensor:
-    """``x`` summed over ``axis``, then this member's block along ``dim``
+    """``x`` summed over ``axis`` (one axis, or a tuple naming every axis
+    of the mesh), then this member's block along ``dim``
     (``jax.lax.psum_scatter(..., tiled=True)``): a sum and a slice, since
     gloo has no reduce-scatter; out of place."""
-    if mesh.shape[axis] == 1:
+    if _members(mesh, axis) == 1:
         return x
-    y = all_reduce(x.clone(memory_format=torch.contiguous_format), mesh,
-                   axis)
+    y = _sum_over(x.clone(memory_format=torch.contiguous_format), mesh,
+                  axis)
     return _block(y, mesh, axis, dim).contiguous()
 
 
@@ -197,12 +236,13 @@ class _ReduceScatterGrad(torch.autograd.Function):
         return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
-def gather_grad(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def gather_grad(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
     """The members' ``x`` concatenated along ``dim``, differentiably: the
     backward sums the members' gradients of the whole and hands each its
     block (reduce-scatter), the adjoint under the port's convention (every
-    member's loss a share of the global one)."""
-    if mesh.shape[axis] == 1:
+    member's loss a share of the global one).  ``axis``: one axis, or a
+    tuple naming every axis of the mesh (one collective each way)."""
+    if _members(mesh, axis) == 1:
         return x
     return _GatherGrad.apply(x, mesh, axis, dim)
 
@@ -216,13 +256,14 @@ def reduce_scatter_grad(x: torch.Tensor, mesh, axis: str,
     return _ReduceScatterGrad.apply(x, mesh, axis, dim)
 
 
-def all_gather_coalesced(xs, mesh, axis: str, dims) -> list:
-    """Each ``xs[i]`` gathered along ``dims[i]`` over ``axis`` (no
-    gradient), the tensors of one dtype packed into one flat buffer and
-    one collective."""
-    n = mesh.shape[axis]
+def all_gather_coalesced(xs, mesh, axis, dims) -> list:
+    """Each ``xs[i]`` gathered along ``dims[i]`` over ``axis`` (one axis,
+    or a tuple naming every axis of the mesh; no gradient), the tensors
+    of one dtype packed into one flat buffer and one collective."""
+    n = _members(mesh, axis)
     if n == 1 or not xs:
         return list(xs)
+    group = group_of(mesh, axis)[0]
     out = [None] * len(xs)
     groups = {}
     for i, x in enumerate(xs):
@@ -230,7 +271,7 @@ def all_gather_coalesced(xs, mesh, axis: str, dims) -> list:
     for idx in groups.values():
         flat = torch.cat([xs[i].detach().reshape(-1) for i in idx])
         parts = [torch.empty_like(flat) for _ in range(n)]
-        dist.all_gather(parts, flat, group=mesh.group(axis))
+        dist.all_gather(parts, flat, group=group)
         off = 0
         for i in idx:
             x, k = xs[i], xs[i].numel()
@@ -238,3 +279,57 @@ def all_gather_coalesced(xs, mesh, axis: str, dims) -> list:
                                dim=dims[i])
             off += k
     return out
+
+
+def reduce_scatter_coalesced(xs, mesh, axis, dims) -> list:
+    """Each ``xs[i]`` summed over ``axis`` (as :func:`all_gather_coalesced`
+    takes it), then this member's block along ``dims[i]``: the tensors of
+    one dtype laid out member-major (every member's blocks of all of them
+    in turn) in one flat buffer, summed in one collective, and this
+    member's stretch split back (gloo has no reduce-scatter)."""
+    _, n, me = group_of(mesh, axis) if xs else (None, 1, 0)
+    if n == 1 or not xs:
+        return list(xs)
+    out = [None] * len(xs)
+    groups = {}
+    for i, x in enumerate(xs):
+        groups.setdefault((x.dtype, x.device), []).append(i)
+    for idx in groups.values():
+        sizes = [xs[i].shape[dims[i]] // n for i in idx]
+        flat = torch.cat([xs[i].detach().narrow(dims[i], j * s, s)
+                          .reshape(-1)
+                          for j in range(n) for i, s in zip(idx, sizes)])
+        _sum_over(flat, mesh, axis)
+        # this member's stretch copied out, so the whole buffer goes now
+        part = flat.numel() // n
+        mine = flat[part * me:part * (me + 1)].clone()
+        del flat
+        off = 0
+        for i, s in zip(idx, sizes):
+            shape = list(xs[i].shape)
+            shape[dims[i]] = s
+            k = math.prod(shape)
+            out[i] = mine[off:off + k].view(shape)
+            off += k
+    return out
+
+
+class _GatherCoalescedGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dims, *xs):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, dims
+        return tuple(all_gather_coalesced(list(xs), mesh, axis, dims))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None) + tuple(reduce_scatter_coalesced(
+            list(gs), ctx.mesh, ctx.axis, ctx.dims))
+
+
+def gather_grad_coalesced(xs, mesh, axis, dims) -> list:
+    """:func:`gather_grad` of each ``xs[i]`` along ``dims[i]``, packed: one
+    gather forward (:func:`all_gather_coalesced`) and one reduce-scatter
+    backward (:func:`reduce_scatter_coalesced`) for all of them."""
+    if _members(mesh, axis) == 1 or not xs:
+        return list(xs)
+    return list(_GatherCoalescedGrad.apply(mesh, axis, tuple(dims), *xs))

@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
@@ -166,6 +166,17 @@ def params_sharding(params, mesh):
     return _map_with_path(one, params)
 
 
+def fsdp_dim(shape, n: int):
+    """The dimension :func:`params_sharding_fsdp` splits a leaf of
+    ``shape`` over ``n`` members on — its largest that ``n`` divides (the
+    first of equal ones) — or None (fewer than 2 dims, or none divides)."""
+    if len(shape) >= 2:
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if shape[i] % n == 0 and shape[i] >= n:
+                return i
+    return None
+
+
 def params_sharding_fsdp(params, mesh):
     """FSDP/ZeRO-3 plan: every ≥2D leaf fully sharded over ALL mesh axes
     on its largest divisible dim."""
@@ -174,14 +185,12 @@ def params_sharding_fsdp(params, mesh):
 
     def one(path, leaf):
         shape = _shape(leaf)
-        if len(shape) >= 2:
-            order = sorted(range(len(shape)), key=lambda i: -shape[i])
-            for i in order:
-                if shape[i] % n == 0 and shape[i] >= n:
-                    spec = [None] * len(shape)
-                    spec[i] = axes
-                    return NamedSharding(mesh, P(*spec))
-        return NamedSharding(mesh, P())
+        i = fsdp_dim(shape, n)
+        if i is None:
+            return NamedSharding(mesh, P())
+        spec = [None] * len(shape)
+        spec[i] = axes
+        return NamedSharding(mesh, P(*spec))
 
     return _map_with_path(one, params)
 
@@ -281,39 +290,117 @@ def cache_sharding(cache, mesh, shard_seq: bool = False,
 
 
 class ModelShards:
-    """Which parameters a rank of a model axis larger than 1 holds a
-    block of: each leaf's dimension on "model" under
-    :func:`params_sharding` of the global (abstract) parameters, which
-    factor rows (:meth:`factor_rows`, :func:`kfac_state_sharding`'s
-    rule), and the collectives of a tensor-parallel step over them (the
-    per-leaf gathers, the global norms, the replicated leaves' gradient
-    sums)."""
+    """Which parameters a rank holds a block of, and the collectives of a
+    step over them.
 
-    def __init__(self, abstract_params, mesh, axis: str = "model",
+    On a model axis larger than 1 (``axis="model"``, tensor parallelism):
+    each leaf's dimension on "model" under :func:`params_sharding` of the
+    global (abstract) parameters, which factor rows (:meth:`factor_rows`,
+    :func:`kfac_state_sharding`'s rule), the per-leaf gathers, the global
+    norms, the replicated leaves' gradient sums.
+
+    With ``axis=None`` (FSDP, ``fsdp``): every leaf's dimension under
+    :func:`params_sharding_fsdp`, split over the whole mesh (``axis``
+    becomes the tuple of every axis, which the collectives run as one
+    group, its members row-major); the factor rows a rank works on are
+    its block of d over the whole mesh; :meth:`gather_whole` is the one
+    place a parameter or optimizer leaf is gathered whole (a layer's
+    parameters in one packed gather whose backward reduce-scatters, a
+    bucket's optimizer leaves in another), and :meth:`relayout` moves
+    optimizer leaves between the layout they are held in and the one a
+    bucket works in."""
+
+    def __init__(self, abstract_params, mesh, axis: Optional[str] = "model",
                  taps=None):
+        self.fsdp = axis is None
+        if self.fsdp:
+            axes = tuple(mesh.axis_names)
+            axis = axes[0] if len(axes) == 1 else axes
+            rule = params_sharding_fsdp
+        else:
+            rule = params_sharding
         self.mesh, self.axis = mesh, axis
         self.taps = dict(taps or {})     # tap name → its parameter's path
         self.shapes = {k: tuple(v.shape) for k, v in abstract_params.items()}
         self.dims = {}
-        for k, sh in params_sharding(abstract_params, mesh).items():
+        for k, sh in rule(abstract_params, mesh).items():
             self.dims[k] = next((i for i, e in enumerate(tuple(sh.spec))
-                                 if e == axis), None)
+                                 if e is not None), None)
 
     @property
     def size(self) -> int:
+        if self.fsdp:
+            return int(self.mesh.devices.size)
         return int(self.mesh.shape[self.axis])
 
     @property
     def index(self) -> int:
+        if self.fsdp:
+            return coll.group_of(self.mesh, self.axis)[2]
         return self.mesh.coord(self.axis)
 
     def dim(self, path: str):
-        """The dimension of ``path`` split over the model axis, or None
+        """The dimension of ``path`` split over the ranks, or None
         (replicated; also a path that is not a parameter)."""
         return self.dims.get(path)
 
     def sharded(self, path: str) -> bool:
         return self.dim(path) is not None
+
+    def state_dim(self, shape):
+        """The dimension a rank holds a block of in an optimizer leaf of
+        the global ``shape`` (FSDP: the parameters' rule)."""
+        return fsdp_dim(tuple(shape), self.size) if self.fsdp else None
+
+    def gather_whole(self, xs, dims, grad: bool = False, scope: str = "",
+                     keys=()):
+        """Each ``xs[i]`` whole from the ranks' blocks along ``dims[i]``
+        (None: it is whole already), in one packed collective;
+        differentiably with ``grad`` (the backward reduce-scatters the
+        gradients, packed likewise).  ``scope`` names what the leaves are
+        gathered for (a layer, a bucket), ``keys`` the leaves."""
+        idx = [i for i, d in enumerate(dims) if d is not None]
+        fn = coll.gather_grad_coalesced if grad else \
+            coll.all_gather_coalesced
+        out = list(xs)
+        for i, g in zip(idx, fn([xs[i] for i in idx], self.mesh, self.axis,
+                                [dims[i] for i in idx])):
+            out[i] = g
+        return out
+
+    def gather_params(self, tree: Mapping[str, torch.Tensor],
+                      scope: str) -> dict:
+        """A layer's parameters whole from the rank's blocks (``tree``:
+        path → the block, or a view of it without leading stack
+        dimensions), differentiably, in one packed gather."""
+        keys = list(tree)
+        dims = [None if self.dim(k) is None else
+                self.dim(k) - len(self.shapes[k]) + tree[k].dim()
+                for k in keys]
+        return dict(zip(keys, self.gather_whole(
+            [tree[k] for k in keys], dims, grad=True, scope=scope,
+            keys=keys)))
+
+    def relayout(self, xs, src, dst, scope: str = "", keys=None) -> list:
+        """Each ``xs[i]``, held as the rank's block along ``src[i]``
+        (None: whole), as its block along ``dst[i]`` instead: the leaves
+        that change layout gathered whole in one collective, then cut
+        (``keys`` names them for :meth:`gather_whole`)."""
+        move = [i for i, (a, b) in enumerate(zip(src, dst))
+                if a is not None and a != b]
+        out = list(xs)
+        if move:
+            for i, w in zip(move, self.gather_whole(
+                    [xs[i] for i in move], [src[i] for i in move],
+                    scope=scope,
+                    keys=[keys[i] for i in move] if keys else ())):
+                out[i] = w
+        for i, (a, b) in enumerate(zip(src, dst)):
+            if b is not None and a != b:
+                size = out[i].shape[b] // self.size
+                out[i] = out[i].narrow(b, self.index * size, size).clone(
+                    memory_format=torch.contiguous_format)
+        return out
 
     def gather(self, path: str, x: torch.Tensor) -> torch.Tensor:
         """The whole leaf from the ranks' blocks (no gradient)."""
@@ -338,8 +425,8 @@ class ModelShards:
         ranks hold blocks of — the output columns (-1) of a
         column-parallel matmul, the experts (-3) of an (E,)-stacked one —
         or None: a row-parallel or replicated tap's probe gradient is a
-        sum of the ranks' parts."""
-        path = self.taps.get(tap)
+        sum of the ranks' parts (under FSDP every probe is whole)."""
+        path = None if self.fsdp else self.taps.get(tap)
         d = self.dim(path) if path is not None else None
         if d is None:
             return None
@@ -371,20 +458,21 @@ class ModelShards:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         shard = sq([x for k, x in tree.items() if self.sharded(k)]) + zero
         rep = sq([x for k, x in tree.items() if not self.sharded(k)]) + zero
-        coll.all_reduce(shard, self.mesh, self.axis)
+        coll.all_reduce(shard, self.mesh, coll.sum_axes(self.mesh, self.axis))
         return shard + rep
 
 
 @dataclasses.dataclass(frozen=True)
 class RowBlock:
     """A rank's row block [r0, r0 + rb) of a factor of d = n·rb rows
-    split over ``axis`` (``kfac_state_sharding``'s rows on "model"), and
+    split over ``axis`` (``kfac_state_sharding``'s rows on "model"; under
+    FSDP the tuple of every axis, the whole mesh as one group), and
     the collectives of the factor work on such blocks: a reduction over
     the d rows is the same reduction on the local rows summed over the
     axis (:meth:`sum`), and a side that needs its U whole gathers the
     blocks (:meth:`gather`)."""
     mesh: Any
-    axis: str
+    axis: Any
     index: int
     rb: int
 
@@ -403,12 +491,14 @@ class RowBlock:
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the axis (contiguous, in place)."""
-        return coll.all_reduce(x.contiguous(), self.mesh, self.axis)
+        return coll.all_reduce(x.contiguous(), self.mesh,
+                               coll.sum_axes(self.mesh, self.axis))
 
     def sum_all(self, xs) -> None:
         """Every tensor of ``xs`` summed over the axis, in place, in one
         packed collective."""
-        coll.all_reduce_coalesced(list(xs), self.mesh, self.axis)
+        coll.all_reduce_coalesced(list(xs), self.mesh,
+                                  coll.sum_axes(self.mesh, self.axis))
 
     def gather(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
         """The whole from the ranks' blocks along ``dim`` (no gradient)."""
@@ -521,8 +611,31 @@ def localize(tree, shardings):
 
 
 def globalize(tree, shardings):
-    """The global tree from every rank's local ``tree`` (collective)."""
-    return _walk(tree, shardings, _gather_blocks,
+    """The global tree from every rank's local ``tree`` (collective).  The
+    floating leaves split on one dimension over one axis (or over every
+    axis of the mesh at once) are gathered first, packed into one
+    collective a mesh and axis (a gloo call costs more than its bytes);
+    the others leaf by leaf, and a layout object's part by the object."""
+    groups = {}
+
+    def collect(x, sh):
+        blocks = _blocks(sh, x.ndim)
+        entry = tuple(sh.spec)[blocks[0][0]] if len(blocks) == 1 else None
+        if entry is not None and x.is_floating_point() and (
+                isinstance(entry, str)
+                or coll.sum_axes(sh.mesh, entry) is None):
+            groups.setdefault((id(sh.mesh), entry), (sh.mesh, []))[1] \
+                .append((x, blocks[0][0]))
+        return x
+    _walk(tree, shardings, collect, lambda sh, sub: sub)
+    whole = {}
+    for (_, entry), (mesh, items) in groups.items():
+        got = coll.all_gather_coalesced([x for x, _ in items], mesh, entry,
+                                        [d for _, d in items])
+        whole.update({id(x): g for (x, _), g in zip(items, got)})
+    return _walk(tree, shardings,
+                 lambda x, sh: whole[id(x)] if id(x) in whole
+                 else _gather_blocks(x, sh),
                  lambda sh, sub: sh.globalize(sub))
 
 

@@ -48,8 +48,17 @@ vocabulary block of the logits, decode the whole logits; the decode
 cache is read in its layout ("seq", "heads", "hd"), and the
 long-context decode (``long_500k``: B = 1, the cache's sequence
 over every axis) combines its partial softmaxes over the mesh.
-``plan="fsdp"`` raises ``NotImplementedError`` when the step runs (ROADMAP
-§1 item 5); its shardings are still built.
+
+``plan="fsdp"`` runs FSDP over the whole mesh: the batch is split over
+every axis, each rank holds its block of every ≥ 2-D leaf of the
+parameters and of the optimizer state by ``params_sharding_fsdp``'s rule
+(its largest dimension the mesh divides), each layer gathers its weights
+as it runs (``models/lm.py``; their gradients reduce-scattered), and the
+optimizer works on its blocks (``Kfac`` under ``ModelShards.fsdp``: the
+factor work and the preconditioning on factor rows, as under tensor
+parallelism, each bucket's other leaves relaid for that bucket only).
+The numbers are the reference's one-device step.  With ``async_heavy``
+or a curvature axis it refuses to build (ROADMAP §1 item 5).
 
 A built step runs eagerly on ``device`` (the card unless the caller asks
 for another).  ``default_kfac_config`` keeps the reference's
@@ -83,18 +92,6 @@ META = torch.device("meta")
 def _axis_sizes(mesh) -> Tuple[Tuple[str, int], ...]:
     return tuple((a, int(s)) for a, s in zip(mesh.axis_names,
                                              mesh.devices.shape))
-
-
-def refuse_model_parallel(mesh, plan: str, what: str) -> None:
-    """The run-time refusal of a step the port cannot execute:
-    ``plan="fsdp"`` on a mesh."""
-    if mesh is not None and plan == "fsdp":
-        raise NotImplementedError(
-            f"{what}: plan='fsdp' (every leaf sharded over all axes, "
-            f"weights gathered per layer) is not ported (ROADMAP §1 item "
-            f"5, 'FSDP'); use plan='tp', "
-            f"which shards the model over the 'model' axis and the batch "
-            f"over the others")
 
 
 def shard_policy_for(mesh=None, shard_kv_seq: bool = False,
@@ -181,14 +178,19 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
                      remat: bool = True, plan: str = "tp",
                      async_heavy: bool = False, heavy_lag: int = 0,
                      dist: Optional[specs_lib.DistSpec] = None,
-                     device=None) -> BuiltTrain:
+                     device=None,
+                     kfac_config: Optional[kfac_lib.KfacConfig] = None
+                     ) -> BuiltTrain:
     """``work`` (a schedule.StepWork) supersedes ``flags`` when given.
+    ``kfac_config`` replaces ``default_kfac_config(arch, variant)`` (a
+    port-only knob: the reduced paths on the card train with the CLI's
+    ``--reduced`` optimizer).
     ``dist`` is the spec-level spelling of the ``mesh``/``curvature_axis``
     pair and may not be mixed with it; its curvature axis attaches the
     distributed curvature engine (``opt.init`` then gives each rank its
     layout).  ``plan`` is the reference's model-sharding plan ("tp" or
-    "fsdp"), which picks the shardings; see the module docstring for
-    which meshes run.  ``async_heavy``/``heavy_lag`` give the
+    "fsdp"), which picks the shardings and how a mesh runs (the module
+    docstring).  ``async_heavy``/``heavy_lag`` give the
     optimizer the double-buffered heavy pipeline (its state then carries
     the in-flight buffers).
 
@@ -206,16 +208,24 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
         dist = specs_lib.DistSpec(mesh=mesh, curvature_axis=curvature_axis)
     cell = cell or SHAPES["train_4k"]
     flags = flags or dict(do_stats=True, do_light=True, do_heavy=False)
-    if plan == "fsdp" and mesh is not None:
+    fsdp = plan == "fsdp" and mesh is not None
+    if fsdp:
+        if async_heavy or curvature_axis is not None:
+            raise NotImplementedError(
+                "build_train_step: plan='fsdp' with "
+                + ("async_heavy" if async_heavy else "a curvature axis")
+                + " is not ported (ROADMAP §1 item 5, 'FSDP with the "
+                "async pipeline or the curvature engine'); the plain "
+                "FSDP step runs")
         sp = ShardPolicy(dp=tuple(mesh.axis_names), tp=None,
                          seq_shard_residual=False,
-                         axis_sizes=_axis_sizes(mesh))
+                         axis_sizes=_axis_sizes(mesh), mesh=mesh)
     else:
         sp = shard_policy_for(mesh)
     dev = device_lib.resolve(device)
-    lm = LM(arch, sp, remat=remat, unroll=unroll, device=dev)
+    lm = LM(arch, sp, remat=remat, unroll=unroll, device=dev, fsdp=fsdp)
     sp = lm.sp
-    kcfg = default_kfac_config(arch, variant)
+    kcfg = kfac_config or default_kfac_config(arch, variant)
     if async_heavy:
         kcfg = dataclasses.replace(kcfg, async_heavy=True,
                                    heavy_lag=heavy_lag)
@@ -226,7 +236,6 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
     step_work = work if work is not None else opt.uniform_work(**flags)
 
     def train_step(params, opt_state, batch, rng):
-        refuse_model_parallel(mesh, plan, "build_train_step")
         draws = None
         if isinstance(rng, Mapping):
             draws, rng = rng, None

@@ -38,6 +38,19 @@ vocabulary-parallel: the max and the sum of exponentials are reduced
 over the axis and the target's logit comes from the rank that holds it.
 The loss is each rank's 1/M share, the acts are gathered over the axis
 to the one-device taps, and decode's logits are gathered whole.
+
+**FSDP** (``fsdp=True`` with a policy whose data axes are every axis of
+its mesh: ``launch/steps.py``'s ``plan="fsdp"``): ``init`` returns the
+rank's blocks of ``distributed/sharding.py::params_sharding_fsdp`` (every
+≥ 2-D leaf split over the whole mesh on its largest dimension that the
+mesh divides) and ``sp.shards`` is ``ModelShards`` over the whole mesh.
+A repeat gathers its leaves whole inside its checkpointed body, in one
+packed collective whose backward reduce-scatters their gradients
+(``collectives.gather_grad_coalesced``), so remat gathers them again in
+the backward and no layer's whole weights outlive it; the embedding and
+the head (with the MTP projection) are gathered the same way where they
+are used.  The layers then run as on one device on the rank's rows of
+the batch, as under data parallelism.
 """
 from __future__ import annotations
 
@@ -143,7 +156,8 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, Tensor]:
 
 class LM:
     def __init__(self, arch: ArchConfig, sp: ShardPolicy = NO_SHARD,
-                 remat: bool = True, unroll: bool = False, device=None):
+                 remat: bool = True, unroll: bool = False, device=None,
+                 fsdp: bool = False):
         self.arch = arch
         self.sp = sp
         self.remat = remat
@@ -158,12 +172,27 @@ class LM:
             self._enc_segments = (Segment((enc_spec,), arch.n_enc_layers),)
         self.taps = self._build_taps()
         self.param_shardings = None
+        taps = {n: t.param_path for n, t in self.taps.items()}
         if sp.model_parallel:
             abstract = self.init(None)
             self.param_shardings = shd.params_sharding(abstract, sp.mesh)
             self.sp = dataclasses.replace(sp, shards=shd.ModelShards(
-                abstract, sp.mesh, sp.tp,
-                taps={n: t.param_path for n, t in self.taps.items()}))
+                abstract, sp.mesh, sp.tp, taps=taps))
+        elif fsdp and sp.mesh is not None:
+            abstract = self.init(None)
+            self.param_shardings = shd.params_sharding_fsdp(abstract,
+                                                            sp.mesh)
+            ms = shd.ModelShards(abstract, sp.mesh, None, taps=taps)
+            stacked = [k for k in abstract if k.startswith(("segments/",
+                                                            "enc/"))
+                       and ms.dim(k) == 0]
+            if stacked:
+                # a repeat indexes its leaves locally (v[r]); no
+                # architecture has a leaf whose block is a run of repeats
+                raise NotImplementedError(
+                    f"FSDP: {stacked[:3]} would be split over their "
+                    f"repeats")
+            self.sp = dataclasses.replace(sp, shards=ms)
 
     # ------------------------------------------------------------------ taps
     def _seg_taps(self, segments, base: str) -> Dict[str, TapInfo]:
@@ -257,8 +286,17 @@ class LM:
             probes_seg = {n: probes[n] for n in names if n in probes}
 
             # the segment is bound as defaults: a checkpointed repeat
-            # recomputes after the loop has moved on
-            def body(hh, aux_c, p_r, probe_r, s=s, pattern=pattern):
+            # recomputes after the loop has moved on.  Under FSDP the
+            # repeat's blocks are gathered here, so a recomputation
+            # gathers them again and no layer's whole weights outlive it
+            def body(hh, aux_c, p_r, probe_r, r, s=s, pattern=pattern,
+                     pre=pre):
+                if sp.fsdp:
+                    whole = sp.shards.gather_params(
+                        {pre + k: v for k, v in p_r.items()},
+                        scope=f"{pre}{r}")
+                    p_r = {k[len(pre):]: v for k, v in whole.items()}
+                p_r = _nest(p_r)
                 acts_l: Dict[str, Tensor] = {}
                 for i, spec in enumerate(pattern):
                     tc = blocks.TapCtx(probe_r, arch.n_stat,
@@ -272,20 +310,30 @@ class LM:
 
             acts_list = []
             for r in range(seg.repeats):
-                p_r = _nest({k: v[r] for k, v in seg_params.items()})
+                p_r = {k: v[r] for k, v in seg_params.items()}
                 probe_r = {k: v[r] for k, v in probes_seg.items()}
                 if train and self.remat:
                     h, aux, acts_r = torch_checkpoint.checkpoint(
-                        body, h, aux, p_r, probe_r, use_reentrant=False)
+                        body, h, aux, p_r, probe_r, r, use_reentrant=False)
                 else:
-                    h, aux, acts_r = body(h, aux, p_r, probe_r)
+                    h, aux, acts_r = body(h, aux, p_r, probe_r, r)
                 acts_list.append(acts_r)
             for n in acts_list[0]:
                 acts[n] = torch.stack([a[n] for a in acts_list])
         return h, aux, acts
 
+    def _whole(self, params, *keys):
+        """The leaves ``keys`` as a layer computes with them: under FSDP
+        gathered whole in one packed collective whose backward
+        reduce-scatters their gradients, else as held."""
+        if not self.sp.fsdp:
+            return [params[k] for k in keys]
+        got = self.sp.shards.gather_params({k: params[k] for k in keys},
+                                           scope="+".join(keys))
+        return [got[k] for k in keys]
+
     def _embed(self, params, tokens):
-        E = params["embed"]
+        E, = self._whole(params, "embed")
         if E.shape[0] != self.arch.vocab:   # the rank's vocabulary rows
             lo = self.sp.block_range(self.arch.vocab, E.shape[0])[0]
             t = tokens.to(torch.int64) - lo
@@ -330,18 +378,20 @@ class LM:
         acts.update(acts_m)
         h = sp.full_seq(layers.rms_norm(h, params["final_ln"]))
         tc = blocks.TapCtx(probes, arch.n_stat, prefix="", sp=sp)
+        mtp = arch.mtp and train
+        W = self._whole(params, "head/w", *(("mtp/w",) if mtp else ()))
         # under tensor parallelism the rank's vocabulary block (the
         # reference's ``sp.logits`` constraint)
-        logits = tc.mm("head", params["head/w"], h)
+        logits = tc.mm("head", W[0], h)
         acts.update(tc.acts)
         if arch.logit_softcap > 0:
             logits = layers.softcap(logits, arch.logit_softcap)
-        if arch.mtp and train:
+        if mtp:
             tcm = blocks.TapCtx(probes, arch.n_stat, prefix="", sp=sp)
-            h_mtp = sp.gather_cols(tcm.mm("mtp_proj", params["mtp/w"], h),
+            h_mtp = sp.gather_cols(tcm.mm("mtp_proj", W[1], h),
                                    arch.d_model)
             acts.update(tcm.acts)
-            logits_mtp = h_mtp @ params["head/w"].to(h_mtp.dtype)
+            logits_mtp = h_mtp @ W[0].to(h_mtp.dtype)
             return logits, aux, acts, logits_mtp
         return logits, aux, acts, None
 

@@ -42,6 +42,12 @@ ranks' parts (``train/loop.py::kfac_grads``).  ``shards`` (set by
 ``models/lm.py::LM``) knows which parameters a rank holds a block of.
 The decode caches' layouts are read by ``models/blocks.py`` through
 :meth:`kv_seq_block` and :meth:`cache_axes`.
+
+**FSDP** (``launch/steps.py``'s ``plan="fsdp"``): the data axes are every
+axis of the mesh and there is no model axis, so every role is the data
+axes' identity; ``shards`` is then ``ModelShards`` over the whole mesh
+(:attr:`fsdp`), each rank holds its block of every parameter, and
+``models/lm.py`` gathers a layer's parameters as it runs it.
 """
 from __future__ import annotations
 
@@ -98,24 +104,35 @@ class ShardPolicy:
             idx = idx * sizes[a] + self.mesh.coord(a)
         return idx
 
+    @property
+    def fsdp(self) -> bool:
+        """True iff the parameters are split over every axis (``shards``
+        FSDP's, set by ``models/lm.py::LM``): the batch is split over
+        every axis too, and its sums run over the whole mesh at once."""
+        return bool(getattr(self.shards, "fsdp", False))
+
+    @property
+    def _dp_axes(self):
+        return None if self.fsdp else tuple(self.dp)
+
     def dp_sum(self, x: Tensor) -> Tensor:
         """``x`` summed over the data axes, in place (no autograd)."""
         if not self.data_parallel:
             return x
-        return coll.all_reduce(x, self.mesh, tuple(self.dp))
+        return coll.all_reduce(x, self.mesh, self._dp_axes)
 
     def dp_sum_all(self, xs) -> None:
         """Every tensor of ``xs`` summed over the data axes, in place, in
         packed buffers (``collectives.all_reduce_coalesced``)."""
         if self.data_parallel:
-            coll.all_reduce_coalesced(list(xs), self.mesh, tuple(self.dp))
+            coll.all_reduce_coalesced(list(xs), self.mesh, self._dp_axes)
 
     def dp_sum_grad(self, x: Tensor) -> Tensor:
         """``x`` summed over the data axes, differentiably: the backward
         sums the ranks' gradients (each rank's loss holds its share)."""
         if not self.data_parallel:
             return x
-        return coll.all_reduce_autograd(x, self.mesh, tuple(self.dp))
+        return coll.all_reduce_autograd(x, self.mesh, self._dp_axes)
 
     def dp_gather(self, x: Tensor, dim: int = 0) -> Tensor:
         """The ranks' ``x`` concatenated along ``dim`` in batch order."""

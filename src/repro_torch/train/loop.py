@@ -89,7 +89,13 @@ def kfac_grads(loss_fn, params, probes, batch, sp=None,
     scale ahead of ``full_seq`` sees only its T-block) are summed over
     every axis in one packed pass; a sharded parameter's gradient is the
     rank's block, whole over "model", and is summed over the data axes
-    only, as are the probe gradients' blocks, kept or gathered."""
+    only, as are the probe gradients' blocks, kept or gathered.
+
+    Under FSDP (``sp.fsdp``: the batch and every ≥ 2-D parameter split
+    over the whole mesh) a sharded parameter's gradient is already the
+    rank's block of the global one (its layer's gather reduce-scatters
+    it); the loss, the acts, the probe gradients and the replicated
+    parameters' gradients are summed over the mesh in one packed pass."""
     loss, acts = loss_fn(params, probes, batch)
     pk, qk = list(params), list(probes)
     grads = torch.autograd.grad(loss, [params[k] for k in pk]
@@ -121,6 +127,13 @@ def kfac_grads(loss_fn, params, probes, batch, sp=None,
             coll.all_reduce_coalesced(every, sp.mesh, None)
             coll.all_reduce_coalesced(rep, sp.mesh, sp.tp)
             sp.dp_sum_all(local)
+    elif sp is not None and sp.fsdp:
+        # a sharded leaf's gradient is the rank's block of the sum
+        # already (its gather's backward reduce-scatters it)
+        loss = loss.clone()
+        rep = [g for k, g in gp.items() if not sp.shards.sharded(k)]
+        sp.dp_sum_all([loss] + list(acts.values()) + list(gprobe.values())
+                      + (rep if reduce_grads else []))
     elif sp is not None and sp.data_parallel:
         loss = loss.clone()
         sp.dp_sum_all([loss] + list(acts.values()) + list(gprobe.values())

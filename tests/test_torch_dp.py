@@ -30,9 +30,12 @@ are computed in this process meanwhile).
   at 1e-5 of scale), and the taps summed over the data axes, row for row
   (acts and probe gradients at 1e-5 of scale), for the dense cut and the
   MoE.
-* **Refusals.**  ``plan="fsdp"`` still raises ``NotImplementedError``,
-  naming ROADMAP §1 item 5; a model axis of 2 and a long-context decode
-  (sequence-sharded cache) build (``test_torch_tp.py`` runs them).
+* **FSDP** (``plan="fsdp"``) on the (4, 1) mesh: the batch and every
+  ≥ 2-D leaf split over both axes, all ten architectures' builder step
+  against the same one-process oracles (loss at 1e-5, each parameter's
+  change at 2e-3), each rank holding its blocks.  A model axis of 2 and a
+  long-context decode (sequence-sharded cache) build
+  (``test_torch_tp.py`` runs them).
 """
 import contextlib
 import dataclasses
@@ -293,6 +296,8 @@ def world(tmp_path_factory):
                     for n in ARCH_NAMES}
     cases.append({"name": "archs", "kind": "archs", "B": B, "T": T,
                   "batches": arch_batches})
+    cases.append({"name": "fsdp-archs", "kind": "fsdp_archs", "mesh": "4x1",
+                  "B": B, "T": T, "batches": arch_batches})
     tokens = lm_batch(worker.dp_arch(("cut", 0)), B, T, 5)["tokens"]
     cases.append({"name": "serve", "kind": "serve", "mesh": "4x1",
                   "arch": ("cut", 0), "B": B, "T": T, "tokens": tokens})
@@ -432,6 +437,28 @@ def test_every_architecture_on_a_2x1_mesh_equals_one_process(world, name):
                    f"{name} {k}")
 
 
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_fsdp_every_architecture_on_a_4x1_mesh_equals_one_process(world,
+                                                                  name):
+    """``build_train_step(plan="fsdp")`` (stats, light, heavy; remat) on
+    (4, 1) from the port's seeded parameters, each rank its blocks and
+    B/4 rows ≡ the same step in one process (the (2, 1) test's oracle):
+    loss at 1e-5, each parameter's change at 2e-3; each rank holds its
+    block of every parameter and optimizer leaf before it is gathered."""
+    want = world[2]["archs"][name]
+    init = _port_params((name, 0))
+    for got in _all(world, "fsdp-archs"):
+        g = got[name]
+        assert g["rows"] == [B // 4]
+        for h in (g["held"], g["opt_held"]):
+            assert h["keys"] and not h["wrong"] and h["blocks"]
+        assert abs(g["loss"] - want["loss"]) <= REL * abs(want["loss"])
+        for k, w in want["after"].items():
+            d_want = (w - init[k].detach()).numpy()
+            _close(g["after"][k] - init[k].detach().numpy(), d_want, TRAJ,
+                   f"{name} {k}")
+
+
 def test_prefill_and_decode_builders_give_the_ranks_rows(world):
     """On (4, 1) each rank's prefill and decode logits are its rows of the
     one-process logits (1e-5 of scale)."""
@@ -496,12 +523,14 @@ def _stand_in(shape, axes):
     return types.SimpleNamespace(axis_names=axes, devices=np.zeros(shape))
 
 
-def test_model_axis_fsdp_and_sequence_sharded_decode_still_raise():
+def test_model_axis_fsdp_and_sequence_sharded_decode_build_and_run(world):
     """A model axis of 2 and the long-context decode (its cache sharded
     over the sequence) build tensor-parallel steps (they run in
-    ``test_torch_tp.py``: no world here); only ``plan="fsdp"`` raises when
-    the step runs, naming ROADMAP §1 item 5; a data-parallel policy's
-    roles stay the identity."""
+    ``test_torch_tp.py``: no world here); ``plan="fsdp"`` builds on both
+    stand-in meshes (every axis a data axis, no model axis, the FSDP
+    shards on the LM and the optimizer) and its step runs on (4, 1) in
+    this file's world (gemma3's, to one process's loss); a data-parallel
+    policy's roles stay the identity."""
     arch = worker.dp_arch(("cut", 0))
     tp = _stand_in((2, 2), ("data", "model"))
     dp = _stand_in((4, 1), ("data", "model"))
@@ -517,8 +546,14 @@ def test_model_axis_fsdp_and_sequence_sharded_decode_still_raise():
     for mesh in (tp, dp):
         fb = tsteps.build_train_step(arch, mesh=mesh, cell=cell, plan="fsdp",
                                      device=CPU)
-        with pytest.raises(NotImplementedError, match="item 5.*FSDP"):
-            fb.step_fn({}, None, {}, None)
+        sp = fb.lm.sp
+        assert sp.dp == ("data", "model") and sp.tp is None
+        assert sp.mesh is mesh and sp.fsdp and not sp.model_parallel
+        assert fb.opt.model_shards is sp.shards
+        assert fb.in_shardings[0]["embed"].spec == (("data", "model"), None)
+    got = _all(world, "fsdp-archs")[0]["gemma3_4b"]
+    want = world[2]["archs"]["gemma3_4b"]["loss"]
+    assert abs(got["loss"] - want) <= REL * abs(want)
     pb = tsteps.build_prefill_step(arch, mesh=tp, cell=cell, device=CPU)
     assert tuple(pb.out_shardings.spec) == ("data", None, "model")
     db = tsteps.build_decode_step(arch, mesh=dp, cell=SHAPES["long_500k"],

@@ -188,8 +188,7 @@ def test_one_device_policy_and_refusals():
     # shardings are the reference's (the port's policy also holds the
     # mesh its collectives run over, the forward's length, the LM's
     # parameter blocks and the decode caches' lengths); the steps build
-    # tensor-parallel (they run in test_torch_tp.py: no world here) and
-    # only plan="fsdp" refuses to run (ROADMAP §1 item 5)
+    # tensor-parallel (they run in test_torch_tp.py: no world here)
     mesh = argparse.Namespace(axis_names=("data", "model"),
                               devices=np.zeros((2, 2)))
     jarch = jget("gemma3_4b").reduced()
@@ -205,9 +204,53 @@ def test_one_device_policy_and_refusals():
     assert built.in_shardings is not None and dec.in_shardings is not None
     assert built.lm.sp.model_parallel and pre.lm.sp.model_parallel
     assert dec.lm.sp.kv_lens == (SHAPES["decode_32k"].seq_len, 0, False)
+    # plan="fsdp" builds (its step runs on four ranks in
+    # test_torch_{mesh,dp,tp}.py); with the async pipeline or a curvature
+    # axis it refuses to build, naming ROADMAP §1 item 5
     fsdp = tsteps.build_train_step(arch, mesh=mesh, plan="fsdp", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fsdp.step_fn(None, None, None, None)
+    assert fsdp.lm.sp.fsdp and fsdp.lm.sp.mesh is mesh
+    for kw in (dict(async_heavy=True), dict(curvature_axis="data")):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tsteps.build_train_step(arch, mesh=mesh, plan="fsdp",
+                                    device=CPU, **kw)
+    # and it runs on a mesh of one member (every collective the identity):
+    # each ≥ 2-D leaf a block of one, gathered per layer, the factor work
+    # on rows and its buckets relaid, the same step as without a mesh
+    cell = ShapeCell("t", T, B, "train")
+    rs = np.random.default_rng(3)
+    tokens = torch.as_tensor(rs.integers(0, 256, (B, T)))
+    steps = {}
+    for plan, m in (("tp", None), ("fsdp", _OneMember())):
+        tb = tsteps.build_train_step(tcut(), mesh=m, cell=cell, flags=HEAVY,
+                                     plan=plan, device=CPU)
+        params = tb.lm.init(torch.Generator().manual_seed(0))
+        init = {k: v.detach().clone() for k, v in params.items()}
+        out, _, loss = tb.step_fn(params, tb.opt.init(params),
+                                  {"tokens": tokens, "targets": tokens},
+                                  torch.Generator().manual_seed(1))
+        steps[plan] = (init, out, float(loss))
+    assert steps["fsdp"][0].keys() == steps["tp"][0].keys()
+    init, want, loss = steps["tp"]
+    _, got, fsdp_loss = steps["fsdp"]
+    assert abs(fsdp_loss - loss) <= REL * abs(loss)
+    for k in want:
+        _close(got[k].detach() - init[k], want[k].detach() - init[k], TRAJ,
+               k)
+
+
+class _OneMember:
+    """A [data, model] mesh of one member: every collective over it is the
+    identity, so no process group is needed."""
+    axis_names = ("data", "model")
+    devices = np.zeros((1, 1))
+    shape = {"data": 1, "model": 1}
+    size = 1
+
+    def coord(self, axis):
+        return 0
+
+    def group(self, axis=None):
+        return None
 
 
 def test_api_exports_build_train_step():

@@ -19,7 +19,13 @@ reference, on the CPU.
   replicated step; the CLI at ``--mesh 2x2 --mesh-axes data,curv``
   against the port's own ``--mesh none`` run (losses at 1e-5, the engine
   seen in its log lines) and on a model axis (tensor-parallel, the same
-  losses; only ``plan="fsdp"`` refused); metrics on ≡ off and
+  losses; the builder's ``plan="fsdp"`` step on that mesh at one
+  process's loss); ``plan="fsdp"`` on 2 × 2 [data, model] against the
+  reference's replicated builder step (the builder case's inputs), each
+  rank holding exactly ``params_sharding_fsdp``'s block of every
+  parameter and optimizer leaf before and after, the state gathered
+  whole against one process's, and no leaf gathered whole outside its
+  layer or its bucket; metrics on ≡ off and
   health on ≡ off under the engine (``tests/test_obs.py:301``,
   ``tests/test_chaos.py:276``); a checkpoint saved on (2, 2) restored on
   (2, 1) and on one device, synchronous and mid-lag
@@ -57,6 +63,7 @@ from repro.optim import base as jbase  # noqa: E402
 from repro.train import checkpoint as jck  # noqa: E402
 from repro.train import elastic as jelastic  # noqa: E402
 from repro_torch import specs as tspecs  # noqa: E402
+from repro_torch.configs.base import ShapeCell as TCell  # noqa: E402
 from repro_torch.configs.base import get_arch as tget  # noqa: E402
 from repro_torch.distributed import curvature as tcurv  # noqa: E402
 from repro_torch.distributed import sharding as tshd  # noqa: E402
@@ -402,12 +409,17 @@ def world(tmp_path_factory):
     rs = np.random.default_rng(0)
     batch = {"tokens": rs.integers(0, arch.vocab, (B, T)).astype(np.int32)}
     batch["targets"] = batch["tokens"]
+    fsdp_batch = {"tokens": rs.integers(0, arch.vocab, (B, T)).astype(
+        np.int32)}
+    fsdp_batch["targets"] = fsdp_batch["tokens"]
     cases = [
         {"name": "builder", "kind": "builder", "init": np_tree(params),
          "batch": batch, "B": B, "T": T, "flags": HEAVY},
+        {"name": "fsdp", "kind": "fsdp", "init": np_tree(params),
+         "batch": batch, "B": B, "T": T, "flags": HEAVY},
         {"name": "cli", "kind": "cli",
          "argv": CLI + ["--mesh", "2x2", "--mesh-axes", "data,curv"],
-         "model_argv": CLI + ["--mesh", "2x2"]},
+         "model_argv": CLI + ["--mesh", "2x2"], "fsdp_batch": fsdp_batch},
         {"name": "ckpt", "kind": "ckpt", "dir": str(root / "ckpt")},
         {"name": "elastic", "kind": "elastic", "dir": str(root / "el")}]
     for v in ("bkfac", "nskfac"):
@@ -427,7 +439,40 @@ def world(tmp_path_factory):
     with contextlib.redirect_stdout(io.StringIO()):
         _, ref["cli"] = ttrain.run(ttrain.parse_args(CLI),
                                    arch=worker.tcut())
+    ref["fsdp-cli"] = _one_process_loss(fsdp_batch)
+    ref["fsdp-state"] = _one_process_state(np_tree(params), batch)
     return join(), ref
+
+
+def _one_process_loss(batch):
+    """The port's builder step in one process from its seeded parameters
+    (the ``cli`` case's FSDP step's) → its loss."""
+    tb = tsteps.build_train_step(worker.tcut(),
+                                 cell=TCell("t", T, B, "train"),
+                                 device=CPU)
+    params = tb.lm.init(torch.Generator().manual_seed(0))
+    _, _, loss = tb.step_fn(params, tb.opt.init(params),
+                            {k: torch.as_tensor(v) for k, v in batch.items()},
+                            torch.Generator().manual_seed(1))
+    return float(loss)
+
+
+def _one_process_state(init, batch):
+    """The port's builder step in one process from the reference's
+    parameters (the ``fsdp`` case's inputs) → its optimizer state's
+    leaves by checkpoint key."""
+    from repro_torch import convert
+    from repro_torch.train import checkpoint as tck
+    tb = tsteps.build_train_step(worker.tcut(),
+                                 cell=TCell("t", T, B, "train"),
+                                 flags=HEAVY, device=CPU)
+    params = {k: v.requires_grad_() for k, v in convert.params_from_jax(
+        init, device=CPU).items()}
+    _, st, _ = tb.step_fn(params, tb.opt.init(params),
+                          {k: torch.as_tensor(v) for k, v in batch.items()},
+                          torch.Generator().manual_seed(1))
+    return {k: v.detach().numpy() for k, v in tck.leaves(st).items()
+            if hasattr(v, "shape")}
 
 
 def _one(world, name):
@@ -458,18 +503,85 @@ def test_cli_on_a_2x2_mesh_equals_no_mesh(world):
     none``: losses at 1e-5; rank 0's log shows the engine (slots on curv,
     rows on data) and the memory it divides; the other ranks print
     nothing; a model axis larger than 1 (``--mesh 2x2``: data, model)
-    runs tensor-parallel to the same losses, and only ``plan="fsdp"`` is
-    refused, naming ROADMAP §1 item 5."""
+    runs tensor-parallel to the same losses, and the builder's
+    ``plan="fsdp"`` step runs on that mesh to one process's loss (1e-5)."""
     want = world[1]["cli"]
     runs = _one(world, "cli")
     for got in runs:
         np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
         np.testing.assert_allclose(got["model_losses"], want, rtol=1e-5)
-        assert "item 5" in got["refused"] and "fsdp" in got["refused"]
+        np.testing.assert_allclose(got["fsdp_loss"], world[1]["fsdp-cli"],
+                                   rtol=1e-5)
     log = runs[0]["console"]
     assert "curvature sharded on 'curv'" in log
     assert "rows=data n_rows=2" in log and "dense-M memory" in log
     assert all(not r["console"] for r in runs[1:])
+
+
+def test_fsdp_builder_step_on_a_2x2_mesh_equals_reference(world):
+    """``build_train_step(plan="fsdp")`` on [data, model] = (2, 2): the
+    batch over both axes (each forward sees B/4 rows), no tensor
+    parallelism, and one step (stats, light, heavy) from the reference's
+    parameters ≡ the reference's one-device builder step on the global
+    batch: the loss at 1e-5, each parameter's change at 2e-3 of its
+    scale, on every rank."""
+    from repro_torch import convert
+    init, loss, after = world[1]["builder"]
+    flat0 = convert.params_from_jax(init, device=CPU)
+    want = convert.params_from_jax(after, device=CPU)
+    for got in _one(world, "fsdp"):
+        assert got["policy"] == (("data", "model"), None, True, True, True)
+        assert got["rows"] == [B // 4]
+        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+        for k, w in want.items():
+            d_want = (w - flat0[k]).numpy().astype(np.float64)
+            d_got = got["after"][k].astype(np.float64) - flat0[k].numpy()
+            scale = max(np.abs(d_want).max(), 1e-30)
+            assert np.abs(d_got - d_want).max() <= 2e-3 * scale, k
+
+
+def test_fsdp_ranks_hold_their_blocks_of_params_and_state(world):
+    """Before and after the FSDP step each rank holds exactly its block of
+    every parameter and optimizer leaf under ``params_sharding_fsdp`` of
+    the global trees (shapes; most leaves strict blocks), and the state
+    gathered whole is one process's: each factor's U diag(D) Uᵀ (U's
+    columns are an eigenbasis only up to sign and rotation) and every
+    other leaf at 1e-3 of its scale."""
+    want = world[1]["fsdp-state"]
+    for got in _one(world, "fsdp"):
+        for part, h in got["held"].items():
+            assert h["keys"] and not h["wrong"], (part, h["wrong"])
+            assert h["blocks"] > 0, part
+        assert set(got["state"]) == set(want)
+        for k, w in want.items():
+            g = got["state"][k]
+            assert g.shape == w.shape, k
+            if k.endswith("U"):
+                D = k[:-1] + "D"
+                g = (g * got["state"][D][..., None, :]) @ np.swapaxes(g, -1,
+                                                                     -2)
+                w = (w * want[D][..., None, :]) @ np.swapaxes(w, -1, -2)
+            scale = max(np.abs(w).max(), 1e-30)
+            assert np.abs(g - w).max() <= 1e-3 * scale, k
+
+
+def test_fsdp_gathers_nothing_whole_outside_its_layer_or_bucket(world):
+    """Every whole gather of the FSDP step (``ModelShards.gather_whole``,
+    counted): a repeat's parameters in one packed gather, twice (its
+    forward and its recomputation under remat), the embedding and the
+    head once each, and optimizer leaves only inside the factor or
+    precondition bucket they belong to."""
+    for got in _one(world, "fsdp"):
+        rep = got["gathers"]
+        assert not rep["bad"], rep["bad"]
+        layers = {k: v for k, v in rep["scopes"].items()
+                  if k.startswith("segments/")}
+        assert layers == {"segments/0/0": 2, "segments/0/1": 2}
+        assert rep["scopes"]["embed"] == rep["scopes"]["head/w"] == 1
+        others = set(rep["scopes"]) - set(layers) - {"embed", "head/w"}
+        assert others and all(k.startswith(("factor bucket ",
+                                            "precond bucket "))
+                              for k in others)
 
 
 @pytest.mark.parametrize("variant", ["bkfac", "nskfac"])

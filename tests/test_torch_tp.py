@@ -56,7 +56,14 @@ oracles are computed in this process meanwhile).
   column-parallel, a row-parallel (the two in one bucket), a replicated
   and an expert-stacked tap on the ranks' blocks against
   ``precondition_with_damping`` of the whole, at 1e-5 of scale.
-* ``plan="fsdp"`` raises ``NotImplementedError`` naming ROADMAP §1 item 5.
+* **FSDP** (``plan="fsdp"`` on (2, 2), the cut): three builder steps
+  (stats, light, heavy) from the port's seeded parameters, so that state
+  carried in blocks crosses steps, against the same steps in one process
+  with the FSDP run's continuation shifts replayed: losses at 1e-5, each
+  step's tapped updates, the final AdamW moments and factors at 2e-3 of
+  scale; every rank holds its blocks; the state's checkpoint (saved
+  gathered) restores in one process and back onto the four ranks under
+  the step's ``in_shardings``, bit for bit.
 """
 import concurrent.futures
 import contextlib
@@ -103,6 +110,7 @@ MOE_B, MOE_T = 8, 8     # 64 tokens over 4 experts: capacity 21, tokens drop
 CUT = ("cut", 0)
 CLI = ["--reduced", "--steps", "3", "--device", "cpu", "--compress"]
 HEALTH = ["--reduced", "--steps", "3", "--device", "cpu", "--health"]
+FSDP_FLAGS = dict(do_stats=True, do_light=True, do_heavy=True)
 
 #: (case name, arch, variant, mesh, B, T)
 STEP_CASES = (
@@ -327,6 +335,26 @@ def _one_archs(batches, shifts):
     return out
 
 
+def _one_fsdp(case, shifts):
+    """The FSDP case's three builder steps in one process, with the FSDP
+    run's spectrum-continuation shifts replayed."""
+    arch = worker.dp_arch(case["arch"])
+    tb = tsteps.build_train_step(arch, cell=ShapeCell("t", T, B, "train"),
+                                 flags=case["flags"], device=CPU)
+    params = TLM(arch, device=CPU).init(torch.Generator().manual_seed(0))
+    st, losses = tb.opt.init(params), []
+    with worker.continuation_replay(shifts), \
+            worker.applied_updates() as upd:
+        for k, batch in enumerate(case["batches"]):
+            params, st, loss = tb.step_fn(
+                params, st, {n: torch.as_tensor(v) for n, v in batch.items()},
+                torch.Generator().manual_seed(1 + k))
+            losses.append(float(loss))
+    return {"losses": losses, "updates": upd,
+            "state": {k: v.detach().numpy() for k, v in
+                      tckpt.leaves(st).items() if hasattr(v, "shape")}}
+
+
 def _one_serve(tokens):
     arch = worker.dp_arch(CUT)
     pb = tsteps.build_prefill_step(arch, cell=ShapeCell("p", T, B, "prefill"),
@@ -406,8 +434,11 @@ def world(tmp_path_factory):
                   "argv": cli_argv})
     cases.append({"name": "restore", "kind": "restore", "arch": ("cut", 1024),
                   "argv": cli_argv, "dir": ck})
-    cases.append({"name": "fsdp", "kind": "fsdp", "arch": CUT,
-                  "mesh": "2x2"})
+    fsdp = {"name": "fsdp", "kind": "fsdp", "arch": CUT, "mesh": "2x2",
+            "batches": [lm_batch(worker.dp_arch(CUT), B, T, 11 + k)
+                        for k in range(3)],
+            "flags": FSDP_FLAGS, "dir": str(root / "fsdp")}
+    cases.append(fsdp)
     cases.append({"name": "health", "kind": "health", "arch": CUT,
                   "argv": HEALTH + ["--mesh", "2x2"]})
     rows_brand = _rows_brand_case(np.random.default_rng(7))
@@ -445,6 +476,7 @@ def world(tmp_path_factory):
     ranks = join()
     one["archs"] = _one_archs(arch_batches, {
         n: g["shifts"] for n, g in worker.ok(ranks, "archs")[0].items()})
+    one["fsdp"] = _one_fsdp(fsdp, worker.ok(ranks, "fsdp")[0]["shifts"])
     return ranks, refs, one, ck
 
 
@@ -680,11 +712,38 @@ def test_checkpoint_saved_on_a_2x2_mesh_restores_in_one_process_and_back(
                 v, state.opt.fallback.mu[k].numpy())
 
 
-def test_fsdp_still_raises_naming_the_next_item(world):
-    """``plan="fsdp"`` on (2, 2) builds and refuses to run, naming ROADMAP
-    §1 item 5 (FSDP)."""
-    for got in _all(world, "fsdp"):
-        assert "item 5" in got["refused"] and "fsdp" in got["refused"]
+def test_fsdp_steps_equal_one_process_and_restore(world):
+    """``plan="fsdp"`` on (2, 2) runs: three builder steps ≡ the same
+    steps in one process with the FSDP run's continuation shifts replayed
+    (losses at 1e-5; each step's tapped updates, the final AdamW moments,
+    each factor's dense M and U diag(D) Uᵀ at 2e-3 of scale); every rank
+    holds its block of every parameter and optimizer leaf; the checkpoint
+    of the final state restores in one process and back onto the four
+    ranks, bit for bit."""
+    want = world[2]["fsdp"]
+    tapped = _tapped(CUT)
+    runs = _all(world, "fsdp")
+    assert runs[0]["restored_one"] == []
+    for got in runs:
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=REL)
+        for part, h in got["held"].items():
+            assert h["keys"] and not h["wrong"] and h["blocks"], part
+        assert got["restored_back"] == []
+        for k, (g, w) in enumerate(zip(got["updates"], want["updates"])):
+            assert set(g) == set(w)
+            for name in tapped:
+                _close(g[name], w[name].numpy(), TRAJ, f"step {k} {name}")
+        assert set(got["state"]) == set(want["state"])
+        for key, w in want["state"].items():
+            g = got["state"][key]
+            field = key.rsplit("|", 1)[-1]
+            if field == "U":
+                D = key[:-1] + "D"
+                rec = lambda u, d: (u * d[..., None, :]) @ np.swapaxes(
+                    u, -1, -2)
+                g, w = rec(g, got["state"][D]), rec(w, want["state"][D])
+            if field in ("U", "M") or "|mu|" in key:
+                _close(g, w, TRAJ, key)
 
 
 def test_health_guards_on_a_2x2_mesh_read_the_global_step(world):

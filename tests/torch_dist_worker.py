@@ -467,9 +467,14 @@ def tcut(vocab: int = 256):
 
 def _cli(ctx, case):
     """The CLI on the 2 × 2 [data, curv] mesh (rank 0's console captured)
-    and on the 2 × 2 [data, model] mesh (tensor-parallel); the fsdp plan
-    refused."""
+    and on the 2 × 2 [data, model] mesh (tensor-parallel); then the
+    builder under ``plan="fsdp"`` on the CLI's model mesh: one step from
+    the port's seeded parameters (this rank's blocks) and its block of
+    the case's batch."""
+    import torch
     import torch.distributed as dist
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as ttrain
     buf = io.StringIO()
@@ -479,16 +484,21 @@ def _cli(ctx, case):
     with contextlib.redirect_stdout(io.StringIO()):
         _, model_losses = ttrain.run(ttrain.parse_args(case["model_argv"]),
                                      arch=tcut())
-    refused = None
+    B, T = case["fsdp_batch"]["tokens"].shape
     tb = tsteps.build_train_step(tcut(), mesh=ttrain.mesh_of(
-        ttrain.parse_args(case["model_argv"])), plan="fsdp", device=ctx.cpu)
-    try:
-        tb.step_fn({}, None, {}, None)
-    except NotImplementedError as e:
-        refused = str(e)
+        ttrain.parse_args(case["model_argv"])),
+        cell=ShapeCell("t", T, B, "train"), plan="fsdp", device=ctx.cpu)
+    from repro_torch.models.lm import LM
+    whole = LM(tcut(), device=ctx.cpu).init(torch.Generator().manual_seed(0))
+    params = {k: v.detach().requires_grad_() for k, v in shd.localize(
+        whole, tb.in_shardings[0]).items()}
+    batch = shd.localize({k: _t(v) for k, v in case["fsdp_batch"].items()},
+                         tb.in_shardings[2])
+    _, _, fsdp_loss = tb.step_fn(params, tb.opt.init(params), batch,
+                                 torch.Generator().manual_seed(1))
     dist.barrier()
     return {"losses": losses, "console": buf.getvalue(),
-            "model_losses": model_losses, "refused": refused}
+            "model_losses": model_losses, "fsdp_loss": float(fsdp_loss)}
 
 
 def _builder(ctx, case):
@@ -515,6 +525,134 @@ def _builder(ctx, case):
                                            out.items()},
             "engine": tb.opt.curvature.describe(),
             "in_sh": tb.in_shardings is not None}
+
+
+# -- FSDP (plan="fsdp"), read by the mesh, dp and tp suites ------------------
+
+@contextlib.contextmanager
+def fsdp_gathers():
+    """Every ``ModelShards.gather_whole`` call while the block runs, as
+    (scope, the keys it gathered whole, whether it carries gradients)."""
+    from repro_torch.distributed import sharding as shd
+    orig, seen = shd.ModelShards.gather_whole, []
+
+    def recorded(self, xs, dims, grad=False, scope="", keys=()):
+        seen.append((scope, tuple(k for k, d in zip(keys, dims)
+                                  if d is not None), bool(grad),
+                     sum(d is not None for d in dims)))
+        return orig(self, xs, dims, grad=grad, scope=scope, keys=keys)
+    shd.ModelShards.gather_whole = recorded
+    try:
+        yield seen
+    finally:
+        shd.ModelShards.gather_whole = orig
+
+
+def fsdp_gather_report(tb, seen) -> dict:
+    """The recorded gathers of an FSDP step checked against where a leaf
+    may be whole: a layer gathers exactly its sharded parameters (a
+    repeat of a segment, or the embedding, or the head with the MTP
+    projection), a factor bucket only its entries' leaves, a precondition
+    bucket only its taps' U and D; and no call gathers an unnamed leaf.
+    → {"bad": [the calls that break it], "scopes": {scope: calls}}."""
+    ms, opt = tb.lm.sp.shards, tb.opt
+    sharded = {k for k in ms.shapes if ms.sharded(k)}
+    bad, scopes = [], {}
+
+    def tap_key(k):                 # factors/<tap>/<side>/<field>
+        name, side, field = k[len("factors/"):].rsplit("/", 2)
+        return name, side, field
+
+    for scope, keys, grad, n in seen:
+        scopes[scope] = scopes.get(scope, 0) + 1
+        if n != len(keys):
+            ok = False
+        elif grad and scope.startswith(("segments/", "enc/")):
+            pre = scope.rsplit("/", 1)[0] + "/"
+            ok = set(keys) == {k for k in sharded if k.startswith(pre)}
+        elif grad:
+            ok = set(keys) == set(scope.split("+")) & sharded
+        elif scope.startswith("factor bucket "):
+            ents = {(e.name, e.side) for e in
+                    opt.factor_buckets[int(scope.split()[-1])].entries}
+            ok = all(tap_key(k)[:2] in ents for k in keys)
+        elif scope.startswith("precond bucket "):
+            names = {e.name for e in
+                     opt.precond_buckets[int(scope.split()[-1])].entries}
+            ok = all(tap_key(k)[0] in names and tap_key(k)[2] in "UD"
+                     for k in keys)
+        else:
+            ok = False
+        if not ok:
+            bad.append((scope, keys))
+    return {"bad": bad, "scopes": scopes}
+
+
+def fsdp_held(tree, shardings, abstract) -> dict:
+    """The leaves of ``tree`` (this rank's parameters or optimizer state)
+    whose shape is not their block of the global (``abstract``) tree
+    under ``shardings``, and how many leaves are strict blocks."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import checkpoint as ck
+    want = ck.leaves(shd.localize(abstract, shardings))
+    whole = ck.leaves(abstract)
+    have = {k: v for k, v in ck.leaves(tree).items()
+            if hasattr(v, "shape")}
+    return {"wrong": sorted(k for k, v in have.items()
+                            if tuple(v.shape) != tuple(want[k].shape)),
+            "keys": sorted(have) == sorted(k for k, v in want.items()
+                                          if hasattr(v, "shape")),
+            "blocks": sum(v.numel() < whole[k].numel()
+                          for k, v in have.items())}
+
+
+def fsdp_leaves(tree, shardings) -> dict:
+    """{key: numpy} of a rank's tree gathered whole (collective): a
+    parameter dict by path, a state by checkpoint key."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import checkpoint as ck
+    whole = shd.globalize(tree, shardings)
+    if isinstance(whole, dict):
+        return {k: _np(v) for k, v in whole.items()}
+    return {k: _np(v) for k, v in ck.leaves(whole).items()
+            if hasattr(v, "shape")}
+
+
+def _fsdp_builder(ctx, case):
+    """``build_train_step(plan="fsdp")`` on the 2 × 2 [data, model] mesh:
+    one step from the reference's parameters (this rank's blocks) and its
+    block of the batch (split over both axes); what each rank holds
+    before and after, the state gathered whole, and every whole gather."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as tsteps
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device=ctx.cpu)
+    tb = tsteps.build_train_step(
+        tcut(), mesh=mesh, cell=ShapeCell("t", case["T"], case["B"],
+                                          "train"),
+        flags=case["flags"], plan="fsdp", device=ctx.cpu)
+    p_sh, o_sh, b_sh = tb.in_shardings[:3]
+    params = {k: v.requires_grad_() for k, v in shd.localize(
+        convert.params_from_jax(case["init"], device=ctx.cpu), p_sh).items()}
+    batch = shd.localize({k: torch.as_tensor(v)
+                          for k, v in case["batch"].items()}, b_sh)
+    st0 = tb.opt.init(params)
+    held = {"params": fsdp_held(params, p_sh, tb.abstract_params),
+            "opt": fsdp_held(st0, o_sh, tb.abstract_opt)}
+    seen = RowsSeen(tb.lm)
+    with fsdp_gathers() as gathers:
+        out, st, loss = tb.step_fn(params, st0, batch,
+                                   torch.Generator().manual_seed(1))
+    held.update(params_after=fsdp_held(out, p_sh, tb.abstract_params),
+                opt_after=fsdp_held(st, o_sh, tb.abstract_opt))
+    return {"loss": float(loss), "rows": seen.rows, "held": held,
+            "gathers": fsdp_gather_report(tb, gathers),
+            "after": fsdp_leaves(out, p_sh), "state": fsdp_leaves(st, o_sh),
+            "policy": (tb.lm.sp.dp, tb.lm.sp.tp, tb.lm.sp.fsdp,
+                       tb.lm.sp.mesh is mesh, tb.opt.model_shards.fsdp)}
 
 
 def _elastic(ctx, case):
@@ -651,7 +789,8 @@ def tkfac_opt(taps):
 
 def suite_mesh(ctx, cases):
     kinds = {"obs_health": _obs_health, "ckpt": _ckpt, "cli": _cli,
-             "builder": _builder, "elastic": _elastic}
+             "builder": _builder, "elastic": _elastic,
+             "fsdp": _fsdp_builder}
     out = {}
     for case in cases:
         out[case["name"]] = kinds[case["kind"]](ctx, case)
@@ -802,6 +941,43 @@ def _dp_archs(ctx, case):
     return out
 
 
+def _dp_fsdp_archs(ctx, case):
+    """Every architecture's ``build_train_step(plan="fsdp")`` (stats,
+    light, heavy; remat) on the (4, 1) mesh, one step from the port's
+    seeded parameters (this rank's blocks) and its block of the batch
+    (split over both axes): the loss, the rows its forward saw, what it
+    holds, and the parameters after, gathered whole."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.lm import LM
+    mesh = _dp_mesh(ctx, case["mesh"])
+    B, T = case["B"], case["T"]
+    out = {}
+    for name, batch in case["batches"].items():
+        arch = dp_arch((name, 0))
+        tb = tsteps.build_train_step(
+            arch, mesh=mesh, cell=ShapeCell("t", T, B, "train"),
+            flags=dict(do_stats=True, do_light=True, do_heavy=True),
+            plan="fsdp", device=ctx.cpu)
+        p_sh = tb.in_shardings[0]
+        seen = RowsSeen(tb.lm)
+        params = {k: v.detach().requires_grad_() for k, v in shd.localize(
+            LM(arch, device=ctx.cpu).init(torch.Generator().manual_seed(0)),
+            p_sh).items()}
+        local = shd.localize({k: _t(v) for k, v in batch.items()},
+                             tb.in_shardings[2])
+        p, st, loss = tb.step_fn(params, tb.opt.init(params), local,
+                                 torch.Generator().manual_seed(1))
+        out[name] = {"loss": float(loss), "rows": seen.rows,
+                     "held": fsdp_held(p, p_sh, tb.abstract_params),
+                     "opt_held": fsdp_held(st, tb.in_shardings[1],
+                                           tb.abstract_opt),
+                     "after": fsdp_leaves(p, p_sh)}
+    return out
+
+
 def _dp_serve(ctx, case):
     """The prefill and decode builders on the data mesh: this rank's
     logits rows from its blocks of the batch, the cache and the tokens."""
@@ -884,7 +1060,8 @@ def _dp_cli(ctx, case):
 
 def suite_dp(ctx, cases):
     kinds = {"step": _dp_step, "taps": _dp_taps, "archs": _dp_archs,
-             "serve": _dp_serve, "compress": _dp_compress, "cli": _dp_cli}
+             "serve": _dp_serve, "compress": _dp_compress, "cli": _dp_cli,
+             "fsdp_archs": _dp_fsdp_archs}
     return {case["name"]: kinds[case["kind"]](ctx, case) for case in cases}
 
 
@@ -1395,18 +1572,73 @@ def _tp_restore(ctx, case):
 
 
 def _tp_fsdp(ctx, case):
-    """``plan="fsdp"`` on the model mesh: built, refused when it runs."""
+    """``plan="fsdp"`` on the model mesh: three builder steps (stats,
+    light, heavy) from the port's seeded parameters (this rank's blocks)
+    and the case's batches (its block of each), each step's update and
+    the final parameters and state gathered whole, the continuation
+    shifts recorded; then the state saved (gathered, rank 0 writes) and
+    restored in one process (rank 0, into the one-process builder's
+    template) and back onto the ranks (``shardings=`` the step's
+    ``in_shardings``): the leaves that differ from what was saved or
+    held."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as tsteps
-    tb = tsteps.build_train_step(dp_arch(case["arch"]),
-                                 mesh=_tp_mesh(ctx, case["mesh"]),
-                                 cell=ShapeCell("t", 16, 4, "train"),
+    from repro_torch.models.lm import LM
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import loop as tloop
+    arch = dp_arch(case["arch"])
+    B, T = case["batches"][0]["tokens"].shape
+    cell = ShapeCell("t", T, B, "train")
+    tb = tsteps.build_train_step(arch, mesh=_tp_mesh(ctx, case["mesh"]),
+                                 cell=cell, flags=case["flags"],
                                  plan="fsdp", device=ctx.cpu)
-    try:
-        tb.step_fn({}, None, {}, None)
-    except NotImplementedError as e:
-        return {"refused": str(e)}
-    return {"refused": None}
+    p_sh, o_sh, b_sh = tb.in_shardings[:3]
+    fresh = lambda seed: {k: v.detach().requires_grad_() for k, v in
+                          shd.localize(LM(arch, device=ctx.cpu).init(
+                              torch.Generator().manual_seed(seed)),
+                              p_sh).items()}
+    params = fresh(0)
+    st = tb.opt.init(params)
+    losses = []
+    with continuation_replay() as shifts, applied_updates() as upd:
+        for k, batch in enumerate(case["batches"]):
+            local = shd.localize({n: _t(v) for n, v in batch.items()}, b_sh)
+            params, st, loss = tb.step_fn(params, st, local,
+                                          torch.Generator().manual_seed(
+                                              1 + k))
+            losses.append(float(loss))
+    out = {"losses": losses, "shifts": shifts,
+           "updates": [fsdp_leaves(u, p_sh) for u in upd],
+           "held": {"params": fsdp_held(params, p_sh, tb.abstract_params),
+                    "opt": fsdp_held(st, o_sh, tb.abstract_opt)},
+           "state": fsdp_leaves(st, o_sh)}
+    saved = tloop.TrainState(params=shd.globalize(params, p_sh),
+                             opt=shd.globalize(st, o_sh),
+                             rng=torch.Generator().manual_seed(9))
+    if ctx.rank == 0:
+        ck.save(case["dir"], len(losses), saved)
+    dist.barrier()
+    same = lambda a, b: sorted(
+        k for k, v in ck.leaves(a).items() if isinstance(v, torch.Tensor)
+        and not torch.equal(v.detach(), ck.leaves(b)[k].detach()))
+    if ctx.rank == 0:
+        one = tsteps.build_train_step(arch, cell=cell, device=ctx.cpu)
+        p1 = one.lm.init(torch.Generator().manual_seed(5))
+        tmpl = tloop.TrainState(params=p1, opt=one.opt.init(p1),
+                                rng=torch.Generator())
+        restored, _ = ck.restore(case["dir"], tmpl)
+        out["restored_one"] = same(restored, saved)
+    p4 = fresh(5)
+    tmpl = tloop.TrainState(params=p4, opt=tb.opt.init(p4),
+                            rng=torch.Generator())
+    back, _ = ck.restore(case["dir"], tmpl, shardings=tloop.TrainState(
+        params=p_sh, opt=o_sh, rng=None))
+    out["restored_back"] = same(back, tloop.TrainState(
+        params=params, opt=st, rng=saved.rng))
+    return out
 
 
 def suite_tp(ctx, cases):
