@@ -162,6 +162,14 @@ Phases, run in this order (each prints one JSON line):
            state held to the one-process builder step's; then one step
            with use_kernels=True (the "fsdp_kernels" path: the seven
            kernels on every rank's factor rows) held at 1e-4
+  dryrun   launch/dryrun.py in a process of its own (this script with a
+           hidden flag; no card: meta tensors over a fake world of two
+           ranks) at slice_fsdp's and slice_tp's cut, batch, dtype, plan
+           and step kind, held against what those phases measured on rank
+           0: the light step's collectives by function (bytes handed in,
+           calls) and the parameter and factor bytes equal, the bytes held
+           between steps within DRYRUN_HELD_TOL, predicted ÷ measured
+           peak inside DRYRUN_PEAK_RATIO; launches no kernel
 Each path is driven with every launch count reset just before and read
 just after (lowrank_apply's shapes there must be ones the ``kernels``
 phase checked; on paths 4, 5, 8, 9, 10, 11, 12 and launch_reduced every
@@ -3760,47 +3768,41 @@ def fsdp_kernel_shapes():
 def counted_collectives():
     """Bytes and seconds of every all-reduce, all-gather and packed
     reduce-scatter while the block runs ({kind: [bytes, seconds, calls]},
-    from this process's calls; a call over a tuple of axes counts as its
-    per-axis calls, unless the tuple is every axis of the mesh, which is
-    one call; a collective made inside another counted one counts only
-    in that one)."""
+    from this process's calls), through ``collectives.counting`` (its
+    rules: a call over a tuple of axes counts as its per-axis calls,
+    unless the tuple is every axis of the mesh, which is one call; a
+    collective made inside another counted one counts only in that one),
+    with each call timed to its end on the card.  A reduce-scatter (an
+    all-reduce and a slice on gloo) and a packed sum count as
+    all-reduces.  The yielded dict's ``counter`` is the counter's own
+    ``Tally`` (by function name, by the reference's kinds, by axis)."""
     import torch
     from repro_torch.distributed import collectives as coll
-    tally = {"all_reduce": [0, 0.0, 0], "all_gather": [0, 0.0, 0],
-             "all_gather_coalesced": [0, 0.0, 0],
-             "reduce_scatter_coalesced": [0, 0.0, 0]}
-    saved = {k: getattr(coll, k) for k in tally}
-    depth = [0]
 
-    def wrap(kind):
-        fn = saved[kind]
+    class Lines(dict):
+        counter = None
+    tally = Lines({"all_reduce": [0, 0.0, 0], "all_gather": [0, 0.0, 0],
+                   "all_gather_coalesced": [0, 0.0, 0],
+                   "reduce_scatter_coalesced": [0, 0.0, 0]})
+    line = {"reduce_scatter": "all_reduce",
+            "all_reduce_coalesced": "all_reduce"}
 
-        def counted(x, mesh, axis=None, *a, **kw):
-            if depth[0] or (isinstance(axis, tuple)
-                            and coll.sum_axes(mesh, axis) is not None):
-                return fn(x, mesh, axis, *a, **kw)
-            t0 = time.perf_counter()
-            depth[0] += 1
-            try:
-                out = fn(x, mesh, axis, *a, **kw)
-            finally:
-                depth[0] -= 1
-            xs = x if isinstance(x, list) else [x]
-            if any(t.is_cuda for t in xs):
-                torch.cuda.current_stream().synchronize()
-            row = tally[kind]
-            row[0] += sum(t.numel() * t.element_size() for t in xs)
-            row[1] += time.perf_counter() - t0
-            row[2] += 1
-            return out
-        return counted
-    for k in tally:
-        setattr(coll, k, wrap(k))
-    try:
+    @contextlib.contextmanager
+    def timed_call(name):
+        t0 = time.perf_counter()
+        yield
+        if torch.cuda.is_initialized():
+            torch.cuda.current_stream().synchronize()
+        row = tally[line.get(name, name)]
+        row[1] += time.perf_counter() - t0
+        row[0] = row[2] = 0
+        for n, (nbytes, calls) in counted.by_name.items():
+            if line.get(n, n) == line.get(name, name):
+                row[0] += nbytes
+                row[2] += calls
+    with coll.counting(on_call=timed_call) as counted:
+        tally.counter = counted
         yield tally
-    finally:
-        for k, fn in saved.items():
-            setattr(coll, k, fn)
 
 
 def _dp_slice_arch():
@@ -4547,12 +4549,13 @@ def tp_rank_slice(rank: int, dev) -> dict:
         + (["--telemetry-dir", tel] if rank == 0 else [])))
     stream = TokenStream(vocab=arch.vocab, batch=S["batch"],
                          seq_len=S["seq"], seed=0, device=dev).batch_at
-    marks, tallies, held_mem = [], [], []
+    marks, tallies, names, held_mem = [], [], [], []
 
     def batches(k):
         torch.cuda.current_stream().synchronize()
         marks.append(time.perf_counter())
         tallies.append({kk: list(v) for kk, v in tally.items()})
+        names.append({n: list(v) for n, v in tally.counter.by_name.items()})
         # what the rank holds between steps (parameters, optimizer
         # state, error feedback; the parent's nothing: it holds no tensor
         # on the card then)
@@ -4598,6 +4601,7 @@ def tp_rank_slice(rank: int, dev) -> dict:
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         tallies.append({kk: list(v) for kk, v in tally.items()})
+        names.append({n: list(v) for n, v in tally.counter.by_name.items()})
     peak = torch.cuda.max_memory_allocated()
     counts = _build.launch_counts()
     err16 = _step0_errs(got16, want["bf16"], block)
@@ -4612,9 +4616,15 @@ def tp_rank_slice(rank: int, dev) -> dict:
             a, b = tallies[k][kind], tallies[k + 1][kind]
             row[kind] = {"bytes": b[0] - a[0], "s": b[1] - a[1],
                          "calls": b[2] - a[2]}
+        before = lambda n: names[k].get(n, [0, 0])
+        row["by_name"] = {n: [v[0] - before(n)[0], v[1] - before(n)[1]]
+                          for n, v in names[k + 1].items()
+                          if v[1] > before(n)[1]}
         per_step.append(row)
     held = _held_blocks(lm, state.params)
     factor_bytes = state.opt.factor_bytes()
+    param_bytes = sum(v.numel() * v.element_size()
+                      for v in state.params.values())
     params = {k: v.detach() for k, v in state.params.items()}
     del state
     gc.collect()
@@ -4706,7 +4716,8 @@ def tp_rank_slice(rank: int, dev) -> dict:
     return {"losses": losses, "kinds": kinds, "steps": per_step,
             "log": buf.getvalue() if rank == 0 else "",
             "peak_mem_bytes": peak, "held_mem_bytes": held_mem,
-            "factor_bytes": factor_bytes, "launches": counts,
+            "factor_bytes": factor_bytes, "param_bytes": param_bytes,
+            "launches": counts,
             "calls_by_shape": dict(by_shape), "held": held,
             "step0_err_fp32": err32, "step0_err_bf16": err16,
             "factors_held": factors_held,
@@ -4963,6 +4974,13 @@ def phase_tp_slice(checked):
     shutil.rmtree(os.path.dirname(want_path), ignore_errors=True)
     sl = [g["tp_slice"] for g in res]
     kinds = sl[0]["kinds"]
+    light = kinds.index("light")
+    MEASURED["tp"] = {
+        "by_name": sl[0]["steps"][light]["by_name"],
+        "held": sl[0]["held_mem_bytes"][light],
+        "peak": sl[0]["peak_mem_bytes"],
+        "params": sl[0]["param_bytes"], "factors": sl[0]["factor_bytes"],
+        "first": light == 0}
     drift = [_rel_drift(s["losses"], one) for s in sl]
     for k in range(S["steps"]):
         emit({"phase": "slice_tp", "step": k, "kind": kinds[k],
@@ -5193,6 +5211,16 @@ FSDP_KERNELS_TOL = 1e-4
 #: 700 W), printed beside slice_fsdp's
 TP_SLICE_GB = {"held": 11.26, "peak": 20.55, "factors": 0.86,
               "factors_one_process": 1.73}
+#: what slice_fsdp and slice_tp measured on rank 0 in this run, for the
+#: dryrun phase: the light step's collectives by function
+#: ({name: [bytes handed in, calls]}), the bytes held before it, the
+#: peak, the parameter and factor bytes
+MEASURED = {}
+#: the dryrun phase's bounds: held bytes within this relative distance,
+#: predicted ÷ measured peak inside this range
+DRYRUN_HELD_TOL = 0.02
+DRYRUN_PEAK_RATIO = (0.67, 1.5)
+DRYRUN_TIMEOUT = 120
 
 
 def _fsdp_slice_arch():
@@ -5386,7 +5414,9 @@ def fsdp_rank_slice(rank: int, dev) -> dict:
             losses.append(float(loss))
             per_step.append({"wall_s": wall, **{
                 kind: {"bytes": v[0], "s": v[1], "calls": v[2]}
-                for kind, v in tally.items()}})
+                for kind, v in tally.items()},
+                "by_name": {n: list(v) for n, v in
+                            tally.counter.by_name.items()}})
     torch.cuda.synchronize()
     held_mem.append(torch.cuda.memory_allocated())
     return {"losses": losses, "steps": per_step,
@@ -5552,6 +5582,12 @@ def phase_fsdp_slice(checked):
     drift = [_rel_drift(s["losses"], one["losses"]) for s in sl]
     kinds_of = ("all_gather_coalesced", "reduce_scatter_coalesced",
                 "all_reduce", "all_gather")
+    light = kinds.index("light")
+    MEASURED["fsdp"] = {
+        "by_name": sl[0]["steps"][light]["by_name"],
+        "held": sl[0]["held_mem_bytes"][light],
+        "peak": sl[0]["peak_mem_bytes"],
+        "params": sl[0]["param_bytes"], "factors": sl[0]["factor_bytes"]}
     for k in range(S["steps"]):
         emit({"phase": "slice_fsdp", "step": k, "kind": kinds[k],
               "loss": [s["losses"][k] for s in sl],
@@ -5707,6 +5743,114 @@ def phase_fsdp_reduced(checked):
                     for k in ks[0]["launches"]}
 
 
+def dryrun_cells() -> dict:
+    """The dryrun phase's two cells, as slice_fsdp and slice_tp ran them:
+    {name: (arch, cell, _lower_cell knobs)}.  slice_fsdp: the builder
+    under plan="fsdp", a light step past the first; slice_tp: the CLI's
+    step (``--compress``: PowerSGD's carry held) with the CLI's optimizer
+    config, at its light step, which is step 0 (the Brand init branch)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import train
+    return {
+        "fsdp": (_fsdp_slice_arch(), ShapeCell(
+            "fsdp_slice", FSDP_SLICE["seq"], FSDP_SLICE["batch"], "train"),
+            dict(opt="fsdp")),
+        "tp": (_tp_slice_arch(), ShapeCell(
+            "tp_slice", TP_SLICE["seq"], TP_SLICE["batch"], "train"),
+            dict(compress=True, first=True,
+                 kfac_config=train.kfac_config_of(train.parse_args(
+                     _tp_slice_argv(["--mesh", "1x2"])))))}
+
+
+def dryrun_main(out: str) -> int:
+    """This process as rank 0 of a fake world of two (no card): the
+    dry-run of ``dryrun_cells`` on (1, 2) [data, model], its records
+    written to ``out``."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    dryrun.fake_world(2)
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"),
+                              device=torch.device("meta"))
+    recs = {}
+    for name, (arch, cell, kw) in dryrun_cells().items():
+        t1 = time.perf_counter()
+        recs[name] = dryrun.analyse_cell(arch, cell, mesh, **kw)
+        recs[name]["wall_s"] = time.perf_counter() - t1
+    recs["seconds"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+def phase_dryrun():
+    """launch/dryrun.py's predictions of slice_fsdp's and slice_tp's rank 0
+    (``dryrun_main`` in a process of its own) against MEASURED: the light
+    step's collectives by function equal (bytes handed in and calls), the
+    parameter and factor bytes equal, the bytes held before the light
+    step (the step's arguments) within DRYRUN_HELD_TOL, predicted ÷
+    measured peak inside DRYRUN_PEAK_RATIO."""
+    import os
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
+                       "dryrun.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dryrun", out], capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the dry-run process failed (rc "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        recs = json.load(f)
+    faults = []
+    for name in ("fsdp", "tp"):
+        rec, got = recs[name], MEASURED[name]
+        want_names = {n: [v["bytes"], v["calls"]]
+                      for n, v in rec["collectives_by_name"].items()}
+        ratio = rec["peak_bytes"] / got["peak"]
+        held_err = (abs(rec["argument_size_in_bytes"] - got["held"])
+                    / got["held"])
+        emit({"phase": "dryrun", "path": f"slice_{name}",
+              "collectives_by_name": {"predicted": want_names,
+                                      "measured": got["by_name"]},
+              "collectives_ref": rec["collectives"],
+              "collective_bytes_by_axis": rec["collective_bytes_by_axis"],
+              "param_bytes": [rec["param_bytes"], got["params"]],
+              "factor_bytes": [rec["factor_bytes"], got["factors"]],
+              "held_bytes": [rec["argument_size_in_bytes"], got["held"]],
+              "held_rel_err": held_err,
+              "held_after_bytes": rec["held_bytes"],
+              "peak_bytes": [rec["peak_bytes"], got["peak"]],
+              "peak_ratio": ratio, "temp_bytes": rec["temp_size_in_bytes"],
+              "dot_flops_by_dtype": rec["dot_flops_by_dtype"],
+              "roofline": rec["roofline"], "trace_s": rec["trace_s"],
+              "wall_s": rec["wall_s"]})
+        if want_names != got["by_name"]:
+            faults.append(f"{name}: collectives {want_names} predicted, "
+                          f"{got['by_name']} measured")
+        if (rec["param_bytes"], rec["factor_bytes"]) != (got["params"],
+                                                         got["factors"]):
+            faults.append(f"{name}: parameter and factor bytes "
+                          f"{rec['param_bytes']}, {rec['factor_bytes']} "
+                          f"predicted, {got['params']}, {got['factors']} "
+                          f"measured")
+        if not held_err <= DRYRUN_HELD_TOL:
+            faults.append(f"{name}: held {held_err:.4f} apart")
+        if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+            faults.append(f"{name}: peak ratio {ratio:.3f}")
+    emit({"phase": "dryrun", "summary": True, "mesh": {"data": 1, "model": 2},
+          "process_s": recs["seconds"],
+          "seconds": time.perf_counter() - t0,
+          "tol": {"held": DRYRUN_HELD_TOL, "peak_ratio": DRYRUN_PEAK_RATIO},
+          "note": "meta tensors over a fake world of two ranks as rank 0; "
+                  "no card, no kernel"})
+    if faults:
+        raise AssertionError("dryrun: " + "; ".join(faults))
+
+
 #: each phase's wall seconds in this run (``timed``)
 PHASE_SECONDS = {}
 
@@ -5728,6 +5872,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-rank", nargs=5, default=None,
                     metavar=("JOB", "RANK", "WORLD", "RENDEZVOUS", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5742,6 +5888,8 @@ def main(argv=None) -> int:
     if args.dp_rank is not None:
         job, rank, world, rdv, out = args.dp_rank
         return dp_rank_main(job, int(rank), int(world), rdv, out)
+    if args.dryrun is not None:
+        return dryrun_main(args.dryrun)
     smi = timed("device", phase_device)
     timed("build", phase_build)
     kernels = timed("kernels", phase_kernels)
@@ -5812,6 +5960,9 @@ def main(argv=None) -> int:
     by_path["slice_fsdp"] = timed("slice_fsdp", phase_fsdp_slice, checked)
     by_path["fsdp_reduced"], by_path["fsdp_kernels"] = timed(
         "fsdp_reduced", phase_fsdp_reduced, checked)
+    # the launch dry-run on meta tensors (no card, no kernel) against what
+    # slice_fsdp and slice_tp measured
+    timed("dryrun", phase_dryrun)
     rows = []
     for name, row in kernels.items():
         rows.append({k: row[k] for k in (

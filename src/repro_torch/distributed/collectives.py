@@ -43,10 +43,32 @@ collective, as :func:`all_reduce_coalesced` packs sums; the factor rows
 on the model axis (``sharding.RowBlock``) use both: a precondition
 bucket's panels are summed in one call, and the U row blocks its steps
 need whole are gathered in one.
+
+**Counting.**  While a :func:`counting` block runs, every collective of
+this module records what this process moved into the yielded
+:class:`Tally`, the backward passes of the autograd forms included (they
+call the same functions).  A call is counted once, at the outermost
+counted function: a collective made inside another counted one (the sum
+under :func:`reduce_scatter`, the per-axis calls of a whole-mesh tuple)
+counts only in that one, and a tuple naming some but not every axis of
+the mesh counts as its per-axis calls.  Each call is kept three ways:
+the bytes handed in and the calls under the port's function name
+(``all_gather``, ``all_reduce``, ``all_reduce_coalesced`` a packed
+buffer, ``reduce_scatter``, ``all_gather_coalesced``,
+``reduce_scatter_coalesced``; a call on a group of one member counts
+too); the reference's convention (``launch/hlo_analysis.py``'s parser of
+the optimized HLO) under its kind names, where an all-gather counts its
+output, an all-reduce its tensor and a reduce-scatter its operand (gloo's
+sum and slice is the logical reduce-scatter), and a group of one member
+moves nothing; and those bytes by the axis or axes the call ran over.
+Counting reads only shapes: it adds no device synchronisation.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 from typing import Tuple, Union
 
 import torch
@@ -88,6 +110,103 @@ def _members(mesh, axis) -> int:
     return mesh.size if _whole_mesh(mesh, axis) else mesh.shape[axis]
 
 
+#: the reference's collective kinds (``launch/hlo_analysis.py``)
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+class Tally:
+    """What the collectives of a :func:`counting` block moved.
+    ``by_name``: port function → [bytes handed in, calls]; ``by_kind``:
+    the reference's ``collective_bytes`` breakdown (each kind's bytes and
+    its ``<kind>_count``); ``by_axis``: the axis or axes ("data",
+    "pod+data") → the reference-convention bytes."""
+
+    def __init__(self, on_call=None):
+        self.by_name = {}
+        self.by_kind = {k: 0 for k in KINDS}
+        self.by_kind.update({k + "_count": 0 for k in KINDS})
+        self.by_axis = {}
+        self.on_call = on_call
+
+    @property
+    def total(self) -> int:
+        """The reference convention's total bytes."""
+        return sum(self.by_kind[k] for k in KINDS)
+
+    def record(self, name: str, kind: str, handed: int, members: int,
+               axis_tag: str) -> None:
+        row = self.by_name.setdefault(name, [0, 0])
+        row[0] += handed
+        row[1] += 1
+        if members > 1:
+            moved = handed * members if kind == "all-gather" else handed
+            self.by_kind[kind] += moved
+            self.by_kind[kind + "_count"] += 1
+            self.by_axis[axis_tag] = self.by_axis.get(axis_tag, 0) + moved
+
+
+#: the tallies of the open :func:`counting` blocks (innermost last)
+_TALLIES: list = []
+#: how deep this thread is inside counted calls
+_DEPTH = threading.local()
+
+
+@contextlib.contextmanager
+def counting(on_call=None):
+    """Count every collective of this module while the block runs → the
+    :class:`Tally` (module docstring).  ``on_call(name)``, when given, is
+    a context manager entered around each counted call (outermost only;
+    the tally holds the call when it exits): a caller's own timing."""
+    tally = Tally(on_call)
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def _axis_tag(mesh, axis) -> str:
+    if axis is None:
+        return "+".join(mesh.axis_names)
+    return axis if isinstance(axis, str) else "+".join(axis)
+
+
+def _counted(kind: str, name: str = ""):
+    """Count a collective ``fn(x, mesh, axis, ...)`` of ``kind`` (the
+    reference's) under ``name`` (default: its own) in the open tallies."""
+    def wrap(fn):
+        label = name or fn.__name__
+
+        @functools.wraps(fn)
+        def counted(x, mesh, axis=None, *a, **kw):
+            if (not _TALLIES or getattr(_DEPTH, "n", 0)
+                    or (isinstance(axis, tuple)
+                        and sum_axes(mesh, axis) is not None)):
+                return fn(x, mesh, axis, *a, **kw)
+            xs = x if isinstance(x, (list, tuple)) else [x]
+            handed = sum(t.numel() * t.element_size() for t in xs)
+            members = (mesh.size if axis is None or _whole_mesh(mesh, axis)
+                       else mesh.shape[axis])
+            tallies = list(_TALLIES)
+            _DEPTH.n = 1
+            try:
+                with contextlib.ExitStack() as hooks:
+                    for t in tallies:
+                        if t.on_call is not None:
+                            hooks.enter_context(t.on_call(label))
+                    out = fn(x, mesh, axis, *a, **kw)
+                    for t in tallies:
+                        t.record(label, kind, handed, members,
+                                 _axis_tag(mesh, axis))
+            finally:
+                _DEPTH.n = 0
+            return out
+        return counted
+    return wrap
+
+
+@_counted("all-gather")
 def all_gather(x: torch.Tensor, mesh, axis: Axes,
                dim: int = 0) -> torch.Tensor:
     """Every member's ``x`` concatenated along ``dim`` in the axis's
@@ -110,6 +229,7 @@ def all_gather(x: torch.Tensor, mesh, axis: Axes,
     return torch.cat(parts, dim=dim)
 
 
+@_counted("all-reduce")
 def all_reduce(x: torch.Tensor, mesh, axis: Axes = None,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced over ``axis`` (a name or a tuple of names; the whole
@@ -146,6 +266,7 @@ def all_reduce_coalesced(xs, mesh, axis: Axes = None,
                 size += nbytes
 
 
+@_counted("all-reduce", name="all_reduce_coalesced")
 def _reduce_bucket(bucket, mesh, axis) -> None:
     if len(bucket) == 1 and bucket[0].is_contiguous():
         all_reduce(bucket[0], mesh, axis)
@@ -201,6 +322,7 @@ def _sum_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     return all_reduce(x, mesh, sum_axes(mesh, axis))
 
 
+@_counted("reduce-scatter")
 def reduce_scatter(x: torch.Tensor, mesh, axis,
                    dim: int = 0) -> torch.Tensor:
     """``x`` summed over ``axis`` (one axis, or a tuple naming every axis
@@ -256,6 +378,7 @@ def reduce_scatter_grad(x: torch.Tensor, mesh, axis: str,
     return _ReduceScatterGrad.apply(x, mesh, axis, dim)
 
 
+@_counted("all-gather")
 def all_gather_coalesced(xs, mesh, axis, dims) -> list:
     """Each ``xs[i]`` gathered along ``dims[i]`` over ``axis`` (one axis,
     or a tuple naming every axis of the mesh; no gradient), the tensors
@@ -281,6 +404,7 @@ def all_gather_coalesced(xs, mesh, axis, dims) -> list:
     return out
 
 
+@_counted("reduce-scatter")
 def reduce_scatter_coalesced(xs, mesh, axis, dims) -> list:
     """Each ``xs[i]`` summed over ``axis`` (as :func:`all_gather_coalesced`
     takes it), then this member's block along ``dims[i]``: the tensors of

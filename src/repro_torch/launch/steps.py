@@ -179,12 +179,14 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
                      async_heavy: bool = False, heavy_lag: int = 0,
                      dist: Optional[specs_lib.DistSpec] = None,
                      device=None,
-                     kfac_config: Optional[kfac_lib.KfacConfig] = None
-                     ) -> BuiltTrain:
+                     kfac_config: Optional[kfac_lib.KfacConfig] = None,
+                     moe_capacity: str = "kept") -> BuiltTrain:
     """``work`` (a schedule.StepWork) supersedes ``flags`` when given.
     ``kfac_config`` replaces ``default_kfac_config(arch, variant)`` (a
     port-only knob: the reduced paths on the card train with the CLI's
-    ``--reduced`` optimizer).
+    ``--reduced`` optimizer).  ``moe_capacity`` is the policy's rule for a
+    data-parallel rank's MoE buffer rows (``ShardPolicy.moe_capacity``;
+    port-only: the meta-tensor dry-run takes "even").
     ``dist`` is the spec-level spelling of the ``mesh``/``curvature_axis``
     pair and may not be mixed with it; its curvature axis attaches the
     distributed curvature engine (``opt.init`` then gives each rank its
@@ -222,6 +224,7 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
                          axis_sizes=_axis_sizes(mesh), mesh=mesh)
     else:
         sp = shard_policy_for(mesh)
+    sp = dataclasses.replace(sp, moe_capacity=moe_capacity)
     dev = device_lib.resolve(device)
     lm = LM(arch, sp, remat=remat, unroll=unroll, device=dev, fsdp=fsdp)
     sp = lm.sp
@@ -288,12 +291,15 @@ class BuiltServe:
 
 def build_prefill_step(arch: ArchConfig, mesh=None,
                        cell: Optional[ShapeCell] = None,
-                       unroll: bool = False, device=None) -> BuiltServe:
+                       unroll: bool = False, device=None,
+                       moe_capacity: str = "kept") -> BuiltServe:
     """``step_fn(params, batch) -> logits`` (B, T, vocab), no gradients;
     on a data mesh ``batch`` and the logits are this rank's rows, on a
-    model axis larger than 1 its vocabulary block (``out_shardings``)."""
+    model axis larger than 1 its vocabulary block (``out_shardings``).
+    ``moe_capacity`` as in :func:`build_train_step`."""
     cell = cell or SHAPES["prefill_32k"]
-    sp = shard_policy_for(mesh)
+    sp = dataclasses.replace(shard_policy_for(mesh),
+                             moe_capacity=moe_capacity)
     lm = LM(arch, sp, remat=False, unroll=unroll,
             device=device_lib.resolve(device))
     batch_specs = train_batch_specs(arch, cell)
@@ -336,14 +342,14 @@ def build_decode_step(arch: ArchConfig, mesh=None,
                       cell: Optional[ShapeCell] = None,
                       unroll: bool = False, cache_layout: str = "seq",
                       window_caches: bool = False,
-                      device=None) -> BuiltServe:
+                      device=None, moe_capacity: str = "kept") -> BuiltServe:
     """``step_fn(params, cache, token, t) -> (logits, cache)``;
     ``arg_specs`` = (cache, token, t) as meta tensors (global shapes; on
     a data mesh the step takes this rank's blocks of the cache, the
     tokens and a (B,) ``t``, and returns its rows).  At one device
     ``cache_layout`` changes no shape (the reference's layouts place the
     cache over a mesh); ``window_caches`` keeps a sliding-window layer's
-    ring at its window."""
+    ring at its window.  ``moe_capacity`` as in :func:`build_train_step`."""
     cell = cell or SHAPES["decode_32k"]
     B, S = cell.global_batch, cell.seq_len
     shard_seq = cell.name == "long_500k"
@@ -358,7 +364,8 @@ def build_decode_step(arch: ArchConfig, mesh=None,
     small_thr = 0
     cross_len = S if arch.is_encdec else 0
     S_self = max(S // arch.dec_ratio, 64) if arch.is_encdec else S
-    sp = shard_policy_for(mesh, shard_kv_seq=shard_seq)
+    sp = dataclasses.replace(shard_policy_for(mesh, shard_kv_seq=shard_seq),
+                             moe_capacity=moe_capacity)
     if sp.active:
         sp = dataclasses.replace(sp, kv_cache_layout=cache_layout,
                                  kv_small_seq_threshold=small_thr,

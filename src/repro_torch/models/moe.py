@@ -25,7 +25,11 @@ take the slots after those of ranks < r: one all-gather of the ranks'
 (E,) counts gives each rank its offsets, and a token past the capacity
 drops exactly as in the reference.  A rank's buffer holds only its kept
 tokens, in slot order from 0 (its capacity is its largest kept count),
-so each rank runs the experts on its own tokens; the expert taps place
+so each rank runs the experts on its own tokens (its capacity read from
+the device: a host read; a policy with ``moe_capacity="even"`` takes
+⌈C / data ranks⌉ instead, the reference's GSPMD block of the global
+buffer, which reads nothing and drops a rank's tokens past it, as the
+meta-tensor dry-run needs); the expert taps place
 the rank's rows at their global slots (``layers.tapped_matmul``'s rule). The
 Switch loss ``E·Σ me·fe`` is a product of two global means: both sums are
 summed over the data axes before it (``me``'s differentiably), so every
@@ -107,7 +111,9 @@ def dispatch(x: Tensor, idx: Tensor, dims: MoeDims, capacity: int,
     flat_e = idx.reshape(-1)                                 # (N*k,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # bincount's count, by a scatter-add (which also runs on meta tensors)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=0) - counts            # (E,)
     pos_in_e = torch.arange(N * k, device=x.device) - starts[sorted_e]
     offs = None
@@ -115,8 +121,12 @@ def dispatch(x: Tensor, idx: Tensor, dims: MoeDims, capacity: int,
         every = sp.dp_gather(counts[None])                   # (ranks, E)
         offs = torch.sum(every[:sp.dp_index], dim=0)         # (E,)
         keep = pos_in_e + offs[sorted_e] < C
-        kept = torch.clamp(torch.minimum(counts, C - offs), min=0)
-        C = max(1, int(kept.max()))
+        if sp.moe_capacity == "even":
+            C = -(-C // sp.dp_size)
+            keep = keep & (pos_in_e < C)
+        else:
+            kept = torch.clamp(torch.minimum(counts, C - offs), min=0)
+            C = max(1, int(kept.max()))
     else:
         keep = pos_in_e < C
     buf_idx = torch.where(keep, sorted_e * C + pos_in_e,

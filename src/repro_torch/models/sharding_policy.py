@@ -77,6 +77,10 @@ class ShardPolicy:
     #: decode caches' global lengths: (self-attention S, cross length,
     #: whether sliding-window layers keep a window-slot ring)
     kv_lens: Tuple[int, int, bool] = (0, 0, False)
+    #: a data-parallel rank's MoE buffer rows (``models/moe.py``): "kept"
+    #: its largest kept count (read from the device), "even" ⌈C / data
+    #: ranks⌉ (no read: the meta-tensor dry-run's rule)
+    moe_capacity: str = "kept"
 
     @property
     def active(self) -> bool:

@@ -187,8 +187,9 @@ def test_one_device_policy_and_refusals():
     # a mesh with a model axis larger than 1: the policy and the
     # shardings are the reference's (the port's policy also holds the
     # mesh its collectives run over, the forward's length, the LM's
-    # parameter blocks and the decode caches' lengths); the steps build
-    # tensor-parallel (they run in test_torch_tp.py: no world here)
+    # parameter blocks, the decode caches' lengths and a data-parallel
+    # rank's MoE capacity rule, "kept" unless the dry-run asks); the steps
+    # build tensor-parallel (they run in test_torch_tp.py: no world here)
     mesh = argparse.Namespace(axis_names=("data", "model"),
                               devices=np.zeros((2, 2)))
     jarch = jget("gemma3_4b").reduced()
@@ -196,7 +197,9 @@ def test_one_device_policy_and_refusals():
     tpol = tsteps.shard_policy_for(mesh).__dict__
     jpol = jsteps.shard_policy_for(mesh).__dict__
     assert {k: tpol[k] for k in jpol} == jpol
-    assert set(tpol) - set(jpol) == {"mesh", "seq", "shards", "kv_lens"}
+    assert set(tpol) - set(jpol) == {"mesh", "seq", "shards", "kv_lens",
+                                     "moe_capacity"}
+    assert tpol["moe_capacity"] == "kept"
     assert tpol["mesh"] is mesh
     built = tsteps.build_train_step(arch, mesh=mesh, device=CPU)
     dec = tsteps.build_decode_step(arch, mesh=mesh, device=CPU)

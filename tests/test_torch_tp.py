@@ -64,6 +64,12 @@ oracles are computed in this process meanwhile).
   scale; every rank holds its blocks; the state's checkpoint (saved
   gathered) restores in one process and back onto the four ranks under
   the step's ``in_shardings``, bit for bit.
+* **The meta dry-run** (``launch/dryrun.py``, run first in an oracle
+  process over a fake world of four): rank 0's light builder step under
+  ``plan="tp"`` and ``plan="fsdp"`` on (2, 2), after a first step, has
+  exactly the dry-run's collectives (bytes handed in and calls by
+  function; the reference-convention bytes by kind and axis), matmul
+  flops, argument bytes and held bytes.
 """
 import concurrent.futures
 import contextlib
@@ -376,6 +382,23 @@ def _one_serve(tokens):
     return out
 
 
+def dryrun_meta(spec, Bg, Tg):
+    """``launch/dryrun.py``'s record of the "dryrun" cases' step under each
+    plan on (2, 2), in this (spawned) process as rank 0 of a fake world of
+    four → {plan: record}."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    dryrun.fake_world(4)
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"),
+                              device=torch.device("meta"))
+    cell = ShapeCell("t", Tg, Bg, "train")
+    out = {plan: dryrun.analyse_cell(worker.dp_arch(spec), cell, mesh,
+                                     opt="fsdp" if plan == "fsdp" else "")
+           for plan in ("tp", "fsdp")}
+    torch.distributed.destroy_process_group()
+    return out
+
+
 def _oracle_pool(submit, workers=4):
     """A pool of ``workers`` fresh processes that import this module
     (its directory put on their path) → (pool, ``submit(pool)``)."""
@@ -404,8 +427,11 @@ def world(tmp_path_factory):
     keys = list(dict.fromkeys((spec, variant, Bg, Tg)
                               for _, spec, variant, _, Bg, Tg in STEP_CASES))
     keys.sort(key=lambda k: k[0][0] not in ("deepseek_v3_671b", "cut"))
+    # the meta dry-run of the "dryrun" cases first, in a process of its own
+    # (it joins a fake world)
     pool, pending = _oracle_pool(lambda pool: {
-        k: pool.submit(ref_run, *k) for k in keys})
+        "dryrun": pool.submit(dryrun_meta, CUT, B, T),
+        **{k: pool.submit(ref_run, *k) for k in keys}})
     root = tmp_path_factory.mktemp("tp")
     cases = []
     taps = {"cut": (CUT, "2x2", lm_batch(worker.dp_arch(CUT), B, T, 3)),
@@ -441,6 +467,10 @@ def world(tmp_path_factory):
     cases.append(fsdp)
     cases.append({"name": "health", "kind": "health", "arch": CUT,
                   "argv": HEALTH + ["--mesh", "2x2"]})
+    cases += [{"name": f"dryrun-{plan}", "kind": "dryrun", "plan": plan,
+               "arch": CUT, "mesh": "2x2",
+               "batches": [lm_batch(worker.dp_arch(CUT), B, T, 21 + k)
+                           for k in range(2)]} for plan in ("tp", "fsdp")]
     rows_brand = _rows_brand_case(np.random.default_rng(7))
     rows_apply = _rows_apply_case(np.random.default_rng(8))
     cases += [rows_brand, rows_apply]
@@ -469,6 +499,7 @@ def world(tmp_path_factory):
                               ).init(torch.Generator().manual_seed(0))}
     oracles = {k: f.result() for k, f in pending.items()}
     pool.shutdown()
+    one["dryrun"] = oracles.pop("dryrun")
     for name, spec, variant, mesh, Bg, Tg in STEP_CASES:
         case, refs[name] = oracles[(spec, variant, Bg, Tg)]
         steps.append({**case, "name": name, "kind": "step", "mesh": mesh})
@@ -744,6 +775,24 @@ def test_fsdp_steps_equal_one_process_and_restore(world):
                 g, w = rec(g, got["state"][D]), rec(w, want["state"][D])
             if field in ("U", "M") or "|mu|" in key:
                 _close(g, w, TRAJ, key)
+
+
+@pytest.mark.parametrize("plan", ["tp", "fsdp"])
+def test_meta_dry_run_equals_a_real_rank_zero_step(world, plan):
+    """``launch/dryrun.py`` on meta tensors over a fake world of four
+    predicts rank 0's real light step on (2, 2) exactly: the collectives'
+    bytes handed in and calls by function, the reference-convention bytes
+    by kind and by axis, the matmul flops (``FlopCounterMode``; by dtype),
+    the argument bytes and the bytes of the state it hands back."""
+    want = world[2]["dryrun"][plan]
+    got = _all(world, f"dryrun-{plan}")[0]
+    assert got["by_name"] == want["collectives_by_name"]
+    assert got["by_kind"] == want["collectives"]
+    assert got["by_axis"] == want["collective_bytes_by_axis"]
+    assert got["flops"] == want["dot_flops"] > 0
+    assert got["by_dtype"] == want["dot_flops_by_dtype"]
+    assert got["args"] == want["argument_size_in_bytes"]
+    assert got["held"] == want["held_bytes"]
 
 
 def test_health_guards_on_a_2x2_mesh_read_the_global_step(world):

@@ -1641,10 +1641,50 @@ def _tp_fsdp(ctx, case):
     return out
 
 
+def _tp_dryrun(ctx, case):
+    """One builder step under ``case["plan"]`` on the 2 × 2 mesh as the
+    meta dry-run counts it (``launch/dryrun.py``): from the seeded
+    parameters (this rank's blocks) a first step, then the counted one
+    (stats and light, past the first update): its collectives by function
+    and by the reference's kinds and axes (``collectives.counting``), its
+    matmul flops (``FlopCounterMode`` and ``hlo_analysis.DotCounter`` by
+    dtype), the bytes of its arguments and of the state it hands back."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.lm import LM
+    arch = dp_arch(case["arch"])
+    B, T = case["batches"][0]["tokens"].shape
+    tb = tsteps.build_train_step(arch, mesh=_tp_mesh(ctx, case["mesh"]),
+                                 cell=ShapeCell("t", T, B, "train"),
+                                 plan=case["plan"], device=ctx.cpu)
+    p_sh, o_sh, b_sh = tb.in_shardings[:3]
+    params = {k: v.detach().requires_grad_() for k, v in shd.localize(
+        LM(arch, device=ctx.cpu).init(torch.Generator().manual_seed(0)),
+        p_sh).items()}
+    st = tb.opt.init(params)
+    local = [shd.localize({n: _t(v) for n, v in b.items()}, b_sh)
+             for b in case["batches"]]
+    params, st, _ = tb.step_fn(params, st, local[0], None)
+    args = dryrun.tree_bytes([params, st, local[1]])
+    dots, flops = hlo_analysis.DotCounter(), FlopCounterMode(display=False)
+    with coll.counting() as tally, dots, flops:
+        params, st, _ = tb.step_fn(params, st, local[1], None)
+    return {"by_name": {k: {"bytes": v[0], "calls": v[1]}
+                        for k, v in tally.by_name.items()},
+            "by_kind": dict(tally.by_kind), "by_axis": dict(tally.by_axis),
+            "flops": flops.get_total_flops(), "by_dtype": dots.by_dtype,
+            "args": args, "held": dryrun.tree_bytes([params, st])}
+
+
 def suite_tp(ctx, cases):
     kinds = {"step": _tp_step, "taps": _tp_taps, "archs": _tp_archs,
              "serve": _tp_serve, "compress": _tp_compress, "cli": _tp_cli,
-             "restore": _tp_restore, "fsdp": _tp_fsdp,
+             "restore": _tp_restore, "fsdp": _tp_fsdp, "dryrun": _tp_dryrun,
              "health": _tp_health, "rows_brand": _tp_rows_brand,
              "rows_apply": _tp_rows_apply}
     return {case["name"]: kinds[case["kind"]](ctx, case) for case in cases}
