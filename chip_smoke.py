@@ -156,12 +156,27 @@ Phases, run in this order (each prints one JSON line):
            held taps' new factors, its continuation shifts replayed), then
            2 bf16 steps' losses; each rank's gathers and reduce-scatters
            by bytes, seconds and calls, the memory it holds and its peak
+  slice_fsdp_curv
+           in slice_fsdp's world on a second mesh, (2, 1) [data, model]:
+           build_train_step(plan="fsdp") at gemma3-4b's full width cut to
+           two layers (a local one and the global one) under B-R-KFAC
+           with the curvature engine's slots on "data" and the async
+           pipeline at lag 1, fp32; a Brand init, a launch of every async
+           slot and their landing, each held to one process (every leaf's
+           gradient and update through a row stride, its continuation
+           shifts replayed; the landed factors); what each rank holds
+           against in_shardings (FSDP's composed with the engine's), the
+           dense-M bytes against the engine's m_bytes()
   fsdp_reduced
            the builder under plan="fsdp" at --reduced under B-R-KFAC on a
            2 × 2 mesh of four ranks: 4 steps, each step's update and new
            state held to the one-process builder step's; then one step
            with use_kernels=True (the "fsdp_kernels" path: the seven
-           kernels on every rank's factor rows) held at 1e-4
+           kernels on every rank's factor rows) held at 1e-4; then on a
+           second mesh, (2, 2) [data, curv], the 2D engine with the async
+           pipeline at lag 2 ("fsdp_curv_reduced"): a Brand init, a
+           launch, an interim light step and the landing, each replayed
+           against one process (in-flight buffers included)
   dryrun   launch/dryrun.py in a process of its own (this script with a
            hidden flag; no card: meta tensors over a fake world of two
            ranks) at slice_fsdp's and slice_tp's cut, batch, dtype, plan
@@ -489,6 +504,10 @@ def phase_kernels():
     # fsdp_reduced's, per rank: every slot, the factor rows d/4 over the
     # whole 2 × 2 mesh; its RSVD panels on the M rows gathered whole
     fsdp_rows, fsdp_brand, fsdp_precond, fsdp_panels = fsdp_kernel_shapes()
+    # slice_fsdp_curv's, per rank: the engine's ⌈B/2⌉ slots of each
+    # bucket on "data" (its dense absorbs, its landing's RSVD panels); and
+    # the landing panels of fsdp_reduced's 2D engine on (2, 2)
+    curv_dense, curv_panels = fsdp_curv_kernel_shapes()
 
     def dense_rows(b, rb, d, n):
         # a rank's rows [rb, 2·rb) of the factor: the second model rank's
@@ -505,7 +524,8 @@ def phase_kernels():
            + [lambda c=c: dense_rows(*c) for c in tp_rows
               if c[1] < c[2] or (c[0], c[2], c[3]) not in dp_dense]
            + [lambda c=c: dense_rows(*c) for c in fsdp_rows
-              if c not in tp_rows],
+              if c not in tp_rows]
+           + [(sym(b, d), rnd(b, d, n)) for b, d, n in curv_dense],
            lambda M, X, Xr=None: ea.ea_syrk_batched(M, X, keep, coef, Xr),
            lambda M, X, Xr=None: ref.ea_syrk(M, X, 0.95, False, Xr),
            lambda M, X, Xr=None: torch.baddbmm(
@@ -600,7 +620,10 @@ def phase_kernels():
               + [(rnd(c, d, k),) for c, d, k in fsdp_panels
                  if (c, d, k) not in launch_panels]
               + [(rnd(b, d, n),) for b, d, w, r, n in fsdp_brand
-                 if (b, d, w, r, n) not in tp_brand])
+                 if (b, d, w, r, n) not in tp_brand]
+              # slice_fsdp_curv's and fsdp_reduced's 2D engine's landings
+              + [(rnd(c, d, k),) for c, d, k in curv_panels
+                 if (c, d, k) not in launch_panels + fsdp_panels])
     record("syrk_tn", csrc + "cholqr.cu", "src/repro/kernels/cholqr.py:74",
            panels, cq.syrk_tn_batched, ref.syrk_tn,
            lambda A: torch.bmm(A.mT, A),
@@ -1046,6 +1069,10 @@ PATH_KERNELS = {
     # the builder under plan="fsdp" at full width: BRAND under
     # use_kernels=False, as slice_tp
     "slice_fsdp": (),
+    # the builder under plan="fsdp" at full width with the engine on
+    # "data" and the async pipeline, on every rank: the EA absorb of the
+    # dense M of its slots and the landing's RSVD range finder
+    "slice_fsdp_curv": ("ea_syrk", "syrk_tn", "rinv_apply"),
     # the builder under plan="fsdp" at --reduced under B-R-KFAC, on every
     # rank: the EA absorb on the M rows over the whole mesh and the RSVD
     # range finder's CholeskyQR2 on the M rows gathered whole
@@ -1055,6 +1082,11 @@ PATH_KERNELS = {
     # rows
     "fsdp_kernels": ("ea_syrk", "ut_a", "a_perp", "syrk_tn", "rinv_apply",
                      "precond_panel", "precond_apply"),
+    # fsdp_reduced's second mesh, the 2D engine with the async pipeline,
+    # on every rank: the landing's RSVD range finder on its slots (the
+    # row axis takes every dense M's rows: the absorbs are the row
+    # blocks', outside any kernel)
+    "fsdp_curv_reduced": ("syrk_tn", "rinv_apply"),
 }
 
 #: each path's wall seconds a step by kind (``phase_path``), for the
@@ -3256,6 +3288,13 @@ def _state_err(got, want) -> dict:
                              float((g.aux - w.aux).abs().max()))
     for name, m in (want.momentum or {}).items():
         out["momentum"] = max(out["momentum"], rel(got.momentum[name], m))
+    # the async pipeline's in-flight buffers: the snapshots' M and
+    # U·diag(D)·Uᵀ, and which slots are live
+    for key, w in want.inflight.items():
+        g = got.inflight[key]
+        out["counters"] += int(not torch.equal(g.live, w.live))
+        out["inflight"] = max(out.get("inflight", 0.0), rel(g.M, w.M),
+                              rel(udu(g), udu(w)))
     torch.cuda.empty_cache()
     return out
 
@@ -3762,6 +3801,26 @@ def fsdp_kernel_shapes():
         if kfactor.has_heavy_op(s):
             panels.append((b.total, s.d, min(s.r + s.r_o, s.d)))
     return dense, brand, _precond_launches(opt), panels
+
+
+def fsdp_curv_kernel_shapes():
+    """slice_fsdp_curv's shapes (``engine_async_shapes`` of its cut under
+    the builder's B-R-KFAC config with the async pipeline, on a curvature
+    axis of two) and those of fsdp_reduced's second mesh (the --reduced
+    config on 2 × 2 curv × rows) → (dense absorbs, landing panels)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import steps, train
+    C, CR = FSDP_CURV, FSDP_CURV_REDUCED
+    big = dataclasses.replace(steps.default_kfac_config(None, "brkfac"),
+                              async_heavy=True, heavy_lag=C["lag"])
+    red = dataclasses.replace(
+        train.reduced_kfac_config(FSDP_REDUCED["variant"]),
+        async_heavy=True, heavy_lag=CR["lag"])
+    dense, panels = engine_async_shapes(_fsdp_curv_arch(), big, C["world"])
+    red_dense, red_panels = engine_async_shapes(
+        get_arch("gemma3_4b").reduced(), red, 2, FSDP_REDUCED["world"] // 2)
+    return dense + red_dense, panels + [p for p in red_panels
+                                        if p not in panels]
 
 
 @contextlib.contextmanager
@@ -4410,13 +4469,22 @@ def _held_view(k: str, t):
     return t.detach().contiguous().to("cpu", copy=True).float()
 
 
+def _strided_view(k: str, t):
+    """Every TP_VOCAB_STRIDE-th row of a ≥ 2-D leaf (of an FSDP block
+    too, where the block's rows divide by the stride), as an fp32 host
+    copy."""
+    if t.dim() >= 2:
+        t = t[::TP_VOCAB_STRIDE]
+    return t.detach().contiguous().to("cpu", copy=True).float()
+
+
 @contextlib.contextmanager
-def first_step(keep, at_first=lambda: None):
+def first_step(keep, at_first=lambda: None, view=_held_view):
     """The first step's gradients entering the optimizer (``Kfac.update``)
     of the leaves ``keep`` accepts and its updates (``apply_updates``) of
-    the tapped ones among them, each through ``_held_view``, in the
-    yielded {"grad": …, "update": …} (``at_first()``'s value at the first
-    update under "at")."""
+    the tapped ones among them, each through ``view``, in the yielded
+    {"grad": …, "update": …} (``at_first()``'s value at the first update
+    under "at")."""
     from repro_torch.core import kfac as kfac_lib
     from repro_torch.optim import base as optbase
     got = {"grad": {}, "update": {}}
@@ -4426,13 +4494,13 @@ def first_step(keep, at_first=lambda: None):
     def recorded_update(self, grads, *a, **kw):
         if not got["grad"]:
             tapped.update(t.param_path for t in self.taps.values())
-            got["grad"].update({k: _held_view(k, v)
+            got["grad"].update({k: view(k, v)
                                 for k, v in grads.items() if keep(k)})
         return update(self, grads, *a, **kw)
 
     def recorded_apply(params, updates):
         if "at" not in got:
-            got["update"].update({k: _held_view(k, v)
+            got["update"].update({k: view(k, v)
                                   for k, v in updates.items()
                                   if keep(k) and k in tapped})
             got["at"] = at_first()
@@ -5207,6 +5275,24 @@ FSDP_SLICE = dict(arch="gemma3_4b", repeats=(1, 0), steps=2, batch=4,
 FSDP_REDUCED = dict(variant="brkfac", steps=4, world=4, batch=4, seq=64,
                     timeout=600)
 FSDP_KERNELS_TOL = 1e-4
+#: slice_fsdp_curv, in slice_fsdp's world on a second mesh over its two
+#: ranks: build_train_step(plan="fsdp") at gemma3-4b's full width cut to
+#: the first pattern's positions ``layers`` (a local layer and the global
+#: one, as _dp_slice_arch cuts), on (2, 1) [data, model] with the
+#: curvature engine's slots on "data" (1D, the CLI's rule), B-R-KFAC with
+#: the async pipeline at lag ``lag``, fp32, batch 4 × 64; one step per
+#: mask, each built for its own StepWork: stats and light (the Brand
+#: init), the same with a launch of every async slot, the same with their
+#: landing; each held to one process with its continuation shifts
+#: replayed (DP_TOL), the held taps' factors after the landing at
+#: DIST_TOL
+FSDP_CURV = dict(arch="gemma3_4b", layers=(0, 5), batch=4, seq=64, lag=1,
+                 masks=("light", "launch", "land"), world=2)
+#: fsdp_reduced's second mesh, (2, 2) [data, curv]: the 2D engine (slots
+#: on curv, M rows on data) with the async pipeline at lag 2 under the
+#: --reduced optimizer (T_brand 2: one interim panel replayed at the
+#: landing), one step per mask, each replayed against one process
+FSDP_CURV_REDUCED = dict(lag=2, masks=("light", "launch", "light", "land"))
 #: slice_tp's memory a rank as PERF.md §5 records it (H100 80GB HBM3 at
 #: 700 W), printed beside slice_fsdp's
 TP_SLICE_GB = {"held": 11.26, "peak": 20.55, "factors": 0.86,
@@ -5226,6 +5312,63 @@ DRYRUN_TIMEOUT = 120
 def _fsdp_slice_arch():
     from repro_torch.configs.base import get_arch
     return get_arch(FSDP_SLICE["arch"]).with_repeats(FSDP_SLICE["repeats"])
+
+
+def _fsdp_curv_arch():
+    """gemma3-4b at full width in fp32, cut to FSDP_CURV's positions of its
+    first segment's pattern, once."""
+    from repro_torch.configs.base import Segment, get_arch
+    full = get_arch(FSDP_CURV["arch"])
+    pattern = tuple(full.segments[0].pattern[i] for i in FSDP_CURV["layers"])
+    return dataclasses.replace(full, n_layers=len(pattern), dtype="float32",
+                               segments=(Segment(pattern, repeats=1),))
+
+
+def async_work(opt, mask: str):
+    """A StepWork over ``opt``'s buckets: stats and light, and with
+    "launch"/"land" every async bucket's slots launched/landed."""
+    from repro_torch.core import schedule
+    none = tuple(() for _ in opt.factor_buckets)
+    every = tuple(((0, b.total),) if bi in opt._async_buckets else ()
+                  for bi, b in enumerate(opt.factor_buckets))
+    return schedule.StepWork(stats=True, light=True, heavy=none,
+                             launch=every if mask == "launch" else none,
+                             land=every if mask == "land" else none)
+
+
+def async_draws(opt, dev, seed: int) -> dict:
+    """The heavy op's draws for every slot of each async bucket, from a
+    card generator seeded ``seed`` (one process and the ranks draw the
+    same numbers)."""
+    import torch
+    from repro_torch.core import kfactor
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {bi: kfactor.draw_heavy(b.spec, b.total, g, dev)
+            for bi, b in enumerate(opt.factor_buckets)
+            if bi in opt._async_buckets and kfactor.needs_draws(b.spec)}
+
+
+def engine_async_shapes(arch, kcfg, n: int, n_rows: int = 1) -> tuple:
+    """The kernel shapes of a member of a curvature axis of ``n`` (and a
+    row axis of ``n_rows``) stepping ``async_work``'s masks of ``arch``
+    under ``kcfg``: each dense bucket's EA absorb (⌈B/n⌉ slots, d,
+    n_stat) where the row axis does not take its rows (those absorb
+    outside any kernel), and each async bucket's landing RSVD panels
+    (⌈B/n⌉ slots, d, r + r_o)."""
+    import torch
+    from repro_torch.core import buckets, kfactor
+    from repro_torch.core import kfac as kfac_lib
+    from repro_torch.models.lm import LM
+    lm = LM(arch, device=torch.device("meta"))
+    opt = kfac_lib.Kfac(kcfg, lm.taps, device=torch.device("meta"))
+    dense, panels = [], []
+    for bi, b in enumerate(opt.factor_buckets):
+        s, per = b.spec, buckets.padded_total(b.total, n) // n
+        if s.needs_m and (n_rows == 1 or s.d % n_rows):
+            dense.append((per, s.d, s.n_stat))
+        if bi in opt._async_buckets and kfactor.needs_draws(s):
+            panels.append((per, s.d, min(s.r + s.r_o, s.d)))
+    return dense, panels
 
 
 def _fsdp_cell(cfg: dict, name: str):
@@ -5261,7 +5404,7 @@ def _fsdp_held(tree, shardings, abstract) -> dict:
     have = {k: v for k, v in ck.leaves(tree).items()
             if hasattr(v, "shape")}
     return {"n_leaves": len(have),
-            "n_blocks": sum(v.numel() < whole[k].numel()
+            "n_blocks": sum(k in whole and v.numel() < whole[k].numel()
                             for k, v in have.items()),
             "wrong": sorted(k for k, v in have.items()
                             if tuple(v.shape) != tuple(want[k].shape))
@@ -5342,6 +5485,142 @@ def fsdp_one_process(arch, dev) -> tuple:
     return rec, run
 
 
+def _curv_held(k: str) -> bool:
+    """slice_fsdp_curv holds every leaf (through ``_strided_view``)."""
+    return True
+
+
+def fsdp_curv_builder(dev, mesh=None):
+    """slice_fsdp_curv's builder (``work=None``: the default mask) →
+    build(work); with ``mesh`` under plan="fsdp" with the engine's slots on
+    its "data" axis."""
+    from repro_torch import specs
+    from repro_torch.launch import steps
+    C = FSDP_CURV
+    where = {} if mesh is None else dict(
+        plan="fsdp", dist=specs.DistSpec(mesh=mesh, curvature_axis="data"))
+    return lambda work=None: steps.build_train_step(
+        _fsdp_curv_arch(), cell=_fsdp_cell(C, "fsdp_curv"),
+        variant="brkfac", async_heavy=True, heavy_lag=C["lag"], work=work,
+        device=dev, **where)
+
+
+def fsdp_curv_one_process(dev) -> dict:
+    """slice_fsdp_curv's oracle in this process: the builder without a
+    mesh from the seeded weights, one step per FSDP_CURV mask, each
+    recorded (``first_step``: the held leaves' gradients and updates; its
+    continuation shifts, loss and wall time; every leaf through
+    ``_strided_view``), then every tap's factors (``_factor_ops``) and
+    the dense-M bytes held."""
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.lm import LM
+    C = FSDP_CURV
+    build = fsdp_curv_builder(dev)
+    tb = build()
+    stream = TokenStream(vocab=tb.lm.arch.vocab, batch=C["batch"],
+                         seq_len=C["seq"], seed=0, device=dev).batch_at
+    params = LM(tb.lm.arch, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    st = tb.opt.init(params)
+    out = {"steps": [], "shifts": [], "losses": [], "wall_s": []}
+    for k, mask in enumerate(C["masks"]):
+        step = build(async_work(tb.opt, mask)).step_fn
+        draws = async_draws(tb.opt, dev, k) if mask == "launch" else {}
+        with first_step(_curv_held, view=_strided_view) as rec, \
+                continuation_replay() as sh:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, st, loss = step(params, st, stream(k), draws)
+            torch.cuda.synchronize()
+            out["wall_s"].append(time.perf_counter() - t0)
+        rec.pop("at", None)
+        out["steps"].append(rec)
+        out["shifts"].append(list(sh))
+        out["losses"].append(float(loss))
+    out["factors"] = _factor_ops(st.factors, "")
+    out["m_bytes"] = sum(getattr(ts, side).M.numel() * 4
+                         for ts in st.factors.values() for side in "AG"
+                         if getattr(ts, side).M.shape[-1] > 1)
+    return out
+
+
+def fsdp_curv_rank(dev, want) -> dict:
+    """slice_fsdp_curv on this rank (FSDP_CURV, ``want`` its one-process
+    record): what it holds before and after each step against
+    ``in_shardings`` (FSDP's composed with the engine's), each step's
+    gradients and updates (every leaf's block, ``_strided_view``) against
+    one process's with its shifts replayed, its wall time and collectives
+    (bytes, seconds and calls by function), every tap's factors after the
+    landing gathered whole, the dense-M bytes it holds against the
+    engine's
+    ``m_bytes()``, launches and calls by shape."""
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    C = FSDP_CURV
+    mesh = mesh_lib.make_mesh((C["world"], 1), ("data", "model"))
+    build = fsdp_curv_builder(dev, mesh)
+    tb = build()
+    p_sh, o_sh, b_sh = tb.in_shardings[:3]
+    ms = tb.lm.sp.shards
+    block = lambda k, w: ms.block(k, w) if ms.sharded(k) else w
+    stream = TokenStream(vocab=tb.lm.arch.vocab, batch=C["batch"],
+                         seq_len=C["seq"], seed=0, device=dev).batch_at
+    params = _fsdp_blocks(tb.lm.arch, p_sh, dev)
+    held = {"params": _fsdp_held(params, p_sh, tb.abstract_params)}
+    st = tb.opt.init(params)
+    held["opt_init"] = _fsdp_held(st, o_sh, tb.abstract_opt)
+    m_held = sum(x.numel() * x.element_size() for x in st.shards.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out = {"steps": [], "errs": [], "parted": [], "losses": [],
+           "held_mem_bytes": []}
+    with calls_by_shape() as by_shape:
+        for k, mask in enumerate(C["masks"]):
+            step = build(async_work(tb.opt, mask)).step_fn
+            draws = async_draws(tb.opt, dev, k) if mask == "launch" else {}
+            batch = shd.localize(stream(k), b_sh)
+            torch.cuda.synchronize()
+            out["held_mem_bytes"].append(torch.cuda.memory_allocated())
+            with first_step(_curv_held, view=_strided_view) as got, \
+                    continuation_replay(want["shifts"][k]) as own, \
+                    counted_collectives() as tally:
+                t0 = time.perf_counter()
+                params, st, loss = step(params, st, batch, draws)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            held[f"opt_{mask}{k}"] = _fsdp_held(st, o_sh, tb.abstract_opt)
+            out["errs"].append(_step0_errs(got, want["steps"][k], block))
+            out["parted"].append(_parted(own, want["shifts"][k]))
+            out["losses"].append(float(loss))
+            out["steps"].append({"wall_s": wall, **{
+                kind: {"bytes": v[0], "s": v[1], "calls": v[2]}
+                for kind, v in tally.items()},
+                "by_name": {n: list(v) for n, v in
+                            tally.counter.by_name.items()}})
+            del got
+    torch.cuda.synchronize()
+    out["held_mem_bytes"].append(torch.cuda.memory_allocated())
+    factors = {n: shd.globalize(ts, o_sh.first.factors[n])
+               for n, ts in st.factors.items()}
+    got = {"factors": _factor_ops(factors, "")}
+    out["factor_errs"] = _step0_errs(got, {"factors": want["factors"]})
+    out |= {"held": held, "m_held_bytes": m_held,
+            "m_bytes": list(tb.opt.curvature.m_bytes(tb.opt)),
+            "engine": tb.opt.curvature.describe(),
+            "inflight_live": [bool(b.live.any())
+                              for b in st.inflight.values()],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "factor_bytes": st.factor_bytes(),
+            "launches": _build.launch_counts(),
+            "calls_by_shape": dict(by_shape)}
+    return out
+
+
 def fsdp_rank_slice(rank: int, dev) -> dict:
     """slice_fsdp on this rank: step 0 in fp32 through
     ``build_train_step(plan="fsdp")`` (its block of the held leaves'
@@ -5419,17 +5698,26 @@ def fsdp_rank_slice(rank: int, dev) -> dict:
                             tally.counter.by_name.items()}})
     torch.cuda.synchronize()
     held_mem.append(torch.cuda.memory_allocated())
-    return {"losses": losses, "steps": per_step,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "held_mem_bytes": held_mem, "factor_bytes": st.factor_bytes(),
-            "param_bytes": sum(v.numel() * v.element_size()
-                               for v in params.values()),
-            "launches": _build.launch_counts(),
-            "calls_by_shape": dict(by_shape), "held": held,
-            "step0_err_fp32": err32, "factors_held": factors_held,
-            "shift_rows_parted0": parted32,
-            "seconds": {"step0_fp32": t_bf16 - t_fp32,
-                        "bf16": time.perf_counter() - t_bf16}}
+    res = {"losses": losses, "steps": per_step,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "held_mem_bytes": held_mem, "factor_bytes": st.factor_bytes(),
+           "param_bytes": sum(v.numel() * v.element_size()
+                              for v in params.values()),
+           "launches": _build.launch_counts(),
+           "calls_by_shape": dict(by_shape), "held": held,
+           "step0_err_fp32": err32, "factors_held": factors_held,
+           "shift_rows_parted0": parted32,
+           "seconds": {"step0_fp32": t_bf16 - t_fp32,
+                       "bf16": time.perf_counter() - t_bf16}}
+    # slice_fsdp_curv on a second mesh over the same two ranks
+    del tb, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_curv = time.perf_counter()
+    res["curv"] = fsdp_curv_rank(dev, torch.load(
+        os.environ["CHIP_SMOKE_FSDP_CURV"], mmap=True))
+    res["seconds"]["curv"] = time.perf_counter() - t_curv
+    return res
 
 
 def fsdp_rank_reduced(rank: int, dev) -> dict:
@@ -5539,9 +5827,48 @@ def fsdp_rank_reduced(rank: int, dev) -> dict:
                                                  R["steps"])
     kernels_step.pop("collectives")
     kernels_step["loss"] = loss
+    del tbk, onek, params, state
+    torch.cuda.empty_cache()
+
+    # FSDP_CURV_REDUCED: the 2D engine and the async pipeline on a second
+    # mesh, (2, 2) [data, curv], from the seeded parameters
+    from repro_torch import specs
+    CR = FSDP_CURV_REDUCED
+    mesh2 = mesh_lib.make_mesh((2, R["world"] // 2), ("data", "curv"))
+    dist2 = specs.DistSpec(mesh=mesh2, curvature_axis="curv",
+                           row_axis="data")
+    acfg = dataclasses.replace(cfg, async_heavy=True, heavy_lag=CR["lag"])
+
+    def build2(work, on_mesh):
+        return steps.build_train_step(
+            arch, cell=cell, work=work, kfac_config=acfg, device=dev,
+            **(dict(plan="fsdp", dist=dist2) if on_mesh else {}))
+    tb2 = build2(None, True)
+    p_sh2, o_sh2 = tb2.in_shardings[:2]
+    params = _fsdp_blocks(arch, p_sh2, dev)
+    state = tb2.opt.init(params)
+    curv = {"replay": [], "launches": {}, "calls_by_shape": {},
+            "held": {"opt_init": _fsdp_held(state, o_sh2,
+                                            tb2.abstract_opt)},
+            "engine": tb2.opt.curvature.describe()}
+    for k, mask in enumerate(CR["masks"]):
+        work = async_work(tb2.opt, mask)
+        params, state, loss, cmp = replayed(
+            build2(work, True), build2(work, False) if rank0 else None,
+            params, state, R["steps"] + 1 + k)
+        cmp.pop("collectives")
+        for n, c in cmp.pop("launches").items():
+            curv["launches"][n] = curv["launches"].get(n, 0) + c
+        for key, c in cmp.pop("calls_by_shape").items():
+            curv["calls_by_shape"][key] = curv["calls_by_shape"].get(
+                key, 0) + c
+        curv["replay"].append(cmp | {"loss": loss, "mask": mask})
+        curv["held"][f"opt_{mask}{k}"] = _fsdp_held(state, o_sh2,
+                                                   tb2.abstract_opt)
     return {"losses": losses, "launches": counts,
             "calls_by_shape": by_shape, "collectives": tally,
-            "held": held, "replay": replay, "kernels_step": kernels_step}
+            "held": held, "replay": replay, "kernels_step": kernels_step,
+            "curv": curv}
 
 
 def phase_fsdp_slice(checked):
@@ -5567,17 +5894,30 @@ def phase_fsdp_slice(checked):
     torch.cuda.empty_cache()
     t_one = time.perf_counter()
     rec, one = fsdp_one_process(arch, dev)
-    want_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_fsdp_"),
-                             "step0.pt")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    want_path = os.path.join(tmp, "step0.pt")
     torch.save(rec, want_path)
     del rec
     one_process_s = time.perf_counter() - t_one
+    t_curv = time.perf_counter()
+    curv_one = fsdp_curv_one_process(dev)
+    curv_path = os.path.join(tmp, "curv.pt")
+    torch.save(curv_one, curv_path)
+    curv_one = {k: curv_one[k] for k in ("losses", "wall_s", "m_bytes")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    curv_one_s = time.perf_counter() - t_curv
     card_free = torch.cuda.mem_get_info()[0]
     _, res, spawn_s = spawn_ranks(
         "fsdp_slice", S["world"], S["timeout"],
-        env_extra={"CHIP_SMOKE_FSDP_STEP0": want_path})
-    shutil.rmtree(os.path.dirname(want_path), ignore_errors=True)
+        env_extra={"CHIP_SMOKE_FSDP_STEP0": want_path,
+                   "CHIP_SMOKE_FSDP_CURV": curv_path})
+    shutil.rmtree(tmp, ignore_errors=True)
     sl = [g["fsdp_slice"] for g in res]
+    curv_counts = check_fsdp_curv([s.pop("curv") for s in sl], curv_one,
+                                  checked)
+    PHASE_SECONDS["slice_fsdp_curv"] = curv_one_s + max(
+        s["seconds"]["curv"] for s in sl)
     kinds = ["first"] + ["light"] * (S["steps"] - 1)
     drift = [_rel_drift(s["losses"], one["losses"]) for s in sl]
     kinds_of = ("all_gather_coalesced", "reduce_scatter_coalesced",
@@ -5666,6 +6006,79 @@ def phase_fsdp_slice(checked):
             f"{[s['held'] for s in sl]}, step-0 fp32 err {err32} "
             f"(entries {entries_ok}), never launched {missing}, calls at "
             f"unchecked shapes {unchecked}")
+    return counts, curv_counts
+
+
+def check_fsdp_curv(sl, one, checked) -> dict:
+    """slice_fsdp_curv's ranks (``sl``) against one process (``one``):
+    a line per step (wall time; collectives' bytes, seconds and calls by
+    function), the summary (what a rank holds against ``in_shardings``,
+    its dense-M bytes against the engine's ``m_bytes()``, launches by
+    kernel); each step's held entries at DP_TOL, the landed factors at
+    DIST_TOL, the losses at DP_TOL.  Returns the launch counts summed
+    over the ranks."""
+    import numpy as np
+    C = FSDP_CURV
+    kinds_of = ("all_gather_coalesced", "reduce_scatter_coalesced",
+                "all_reduce", "all_gather")
+    drift = [_rel_drift(s["losses"], one["losses"]) for s in sl]
+    for k, mask in enumerate(C["masks"]):
+        emit({"phase": "slice_fsdp_curv", "step": k, "kind": mask,
+              "loss": [s["losses"][k] for s in sl],
+              "loss_one": one["losses"][k], "drift": [d[k] for d in drift],
+              "max_rel_err": max(max(s["errs"][k].values()) for s in sl),
+              "wall_s": [s["steps"][k]["wall_s"] for s in sl],
+              "wall_s_one": one["wall_s"][k],
+              "collectives": [{c: s["steps"][k][c] for c in kinds_of}
+                              for s in sl],
+              "by_name": [s["steps"][k]["by_name"] for s in sl]})
+    PATH_WALLS["slice_fsdp_curv"] = {
+        mask: [s["steps"][k]["wall_s"] for s in sl]
+        for k, mask in enumerate(C["masks"])}
+    counts = {k: sum(s["launches"][k] for s in sl) for k in sl[0]["launches"]}
+    missing = [(r, k) for r, s in enumerate(sl)
+               for k in PATH_KERNELS["slice_fsdp_curv"]
+               if s["launches"][k] == 0]
+    unchecked = sorted({k for s in sl for k in s["calls_by_shape"]
+                        if k not in checked})
+    err = max(max(e.values()) for s in sl for e in s["errs"])
+    ferr = max(max(s["factor_errs"].values()) for s in sl)
+    held_ok = all(not h["wrong"] and h["n_blocks"] > 0
+                  for s in sl for h in s["held"].values())
+    m_ok = all(s["m_held_bytes"] == s["m_bytes"][1] > 0 for s in sl)
+    emit({"phase": "slice_fsdp_curv", "summary": True,
+          "world": C["world"], "mesh": {"data": C["world"], "model": 1},
+          "layers": list(C["layers"]), "batch": [C["batch"], C["seq"]],
+          "lag": C["lag"], "masks": list(C["masks"]),
+          "engine": sl[0]["engine"], "max_rel_err": err, "tol": DP_TOL,
+          "factor_max_rel_err": ferr, "factor_tol": DIST_TOL,
+          "factor_errs": [s["factor_errs"] for s in sl],
+          "max_drift": max(max(d) for d in drift),
+          "shift_rows_parted": [s["parted"] for s in sl],
+          "held": [s["held"] for s in sl],
+          "m_held_bytes": [s["m_held_bytes"] for s in sl],
+          "m_bytes": [s["m_bytes"] for s in sl],
+          "m_bytes_one_process": one["m_bytes"],
+          "inflight_live_after_land": [s["inflight_live"] for s in sl],
+          "held_gb": [[h / 1e9 for h in s["held_mem_bytes"]] for s in sl],
+          "peak_gb": [s["peak_mem_bytes"] / 1e9 for s in sl],
+          "factor_gb": [s["factor_bytes"] / 1e9 for s in sl],
+          "launches": counts,
+          "launches_by_rank": [{k: s["launches"][k]
+                                for k in PATH_KERNELS["slice_fsdp_curv"]}
+                               for s in sl],
+          "calls_by_shape": [s["calls_by_shape"] for s in sl]})
+    finite = all(np.isfinite(s["losses"]).all() for s in sl)
+    if (not finite or not err < DP_TOL or not ferr < DIST_TOL or not held_ok
+            or not m_ok or max(max(d) for d in drift) >= DP_TOL
+            or len(sl[0]["errs"]) != len(C["masks"]) or missing
+            or unchecked):
+        raise AssertionError(
+            f"slice_fsdp_curv: finite {finite}, held-entry err {err}, "
+            f"factor err {ferr}, held {[s['held'] for s in sl]}, dense-M "
+            f"{[(s['m_held_bytes'], s['m_bytes']) for s in sl]}, loss drift "
+            f"{drift}, never launched (rank, kernel) {missing}, calls at "
+            f"unchecked shapes {unchecked}")
     return counts
 
 
@@ -5739,8 +6152,53 @@ def phase_fsdp_reduced(checked):
             f"{[r['loss_rel_err'] for r in replay]}, never launched "
             f"(rank, kernel) {missing}, calls at unchecked shapes "
             f"{unchecked}")
+    curv_counts = check_fsdp_curv_reduced([s["curv"] for s in sl],
+                                          checked)
     return counts, {k: sum(s["launches"][k] for s in ks)
-                    for k in ks[0]["launches"]}
+                    for k in ks[0]["launches"]}, curv_counts
+
+
+def check_fsdp_curv_reduced(cs, checked) -> dict:
+    """fsdp_reduced's second mesh (FSDP_CURV_REDUCED) on its four ranks
+    (``cs``): each step replayed against one process at DP_TOL (the
+    update, the new state with its in-flight buffers, the loss), what
+    each rank holds, every rank's launches of the path's kernels at
+    shapes the ``kernels`` phase held.  Returns the launch counts summed
+    over the ranks."""
+    CR = FSDP_CURV_REDUCED
+    replay = cs[0]["replay"]
+    err = max(r["update_rel_err"] for r in replay)
+    serr = {f: max(r["state_err"].get(f, 0.0) for r in replay)
+            for f in set().union(*(r["state_err"] for r in replay))}
+    counts = {k: sum(c["launches"].get(k, 0) for c in cs)
+              for k in cs[0]["launches"]}
+    missing = [(r, k) for r, c in enumerate(cs)
+               for k in PATH_KERNELS["fsdp_curv_reduced"]
+               if c["launches"].get(k, 0) == 0]
+    unchecked = sorted({k for c in cs for k in c["calls_by_shape"]
+                        if k not in checked})
+    held_ok = all(not h["wrong"] and h["n_blocks"] > 0
+                  for c in cs for h in c["held"].values())
+    for k, r in enumerate(replay):
+        emit({"phase": "fsdp_reduced", "curv_step": k, **r})
+    emit({"phase": "fsdp_reduced", "curv_summary": True,
+          "mesh": {"data": 2, "curv": 2}, "engine": cs[0]["engine"],
+          "lag": CR["lag"], "masks": list(CR["masks"]),
+          "max_update_rel_err": err, "max_state_err": serr, "tol": DP_TOL,
+          "held": [c["held"] for c in cs], "launches": counts,
+          "launches_by_rank": [c["launches"] for c in cs],
+          "calls_by_shape": [c["calls_by_shape"] for c in cs]})
+    state_ok = serr["counters"] == 0 and all(
+        serr[f] < DP_TOL for f in serr if f != "counters")
+    if (not err < DP_TOL or not state_ok or not held_ok
+            or max(r["loss_rel_err"] for r in replay) >= DP_TOL
+            or len(replay) != len(CR["masks"]) or missing or unchecked):
+        raise AssertionError(
+            f"fsdp_reduced (2D engine, async): update rel err {err}, state "
+            f"err {serr}, held {[c['held'] for c in cs]}, loss err "
+            f"{[r['loss_rel_err'] for r in replay]}, never launched (rank, "
+            f"kernel) {missing}, calls at unchecked shapes {unchecked}")
+    return counts
 
 
 def dryrun_cells() -> dict:
@@ -5957,9 +6415,11 @@ def main(argv=None) -> int:
         "tp_reduced", phase_tp_reduced, checked)
     # FSDP (build_train_step(plan="fsdp")): gemma3-4b at full width on
     # two ranks (--mesh 1x2's cut), then B-R-KFAC reduced on a 2 × 2 mesh
-    by_path["slice_fsdp"] = timed("slice_fsdp", phase_fsdp_slice, checked)
-    by_path["fsdp_reduced"], by_path["fsdp_kernels"] = timed(
-        "fsdp_reduced", phase_fsdp_reduced, checked)
+    by_path["slice_fsdp"], by_path["slice_fsdp_curv"] = timed(
+        "slice_fsdp", phase_fsdp_slice, checked)
+    (by_path["fsdp_reduced"], by_path["fsdp_kernels"],
+     by_path["fsdp_curv_reduced"]) = timed("fsdp_reduced",
+                                           phase_fsdp_reduced, checked)
     # the launch dry-run on meta tensors (no card, no kernel) against what
     # slice_fsdp and slice_tp measured
     timed("dryrun", phase_dryrun)

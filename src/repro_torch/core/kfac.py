@@ -162,6 +162,12 @@ class BucketLayout:
     def per_slot(value, total: int):
         return value
 
+    @staticmethod
+    def inflight(bi, buf, to_work: bool):
+        """Bucket ``bi``'s in-flight buffer as the bucket's step reads and
+        writes it (``to_work``), or back as it is held between steps."""
+        return buf
+
     #: the caller hands its gradients over: they may be overwritten
     consumes = False
 
@@ -190,8 +196,9 @@ class _HeldLayout(BucketLayout):
     """The one-optimizer layout under FSDP (``Kfac.model_shards.fsdp``): a
     bucket's states are relaid from the blocks a rank holds between
     steps to the rows the bucket works on as it is gathered, and back as
-    it is scattered (``Kfac._relaid``), so no factor leaf is whole
-    outside its bucket."""
+    it is scattered (``Kfac._relaid``), and its in-flight buffer likewise
+    (``Kfac._relaid_inflight``), so no factor leaf is whole outside its
+    bucket."""
 
     def __init__(self, opt: "Kfac"):
         self.opt = opt
@@ -211,6 +218,9 @@ class _HeldLayout(BucketLayout):
         keys = list(per)
         return dict(zip(keys, self.opt._relaid(
             keys, [per[k] for k in keys], False, self._scope(entries))))
+
+    def inflight(self, bi, buf, to_work: bool):
+        return self.opt._relaid_inflight(bi, buf, to_work)
 
 
 class Kfac:
@@ -249,7 +259,14 @@ class Kfac:
     above: each bucket's leaves that lie otherwise are relaid for that
     bucket only (:meth:`_relaid`), the factor work's as its bucket is
     gathered and scattered (:class:`_HeldLayout`), the preconditioning's
-    U and D as its bucket starts."""
+    U and D as its bucket starts.  An async bucket's in-flight buffer is
+    held by the same rule and is whole while its bucket steps
+    (:meth:`_relaid_inflight`).  With a curvature engine the factor work
+    is the engine's on whole rows of each member's slots
+    (:meth:`_work_rows`): the engine keeps each bucket's dense M, live and
+    in flight, in its own layout (``KfacState.shards`` and its members'
+    in-flight slots), and U, D and aux are relaid from their FSDP blocks
+    to whole for the bucket; the preconditioning is FSDP's."""
 
     def __init__(self, cfg: KfacConfig, taps: Dict[str, TapInfo],
                  device=None, curvature=None):
@@ -294,32 +311,45 @@ class Kfac:
 
     _FIELDS = ("U", "D", "M", "aux")
 
-    def _layout_dims(self, name: str, side: str, held: bool) -> Dict:
+    def _engine_m(self, spec) -> bool:
+        """Whether a curvature engine keeps the dense M of a factor of
+        ``spec`` in its own layout (``KfacState.shards``)."""
+        return (self.curvature is not None and spec.needs_m
+                and self.cfg.bucketed)
+
+    def _layout_dims(self, name: str, side: str, layout: str) -> Dict:
         """Field → the dimension a rank holds a block of (None: whole):
-        under FSDP between steps (``held``) the parameters' rule on each
-        leaf's global shape, else the rows the factor work runs on."""
+        under FSDP between steps (``layout="held"``) the parameters' rule
+        on each leaf's global shape (an engine's M aside: it is the
+        engine's), else the rows the factor work (``"work"``) or the
+        preconditioning (``"precond"``) runs on."""
         spec, stack = self.specs[name][side], tuple(self.taps[name].stack)
-        if held:
+        if layout == "held":
             m = (spec.d, spec.d) if spec.needs_m else (1, 1)
             shapes = dict(U=stack + (spec.d, spec.width),
                           D=stack + (spec.width,), M=stack + m,
                           aux=stack + (kfactor.AUX_WIDTH,))
-            return {f: self.model_shards.state_dim(sh)
+            dims = {f: self.model_shards.state_dim(sh)
                     for f, sh in shapes.items()}
+            if self._engine_m(spec):
+                dims["M"] = None
+            return dims
         rows = len(stack)
-        return dict(U=rows if self._factor_rows(spec) else None, D=None,
+        u_rows = (self._factor_rows if layout == "precond"
+                  else self._work_rows)(spec)
+        return dict(U=rows if u_rows else None, D=None,
                     M=rows if self._m_rows(spec) else None, aux=None)
 
     def _relaid(self, keys, states, to_work: bool, scope: str,
-                fields=_FIELDS) -> list:
+                fields=_FIELDS, layout: str = "work") -> list:
         """The factor states of ``keys`` ((name, side) each) moved from the
-        layout they are held in between steps to the one the factor work
-        runs on (``to_work``), or back; only ``fields`` are moved (the
-        others are kept as they are)."""
+        layout they are held in between steps to the one ``layout`` runs
+        on (``to_work``), or back; only ``fields`` are moved (the others
+        are kept as they are)."""
         xs, src, dst = [], [], []
         for (name, side), st in zip(keys, states):
-            held = self._layout_dims(name, side, True)
-            work = self._layout_dims(name, side, False)
+            held = self._layout_dims(name, side, "held")
+            work = self._layout_dims(name, side, layout)
             a, b = (held, work) if to_work else (work, held)
             for f in fields:
                 xs.append(getattr(st, f))
@@ -332,6 +362,34 @@ class Kfac:
         return [dataclasses.replace(st, **{f: next(moved) for f in fields})
                 for st in states]
 
+    def _inflight_dims(self, bi: int) -> Dict:
+        """Field → the dimension of bucket ``bi``'s in-flight buffer a
+        rank holds a block of between steps under FSDP (the parameters'
+        rule on the field's global shape)."""
+        b = self.factor_buckets[bi]
+        whole = kfactor.make_inflight(b.spec, b.total, self._async_buckets[bi],
+                                      device=torch.device("meta"))
+        return {f.name: self.model_shards.state_dim(
+                    getattr(whole, f.name).shape)
+                for f in dataclasses.fields(whole)}
+
+    def _relaid_inflight(self, bi: int, buf, to_work: bool):
+        """Bucket ``bi``'s in-flight buffer moved from the FSDP blocks it
+        is held in between steps to whole (``to_work``: a launch writes
+        it and a landing reads it whole, as under tensor parallelism), or
+        back."""
+        held = self._inflight_dims(bi)
+        names = list(held)
+        src = [held[f] for f in names]
+        dst = [None] * len(names)
+        if not to_work:
+            src, dst = dst, src
+        moved = self.model_shards.relayout(
+            [getattr(buf, f) for f in names], src, dst,
+            scope=f"factor bucket {bi}",
+            keys=[f"inflight/{bi}/{f}" for f in names])
+        return dataclasses.replace(buf, **dict(zip(names, moved)))
+
     def _factor_rows(self, spec):
         """The row block this rank holds of a factor of ``spec`` (None:
         whole, also without model shards)."""
@@ -339,13 +397,22 @@ class Kfac:
             return None
         return self.model_shards.factor_rows(spec.d)
 
-    def _m_rows(self, spec):
-        """The row block of a dense M: the factor's rows on "model",
-        unless a curvature engine keeps M's rows on a row axis of its
-        own (it then gathers and slices them itself)."""
-        if not spec.needs_m or getattr(self.curvature, "row_axis", None):
+    def _work_rows(self, spec):
+        """The row block the factor work runs on: the factor rows, but
+        whole under FSDP with a curvature engine (its members work on
+        their own slots, so rows over the whole mesh would mix slots)."""
+        if self._fsdp and self.curvature is not None:
             return None
         return self._factor_rows(spec)
+
+    def _m_rows(self, spec):
+        """The row block of a dense M the factor work runs on: the
+        factor's rows on "model", unless a curvature engine keeps M's
+        rows on a row axis of its own (it then gathers and slices them
+        itself)."""
+        if not spec.needs_m or getattr(self.curvature, "row_axis", None):
+            return None
+        return self._work_rows(spec)
 
     def probe_blocks(self) -> Tuple[str, ...]:
         """Taps whose probe gradient a tensor-parallel step may leave as
@@ -403,7 +470,7 @@ class Kfac:
                                             spec.needs_m, device=device)
                     st = st.map(lambda x: x.expand(tuple(t.stack)
                                                    + x.shape))
-                    held = self._layout_dims(name, side, True)
+                    held = self._layout_dims(name, side, "held")
                     xs = self.model_shards.relayout(
                         [getattr(st, f) for f in self._FIELDS],
                         [None] * 4, [held[f] for f in self._FIELDS])
@@ -428,6 +495,9 @@ class Kfac:
                         self.factor_buckets[bi].total, n_replay,
                         device=device)
                     for bi, n_replay in self._async_buckets.items()}
+        if self._fsdp and self.curvature is None:
+            inflight = {k: self._relaid_inflight(int(k), buf, False)
+                        for k, buf in inflight.items()}
         state = KfacState(step=0, n_stats=0, phase=0, factors=factors,
                           momentum=mom, fallback=fb, inflight=inflight)
         if self.curvature is not None:
@@ -457,7 +527,7 @@ class Kfac:
         out = []
         for side, X in (("A", X_A), ("G", X_G)):
             spec = self.specs[name][side]
-            rows = self._factor_rows(spec)
+            rows = self._work_rows(spec)
             if rows is not None and not spec.needs_m:
                 X = rows.local(X)
             out.append(X)
@@ -494,7 +564,7 @@ class Kfac:
                 flat = kfactor.bucket_factor_step(
                     spec, flat, Xf, first, work.stats, work.light,
                     ((0, count),) if heavy else (), self.cfg.use_kernels,
-                    draws=tdraws, rows=self._factor_rows(spec),
+                    draws=tdraws, rows=self._work_rows(spec),
                     m_rows=self._m_rows(spec))
                 new[side] = flat.map(lambda x: x.reshape(
                     tuple(stack) + x.shape[1:]))
@@ -532,7 +602,7 @@ class Kfac:
                     bucket.spec, st, X, first, work.stats, work.light,
                     layout.ranges(work.heavy[bi]), launch, land, buf,
                     self.cfg.use_kernels, draws=bdraws, landed=landed,
-                    rows=self._factor_rows(bucket.spec),
+                    rows=self._work_rows(bucket.spec),
                     m_rows=self._m_rows(bucket.spec))
         inflight = dict(inflight)
         states, X_all = {}, {}
@@ -553,6 +623,9 @@ class Kfac:
                 continue
             st = layout.gather_states(bucket.entries, states)
             X = layout.gather(bucket.entries, X_all)
+            buf = inflight.get(str(bi))
+            if buf is not None:
+                buf = layout.inflight(bi, buf, True)
             bdraws = None
             if (heavy or launch) and kfactor.needs_draws(bucket.spec):
                 bdraws = (draws or {}).get(bi)
@@ -563,10 +636,10 @@ class Kfac:
             with obs_trace.span(f"kfac/factor/b{bi}_"
                                 f"{bucket.spec.mode.value}"):
                 st, buf = bucket_step(
-                    bi, bucket, st, X, bdraws, inflight.get(str(bi)),
+                    bi, bucket, st, X, bdraws, buf,
                     None if landing is None else landing.get(str(bi)))
             if buf is not None:
-                inflight[str(bi)] = buf
+                inflight[str(bi)] = layout.inflight(bi, buf, False)
             self._record_bucket_metrics(bi, bucket, st, work, land, phi)
             states.update(layout.scatter_states(bucket.entries, st,
                                                 states))
@@ -615,7 +688,7 @@ class Kfac:
         d = spec.d
         k = min(8, d)
         idx = torch.arange(k, device=st.M.device) * max(1, d // k)
-        rows = self._factor_rows(spec)
+        rows = self._work_rows(spec)
         if rows is None:
             sq = self._residual_sq(spec, st.M[..., idx, :], idx, st, phi)
             return torch.max(torch.sqrt(sq / k))
@@ -716,7 +789,7 @@ class Kfac:
                     keys, [getattr(factors[n], side) for n, side in keys],
                     True, f"precond bucket "
                     f"{self.precond_buckets.index(bucket)}",
-                    fields=("U", "D"))))
+                    fields=("U", "D"), layout="precond")))
                 factors = {n: TapState(A=moved[(n, "A")], G=moved[(n, "G")])
                            for n in names}
             return self._precondition_shards(
@@ -986,11 +1059,16 @@ class Kfac:
         old ones' (``AdamW.update(consume=True)``), so ``state`` is not to
         be used again; the numbers are the same."""
         cfg = self.cfg
-        if self._fsdp and (not cfg.bucketed or self.curvature is not None
-                           or self._async_buckets):
+        if self._fsdp and not cfg.bucketed:
             raise NotImplementedError(
-                "FSDP runs the bucketed synchronous update without a "
-                "curvature engine (ROADMAP §1 item 5)")
+                "FSDP runs the bucketed update only: no reference entry "
+                "point reaches the per-tap path (bucketed=False) under "
+                "FSDP (its builder takes default_kfac_config, which is "
+                "bucketed)")
+        if self._fsdp and landing:
+            raise ValueError("FSDP lands in-step: pre-computed landing "
+                             "operands read a whole in-flight buffer, "
+                             "which FSDP holds in blocks")
         first = state.n_stats == 0
         phi = cfg.damping_phi(state.step)
         if damping_scale is not None:

@@ -32,6 +32,12 @@ holds its row block on "model" of every factor's U and, unless a row
 axis takes M's rows, of its M (``kfac_state_sharding``): the per-bucket
 program on the local slots is ``core/kfactor.py``'s row-block one, and
 the (U, λ) gathers over the curvature axis move the rank's rows only.
+Under FSDP (``ModelShards.fsdp``: the curvature axis is one of the axes
+FSDP splits every leaf over) the members work on whole rows of their
+slots, as on a data mesh (``Kfac._work_rows``); the engine keeps its M
+and in-flight buffers in its own layout below, and each bucket's U, D and
+aux are relaid from their FSDP blocks to whole for the bucket's step and
+back (``Kfac``'s ``_HeldLayout``).
 
 How ``shard_map`` becomes torch: one process is one mesh member (a
 :class:`~repro_torch.launch.mesh.Mesh`); ``jax.lax.all_gather(x, axis,
@@ -373,7 +379,7 @@ class CurvatureEngine:
                                      first, work.stats, work.light,
                                      work.heavy[bi], launch, land, buf,
                                      use_kernel,
-                                     opt._factor_rows(bucket.spec))
+                                     opt._work_rows(bucket.spec))
 
         factors, inflight = opt._bucketed_factor_work(
             factors, inflight, acts, probe_grads, n_tokens, rng, first,
@@ -525,7 +531,7 @@ class CurvatureEngine:
         members sum them, the curvature members take the worst slot —
         the replicated proxy's value on every member."""
         plan, rb = self.plans[bi], self.row_blocks[bi]
-        urows = opt._factor_rows(spec)
+        urows = opt._work_rows(spec)
         c = self._coord()
         d = spec.d
         k = min(8, d)
@@ -553,11 +559,15 @@ class CurvatureEngine:
 class _EngineLayout:
     """The bucket layout of an engine-attached optimizer: a bucket that
     keeps M takes it from (and returns it to) this member's local stack;
-    U/D/aux are gathered and scattered per tap as on one device."""
+    U/D/aux are gathered and scattered per tap as the optimizer's own
+    layout does (on one device; under FSDP relaid from and to their
+    blocks, ``Kfac``'s ``_HeldLayout``).  The in-flight buffers are the
+    engine's (its members' slots) and are not moved."""
 
     def __init__(self, opt, shards: Dict[str, Tensor]):
         from repro_torch.core import kfac as kfac_lib
-        self._base = kfac_lib.BucketLayout
+        self._base = (kfac_lib._HeldLayout(opt) if opt._fsdp
+                      else kfac_lib.BucketLayout)
         self.shards = dict(shards)
         self._bi = {b.entries: bi for bi, b in enumerate(opt.factor_buckets)}
         self.gather = self._base.gather
@@ -566,30 +576,24 @@ class _EngineLayout:
         self.per_slot = self._base.per_slot
         self.release = self._base.release
 
+    @staticmethod
+    def inflight(bi, buf, to_work: bool):
+        return buf
+
     def gather_states(self, entries, states):
+        st = self._base.gather_states(entries, states)
         key = str(self._bi[tuple(entries)])
         if key not in self.shards:
-            return self._base.gather_states(entries, states)
-        field = lambda f: self._base.gather(entries, {
-            (e.name, e.side): getattr(states[(e.name, e.side)], f)
-            for e in entries})
-        return KFactorState(U=field("U"), D=field("D"),
-                            M=self.shards[key], aux=field("aux"))
+            return st
+        return dataclasses.replace(st, M=self.shards[key])
 
     def scatter_states(self, entries, batched, old):
         key = str(self._bi[tuple(entries)])
-        if key not in self.shards:
-            return self._base.scatter_states(entries, batched, old)
-        self.shards[key] = batched.M
-        ph = {(e.name, e.side): old[(e.name, e.side)].M for e in entries}
-        out = {}
-        for e in entries:
-            sl = lambda x: buckets._unflatten(
-                x[e.offset:e.offset + e.count], e)
-            out[(e.name, e.side)] = KFactorState(
-                U=sl(batched.U), D=sl(batched.D), M=ph[(e.name, e.side)],
-                aux=sl(batched.aux))
-        return out
+        if key in self.shards:      # the per-tap leaves keep (…, 0, d)
+            self.shards[key] = batched.M
+            batched = dataclasses.replace(batched, M=batched.M.new_zeros(
+                (batched.U.shape[0], 0, batched.M.shape[-1])))
+        return self._base.scatter_states(entries, batched, old)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -57,8 +57,15 @@ as it runs (``models/lm.py``; their gradients reduce-scattered), and the
 optimizer works on its blocks (``Kfac`` under ``ModelShards.fsdp``: the
 factor work and the preconditioning on factor rows, as under tensor
 parallelism, each bucket's other leaves relaid for that bucket only).
-The numbers are the reference's one-device step.  With ``async_heavy``
-or a curvature axis it refuses to build (ROADMAP §1 item 5).
+With ``async_heavy`` each bucket's in-flight buffer is held by the same
+rule and is whole while its bucket steps.  A curvature axis (``dist``/
+``curvature_axis``) runs the factor work through the distributed
+curvature engine on whole rows of each member's slots: the engine keeps
+each bucket's dense M, live and in flight, in its own layout
+(``KfacState.shards``, its members' in-flight slots), and the state's
+sharding (``in_shardings[1]``) is FSDP's composed with the engine's
+(``sharding.Composed``).  The numbers are the reference's one-device
+step.
 
 A built step runs eagerly on ``device`` (the card unless the caller asks
 for another).  ``default_kfac_config`` keeps the reference's
@@ -192,7 +199,8 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
     distributed curvature engine (``opt.init`` then gives each rank its
     layout).  ``plan`` is the reference's model-sharding plan ("tp" or
     "fsdp"), which picks the shardings and how a mesh runs (the module
-    docstring).  ``async_heavy``/``heavy_lag`` give the
+    docstring; under "fsdp" with the async pipeline, a curvature engine
+    or both too).  ``async_heavy``/``heavy_lag`` give the
     optimizer the double-buffered heavy pipeline (its state then carries
     the in-flight buffers).
 
@@ -212,13 +220,6 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
     flags = flags or dict(do_stats=True, do_light=True, do_heavy=False)
     fsdp = plan == "fsdp" and mesh is not None
     if fsdp:
-        if async_heavy or curvature_axis is not None:
-            raise NotImplementedError(
-                "build_train_step: plan='fsdp' with "
-                + ("async_heavy" if async_heavy else "a curvature axis")
-                + " is not ported (ROADMAP §1 item 5, 'FSDP with the "
-                "async pipeline or the curvature engine'); the plain "
-                "FSDP step runs")
         sp = ShardPolicy(dp=tuple(mesh.axis_names), tp=None,
                          seq_shard_residual=False,
                          axis_sizes=_axis_sizes(mesh), mesh=mesh)
@@ -260,7 +261,7 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
     if mesh is not None:
         if plan == "fsdp":
             p_sh = shd.params_sharding_fsdp(a_params, mesh)
-            o_sh = shd.params_sharding_fsdp(a_opt, mesh)
+            o_sh = fsdp_state_sharding(opt, a_opt, mesh)
             dp_all = tuple(mesh.axis_names)
             b_sh = {k: shd.NamedSharding(mesh, shd.P(
                         *((dp_all,) + (None,) * (v.ndim - 1))))
@@ -277,6 +278,25 @@ def build_train_step(arch: ArchConfig, mesh=None, variant: str = "bkfac",
                       abstract_params=a_params, abstract_opt=a_opt,
                       in_shardings=in_sh, out_shardings=out_sh,
                       batch_specs=batch_specs)
+
+
+def fsdp_state_sharding(opt: kfac_lib.Kfac, a_opt, mesh):
+    """How a rank holds ``opt``'s state under ``plan="fsdp"``: each ≥ 2-D
+    leaf of the global state (``a_opt``) by ``params_sharding_fsdp``;
+    with a curvature engine, composed with the engine's layout, for which
+    the dense M it keeps and the in-flight buffers are left whole."""
+    o_sh = shd.params_sharding_fsdp(a_opt, mesh)
+    eng = opt.curvature
+    if eng is None:
+        return o_sh
+    whole = shd.NamedSharding(mesh, shd.P())
+    o_sh = dataclasses.replace(
+        o_sh, inflight=shd.replicated(a_opt.inflight, mesh),
+        factors={n: kfac_lib.TapState(**{
+            side: dataclasses.replace(getattr(ts, side), M=whole)
+            if opt._engine_m(opt.specs[n][side]) else getattr(ts, side)
+            for side in ("A", "G")}) for n, ts in o_sh.factors.items()})
+    return shd.Composed(o_sh, eng.state_sharding(opt))
 
 
 @dataclasses.dataclass

@@ -57,6 +57,7 @@ from repro_torch.configs.base import SHAPES, ShapeCell  # noqa: E402
 from repro_torch.configs.base import Segment as TSegment  # noqa: E402
 from repro_torch.configs.base import get_arch as tget  # noqa: E402
 from repro_torch.distributed import compress as tcomp  # noqa: E402
+from repro_torch.distributed import sharding as tshd  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -208,37 +209,94 @@ def test_one_device_policy_and_refusals():
     assert built.lm.sp.model_parallel and pre.lm.sp.model_parallel
     assert dec.lm.sp.kv_lens == (SHAPES["decode_32k"].seq_len, 0, False)
     # plan="fsdp" builds (its step runs on four ranks in
-    # test_torch_{mesh,dp,tp}.py); with the async pipeline or a curvature
-    # axis it refuses to build, naming ROADMAP §1 item 5
+    # test_torch_{mesh,dp,tp}.py), with the async pipeline, a curvature
+    # axis or both too: the state's sharding is FSDP's, composed with the
+    # engine's layout where one is attached
     fsdp = tsteps.build_train_step(arch, mesh=mesh, plan="fsdp", device=CPU)
     assert fsdp.lm.sp.fsdp and fsdp.lm.sp.mesh is mesh
-    for kw in (dict(async_heavy=True), dict(curvature_axis="data")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tsteps.build_train_step(arch, mesh=mesh, plan="fsdp",
-                                    device=CPU, **kw)
-    # and it runs on a mesh of one member (every collective the identity):
+    for kw in (dict(async_heavy=True, heavy_lag=2),
+               dict(curvature_axis="data"),
+               dict(dist=tspecs.DistSpec(mesh=mesh, curvature_axis="data",
+                                         row_axis="model",
+                                         curvature_compress=8)),
+               dict(curvature_axis="model", async_heavy=True)):
+        where = {} if "dist" in kw else dict(mesh=mesh)
+        tb = tsteps.build_train_step(arch, plan="fsdp", device=CPU,
+                                     **where, **kw)
+        assert tb.lm.sp.fsdp and tb.opt.model_shards.fsdp
+        assert tb.opt.cfg.async_heavy == ("async_heavy" in kw)
+        o_sh = tb.in_shardings[1]
+        if tb.opt.curvature is None:
+            assert o_sh == tshd.params_sharding_fsdp(tb.abstract_opt, mesh)
+        else:
+            assert isinstance(o_sh, tshd.Composed)
+            assert o_sh.first.fallback == tshd.params_sharding_fsdp(
+                tb.abstract_opt, mesh).fallback
+        assert tb.out_shardings[1] is o_sh
+    # it runs on a mesh of one member (every collective the identity):
     # each ≥ 2-D leaf a block of one, gathered per layer, the factor work
-    # on rows and its buckets relaid, the same step as without a mesh
+    # on rows and its buckets relaid, the same step as without a mesh;
+    # the async pipeline's in-flight buffers (the --reduced optimizer
+    # under B-R-KFAC at lag 2: the Brand init, a launch, a light step,
+    # the landing) likewise; the per-tap path refuses under FSDP (no
+    # reference entry point reaches it)
     cell = ShapeCell("t", T, B, "train")
     rs = np.random.default_rng(3)
     tokens = torch.as_tensor(rs.integers(0, 256, (B, T)))
+    batch = {"tokens": tokens, "targets": tokens}
+    lag = dict(kfac_config=ttrain.reduced_kfac_config("brkfac"),
+               async_heavy=True, heavy_lag=2)
     steps = {}
-    for plan, m in (("tp", None), ("fsdp", _OneMember())):
+    for tag, plan, m, kw in (("tp", "tp", None, {}),
+                             ("fsdp", "fsdp", _OneMember(), {}),
+                             ("tp-async", "tp", None, lag),
+                             ("fsdp-async", "fsdp", _OneMember(), lag)):
         tb = tsteps.build_train_step(tcut(), mesh=m, cell=cell, flags=HEAVY,
-                                     plan=plan, device=CPU)
+                                     plan=plan, device=CPU, **kw)
         params = tb.lm.init(torch.Generator().manual_seed(0))
         init = {k: v.detach().clone() for k, v in params.items()}
-        out, _, loss = tb.step_fn(params, tb.opt.init(params),
-                                  {"tokens": tokens, "targets": tokens},
-                                  torch.Generator().manual_seed(1))
-        steps[plan] = (init, out, float(loss))
-    assert steps["fsdp"][0].keys() == steps["tp"][0].keys()
-    init, want, loss = steps["tp"]
-    _, got, fsdp_loss = steps["fsdp"]
-    assert abs(fsdp_loss - loss) <= REL * abs(loss)
-    for k in want:
-        _close(got[k].detach() - init[k], want[k].detach() - init[k], TRAJ,
-               k)
+        st = tb.opt.init(params)
+        works = ([None] if not kw else
+                 [_async_work(tb.opt, mask)
+                  for mask in ("light", "launch", "light", "land")])
+        losses = []
+        for k, work in enumerate(works):
+            if work is not None:
+                tb = tsteps.build_train_step(tcut(), mesh=m, cell=cell,
+                                             work=work, plan=plan,
+                                             device=CPU, **kw)
+            params, st, loss = tb.step_fn(params, st, batch,
+                                          torch.Generator().manual_seed(k))
+            losses.append(float(loss))
+        steps[tag] = (init, params, losses)
+    for tag in ("fsdp", "fsdp-async"):
+        init, want, loss = steps[tag.replace("fsdp", "tp")]
+        _, got, fsdp_loss = steps[tag]
+        assert got.keys() == want.keys()
+        np.testing.assert_allclose(fsdp_loss, loss, rtol=REL)
+        for k in want:
+            _close(got[k].detach() - init[k], want[k].detach() - init[k],
+                   TRAJ, k)
+    tb = tsteps.build_train_step(
+        tcut(), mesh=_OneMember(), cell=cell, plan="fsdp", device=CPU,
+        kfac_config=dataclasses.replace(tsteps.default_kfac_config(None),
+                                        bucketed=False))
+    params = tb.lm.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="bucketed update only"):
+        tb.step_fn(params, tb.opt.init(params), batch,
+                   torch.Generator().manual_seed(1))
+
+
+def _async_work(opt, mask):
+    """Stats and light, and with "launch"/"land" every async bucket's
+    slots launched/landed."""
+    from repro_torch.core import schedule
+    none = tuple(() for _ in opt.factor_buckets)
+    every = tuple(((0, b.total),) if bi in opt._async_buckets else ()
+                  for bi, b in enumerate(opt.factor_buckets))
+    return schedule.StepWork(stats=True, light=True, heavy=none,
+                             launch=every if mask == "launch" else none,
+                             land=every if mask == "land" else none)
 
 
 class _OneMember:

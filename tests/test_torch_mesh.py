@@ -25,7 +25,15 @@ reference, on the CPU.
   rank holding exactly ``params_sharding_fsdp``'s block of every
   parameter and optimizer leaf before and after, the state gathered
   whole against one process's, and no leaf gathered whole outside its
-  layer or its bucket; metrics on ≡ off and
+  layer or its bucket; ``plan="fsdp"`` with the 2D engine on [data,
+  curv] (against that builder step), with the async pipeline at lag 2
+  on [data, model] and with both (a Brand init, a launch, an interim
+  light step and the landing against the reference's builder step body
+  on one device, its draws and continuation shifts injected; every rank
+  holding exactly the blocks ``in_shardings`` declares, in-flight
+  buffers included), with compressed gathers (against the plan-"tp"
+  engine step), and a mid-lag checkpoint of the engine's state restored
+  in one process and in the reference; metrics on ≡ off and
   health on ≡ off under the engine (``tests/test_obs.py:301``,
   ``tests/test_chaos.py:276``); a checkpoint saved on (2, 2) restored on
   (2, 1) and on one device, synchronous and mid-lag
@@ -52,16 +60,21 @@ from repro.configs.base import Segment as JSegment  # noqa: E402
 from repro.configs.base import ShapeCell as JCell  # noqa: E402
 from repro.configs.base import get_arch as jget  # noqa: E402
 from repro.core import kfac as jkfac  # noqa: E402
+from repro.core import kfactor as jkf  # noqa: E402
 from repro.core import policy as jpolicy  # noqa: E402
+from repro.core import precond as jprecond  # noqa: E402
+from repro.core import schedule as jschedule  # noqa: E402
 from repro.distributed import curvature as jcurv  # noqa: E402
 from repro.distributed import sharding as jshd  # noqa: E402
 from repro.launch import mesh as jmesh  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro.models.lm import LM as JLM  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import base as jbase  # noqa: E402
 from repro.train import checkpoint as jck  # noqa: E402
 from repro.train import elastic as jelastic  # noqa: E402
+from repro.train import loop as jloop  # noqa: E402
 from repro_torch import specs as tspecs  # noqa: E402
 from repro_torch.configs.base import ShapeCell as TCell  # noqa: E402
 from repro_torch.configs.base import get_arch as tget  # noqa: E402
@@ -400,6 +413,139 @@ def jcut(vocab=256):
         JSegment((red.segments[0].pattern[0],), repeats=2),))
 
 
+#: the async FSDP cases' optimizer: the reference CLI's --reduced one
+#: under B-R-KFAC at lag 2 (every bucket Brand-RSVD and async, one
+#: replay panel at T_brand 2)
+ASYNC_LAG = 2
+#: their steps: the Brand init, a launch of every async slot, an interim
+#: light step and the landing (stats and light in each)
+ASYNC_MASKS = ("light", "launch", "light", "land")
+ENGINE_2D = {"curvature_axis": "curv", "row_axis": "data"}
+
+
+def jreduced_async():
+    """The reference's ``--reduced`` optimizer (``launch/train.py``)
+    under B-R-KFAC with the async pipeline at ``ASYNC_LAG``."""
+    return jkfac.KfacConfig(
+        policy=jpolicy.PolicyConfig(variant="brkfac", r=32,
+                                    max_dense_dim=1024),
+        lr=jbase.constant(0.02), damping_phi=jbase.constant(0.1),
+        weight_decay=1e-4, clip=0.5, T_updt=2, T_inv=10, T_brand=2,
+        T_rsvd=10, T_corct=10, fallback_lr=jbase.constant(3e-3),
+        async_heavy=True, heavy_lag=ASYNC_LAG)
+
+
+def async_work(jopt, mask):
+    """The reference's StepWork of ``mask``: stats and light, and with
+    "launch"/"land" every async bucket's slots launched/landed."""
+    none = tuple(() for _ in jopt.factor_buckets)
+    every = tuple(((0, b.total),) if bi in jopt._async_buckets else ()
+                  for bi, b in enumerate(jopt.factor_buckets))
+    return jschedule.StepWork(
+        stats=True, light=True, heavy=none,
+        launch=every if mask == "launch" else none,
+        land=every if mask == "land" else none)
+
+
+def work_fields(w) -> dict:
+    return {f: getattr(w, f) for f in ("stats", "light", "heavy", "launch",
+                                       "land")}
+
+
+def async_draws(jopt, rng, work):
+    """The reference's heavy-op draws of a step (``core/kfac.py``'s
+    per-slot keys), per bucket that fires or launches a heavy range."""
+    out = {}
+    bkeys = jax.random.split(rng, len(jopt.factor_buckets))
+    for bi, (bkey, b) in enumerate(zip(bkeys, jopt.factor_buckets)):
+        if not (work.heavy[bi] or work.launch[bi]):
+            continue
+        s = b.spec
+        assert s.mode is jkf.Mode.BRAND_RSVD
+        keys = jax.random.split(bkey, b.total)
+        out[bi] = np.asarray(jax.vmap(lambda kk: jax.random.normal(
+            kk, (s.d, min(s.r + s.r_o, s.d)), dtype=jnp.float32))(keys))
+    return out
+
+
+def ref_async(arch, params, batches, works, rngs):
+    """The reference builder's step body (``launch/steps.py:137-145``) on
+    one device with :func:`jreduced_async`'s optimizer, jitted per
+    StepWork, over the case's steps → the losses, the parameters after
+    each step, each factor's (U, D) at the end, and each step's
+    spectrum-continuation shifts (the min over modes with D > 0, per row,
+    of every call: a rounding-level mode positive in one run and not in
+    another moves λ by the smallest real mode, ROADMAP §3, so the port's
+    steps replay them)."""
+    lm = JLM(arch)
+    opt = jkfac.Kfac(jreduced_async(), lm.taps)
+    n_tokens = B * T
+    orig, rec = jprecond.spectrum_continuation, []
+
+    def continuation(D, lam):
+        rec.append(orig(D, jnp.zeros_like(lam))[1])
+        return orig(D, lam)
+
+    def step(params, st, batch, rng, work):
+        rec.clear()
+        probes = jlayers.make_probes(opt.taps, jnp.float32)
+        loss, acts, gp, gprobe = jloop.kfac_grads(lm.loss_fn, params,
+                                                  probes, batch)
+        updates, st = opt.update(gp, st, params, acts=acts,
+                                 probe_grads=gprobe, n_tokens=n_tokens,
+                                 rng=rng, work=work)
+        return jbase.apply_updates(params, updates), st, loss, list(rec)
+    step = jax.jit(step, static_argnames=("work",))
+    st, out = opt.init(params), {"losses": [], "shifts": [], "after": []}
+    jprecond.spectrum_continuation = continuation
+    try:
+        for batch, work, rng in zip(batches, works, rngs):
+            params, st, loss, own = step(
+                params, st, {k: jnp.asarray(v) for k, v in batch.items()},
+                rng, work)
+            out["losses"].append(float(loss))
+            out["shifts"].append([np.asarray(x) for x in own])
+            out["after"].append(jax.tree_util.tree_map(np.asarray, params))
+    finally:
+        jprecond.spectrum_continuation = orig
+    out["factors"] = {(n, side): (np.asarray(getattr(ts, side).U),
+                                  np.asarray(getattr(ts, side).D))
+                      for n, ts in st.factors.items() for side in "AG"}
+    return out
+
+
+def fsdp_engine_cases(arch, init, batch, root):
+    """The cases of ``plan="fsdp"`` with an engine, the async pipeline or
+    both (``torch_dist_worker._fsdp_engine``) and what the reference's
+    one-device oracle of the async ones needs."""
+    jopt = jkfac.Kfac(jreduced_async(), JLM(arch).taps)
+    rs = np.random.default_rng(5)
+    batches = []
+    for _ in ASYNC_MASKS:
+        tokens = rs.integers(0, arch.vocab, (B, T)).astype(np.int32)
+        batches.append({"tokens": tokens, "targets": tokens})
+    works = [async_work(jopt, m) for m in ASYNC_MASKS]
+    rngs = [jax.random.PRNGKey(100 + k) for k in range(len(works))]
+    draws = [async_draws(jopt, r, w) for r, w in zip(rngs, works)]
+    one = {"kind": "fsdp_engine", "init": init, "B": B, "T": T,
+           "batches": [batch], "works": [None], "draws": [None],
+           "flags": HEAVY}
+    lag = {"kind": "fsdp_engine", "init": init, "B": B, "T": T,
+           "batches": batches, "works": [work_fields(w) for w in works],
+           "draws": draws, "reduced": True, "variant": "brkfac",
+           "lag": ASYNC_LAG}
+    cases = [
+        {**one, "name": "fsdp-curv", "axes": ("data", "curv"),
+         "dist": ENGINE_2D},
+        {**lag, "name": "fsdp-async", "axes": ("data", "model")},
+        {**lag, "name": "fsdp-curv-async", "axes": ("data", "curv"),
+         "dist": ENGINE_2D, "save": ASYNC_MASKS.index("launch"),
+         "dir": str(root / "ckpt-fsdp")},
+        {**one, "name": "fsdp-curv-c8", "axes": ("data", "curv"),
+         "dist": {**ENGINE_2D, "curvature_compress": 8}, "tp": True}]
+    return cases, (batches, works, rngs)
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh")
@@ -412,11 +558,17 @@ def world(tmp_path_factory):
     fsdp_batch = {"tokens": rs.integers(0, arch.vocab, (B, T)).astype(
         np.int32)}
     fsdp_batch["targets"] = fsdp_batch["tokens"]
+    engine_cases, async_steps = fsdp_engine_cases(arch, np_tree(params),
+                                                  batch, root)
+    # the async cases replay the reference's continuation shifts: they
+    # follow once its oracle has run
+    wait, send = worker.later(str(root), "mesh", timeout=200)
     cases = [
         {"name": "builder", "kind": "builder", "init": np_tree(params),
          "batch": batch, "B": B, "T": T, "flags": HEAVY},
         {"name": "fsdp", "kind": "fsdp", "init": np_tree(params),
          "batch": batch, "B": B, "T": T, "flags": HEAVY},
+        *[c for c in engine_cases if "lag" not in c],
         {"name": "cli", "kind": "cli",
          "argv": CLI + ["--mesh", "2x2", "--mesh-axes", "data,curv"],
          "model_argv": CLI + ["--mesh", "2x2"], "fsdp_batch": fsdp_batch},
@@ -425,7 +577,7 @@ def world(tmp_path_factory):
     for v in ("bkfac", "nskfac"):
         cases.append({"name": f"obs-{v}", "kind": "obs_health",
                       "variant": v, "dir": str(root)})
-    join = worker.start("mesh", cases, str(root), timeout=200)
+    join = worker.start("mesh", cases + [wait], str(root), timeout=200)
     # the oracles, meanwhile: the reference's replicated builder step and
     # the port's own --mesh none CLI run
     ref = {}
@@ -436,6 +588,9 @@ def world(tmp_path_factory):
                                       for k, v in batch.items()},
                                      jax.random.PRNGKey(1))
     ref["builder"] = (np_tree(params), float(loss), np_tree(p))
+    ref["async"] = ref_async(arch, params, *async_steps)
+    send([{**c, "shifts": ref["async"]["shifts"]} for c in engine_cases
+          if "lag" in c])
     with contextlib.redirect_stdout(io.StringIO()):
         _, ref["cli"] = ttrain.run(ttrain.parse_args(CLI),
                                    arch=worker.tcut())
@@ -582,6 +737,162 @@ def test_fsdp_gathers_nothing_whole_outside_its_layer_or_bucket(world):
         assert others and all(k.startswith(("factor bucket ",
                                             "precond bucket "))
                               for k in others)
+
+
+def _held_exactly(got):
+    """Every rank held exactly its declared block of every leaf of the
+    state before and after each step, and of the parameters after."""
+    for h in got["held"] + [got["params_held"]]:
+        assert h["keys"] and not h["wrong"], h["wrong"]
+        assert h["blocks"] > 0
+
+
+def _changes_close(got_after, want_after, init):
+    """Each parameter's change at 2e-3 of the reference change's scale."""
+    from repro_torch import convert
+    flat0 = convert.params_from_jax(init, device=CPU)
+    want = convert.params_from_jax(want_after, device=CPU)
+    for k, w in want.items():
+        d_want = (w - flat0[k]).numpy().astype(np.float64)
+        d_got = got_after[k].astype(np.float64) - flat0[k].numpy()
+        scale = max(np.abs(d_want).max(), 1e-30)
+        assert np.abs(d_got - d_want).max() <= 2e-3 * scale, k
+
+
+def _udu(U, D):
+    return (U * D[..., None, :]) @ np.swapaxes(U, -1, -2)
+
+
+def test_fsdp_with_the_engine_equals_reference(world):
+    """``build_train_step(plan="fsdp", dist=DistSpec(curvature_axis=
+    "curv", row_axis="data"))`` on 2 × 2 [data, curv]: the engine's slots
+    on curv and M rows on data, every other ≥ 2-D leaf FSDP's; one step
+    (stats, light, heavy) from the builder case's inputs ≡ the
+    reference's one-device builder step (the loss at 1e-5, each change at
+    2e-3 of scale) on every rank, each rank holding exactly the blocks
+    ``in_shardings[1]`` (FSDP's composed with the engine's) declares,
+    before and after, the dense M in the engine's local stacks."""
+    init, loss, after = world[1]["builder"]
+    for got in _one(world, "fsdp-curv"):
+        assert "axis=curv n=2 rows=data" in got["engine"]
+        assert got["shards"]
+        _held_exactly(got)
+        assert abs(got["losses"][0] - loss) <= 1e-5 * abs(loss)
+        _changes_close(got["after"], after, init)
+
+
+@pytest.mark.parametrize("name", ["fsdp-async", "fsdp-curv-async"])
+def test_fsdp_async_steps_equal_reference(world, name):
+    """The async pipeline under ``plan="fsdp"`` at lag 2 with the
+    ``--reduced`` optimizer under B-R-KFAC, on 2 × 2 [data, model]
+    (``fsdp-async``: the in-flight buffers in FSDP's blocks) and with the
+    2D engine on [data, curv] (``fsdp-curv-async``: in the engine's
+    slots): the Brand init, a launch of every slot, an interim light step
+    and the landing, the reference's draws and continuation shifts
+    injected ≡ the reference builder's step body on one device with the
+    same optimizer: every step's loss at 1e-5, each parameter's change
+    through the launch at 2e-3 of scale, every factor at the end as U
+    diag(D) Uᵀ at 1e-3 of scale; each rank holds exactly its declared
+    blocks before and after every step, in-flight buffers included.
+    (The changes after the interim light step are ill-conditioned at
+    this input: one ulp of every initial weight moves one process's wq
+    change by ~0.7 % of its scale and the embedding's by ~30 %, an AdamW
+    entry whose rounding-level gradient changes sign; ROADMAP §3.)"""
+    want = world[1]["async"]
+    init = world[1]["builder"][0]
+    launch = ASYNC_MASKS.index("launch")
+    for got in _one(world, name):
+        _held_exactly(got)
+        assert len(got["held"]) == len(ASYNC_MASKS) + 1
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=1e-5)
+        _changes_close(got["afters"][launch], want["after"][launch], init)
+        for (n, side), (U, D) in want["factors"].items():
+            key = f"factors|{n}|{side}|"
+            g = _udu(got["state"][key + "U"], got["state"][key + "D"])
+            w = _udu(U, D)
+            scale = max(np.abs(w).max(), 1e-30)
+            assert np.abs(g - w).max() <= 1e-3 * scale, key
+
+
+def test_fsdp_with_compressed_gathers_equals_the_tp_engine_step(world):
+    """``curvature_compress=8`` (the U gathers through rank-8 PowerSGD:
+    lossy, so no strict parity with the reference): the FSDP step with
+    the 2D engine on 2 × 2 [data, curv] ≡ the port's plan-"tp" step with
+    the same engine and compression on that mesh (the loss at 1e-5, each
+    change at 2e-3 of scale)."""
+    init = world[1]["builder"][0]
+    for got in _one(world, "fsdp-curv-c8"):
+        assert "compress_q=8" in got["engine"]
+        _held_exactly(got)
+        want = got["tp"]
+        assert abs(got["losses"][0] - want["losses"][0]) <= \
+            1e-5 * abs(want["losses"][0])
+        for k, w in want["after"].items():
+            d_want = w.astype(np.float64) - _flat_init(init)[k]
+            d_got = got["after"][k].astype(np.float64) - _flat_init(init)[k]
+            scale = max(np.abs(d_want).max(), 1e-30)
+            assert np.abs(d_got - d_want).max() <= 2e-3 * scale, k
+
+
+def _flat_init(init):
+    from repro_torch import convert
+    return {k: v.numpy() for k, v in convert.params_from_jax(
+        init, device=CPU).items()}
+
+
+def _untapped(tree, tapped, path=()):
+    """A reference fallback-moment tree restricted to the untapped
+    parameters (the moments the port keeps)."""
+    out = {}
+    for k, v in tree.items():
+        p = path + (k,)
+        if isinstance(v, dict):
+            sub = _untapped(v, tapped, p)
+            if sub:
+                out[k] = sub
+        elif "/".join(p) not in tapped:
+            out[k] = v
+    return out
+
+
+def test_fsdp_engine_mid_lag_checkpoint_restores_in_both_packages(world):
+    """A state saved under FSDP with the 2D engine right after the launch
+    (the snapshots in flight), gathered whole by ``in_shardings[1]``:
+    rank 0 restores it into a one-process template bit for bit, and the
+    reference's ``restore`` takes it (a template without in-flight
+    buffers, fallback moments restricted to the untapped parameters:
+    ``train/checkpoint.py``'s caveats) with every optimizer leaf equal to
+    the gathered one (test_mesh2d.py:395 on FSDP)."""
+    saved = _one(world, "fsdp-curv-async")[0]["ckpt"]
+    assert saved["same_keys"] and saved["restored_err"] == 0.0
+    gathered = saved["gathered"]
+    assert any(gathered[k].any() for k in gathered
+               if k.startswith("inflight|") and k.endswith("|live"))
+    arch = jcut()
+    lm = JLM(arch)
+    params = lm.init(jax.random.PRNGKey(0))
+    jopt = jkfac.Kfac(dataclasses.replace(jreduced_async(),
+                                          async_heavy=False, heavy_lag=0),
+                      lm.taps)
+    full = jopt.init(params)
+    tapped = {t.param_path for t in jopt.taps.values()}
+    fb = full.fallback
+    tmpl = {"params": params, "opt": full._replace(
+        fallback=jadamw.AdamWState(step=fb.step,
+                                   mu=_untapped(fb.mu, tapped),
+                                   nu=_untapped(fb.nu, tapped)))}
+    jgot, man = jck.restore(saved["dir"], tmpl)
+    assert man["step"] == saved["step"]
+    flat = jax.tree_util.tree_flatten_with_path(jgot["opt"])[0]
+    seen = 0
+    for path, leaf in flat:
+        key = "|".join(str(getattr(p, "key", getattr(p, "name", p)))
+                       for p in path)
+        if key in gathered:
+            np.testing.assert_array_equal(np.asarray(leaf), gathered[key])
+            seen += 1
+    assert seen >= 4 * len(jopt.taps) * 2
 
 
 @pytest.mark.parametrize("variant", ["bkfac", "nskfac"])

@@ -602,7 +602,7 @@ def fsdp_held(tree, shardings, abstract) -> dict:
                             if tuple(v.shape) != tuple(want[k].shape)),
             "keys": sorted(have) == sorted(k for k, v in want.items()
                                           if hasattr(v, "shape")),
-            "blocks": sum(v.numel() < whole[k].numel()
+            "blocks": sum(k in whole and v.numel() < whole[k].numel()
                           for k, v in have.items())}
 
 
@@ -653,6 +653,120 @@ def _fsdp_builder(ctx, case):
             "after": fsdp_leaves(out, p_sh), "state": fsdp_leaves(st, o_sh),
             "policy": (tb.lm.sp.dp, tb.lm.sp.tp, tb.lm.sp.fsdp,
                        tb.lm.sp.mesh is mesh, tb.opt.model_shards.fsdp)}
+
+
+def _fsdp_engine(ctx, case):
+    """``build_train_step(plan="fsdp")`` with a curvature engine
+    (``case["dist"]``), the async pipeline (``case["lag"]``) or both on
+    the 2 × 2 mesh of ``case["axes"]``: the case's steps from the
+    reference's parameters (this rank's blocks) and its blocks of the
+    batches, each step built for its own StepWork (``case["works"]``;
+    None: ``case["flags"]``) with the reference's draws injected; what
+    each rank holds before and after every step, the losses, the
+    parameters and the state gathered whole.  ``case["tp"]`` also runs
+    the plan-"tp" step on the same mesh and engine; ``case["save"]``
+    saves the state gathered whole after that step (rank 0 writes) and
+    restores it in one process; ``case["shifts"]`` (the reference's
+    continuation shifts, per step) are replayed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert, specs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import schedule
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.lm import LM
+    from repro_torch.train import checkpoint as ck
+    mesh = mesh_lib.make_mesh((2, 2), tuple(case["axes"]), device=ctx.cpu)
+    where = (dict(dist=specs.DistSpec(mesh=mesh, **case["dist"]))
+             if case.get("dist") else dict(mesh=mesh))
+    kw = dict(cell=ShapeCell("t", case["T"], case["B"], "train"),
+              flags=case.get("flags"), device=ctx.cpu,
+              async_heavy=case.get("lag") is not None,
+              heavy_lag=case.get("lag") or 0,
+              kfac_config=(ttrain.reduced_kfac_config(case["variant"])
+                           if case.get("reduced") else None))
+
+    def run(plan):
+        built = {}
+
+        def builder(k):
+            work = case["works"][k]
+            if repr(work) not in built:
+                built[repr(work)] = tsteps.build_train_step(
+                    tcut(), plan=plan, work=None if work is None
+                    else schedule.StepWork(**work), **where, **kw)
+            return built[repr(work)]
+        tb = builder(0)
+        p_sh, o_sh, b_sh = tb.in_shardings[:3]
+        params = {k: v.requires_grad_() for k, v in shd.localize(
+            convert.params_from_jax(case["init"], device=ctx.cpu),
+            p_sh).items()}
+        st = tb.opt.init(params)
+        fsdp = plan == "fsdp"
+        held = [fsdp_held(st, o_sh, tb.abstract_opt)] if fsdp else []
+        out = {"losses": []}
+        for k, batch in enumerate(case["batches"]):
+            tb = builder(k)
+            draws = case["draws"][k]
+            rng = (torch.Generator().manual_seed(1) if draws is None else
+                   {int(bi): _t(d) for bi, d in draws.items()})
+            with continuation_replay(case["shifts"][k] if "shifts" in case
+                                     else None):
+                params, st, loss = tb.step_fn(params, st, shd.localize(
+                    {n: _t(v) for n, v in batch.items()}, b_sh), rng)
+            out["losses"].append(float(loss))
+            if "shifts" in case:
+                out.setdefault("afters", []).append(
+                    fsdp_leaves(params, p_sh))
+            if fsdp:
+                held.append(fsdp_held(st, o_sh, tb.abstract_opt))
+            if fsdp and k == case.get("save"):
+                out["ckpt"] = _save_whole(tb, params, st, case["dir"], k)
+        out["after"] = fsdp_leaves(params, p_sh)
+        if fsdp:
+            out |= {"held": held,
+                    "params_held": fsdp_held(params, p_sh,
+                                             tb.abstract_params),
+                    "state": fsdp_leaves(st, o_sh),
+                    "shards": sorted(st.shards),
+                    "engine": (tb.opt.curvature.describe()
+                               if tb.opt.curvature else None)}
+        return out
+
+    def _save_whole(tb, params, st, directory, k):
+        """The state gathered whole, saved by rank 0 and restored there
+        into a one-process template → its leaves and the largest
+        difference of the restored ones."""
+        p_sh, o_sh = tb.in_shardings[:2]
+        tree = {"params": shd.globalize({n: v.detach() for n, v in
+                                         params.items()}, p_sh),
+                "opt": shd.globalize(st, o_sh)}
+        res = {"dir": directory, "step": k + 1}
+        if ctx.rank == 0:
+            ck.save(directory, k + 1, tree)
+            one = tsteps.build_train_step(tcut(), **kw)
+            fresh = LM(tcut(), device=ctx.cpu).init(
+                torch.Generator().manual_seed(0))
+            got, _ = ck.restore(directory, {
+                "params": fresh, "opt": one.opt.init(fresh)})
+            want, have = ck.leaves(tree), ck.leaves(got)
+            res["restored_err"] = max(
+                float((have[n].double() - w.double()).abs().max())
+                for n, w in want.items() if hasattr(w, "shape"))
+            res["same_keys"] = sorted(want) == sorted(have)
+            res["gathered"] = {n: _np(v) for n, v in
+                               ck.leaves(tree["opt"]).items()
+                               if hasattr(v, "shape")}
+        dist.barrier()
+        return res
+
+    out = run("fsdp")
+    if case.get("tp"):
+        out["tp"] = run("tp")
+    return out
 
 
 def _elastic(ctx, case):
@@ -790,7 +904,7 @@ def tkfac_opt(taps):
 def suite_mesh(ctx, cases):
     kinds = {"obs_health": _obs_health, "ckpt": _ckpt, "cli": _cli,
              "builder": _builder, "elastic": _elastic,
-             "fsdp": _fsdp_builder}
+             "fsdp": _fsdp_builder, "fsdp_engine": _fsdp_engine}
     out = {}
     for case in cases:
         out[case["name"]] = kinds[case["kind"]](ctx, case)
